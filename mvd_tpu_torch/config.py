@@ -1,0 +1,148 @@
+"""Model configuration dataclasses of the PyTorch port.
+
+A copy of the model half of ``mvd_tpu/config.py`` (the port imports nothing
+of the JAX package): the SD2.1 UNet, VAE, CLIP text tower, camera encoder and
+noise-schedule settings, and the ``TINY_*`` variants the tests use. Field
+names and defaults are the JAX package's, so a config built for one side
+describes the same model on the other. Fields of paths the port does not
+run yet (remat, attention_impl, joint multi-view attention, ray-map
+conditioning, samplers other than DDPM) are left out until they are
+ported; so are the training and data configs and the YAML loader.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    """SD2.1 UNet2DConditionModel architecture
+    (stabilityai/stable-diffusion-2-1 unet/config.json values)."""
+
+    sample_size: int = 96
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    )
+    num_attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
+    cross_attention_dim: int = 1024
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    transformer_layers_per_block: int = 1
+    with_adapters: bool = True  # image cross-attention adapters in every attn
+    img_ref_scale: float = 0.3  # adapter output scale
+
+
+TINY_UNET = UNetConfig(
+    sample_size=8,
+    block_out_channels=(32, 64, 64, 64),
+    num_attention_heads=(2, 4, 4, 4),
+    cross_attention_dim=64,
+    norm_num_groups=8,
+)
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """SD AutoencoderKL (stabilityai/stable-diffusion-2-1 vae/config.json)."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+    sample_size: int = 768
+
+
+TINY_VAE = VAEConfig(block_out_channels=(16, 32, 32, 32), norm_num_groups=8, sample_size=64)
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    """OpenCLIP ViT-H/14 text tower as shipped with SD2.1 (23 hidden layers:
+    the penultimate-layer cut is baked into the checkpoint)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 1024
+    num_layers: int = 23
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    max_length: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "gelu"
+
+
+TINY_CLIP = CLIPTextConfig(
+    vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128
+)
+
+
+@dataclass(frozen=True)
+class CameraEncoderConfig:
+    """Camera encoder hyper-parameters."""
+
+    output_dim: int = 1024
+    hidden_dim: int = 512
+    max_freq: float = 10.0
+    modulation_strength: float = 0.2
+    simple_encoder: bool = False
+
+    @property
+    def pos_enc_dim(self) -> int:
+        return (self.output_dim // 2) // 3
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Noise schedule: SD2.1's scaled-linear betas with the interpolated
+    SNR shift (scale 6.0), v-prediction, leading timestep spacing."""
+
+    num_train_timesteps: int = 1000
+    beta_schedule: str = "scaled_linear"
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    prediction_type: str = "v_prediction"
+    shift_mode: str = "interpolated"  # none | default | interpolated
+    shift_scale: float = 6.0
+    steps_offset: int = 1
+    timestep_spacing: str = "leading"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    unet: UNetConfig = field(default_factory=UNetConfig)
+    vae: VAEConfig = field(default_factory=VAEConfig)
+    text_encoder: CLIPTextConfig = field(default_factory=CLIPTextConfig)
+    camera_encoder: CameraEncoderConfig = field(default_factory=CameraEncoderConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    use_camera_conditioning: bool = True
+    use_image_conditioning: bool = True
+    # Initialize adapter q/k/v/out from the frozen base attention at
+    # construction. Applies to fresh inits only.
+    adapter_init_from_frozen: bool = True
+    dtype: str = "bfloat16"  # compute dtype; params always float32
+
+
+TINY_MODEL = ModelConfig(
+    unet=TINY_UNET,
+    vae=TINY_VAE,
+    text_encoder=TINY_CLIP,
+    camera_encoder=CameraEncoderConfig(output_dim=48, hidden_dim=32),
+    dtype="float32",
+)

@@ -1,0 +1,176 @@
+"""Noise schedules and the DDPM sampling step (PyTorch).
+
+Counterpart of the sampling half of ``mvd_tpu/diffusion/schedules.py``:
+diffusers DDPMScheduler semantics (scaled-linear betas, v-prediction,
+``fixed_small`` variance, 'leading' timestep spacing with steps_offset) and
+the ShiftSNR rewrite of the betas. ``ddpm_step`` takes its noise as an
+argument, so a caller (or a test) decides where the random numbers come
+from. Not ported yet: DDIM, DPM-Solver++, inversion and the training-side
+SNR helpers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def make_betas(
+    num_train_timesteps: int = 1000,
+    beta_schedule: str = "scaled_linear",
+    beta_start: float = 0.00085,
+    beta_end: float = 0.012,
+) -> np.ndarray:
+    """Beta schedule computed in float64, returned float32."""
+    if beta_schedule == "linear":
+        betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+    elif beta_schedule == "scaled_linear":
+        betas = np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
+    elif beta_schedule == "squaredcos_cap_v2":
+        t = np.arange(num_train_timesteps, dtype=np.float64)
+        f = lambda s: np.cos((s / num_train_timesteps + 0.008) / 1.008 * np.pi / 2) ** 2
+        betas = np.clip(1.0 - f(t + 1) / f(t), 0.0, 0.999)
+    else:
+        raise ValueError(f"unknown beta_schedule: {beta_schedule}")
+    return betas.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseSchedule:
+    """Schedule tensors (shape [T], float32) plus the step settings."""
+
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    num_train_timesteps: int = 1000
+    prediction_type: str = "v_prediction"
+    steps_offset: int = 1
+    timestep_spacing: str = "leading"
+
+    @classmethod
+    def create(
+        cls,
+        betas: Optional[np.ndarray] = None,
+        num_train_timesteps: int = 1000,
+        beta_schedule: str = "scaled_linear",
+        beta_start: float = 0.00085,
+        beta_end: float = 0.012,
+        prediction_type: str = "v_prediction",
+        steps_offset: int = 1,
+        timestep_spacing: str = "leading",
+    ) -> "NoiseSchedule":
+        if betas is None:
+            betas = make_betas(num_train_timesteps, beta_schedule, beta_start, beta_end)
+        betas = torch.as_tensor(np.asarray(betas), dtype=torch.float32)
+        return cls(
+            betas=betas,
+            alphas_cumprod=torch.cumprod(1.0 - betas, dim=0),
+            num_train_timesteps=int(betas.shape[0]),
+            prediction_type=prediction_type,
+            steps_offset=steps_offset,
+            timestep_spacing=timestep_spacing,
+        )
+
+    def to(self, device) -> "NoiseSchedule":
+        return dataclasses.replace(
+            self, betas=self.betas.to(device), alphas_cumprod=self.alphas_cumprod.to(device)
+        )
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return 1.0
+
+
+def compute_snr(schedule: NoiseSchedule, timesteps: torch.Tensor) -> torch.Tensor:
+    ac = schedule.alphas_cumprod[timesteps]
+    return (torch.sqrt(ac) / torch.sqrt(1.0 - ac)) ** 2
+
+
+def snr_to_betas(snr: torch.Tensor) -> torch.Tensor:
+    alphas_cumprod = snr / (1.0 + snr)
+    prev = torch.cat([torch.ones(1, dtype=snr.dtype, device=snr.device), alphas_cumprod[:-1]])
+    return 1.0 - alphas_cumprod / prev
+
+
+def shift_snr_betas(schedule: NoiseSchedule, shift_scale: float, mode: str = "interpolated") -> torch.Tensor:
+    """ShiftSNR: ``default`` divides the SNR by shift_scale everywhere;
+    ``interpolated`` interpolates log-SNR from the original (t=0) to the
+    shifted one (t=T-1)."""
+    t = torch.arange(schedule.num_train_timesteps, device=schedule.alphas_cumprod.device)
+    snr = compute_snr(schedule, t)
+    shifted = snr / shift_scale
+    if mode == "default":
+        return snr_to_betas(shifted)
+    if mode == "interpolated":
+        w = t.float() / (schedule.num_train_timesteps - 1)
+        return snr_to_betas(torch.exp(torch.log(snr) * (1.0 - w) + torch.log(shifted) * w))
+    raise ValueError(f"unknown shift mode: {mode}")
+
+
+def make_shifted_schedule(base: NoiseSchedule, shift_scale: float = 6.0, mode: str = "interpolated") -> NoiseSchedule:
+    return NoiseSchedule.create(
+        betas=shift_snr_betas(base, shift_scale, mode).cpu().numpy(),
+        prediction_type=base.prediction_type,
+        steps_offset=base.steps_offset,
+        timestep_spacing=base.timestep_spacing,
+    )
+
+
+def inference_timesteps(schedule: NoiseSchedule, num_inference_steps: int) -> np.ndarray:
+    """Descending int32 timestep grid (diffusers spacing with steps_offset)."""
+    T = schedule.num_train_timesteps
+    if schedule.timestep_spacing == "leading":
+        ratio = T // num_inference_steps
+        ts = (np.arange(0, num_inference_steps) * ratio).round()[::-1].astype(np.int64)
+        ts = ts + schedule.steps_offset
+    elif schedule.timestep_spacing == "trailing":
+        ratio = T / num_inference_steps
+        ts = np.round(np.arange(T, 0, -ratio)).astype(np.int64) - 1
+    else:  # linspace
+        ts = np.linspace(0, T - 1, num_inference_steps).round()[::-1].astype(np.int64)
+    return np.clip(ts, 0, T - 1).astype(np.int32)
+
+
+def pred_original_sample(schedule: NoiseSchedule, model_output, sample, timestep: int):
+    """x0-hat for the schedule's prediction type at an integer timestep."""
+    ac = schedule.alphas_cumprod[timestep]
+    sa, so = torch.sqrt(ac), torch.sqrt(1.0 - ac)
+    p = schedule.prediction_type
+    if p == "epsilon":
+        return (sample - so * model_output) / sa
+    if p == "v_prediction":
+        return sa * sample - so * model_output
+    if p == "sample":
+        return model_output
+    raise ValueError(f"unknown prediction_type: {p}")
+
+
+def ddpm_step(
+    schedule: NoiseSchedule,
+    model_output: torch.Tensor,
+    timestep: int,
+    sample: torch.Tensor,
+    noise: torch.Tensor,
+    num_inference_steps: int,
+) -> torch.Tensor:
+    """One ancestral DDPM step (DDPMScheduler.step, fixed_small variance)
+    with the caller's standard-normal ``noise`` of the sample's shape."""
+    prev_t = timestep - schedule.num_train_timesteps // num_inference_steps
+    ac = schedule.alphas_cumprod
+    ac_t = ac[timestep]
+    ac_prev = ac[prev_t] if prev_t >= 0 else torch.ones_like(ac_t)
+    beta_prod_t = 1.0 - ac_t
+    beta_prod_prev = 1.0 - ac_prev
+    alpha_t = ac_t / ac_prev
+    beta_t = 1.0 - alpha_t
+
+    x0 = pred_original_sample(schedule, model_output, sample, timestep)
+    x0_coeff = torch.sqrt(ac_prev) * beta_t / beta_prod_t
+    xt_coeff = torch.sqrt(alpha_t) * beta_prod_prev / beta_prod_t
+    prev_sample = x0_coeff * x0 + xt_coeff * sample
+    if timestep > 0:
+        variance = torch.clamp(beta_prod_prev / beta_prod_t * beta_t, min=1e-20)
+        prev_sample = prev_sample + torch.sqrt(variance) * noise.float()
+    return prev_sample.to(sample.dtype)

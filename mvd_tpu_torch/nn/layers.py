@@ -1,0 +1,324 @@
+"""Building blocks of the SD2.1-class UNet and VAE in PyTorch.
+
+Counterparts of ``mvd_tpu/nn/layers.py``. Parameter names follow the flax
+paths (``norm1.weight`` for ``norm1/scale``), so the JAX package's params
+carry across mechanically (``checkpoint/from_jax.py``).
+
+Layout: activations are NCHW tensors in ``torch.channels_last`` memory, so
+the NHWC views that the GroupNorm kernel and the attention projections take
+are free permutes. Compute dtype follows the weights: ``Linear`` and
+``Conv2d`` cast their input to their weight's dtype, as flax's
+``Dense(dtype=...)`` does under the pipeline's pre-cast compute params.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import attention_packed
+from ..kernels.groupnorm_silu import groupnorm_silu
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that casts its input to the weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that casts its input to the weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: f32 compute and f32 output.
+    The default eps is flax's 1e-6, not torch's 1e-5."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), (x.shape[-1],), self.weight.float(), self.bias.float(), self.eps
+        )
+
+
+class StreamingLayerNorm(nn.Module):
+    """LayerNorm of the transformer blocks (eps 1e-5), in the input dtype
+    with f32 statistics (PyTorch's layer norm accumulates in f32)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x, (x.shape[-1],), self.weight.to(x.dtype), self.bias.to(x.dtype), self.eps
+        )
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers ``get_timestep_embedding``;
+    SD uses flip_sin_to_cos=True, freq_shift=0), f32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device
+    )
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    if flip_sin_to_cos:
+        return torch.cat([cos, sin], dim=-1)
+    return torch.cat([sin, cos], dim=-1)
+
+
+class TimestepEmbedMLP(nn.Module):
+    """time_embedding: Linear -> SiLU -> Linear (320 -> 1280 -> 1280)."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = Linear(in_dim, dim)
+        self.linear_2 = Linear(dim, dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with f32 statistics, optionally fused with the SiLU that
+    follows it; runs the K2 kernel on CUDA tensors."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5, fuse_silu: bool = False):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.fuse_silu = fuse_silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NCHW (any memory format) -> NCHW in channels_last memory."""
+        nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        y = groupnorm_silu(
+            nhwc, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu
+        )
+        return y.permute(0, 3, 1, 2)
+
+
+def normalize_ref_feature(feat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Adapter K/V pre-normalization on an NHWC feature: unbiased std over
+    (batch, channel), clamped at ``eps``, times 0.5; f32, no gradient."""
+    feat = feat.detach().float()
+    mean = feat.mean(dim=(0, 3), keepdim=True)
+    n = feat.shape[0] * feat.shape[3]
+    var = ((feat - mean) ** 2).sum(dim=(0, 3), keepdim=True) / max(n - 1, 1)
+    std = torch.clamp(torch.sqrt(var), min=eps)
+    return (feat - mean) / std * 0.5
+
+
+class CrossViewAdapter(nn.Module):
+    """Image cross-attention adapter: queries from the view's normed hidden
+    states, keys/values from the frozen feature pass (or precomputed K/V)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int):
+        super().__init__()
+        self.heads = heads
+        inner = heads * head_dim
+        self.to_q_ref = Linear(dim, inner, bias=False)
+        self.to_k_ref = Linear(dim, inner, bias=False)
+        self.to_v_ref = Linear(dim, inner, bias=False)
+        self.to_out_ref = Linear(inner, dim)
+
+    def forward(self, hidden: torch.Tensor, ref) -> torch.Tensor:
+        """``ref``: normalized features (B, Sk, C), or a precomputed (k, v)
+        pair of packed (B, Sk, H*head_dim) projections."""
+        q = self.to_q_ref(hidden)
+        if isinstance(ref, tuple):
+            # the compute dtype (q's), never the f32 the features carry
+            k, v = (t.to(q.dtype) for t in ref)
+        else:
+            ref = ref.to(hidden.dtype)
+            k, v = self.to_k_ref(ref), self.to_v_ref(ref)
+        return self.to_out_ref(attention_packed(q, k, v, self.heads))
+
+
+class Attention(nn.Module):
+    """Multi-head attention, self (context=None) or cross, on the packed
+    layout. Only ``num_views == 1`` is ported."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None):
+        super().__init__()
+        self.heads = heads
+        inner = heads * head_dim
+        ctx = dim if context_dim is None else context_dim
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(ctx, inner, bias=False)
+        self.to_v = Linear(ctx, inner, bias=False)
+        self.to_out = Linear(inner, dim)
+
+    def forward(self, hidden: torch.Tensor, context: Optional[torch.Tensor] = None):
+        ctx = hidden if context is None else context.to(hidden.dtype)
+        q, k, v = self.to_q(hidden), self.to_k(ctx), self.to_v(ctx)
+        return self.to_out(attention_packed(q, k, v, self.heads))
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (dim -> 4*dim gated -> dim). The gate is flax's
+    default ``nn.gelu``: the tanh approximation."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.proj_geglu = Linear(dim, inner * 2)
+        self.proj_out = Linear(inner, dim)
+
+    def forward(self, x):
+        a, gate = self.proj_geglu(x).chunk(2, dim=-1)
+        return self.proj_out(a * F.gelu(gate, approximate="tanh"))
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, each residual; with
+    adapters, ``ref_scale`` times the adapter output joins the attention
+    output before the residual add."""
+
+    def __init__(self, dim, heads, head_dim, context_dim, with_adapters=False, ref_scale=0.3):
+        super().__init__()
+        self.with_adapters = with_adapters
+        self.ref_scale = ref_scale
+        self.norm1 = StreamingLayerNorm(dim)
+        self.attn1 = Attention(dim, heads, head_dim)
+        self.norm2 = StreamingLayerNorm(dim)
+        self.attn2 = Attention(dim, heads, head_dim, context_dim)
+        if with_adapters:
+            self.adapter_self = CrossViewAdapter(dim, heads, head_dim)
+            self.adapter_cross = CrossViewAdapter(dim, heads, head_dim)
+        self.norm3 = StreamingLayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context, ref=None, ref_scale=None):
+        scale = self.ref_scale if ref_scale is None else ref_scale
+        # per-layer ref: raw features shared by both adapters, or a
+        # {"self": (k, v), "cross": (k, v)} dict of precomputed projections
+        if isinstance(ref, dict):
+            ref_self, ref_cross = ref.get("self"), ref.get("cross")
+        else:
+            ref_self = ref_cross = ref
+
+        h = self.norm1(x)
+        a = self.attn1(h)
+        if self.with_adapters and ref_self is not None:
+            a = a + scale * self.adapter_self(h, ref_self)
+        x = x + a
+
+        h = self.norm2(x)
+        a = self.attn2(h, context)
+        if self.with_adapters and ref_cross is not None:
+            a = a + scale * self.adapter_cross(h, ref_cross)
+        x = x + a
+
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """diffusers Transformer2DModel with use_linear_projection=True:
+    GroupNorm (eps 1e-6) -> linear proj_in -> blocks -> proj_out -> residual."""
+
+    def __init__(self, channels, heads, head_dim, context_dim, num_layers=1,
+                 norm_num_groups=32, with_adapters=False, ref_scale=0.3):
+        super().__init__()
+        inner = heads * head_dim
+        self.num_layers = num_layers
+        self.norm = GroupNorm(norm_num_groups, channels, 1e-6)
+        self.proj_in = Linear(channels, inner)
+        for i in range(num_layers):
+            setattr(self, f"transformer_blocks_{i}", BasicTransformerBlock(
+                inner, heads, head_dim, context_dim, with_adapters, ref_scale
+            ))
+        self.proj_out = Linear(inner, channels)
+
+    def forward(self, x, context, ref=None, ref_scale=None):
+        B, C, H, W = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = self.proj_in(h)
+        for i in range(self.num_layers):
+            h = getattr(self, f"transformer_blocks_{i}")(h, context, ref, ref_scale)
+        h = self.proj_out(h)
+        return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
+
+
+def conv3x3(in_ch: int, out_ch: int) -> Conv2d:
+    """3x3 stride-1 SAME conv (the JAX package's ``Conv3x3``/``nn.Conv``)."""
+    return Conv2d(in_ch, out_ch, 3, padding=1)
+
+
+class ResnetBlock(nn.Module):
+    """SD ResnetBlock2D: GroupNorm+SiLU, 3x3 convs, additive time embedding,
+    1x1 shortcut on channel change."""
+
+    def __init__(self, in_ch, out_ch, norm_num_groups=32, norm_eps=1e-5, temb_dim=None):
+        super().__init__()
+        self.norm1 = GroupNorm(norm_num_groups, in_ch, norm_eps, fuse_silu=True)
+        self.conv1 = conv3x3(in_ch, out_ch)
+        if temb_dim is not None:
+            self.time_emb_proj = Linear(temb_dim, out_ch)
+        self.norm2 = GroupNorm(norm_num_groups, out_ch, norm_eps, fuse_silu=True)
+        self.conv2 = conv3x3(out_ch, out_ch)
+        if in_ch != out_ch:
+            self.conv_shortcut = Conv2d(in_ch, out_ch, 1)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(self.norm1(x))
+        if temb is not None and hasattr(self, "time_emb_proj"):
+            t = self.time_emb_proj(F.silu(temb))
+            h = h + t[:, :, None, None].to(h.dtype)
+        h = self.conv2(self.norm2(h))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample(nn.Module):
+    """3x3 stride-2 conv; ``asymmetric_pad`` is the VAE encoder's
+    (0,1)x(0,1) padding, the UNet pads 1 on every side."""
+
+    def __init__(self, in_ch, out_ch, asymmetric_pad=False):
+        super().__init__()
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = Conv2d(in_ch, out_ch, 3, stride=2, padding=0 if asymmetric_pad else 1)
+
+    def forward(self, x):
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 then 3x3 conv (the JAX package folds the two into one
+    transposed conv for the TPU's layouts; the math is the same)."""
+
+    def __init__(self, in_ch, out_ch):
+        super().__init__()
+        self.conv = conv3x3(in_ch, out_ch)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

@@ -1,0 +1,123 @@
+"""Multi-view UNet composition: camera FiLM + image cross-attention adapters.
+
+Counterpart of ``mvd_tpu/nn/mvd_unet.py``:
+
+  1. camera conditioning: ``CameraEncoder`` turns the relative source->target
+     transform into per-block FiLM params;
+  2. image conditioning: the same UNet runs over the source-view latents at
+     t=0 with conditioning off; its per-layer features are normalized and,
+     in the sampling pipeline, projected once through the adapters' K/V
+     weights (they are step-invariant);
+  3. denoising: the UNet with text context, adapter K/V and FiLM params.
+
+Conditioning tensors are tiled across the classifier-free-guidance batch
+(unconditional half first). Not ported yet: the separate image-encoder UNet
+(``share_image_encoder=False``), ray-map conditioning and the encoder cache.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from .camera_encoder import CameraEncoder, modulation_dims
+from .layers import normalize_ref_feature
+from .unet import UNet2DCondition
+
+
+def _adapter_module_name(feature_name: str) -> str:
+    """down_block_0_attn_1 -> down_0_attn_1, mid_block_attn_0 -> mid_attn_0."""
+    parts = feature_name.split("_")
+    if feature_name.startswith("mid_block"):
+        return f"mid_attn_{parts[-1]}"
+    return f"{parts[0]}_{parts[2]}_attn_{parts[4]}"
+
+
+class MultiViewUNet(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.unet = UNet2DCondition(cfg.unet)
+        if cfg.use_camera_conditioning:
+            dims = modulation_dims(
+                cfg.unet.block_out_channels,
+                num_down=len(cfg.unet.down_block_types),
+                num_up=len(cfg.unet.up_block_types),
+            )
+            self.camera_encoder = CameraEncoder(cfg.camera_encoder, tuple(sorted(dims.items())))
+
+    def extract_features(self, source_latents, encoder_hidden_states) -> Dict[str, torch.Tensor]:
+        """Frozen-encoder pass: full UNet at t=0, features only."""
+        t0 = torch.zeros((source_latents.shape[0],), dtype=torch.int32, device=source_latents.device)
+        return self.unet(source_latents, t0, encoder_hidden_states)[1]
+
+    def _precompute_adapter_kv(self, name: str, feat: torch.Tensor):
+        """Project normalized features (b, S, C) through the adapter K/V
+        weights once, in the compute dtype: {"self": (k, v), "cross": (k, v)}."""
+        block = getattr(self.unet, _adapter_module_name(name)).transformer_blocks_0
+        out = {}
+        for key, adapter in (("self", block.adapter_self), ("cross", block.adapter_cross)):
+            w_k, w_v = adapter.to_k_ref.weight, adapter.to_v_ref.weight
+            f = feat.to(w_k.dtype)
+            out[key] = (F.linear(f, w_k), F.linear(f, w_v))
+        return out
+
+    @torch.no_grad()
+    def prepare_conditioning(
+        self,
+        encoder_hidden_states: torch.Tensor,  # (B or B*, 77, D)
+        source_camera: Optional[torch.Tensor] = None,  # (B, 4, 4)
+        target_camera: Optional[torch.Tensor] = None,
+        source_image_latents: Optional[torch.Tensor] = None,  # (B, h, w, 4)
+        cfg_batch: Optional[int] = None,  # B* (2B under CFG); None -> cond batch
+        precompute_kv: bool = False,
+    ):
+        """Step-invariant conditioning, computed once: FiLM params from the
+        cameras and per-layer reference features (or adapter K/V)."""
+        cfg = self.cfg
+        film = None
+        if cfg.use_camera_conditioning and target_camera is not None:
+            if source_camera is None:
+                raise ValueError("target_camera given without source_camera")
+            _, film = self.camera_encoder(source_camera, target_camera)
+            cam_b = source_camera.shape[0]
+            if cfg_batch is not None and cam_b < cfg_batch:
+                rep = cfg_batch // cam_b
+                film = {k: (s.repeat(rep, 1), sh.repeat(rep, 1)) for k, (s, sh) in film.items()}
+
+        ref_features = None
+        if cfg.use_image_conditioning and source_image_latents is not None:
+            b = source_image_latents.shape[0]
+            # conditional half of the text context
+            if encoder_hidden_states.shape[0] == 2 * b:
+                enc_text = encoder_hidden_states[b:]
+            else:
+                enc_text = encoder_hidden_states[:b]
+            feats = self.extract_features(source_image_latents, enc_text)
+            ref_features = {}
+            for name, f in feats.items():
+                f = normalize_ref_feature(f)  # (b, H, W, C) f32
+                f = f.reshape(b, -1, f.shape[-1])
+                if cfg_batch is not None and b < cfg_batch:
+                    f = f.repeat(cfg_batch // b, 1, 1)
+                if precompute_kv and cfg.unet.with_adapters:
+                    ref_features[name] = self._precompute_adapter_kv(name, f)
+                else:
+                    ref_features[name] = f
+        return film, ref_features
+
+    def denoise(self, sample, timestep, encoder_hidden_states, film=None,
+                ref_features=None, ref_scale=None):
+        """One UNet evaluation with precomputed conditioning -> f32 NHWC."""
+        Bs = sample.shape[0]
+        if encoder_hidden_states.shape[0] < Bs:  # CFG text repeat
+            rep = Bs // encoder_hidden_states.shape[0]
+            encoder_hidden_states = encoder_hidden_states.repeat(rep, 1, 1)
+        return self.unet(
+            sample, timestep, encoder_hidden_states,
+            ref_features=ref_features, film=film, ref_scale=ref_scale,
+        )[0]

@@ -1,0 +1,131 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; here that version is
+held against the Pallas kernel in interpret mode (and, for GroupNorm, the XLA
+formulation) on the same numpy inputs, in f32, at ragged shapes. The CUDA
+kernels themselves are held against the plain versions on the card by
+``chip_smoke.py``. Bar: >= 60 dB.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port_util import snr_db
+from mvd_tpu.kernels.flash_attention import _flash_fwd_packed, _round_up
+from mvd_tpu.kernels.groupnorm_silu import _pallas_gn_silu, xla_groupnorm_silu
+from mvd_tpu_torch.kernels import _build
+from mvd_tpu_torch.kernels.flash_attention import (
+    _check_cuda_inputs,
+    attention_packed,
+    flash_attention_packed_fwd,
+)
+from mvd_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
+
+BAR_DB = 60.0
+
+
+def _pallas_packed(q, k, v, heads, scale, block=128):
+    """Pallas packed forward in interpret mode, padded to whole blocks as
+    ``flash_attention_packed`` pads, with the tail masked in-kernel."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    sq_pad, sk_pad = _round_up(Sq, block), _round_up(Sk, block)
+    pad = lambda t, s: jnp.pad(jnp.asarray(t), ((0, 0), (0, s - t.shape[1]), (0, 0)))
+    out, lse = _flash_fwd_packed(
+        pad(q, sq_pad), pad(k, sk_pad), pad(v, sk_pad), heads, scale,
+        block, block, Sk, True,
+    )
+    return np.asarray(out)[:, :Sq], np.asarray(lse)[:, :Sq]
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,heads,D",
+    [(2, 200, 77, 2, 64), (1, 130, 300, 3, 32), (2, 64, 64, 2, 64)],
+)
+def test_attention_plain_matches_pallas(B, Sq, Sk, heads, D):
+    rng = np.random.default_rng(Sq + Sk)
+    q = rng.normal(size=(B, Sq, heads * D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, heads * D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, heads * D)).astype(np.float32)
+    scale = D**-0.5
+    want_out, want_lse = _pallas_packed(q, k, v, heads, scale)
+    before = flash_attention_packed_fwd.launches
+    out, lse = flash_attention_packed_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), heads
+    )
+    assert out.shape == (B, Sq, heads * D) and lse.shape == (B, Sq, heads)
+    assert snr_db(want_out, out.numpy()) >= BAR_DB
+    assert snr_db(want_lse, lse.numpy()) >= BAR_DB
+    assert flash_attention_packed_fwd.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize(
+    "shape,groups,eps,silu",
+    [((2, 8, 8, 64), 8, 1e-5, True), ((1, 6, 10, 96), 32, 1e-6, False),
+     ((2, 4, 4, 128), 32, 1e-6, True)],
+)
+def test_groupnorm_plain_matches_pallas_and_xla(shape, groups, eps, silu):
+    rng = np.random.default_rng(shape[-1])
+    x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
+    scale = (1 + 0.1 * rng.normal(size=shape[-1])).astype(np.float32)
+    bias = (0.1 * rng.normal(size=shape[-1])).astype(np.float32)
+    pallas = np.asarray(_pallas_gn_silu(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups, eps, silu, True
+    ))
+    xla = np.asarray(xla_groupnorm_silu(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups, eps, silu
+    ))
+    before = groupnorm_silu.launches
+    got = groupnorm_silu(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), groups, eps, silu
+    ).numpy()
+    assert snr_db(pallas, got) >= BAR_DB
+    assert snr_db(xla, got) >= BAR_DB
+    assert groupnorm_silu.launches == before
+
+
+def test_wrappers_count_plain_calls_on_cpu():
+    q = torch.randn(1, 8, 64)
+    calls = flash_attention_packed_fwd.plain_calls
+    attention_packed(q, q, q, 1)
+    assert flash_attention_packed_fwd.plain_calls == calls + 1
+    x = torch.randn(1, 2, 2, 8)
+    calls = groupnorm_silu.plain_calls
+    groupnorm_silu(x, torch.ones(8), torch.zeros(8), 2)
+    assert groupnorm_silu.plain_calls == calls + 1
+
+
+def test_wrappers_raise_off_cpu_without_kernel():
+    """A tensor that is not on the CPU never takes the plain version."""
+    q = torch.empty(1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_packed(q, q, q, 1)
+    x = torch.empty(1, 2, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        groupnorm_silu(x, torch.ones(8), torch.zeros(8), 2)
+
+
+@pytest.mark.parametrize(
+    "dtype,heads,hd,err",
+    [(torch.float32, 1, 64, TypeError), (torch.bfloat16, 2, 64, ValueError),
+     (torch.bfloat16, 1, 64, None)],
+)
+def test_flash_kernel_input_checks(dtype, heads, hd, err):
+    q = torch.zeros(1, 8, hd, dtype=dtype)
+    if err is None:
+        _check_cuda_inputs(q, q, q, heads)
+    else:
+        with pytest.raises(err):
+            _check_cuda_inputs(q, q, q, heads)
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_stale", lambda name: True)
+    real_exists = _build.os.path.exists
+    monkeypatch.setattr(
+        _build.os.path, "exists", lambda p: False if p.endswith("nvcc") else real_exists(p)
+    )
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all(["flash_attn_fwd"])
