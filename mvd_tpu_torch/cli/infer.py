@@ -5,7 +5,9 @@ side-by-side PNGs in ``--output-dir``.
 Same flags as ``mvd_tpu/cli/infer.py`` except ``--checkpoint``,
 ``--invert-init``, ``--encoder-reuse``, ``--sampler`` and
 ``--use-ray-conditioning``, which are not ported yet; ``--device`` picks the
-device (the GPU by default; without one the CLI raises).
+device (the GPU by default; without one the CLI raises). ``--tiny`` runs on
+the CPU only: its f32, 16-wide attention heads are not what the GPU kernels
+take (bf16, 64 wide).
 
     python -m mvd_tpu_torch.cli.infer --image-size 512 --num-images 2
 """
@@ -42,8 +44,14 @@ def main(argv=None):
     from ..camera import look_at_camera, to_homogeneous
     from ..config import TINY_MODEL, ModelConfig
     from ..pipeline import MVDPipeline
+    from ..pipeline.pipeline import resolve_device
     from ..utils import load_image, save_image, side_by_side
 
+    if args.tiny and resolve_device(args.device).type != "cpu":
+        raise ValueError(
+            "--tiny runs on the CPU only (f32, 16-wide heads; the GPU kernels take "
+            "bf16 and 64-wide heads): add --device cpu"
+        )
     cfg = TINY_MODEL if args.tiny else ModelConfig()
     if not args.tiny:
         cfg = dataclasses.replace(

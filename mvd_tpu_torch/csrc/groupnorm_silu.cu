@@ -16,9 +16,10 @@
 //     registers; the block folds them per channel in shared memory, then per
 //     group, and adds its group partials to a (B, G, 2) f32 buffer with one
 //     atomic per group and moment;
-//  2. gn_coef: per (batch, channel) the affine coefficients a, b in f32;
-//  3. gn_apply: one thread per 8 channels of one row, 16-byte loads and
-//     stores, y = x*a + b (+ SiLU) in f32.
+//  2. gn_apply: the same (row chunk, batch) layout of threads; each thread
+//     works out a = rstd*gamma, b = beta - mean*a for its 8 channels from
+//     the (B, G, 2) sums once, then y = x*a + b (+ SiLU) in f32 over a few
+//     rows with 16-byte loads and stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,7 +30,7 @@ namespace {
 
 constexpr int kRowsPerThread = 16;
 constexpr int kStatThreads = 256;
-constexpr int kApplyThreads = 256;
+constexpr int kApplyRows = 4;
 
 __global__ void gn_stats(const __nv_bfloat16* __restrict__ x, float* __restrict__ stats,
                          int HW, int C, int G, int rows_par, int rows_per_block) {
@@ -79,55 +80,66 @@ __global__ void gn_stats(const __nv_bfloat16* __restrict__ x, float* __restrict_
   }
 }
 
-__global__ void gn_coef(const float* __restrict__ stats, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, float2* __restrict__ coef, int C,
-                        int G, float inv_n, float eps) {
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int gi = c / (C / G);
-  const float mean = stats[(b * G + gi) * 2] * inv_n;
-  const float var = fmaxf(stats[(b * G + gi) * 2 + 1] * inv_n - mean * mean, 0.f);
-  const float a = rsqrtf(var + eps) * gamma[c];
-  coef[b * C + c] = make_float2(a, beta[c] - mean * a);
-}
-
-__global__ void gn_apply(const __nv_bfloat16* __restrict__ x, const float2* __restrict__ coef,
-                         __nv_bfloat16* __restrict__ y, long long total_vec, int HW,
-                         int C, int silu) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total_vec) return;
+__global__ void gn_apply(const __nv_bfloat16* __restrict__ x, const float* __restrict__ stats,
+                         const float* __restrict__ gamma, const float* __restrict__ beta,
+                         __nv_bfloat16* __restrict__ y, int HW, int C, int G, int rows_par,
+                         int rows_per_block, float inv_n, float eps, int silu) {
   const int lanes = C / 8;
-  const int c0 = (int)(i % lanes) * 8;
-  const long long b = i / ((long long)HW * lanes);
-  const float2* cb = coef + b * C + c0;
-  const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  uint4 res;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&res);
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x % lanes, rp = threadIdx.x / lanes;
+  const int c0 = lane * 8;
+  const float* sb = stats + b * G * 2;
+  const int cpg = C / G;
+  // y = x * a + s per channel, a = rstd * gamma, s = beta - mean * a, worked
+  // out once per thread for its 8 channels (one group or a few) and kept in
+  // registers over its rows
+  float a[8], sh[8];
+  int g = -1;
+  float mean = 0.f, rstd = 0.f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(p[j]);
-    const float2 k0 = cb[2 * j], k1 = cb[2 * j + 1];
-    float y0 = f.x * k0.x + k0.y;
-    float y1 = f.y * k1.x + k1.y;
-    if (silu) {
-      y0 = y0 / (1.f + expf(-y0));
-      y1 = y1 / (1.f + expf(-y1));
+  for (int j = 0; j < 8; ++j) {
+    const int gj = (c0 + j) / cpg;
+    if (gj != g) {
+      g = gj;
+      mean = sb[2 * g] * inv_n;
+      rstd = rsqrtf(fmaxf(sb[2 * g + 1] * inv_n - mean * mean, 0.f) + eps);
     }
-    o[j] = __floats2bfloat162_rn(y0, y1);
+    a[j] = rstd * gamma[c0 + j];
+    sh[j] = beta[c0 + j] - mean * a[j];
   }
-  reinterpret_cast<uint4*>(y)[i] = res;
+  const int row_end = min((blockIdx.x + 1) * rows_per_block, HW);
+  const size_t base = (size_t)b * HW * C + c0;
+#pragma unroll
+  for (int k = 0; k < kApplyRows; ++k) {
+    const int r = blockIdx.x * rows_per_block + k * rows_par + rp;
+    if (r >= row_end) break;
+    const uint4 raw = *reinterpret_cast<const uint4*>(x + base + (size_t)r * C);
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    uint4 res;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&res);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(p[j]);
+      float y0 = f.x * a[2 * j] + sh[2 * j];
+      float y1 = f.y * a[2 * j + 1] + sh[2 * j + 1];
+      if (silu) {
+        y0 = y0 / (1.f + expf(-y0));
+        y1 = y1 / (1.f + expf(-y1));
+      }
+      o[j] = __floats2bfloat162_rn(y0, y1);
+    }
+    *reinterpret_cast<uint4*>(y + base + (size_t)r * C) = res;
+  }
 }
 
 }  // namespace
 
 // x, y: (B, HW, C) bf16 contiguous, 16-byte aligned, C % 8 == 0, C % G == 0;
-// gamma, beta: (C,) f32; stats: (B*G*2) f32 scratch; coef: (B*C*2) f32
-// scratch. Returns cudaGetLastError() after the launches on `stream`.
+// gamma, beta: (C,) f32; stats: (B*G*2) f32 scratch. Returns
+// cudaGetLastError() after the launches on `stream`.
 extern "C" int groupnorm_silu_bf16(const void* x, const void* gamma, const void* beta,
-                                   void* y, void* stats, void* coef, int B, int HW,
-                                   int C, int G, float eps, int silu, void* stream) {
+                                   void* y, void* stats, int B, int HW, int C, int G,
+                                   float eps, int silu, void* stream) {
   if (B <= 0 || HW <= 0 || C % 8 != 0 || G <= 0 || C % G != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -145,17 +157,12 @@ extern "C" int groupnorm_silu_bf16(const void* x, const void* gamma, const void*
       static_cast<const __nv_bfloat16*>(x), static_cast<float*>(stats), HW, C, G, rows_par,
       rows_per_block);
 
-  const dim3 cgrid((C + 255) / 256, B);
-  gn_coef<<<cgrid, 256, 0, st>>>(static_cast<const float*>(stats),
-                                 static_cast<const float*>(gamma),
-                                 static_cast<const float*>(beta), static_cast<float2*>(coef),
-                                 C, G, 1.f / (float(HW) * float(C / G)), eps);
-
-  const long long total_vec = (long long)B * HW * lanes;
-  const unsigned int agrid = (unsigned int)((total_vec + kApplyThreads - 1) / kApplyThreads);
-  gn_apply<<<agrid, kApplyThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                            static_cast<const float2*>(coef),
-                                            static_cast<__nv_bfloat16*>(y), total_vec, HW,
-                                            C, silu);
+  const int apply_rows = rows_par * kApplyRows;
+  const dim3 agrid((HW + apply_rows - 1) / apply_rows, B);
+  gn_apply<<<agrid, threads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(stats),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<__nv_bfloat16*>(y), HW, C, G, rows_par, apply_rows,
+      1.f / (float(HW) * float(C / G)), eps, silu);
   return static_cast<int>(cudaGetLastError());
 }

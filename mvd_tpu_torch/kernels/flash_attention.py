@@ -20,6 +20,7 @@ and ``chip_smoke.py`` compare the kernel with.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -51,12 +52,13 @@ def attention_packed_plain(
     return out, lse.transpose(1, 2).contiguous()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn_fwd")
-    fn = lib.flash_attn_fwd_packed_bf16
+@functools.cache
+def _entry():
+    """The C entry, built and loaded on first call, its signature set once."""
+    fn = _build.load("flash_attn_fwd").flash_attn_fwd_packed_bf16
     fn.argtypes = [_P, _P, _P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check_cuda_inputs(q, k, v, heads):
@@ -98,7 +100,7 @@ def flash_attention_packed_fwd(
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, heads), dtype=torch.float32, device=q.device)
-    err = _lib().flash_attn_fwd_packed_bf16(
+    err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, Sq, Sk, heads, D, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,

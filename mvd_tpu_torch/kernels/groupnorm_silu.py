@@ -21,6 +21,7 @@ compare the kernel with.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -54,12 +55,13 @@ def groupnorm_silu_plain(
     return y.reshape(B, H, W, C).to(x.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("groupnorm_silu")
-    fn = lib.groupnorm_silu_bf16
-    fn.argtypes = [_P] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P]
+@functools.cache
+def _entry():
+    """The C entry, built and loaded on first call, its signature set once."""
+    fn = _build.load("groupnorm_silu").groupnorm_silu_bf16
+    fn.argtypes = [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def groupnorm_silu(
@@ -92,10 +94,9 @@ def groupnorm_silu(
             raise ValueError(f"groupnorm {name} must be a contiguous f32 ({C},) tensor on {x.device}")
     y = torch.empty_like(x)
     stats = torch.empty(B * num_groups * 2, dtype=torch.float32, device=x.device)
-    coef = torch.empty(B * C * 2, dtype=torch.float32, device=x.device)
-    err = _lib().groupnorm_silu_bf16(
+    err = _entry()(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), coef.data_ptr(), B, H * W, C, num_groups, float(eps),
+        stats.data_ptr(), B, H * W, C, num_groups, float(eps),
         int(apply_silu), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "groupnorm_silu_bf16")

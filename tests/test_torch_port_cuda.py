@@ -8,8 +8,9 @@ They import nothing of JAX, so they run on a machine that has only torch:
 ``chip_smoke.py`` holds the kernels to the main path's shapes; these cases
 add the ragged edges the main path never reaches (Sq and Sk that are not
 multiples of the 64-row tiles, C with 3 channels per group, tiny rows).
-Tolerances are those of ``chip_smoke.py``: one bf16 rounding of P and of
-the output for K1, one bf16 rounding of y for K2.
+Tolerances are those of ``chip_smoke.py``: for K1 a bf16 rounding step of
+the output either way (rtol 2e-2, atol 2e-3) and a relative RMS error of at
+most 1e-2 over the whole output; one bf16 rounding of y for K2.
 """
 
 import pytest
@@ -46,7 +47,9 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, heads):
     assert flash_attention_packed_fwd.plain_calls == plain
     want_out, want_lse = attention_packed_plain(q, k, v, heads)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-3, rtol=2e-2)
+    err_rms = (out.float() - want_out.float()).pow(2).mean().sqrt()
+    assert err_rms <= 1e-2 * want_out.float().pow(2).mean().sqrt()
     torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=1e-4)
 
 

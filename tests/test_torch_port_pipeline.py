@@ -5,7 +5,8 @@ carried across by ``checkpoint/from_jax.py``) and draw the same noise: the
 test replays the JAX pipeline's key splits (initial latents, VAE sample
 noise, one DDPM noise per step) and hands the draws to the port. Bars:
 >= 50 dB on the images after 3 DDPM steps (error compounds across steps),
->= 60 dB for one denoise step and for the schedule.
+>= 60 dB for one denoise step and for the schedule. TINY_MODEL is cut in
+depth (``_cut``, widths kept) so the JAX compile stays short.
 """
 
 import dataclasses
@@ -38,25 +39,43 @@ LAT = J_TINY.unet.sample_size
 HW = LAT * 8
 
 
+def _cut(cfg):
+    """TINY_MODEL cut to two UNet levels of one resnet each and one VAE
+    resnet per level (widths and the VAE's 8x scale kept): still a
+    cross-attention level with adapters, the mid block, FiLM at every block
+    boundary and the feature pass, at a fraction of the JAX compile."""
+    unet = dataclasses.replace(
+        cfg.unet, block_out_channels=(32, 64), num_attention_heads=(2, 4),
+        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+    )
+    vae = dataclasses.replace(cfg.vae, layers_per_block=1)
+    return dataclasses.replace(cfg, unet=unet, vae=vae)
+
+
+J_CFG, T_CFG = _cut(J_TINY), _cut(TINY_MODEL)
+
+
 @pytest.fixture(scope="module")
 def pipes():
+    """Both pipelines with the same random weights, and the flax tree."""
     z = jnp.zeros((1, LAT, LAT, 4))
-    ctx = jnp.zeros((1, 77, J_TINY.unet.cross_attention_dim))
+    ctx = jnp.zeros((1, 77, J_CFG.unet.cross_attention_dim))
     cam = jnp.eye(4)[None]
     params = {
         "mvd": random_params(
-            JMVD(J_TINY).init, z, jnp.zeros((), jnp.int32), ctx,
+            JMVD(J_CFG).init, z, jnp.zeros((), jnp.int32), ctx,
             source_camera=cam, target_camera=cam, source_image_latents=z, seed=1,
         ),
-        "vae": random_params(JVAE(J_TINY.vae).init, jnp.zeros((1, 16, 16, 3)), seed=2),
+        "vae": random_params(JVAE(J_CFG.vae).init, jnp.zeros((1, 16, 16, 3)), seed=2),
         "text_encoder": random_params(
-            JCLIP(J_TINY.text_encoder).init, jnp.zeros((1, 77), jnp.int32), seed=3
+            JCLIP(J_CFG.text_encoder).init, jnp.zeros((1, 77), jnp.int32), seed=3
         ),
     }
-    jpipe = JPipeline(J_TINY, jax.tree.map(jnp.asarray, params))
-    tpipe = MVDPipeline.create(TINY_MODEL, seed=0, device="cpu")
+    jpipe = JPipeline(J_CFG, jax.tree.map(jnp.asarray, params))
+    tpipe = MVDPipeline.create(T_CFG, seed=0, device="cpu")
     tpipe.load_jax_params(params)
-    return jpipe, tpipe
+    return jpipe, tpipe, params
 
 
 def _inputs():
@@ -84,7 +103,7 @@ def _jax_draws(seed, steps):
 
 
 def test_pipeline_matches_jax(pipes):
-    jpipe, tpipe = pipes
+    jpipe, tpipe, _ = pipes
     kw = dict(num_inference_steps=STEPS, guidance_scale=1.0, **_inputs())
     want = jpipe(["a chair"] * B, seed=SEED, **kw)["images"]
     latents, vae_noise, step_noises = _jax_draws(SEED, STEPS)
@@ -96,32 +115,17 @@ def test_pipeline_matches_jax(pipes):
     assert snr_db(want, got) >= 50.0
 
 
-def _two_level(cfg):
-    """TINY_MODEL cut to two UNet levels of one resnet each (widths kept):
-    still a cross-attention level with adapters, the mid block, FiLM at
-    every block boundary and the feature pass, at a fraction of the cost."""
-    unet = dataclasses.replace(
-        cfg.unet, block_out_channels=(32, 64), num_attention_heads=(2, 4),
-        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
-        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
-    )
-    return dataclasses.replace(cfg, unet=unet)
-
-
-def test_denoise_step_matches_jax():
+def test_denoise_step_matches_jax(pipes):
     """Conditioning (camera FiLM, feature pass, adapter K/V), one UNet
     denoise with adapters and FiLM, and one DDPM step."""
-    jcfg, tcfg = _two_level(J_TINY), _two_level(TINY_MODEL)
+    jcfg, tcfg = J_CFG, T_CFG
     rng = np.random.default_rng(1)
     text = rng.normal(size=(B, 77, jcfg.unet.cross_attention_dim)).astype(np.float32)
     src_lat, lat = (rng.normal(size=(B, LAT, LAT, 4)).astype(np.float32) for _ in range(2))
     inp = _inputs()
     cams = [np.asarray(inp["source_camera"], np.float32), np.asarray(inp["target_camera"], np.float32)]
     jm = JMVD(jcfg)
-    p = random_params(
-        jm.init, jnp.asarray(lat), jnp.zeros((), jnp.int32), jnp.asarray(text),
-        *map(jnp.asarray, cams), jnp.asarray(src_lat), seed=4,
-    )
+    p = pipes[2]["mvd"]
     schedule = j_build_schedule(jcfg)
     t = int(j_inference_timesteps(schedule, 20)[3])
 
@@ -167,7 +171,7 @@ def test_schedule_matches_jax():
 
 
 def test_cfg_puts_unconditional_text_first(pipes, monkeypatch):
-    _, tpipe = pipes
+    _, tpipe, _ = pipes
     model = tpipe.compute_model
     seen = {}
     real = model["mvd"].prepare_conditioning
@@ -195,6 +199,15 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         infer.main(["--tiny", "--num-images", "1", "--num-steps", "1",
                     "--output-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
+def test_cli_rejects_tiny_on_gpu(tmp_path, monkeypatch):
+    """TINY_MODEL's f32, 16-wide heads are not what the GPU kernels take, so
+    ``--tiny`` on the GPU stops with a message before it builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="--device cpu"):
+        infer.main(["--tiny", "--num-images", "1", "--output-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
 
 
