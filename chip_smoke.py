@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three phases; any failure exits non-zero:
+Four phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -17,12 +17,23 @@ Three phases; any failure exits non-zero:
    from seed 0, then 4-view 512² generation, 20-step DDPM, guidance 1.0, a
    zero source image and ``orbit_cameras(4)``, in bf16. Checks the images,
    that every kernel launched exactly as often as the model structure says
-   and that no plain version ran, then times a second call.
+   and that no plain version ran, then times a second call;
+4. train: holds K3a/K3b against the plain backward at every attention shape
+   of the 768² train step (timed beside the backward of
+   ``scaled_dot_product_attention``, a yardstick the port never calls), then
+   builds the adapter + camera-encoder train step at full SD2.1 width from
+   seed 0 (bf16 compute, f32 masters, batch 6, one view, Min-SNR
+   v-prediction, AdamW) and takes 3 steps on a seeded random pixel batch.
+   Checks a finite loss and gradients, frozen parameters bitwise unchanged,
+   trainable ones unchanged by step 1 (lr 0) and moved by step 2, the
+   launches of every kernel in each step against the model structure, and
+   no plain call; prints s/step, samples/s and the peak memory.
 
-With ``--trace OUT.json`` it then traces one more generation of the same
-call with ``torch.profiler`` and prints, and writes to OUT.json, the wall
-time, the summed device-kernel time, the device's idle share, the share of
-each port kernel and the kernels that take the most device time.
+With ``--trace OUT.json`` it also traces one more generation and one more
+train step with ``torch.profiler`` and prints, and writes to OUT.json (the
+train step under ``"train_step"``), the wall time, the summed device-kernel
+time, the device's idle share, the share of each port kernel and the
+kernels that take the most device time.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a GPU, or outside the
@@ -34,6 +45,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +55,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 STEPS, VIEWS, RES = 20, 4, 512
+TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TOTAL = 6, 768, 3, 100
 
 
 def card_line() -> str:
@@ -80,7 +93,7 @@ def phase_build() -> float:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
-    print(f"[build] {len(KERNEL_SOURCES)} kernels built in {secs:.1f} s")
+    print(f"[build] {len(KERNEL_SOURCES)} sources built in {secs:.1f} s")
     return secs
 
 
@@ -220,6 +233,8 @@ def expected_launches(pipe, steps: int):
     vae_gn = sum(isinstance(m, GroupNorm) for m in vae.modules())
     return {
         "flash_attn_fwd": blocks * 2 + blocks * 4 * steps,
+        "flash_attn_bwd_dq": 0,
+        "flash_attn_bwd_dkv": 0,
         "groupnorm_silu": unet_gn * (steps + 1) + vae_gn,
     }
 
@@ -246,10 +261,22 @@ def main_path_call():
     return pipe, ["a 3d object"] * VIEWS, kwargs
 
 
+def reset_counts() -> None:
+    from mvd_tpu_torch.kernels import KERNELS
+
+    for fn in KERNELS.values():
+        fn.launches = fn.plain_calls = 0
+
+
+def read_counts():
+    from mvd_tpu_torch.kernels import KERNELS
+
+    return ({name: fn.launches for name, fn in KERNELS.items()},
+            {name: fn.plain_calls for name, fn in KERNELS.items()})
+
+
 def phase_main_path():
     import torch
-
-    from mvd_tpu_torch.kernels import KERNEL_SOURCES
 
     t0 = time.perf_counter()
     pipe, prompts, kwargs = main_path_call()
@@ -258,14 +285,12 @@ def phase_main_path():
     print(f"[main] created full-width pipeline ({n_params / 1e6:.1f} M params) "
           f"in {time.perf_counter() - t0:.1f} s")
     pipe.compute_model  # cast once, outside the counted run
-    for fn in KERNEL_SOURCES.values():
-        fn.launches = fn.plain_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     images = pipe(prompts, seed=0, **kwargs)["images"]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in KERNEL_SOURCES.items()}
-    plain = {name: fn.plain_calls for name, fn in KERNEL_SOURCES.items()}
+    launches, plain = read_counts()
     want = expected_launches(pipe, STEPS)
     print(f"[main] first call {first_s:.2f} s; launches {launches} (expected {want}); plain calls {plain}")
     if launches != want or any(plain.values()):
@@ -289,29 +314,272 @@ def phase_main_path():
     return launches, metrics, (pipe, prompts, kwargs)
 
 
+# (label, B, Sq, Sk, heads): every attention shape of the 768² train step,
+# D = 64. Self-attention and both adapters share the self shapes; the text
+# cross-attention (Sk = 77) needs no dk/dv on the path but is held here too.
+TRAIN_ATTN_CASES = [
+    ("self 96x96", 6, 9216, 9216, 5),
+    ("text 96x96", 6, 9216, 77, 5),
+    ("self 48x48", 6, 2304, 2304, 10),
+    ("text 48x48", 6, 2304, 77, 10),
+    ("self 24x24", 6, 576, 576, 20),
+    ("text 24x24", 6, 576, 77, 20),
+    ("self 12x12 (mid)", 6, 144, 144, 20),
+    ("text 12x12 (mid)", 6, 144, 77, 20),
+]
+# K3a/K3b round P and dS to bf16 before their products, where the plain
+# version keeps f32, and round dq/dk/dv to bf16: each term carries a relative
+# error of about 2^-9, and the sums over Sk (or Sq) terms average it, so the
+# relative RMS error stays near 3e-3. Elementwise: rtol 2e-2 (a bf16 rounding
+# step of the result either way) plus an atol of 5e-2 times the case's RMS
+# gradient for elements near zero; the relative RMS bound catches an error
+# spread over every element.
+GRAD_RTOL, GRAD_ATOL_RMS, GRAD_REL_RMS = 2e-2, 5e-2, 1e-2
+
+
+def _check_grad(got, want, what):
+    """(max abs err, typical |grad| (RMS), relative RMS error); raises when
+    the elementwise or the relative RMS bound is broken."""
+    import torch
+
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean().sqrt().item()
+    err = (got - want).abs()
+    bad = err > GRAD_ATOL_RMS * rms + GRAD_RTOL * want.abs()
+    rel_rms = (got - want).pow(2).mean().sqrt().item() / rms
+    if not torch.isfinite(got).all() or bad.any() or not rel_rms <= GRAD_REL_RMS:
+        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max abs err "
+                             f"{err.max().item():.3g}, relative RMS error {rel_rms:.3g}")
+    return err.max().item(), rms, rel_rms
+
+
+def _plain_bwd_by_row(q, k, v, out, lse, do, heads):
+    """The plain backward one batch row at a time (the f32 score matrices of
+    a whole 96² batch would not fit beside the model)."""
+    import torch
+
+    from mvd_tpu_torch.kernels import attention_packed_bwd_plain
+
+    rows = [attention_packed_bwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
+                                       lse[b:b + 1], do[b:b + 1], heads)
+            for b in range(q.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+def phase_train_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.kernels import (
+        flash_attention_packed_bwd,
+        flash_attention_packed_bwd_dkv,
+        flash_attention_packed_bwd_dq,
+        flash_attention_packed_fwd,
+    )
+    from mvd_tpu_torch.kernels.flash_attention import _delta
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    results = {"flash_attn_bwd_dq": [], "flash_attn_bwd_dkv": []}
+    print(f"[train-kernels] K3a/K3b tolerance: rtol {GRAD_RTOL}, atol {GRAD_ATOL_RMS} x RMS(grad), "
+          f"relative RMS error <= {GRAD_REL_RMS} for each of dq, dk, dv")
+    for label, B, Sq, Sk, H in TRAIN_ATTN_CASES:
+        D = 64
+        q, do = randn(B, Sq, H * D), randn(B, Sq, H * D)
+        k, v = randn(B, Sk, H * D), randn(B, Sk, H * D)
+        out, lse = flash_attention_packed_fwd(q, k, v, H)
+        got = flash_attention_packed_bwd(q, k, v, out, lse, do, H)
+        torch.cuda.synchronize()
+        want = _plain_bwd_by_row(q, k, v, out, lse, do, H)
+        checks = {name: _check_grad(g, w, f"K3 {label} {name}")
+                  for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+        print(f"[train-kernels] K3 {label}: " + ", ".join(
+            f"{n} typical |grad| {rms:.4g} max err {e:.3g} rel RMS err {r:.3g}"
+            for n, (e, rms, r) in checks.items()))
+        del got, want
+        delta = _delta(out, do, H)
+        iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
+        ms_dq = time_ms(lambda: flash_attention_packed_bwd_dq(q, k, v, do, lse, delta, H), iters)
+        ms_dkv = time_ms(lambda: flash_attention_packed_bwd_dkv(q, k, v, do, lse, delta, H), iters)
+        plain_ms = time_ms(lambda: _plain_bwd_by_row(q, k, v, out, lse, do, H), 2, 1)
+
+        def sdpa_bwd_ms(grad_q: bool):
+            split = lambda t, s: t.detach().view(B, s, H, D).transpose(1, 2)
+            qh, kh, vh = split(q, Sq), split(k, Sk), split(v, Sk)
+            leaf = lambda t: t.detach().requires_grad_()
+            qh, kh, vh = (leaf(qh), kh, vh) if grad_q else (qh, leaf(kh), leaf(vh))
+            inputs = (qh,) if grad_q else (kh, vh)
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = split(do, Sq)
+            return time_ms(lambda: torch.autograd.grad(oh, inputs, doh, retain_graph=True), iters)
+
+        lib_dq, lib_dkv = sdpa_bwd_ms(True), sdpa_bwd_ms(False)
+        io_in = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 2 * 4.0 * B * Sq * H
+        for key, ms, lib, mults, out_bytes in (
+            ("flash_attn_bwd_dq", ms_dq, lib_dq, 6.0, 2.0 * B * Sq * H * D),
+            ("flash_attn_bwd_dkv", ms_dkv, lib_dkv, 8.0, 2 * 2.0 * B * Sk * H * D),
+        ):
+            t_ops = mults * B * H * Sq * Sk * D / BF16_TENSOR_FLOPS * 1e3
+            t_bytes = (io_in + out_bytes) / HBM_BYTES_PER_S * 1e3
+            err = max(checks[n][0] for n in (("dq",) if key.endswith("dq") else ("dk", "dv")))
+            results[key].append(dict(
+                case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            ))
+        print(f"[train-kernels] K3 {label}: K3a {ms_dq:.4f} ms (sdpa bwd dq {lib_dq:.4f} ms), "
+              f"K3b {ms_dkv:.4f} ms (sdpa bwd dk,dv {lib_dkv:.4f} ms), plain dq,dk,dv "
+              f"{plain_ms:.2f} ms, bounds {results['flash_attn_bwd_dq'][-1]['bound_ms']:.4f} / "
+              f"{results['flash_attn_bwd_dkv'][-1]['bound_ms']:.4f} ms")
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return results
+
+
+def expected_train_launches(model):
+    """Launches per train step that the model structure implies (one view,
+    image and camera conditioning, feature matching off): K1 at attn1 and
+    attn2 of every transformer block in the no-grad feature pass and at
+    attn1, attn2 and both adapters in the denoise pass; in the backward, K3a
+    at those four denoise sites and K3b at the three whose K/V carry
+    gradient (attn1 and the adapters; attn2's K/V come from the frozen
+    text); K2 at every UNet GroupNorm in both UNet passes and at every VAE
+    encoder GroupNorm in the source and the target encode. The GroupNorm
+    backward recomputes in PyTorch and launches no kernel."""
+    from mvd_tpu_torch.nn.layers import BasicTransformerBlock, GroupNorm
+
+    unet = model["mvd"].unet
+    blocks = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
+    unet_gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
+    enc_gn = sum(isinstance(m, GroupNorm) for m in model["vae"].encoder.modules())
+    return {
+        "flash_attn_fwd": blocks * 2 + blocks * 4,
+        "flash_attn_bwd_dq": blocks * 4,
+        "flash_attn_bwd_dkv": blocks * 3,
+        "groupnorm_silu": unet_gn * 2 + enc_gn * 2,
+    }
+
+
+def train_setup():
+    """The train step's operating point on the GPU from seed 0: the model,
+    its train state, the step and one seeded random pixel batch."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.camera import orbit_cameras
+    from mvd_tpu_torch.config import ModelConfig, TrainConfig, UNetConfig
+    from mvd_tpu_torch.data.tokenizer import load_tokenizer
+    from mvd_tpu_torch.nn.adapter_init import init_adapters_from_frozen
+    from mvd_tpu_torch.pipeline.pipeline import build_model, build_schedule, init_weights
+    from mvd_tpu_torch.train import TrainState, make_train_step
+
+    mcfg = ModelConfig(unet=UNetConfig(sample_size=TRAIN_RES // 8), dtype="bfloat16")
+    cfg = TrainConfig(model=mcfg)
+    with torch.device("cuda"):
+        model = build_model(mcfg)
+    init_weights(model, torch.Generator("cuda").manual_seed(0))
+    init_adapters_from_frozen(model["mvd"])
+    state = TrainState.create(model, cfg, TRAIN_TOTAL)
+    step = make_train_step(build_schedule(mcfg).to("cuda"), cfg)
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    B, R = TRAIN_BATCH, TRAIN_RES
+    img = lambda: torch.rand((B, 1, R, R, 3), generator=gen, device="cuda") * 2 - 1
+    cams = torch.as_tensor(orbit_cameras(B), device="cuda")
+    tok = load_tokenizer(vocab_size=mcfg.text_encoder.vocab_size)
+    batch = {
+        "source_image": img(), "target_image": img(),
+        "source_camera": cams[:1].expand(B, 4, 4).reshape(B, 1, 4, 4).contiguous(),
+        "target_camera": cams.reshape(B, 1, 4, 4),
+        "input_ids": torch.as_tensor(np.asarray(tok(["a 3d object"] * B)), device="cuda")[:, None],
+    }
+    return state, step, batch, gen
+
+
+def phase_train():
+    import torch
+
+    t0 = time.perf_counter()
+    state, step, batch, gen = train_setup()
+    torch.cuda.synchronize()
+    model = state.model
+    n_train = sum(p.numel() for p in state.trainable.values())
+    n_all = sum(p.numel() for p in model.parameters())
+    print(f"[train] built the train state ({n_all / 1e6:.1f} M params, {n_train / 1e6:.2f} M "
+          f"trainable, f32 masters; frozen in bf16) in {time.perf_counter() - t0:.1f} s")
+    frozen = {f"{net}.{n}": p.detach().to("cpu", copy=True)
+              for net, m in model.items() for n, p in m.named_parameters() if not p.requires_grad}
+    snap = lambda: {n: p.detach().to("cpu", copy=True) for n, p in state.trainable.items()}
+    trained = [snap()]
+    want = expected_train_launches(model)
+    reset_counts()
+    times = []
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        before, _ = read_counts()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, generator=gen)
+        loss, gnorm = metrics["noise_loss"].item(), metrics["grad_norm/total"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after, plain = read_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        print(f"[train] step {i + 1}: {times[-1]:.3f} s, noise_loss {loss:.5f}, "
+              f"grad_norm/total {gnorm:.5g}, launches {per_step}")
+        if per_step != want or any(plain.values()):
+            raise AssertionError(f"step {i + 1}: launches {per_step} != expected {want}, "
+                                 f"or plain calls {plain}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"step {i + 1}: loss {loss} or gradient norm {gnorm} not finite")
+        if i < 2:
+            trained.append(snap())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, _ = read_counts()
+    if any(not torch.equal(p.detach().cpu(), frozen[f"{net}.{n}"])
+           for net, m in model.items() for n, p in m.named_parameters() if not p.requires_grad):
+        raise AssertionError("a frozen parameter changed")
+    if any(not torch.equal(trained[1][n], trained[0][n]) for n in trained[0]):
+        raise AssertionError("a trainable parameter moved in step 1, which runs at lr 0")
+    moved = sum(not torch.equal(trained[2][n], trained[1][n]) for n in trained[0])
+    if moved == 0:
+        raise AssertionError("no trainable parameter moved in step 2")
+    sec = sum(times[1:]) / len(times[1:])
+    print(f"[train] frozen params unchanged ({len(frozen)} tensors); step 1 moved nothing; "
+          f"step 2 moved {moved} of {len(trained[0])} trainable tensors; expected launches "
+          f"per step {want}, 0 plain calls")
+    print(f"[train] steps 2-{TRAIN_STEPS}: {sec:.3f} s/step = {TRAIN_BATCH / sec:.3f} samples/s "
+          f"(batch {TRAIN_BATCH}, {TRAIN_RES}², one view), peak memory {peak:.2f} GiB")
+    metrics = dict(sec_per_step=sec, samples_per_s=TRAIN_BATCH / sec, peak_gib=peak,
+                   first_step_s=times[0], launches_per_step=want)
+    return launches, metrics, (state, step, batch, gen)
+
+
 # device-kernel name fragments of each port kernel in a torch.profiler trace
-TRACE_GROUPS = {"K1 flash_fwd_packed": ("flash_fwd_packed",), "K2 gn_*": ("gn_stats", "gn_apply")}
+TRACE_GROUPS = {
+    "K1 flash_fwd_packed": ("flash_fwd_packed",),
+    "K3a flash_bwd_dq": ("flash_bwd_dq",),
+    "K3b flash_bwd_dkv": ("flash_bwd_dkv",),
+    "K2 gn_*": ("gn_stats", "gn_apply"),
+}
 TRACE_TOP = 25
 
 
-def phase_trace(call, out_path: str) -> None:
-    """Trace one more generation of the main path and report where the
-    device time goes."""
+def trace_run(fn, label: str) -> dict:
+    """Trace one call of ``fn`` and report where the device time goes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe, prompts, kwargs = call
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(prompts, seed=2, **kwargs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
-        raise AssertionError("the trace holds no device time")
+        raise AssertionError(f"the {label} trace holds no device time")
     shares = {
         g: sum(e.self_device_time_total for e in kernels if any(f in e.key for f in frags)) / 1e3
         for g, frags in TRACE_GROUPS.items()
@@ -320,17 +588,14 @@ def phase_trace(call, out_path: str) -> None:
     rows = [dict(kernel=e.key[:120], calls=e.count, device_ms=e.self_device_time_total / 1e3)
             for e in top]
     n_launch = sum(e.count for e in kernels)
-    print(f"[trace] wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
+    print(f"[trace] {label}: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, kernel launches {n_launch}")
     for g, ms in shares.items():
         print(f"[trace]   {g}: {ms:.2f} ms ({ms / busy_ms:.3f} of device time)")
     for r in rows:
         print(f"[trace]   {r['device_ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    with open(out_path, "w") as f:
-        json.dump(dict(card=card_line(), wall_ms=wall_ms, device_busy_ms=busy_ms,
-                       idle_share=1 - busy_ms / wall_ms, kernel_launches=n_launch,
-                       port_kernels_ms=shares, top=rows), f, indent=1)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                kernel_launches=n_launch, port_kernels_ms=shares, top=rows)
 
 
 KERNEL_META = {
@@ -338,6 +603,16 @@ KERNEL_META = {
         name="K1 packed flash-attention forward", route="cuda",
         source="mvd_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="mvd_tpu/kernels/flash_attention.py:170", primary="self 64x64",
+    ),
+    "flash_attn_bwd_dq": dict(
+        name="K3a flash-attention backward dq", route="cuda",
+        source="mvd_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="mvd_tpu/kernels/flash_attention.py:557", primary="self 96x96",
+    ),
+    "flash_attn_bwd_dkv": dict(
+        name="K3b flash-attention backward dk/dv", route="cuda",
+        source="mvd_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="mvd_tpu/kernels/flash_attention.py:598", primary="self 96x96",
     ),
     "groupnorm_silu": dict(
         name="K2 GroupNorm(+SiLU) forward", route="cuda",
@@ -375,22 +650,41 @@ def main(argv=None) -> int:
     phase_build()
     results = phase_kernels()
     launches, main_metrics, call = phase_main_path()
+    traces = {}
     if args.trace:
-        phase_trace(call, args.trace)
+        pipe, prompts, kwargs = call
+        traces = trace_run(lambda: pipe(prompts, seed=2, **kwargs), "generation")
+        del pipe
+    del call  # free the generation pipeline before the train phase
+    torch.cuda.empty_cache()
+    results.update(phase_train_kernels())
+    train_launches, train_metrics, train_call = phase_train()
+    if args.trace:
+        state, step, batch, gen = train_call
+        traces["train_step"] = trace_run(lambda: step(state, batch, generator=gen), "train step")
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        with open(args.trace, "w") as f:
+            json.dump(dict(card=card, **traces), f, indent=1)
 
     kernels = []
     for key, meta in KERNEL_META.items():
         cases = results[key]
         prim = next(c for c in cases if c["case"] == meta["primary"])
+        # each kernel's launches are those of the path it serves: generation
+        # for K1/K2 (their train-step launches beside them), the train steps
+        # for K3a/K3b
+        on_train = key.startswith("flash_attn_bwd")
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=launches[key],
+            replaces=meta["replaces"],
+            launches=train_launches[key] if on_train else launches[key],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=prim["ms"], plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
             bound_by=prim["bound_by"], library_ms=prim["library_ms"],
-            shape=meta["primary"], cases=cases,
+            shape=meta["primary"], train_launches=train_launches[key], cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
+    print(f"[train] {json.dumps(train_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

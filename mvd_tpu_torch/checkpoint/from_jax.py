@@ -12,15 +12,26 @@ collection level dropped, so the mapping is mechanical:
 The input is the JAX param tree as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, pipe.params)`` for a whole pipeline
 (``{"mvd": ..., "vae": ..., "text_encoder": ...}``) or one module's tree.
+
+``load_jax_train_state`` carries a JAX ``TrainState`` across (its step, its
+multi-view UNet params and optax's AdamW moments of the trainable leaves),
+so a run started in JAX continues in the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..train.state import TrainState
+
+
+def _is_masked(value) -> bool:
+    """optax's ``MaskedNode``: the placeholder of a leaf outside a mask."""
+    return type(value).__name__ == "MaskedNode"
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -29,7 +40,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
             out.update(_flatten(value, path))
-        else:
+        elif not _is_masked(value):
             out[path] = np.asarray(value)
     return out
 
@@ -73,3 +84,55 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
             raise ValueError(f"{name}: JAX shape {arr.shape} != port shape {tuple(p.shape)}")
         p.copy_(torch.from_numpy(arr).to(p.dtype))
     return module
+
+
+def _find_states(node, fields: Tuple[str, ...], found: List[Any]) -> List[Any]:
+    """Every named tuple of an optax state tree (tuples, named tuples,
+    dicts) that has all of ``fields``, in tree order."""
+    if all(f in getattr(node, "_fields", ()) for f in fields):
+        found.append(node)
+    elif isinstance(node, Mapping):
+        for v in node.values():
+            _find_states(v, fields, found)
+    elif isinstance(node, tuple):  # optax states are (named) tuples
+        for v in node:
+            _find_states(v, fields, found)
+    return found
+
+
+def load_jax_train_state(model: nn.ModuleDict, jax_state, cfg, total_steps: int):
+    """A port ``TrainState`` from a JAX ``TrainState`` (``step``, ``params``
+    of the multi-view UNet, ``opt_state`` of ``make_optimizer``; JAX or
+    numpy leaves). ``model["vae"]`` and ``model["text_encoder"]`` must hold
+    their weights already. AdamW's ``mu``/``nu`` of the trainable leaves
+    become ``exp_avg``/``exp_avg_sq`` and its count the optimizer's step.
+    Raises if a moment leaf and a trainable parameter do not match 1:1."""
+    load_jax_params(model["mvd"], jax_state.params)
+    state = TrainState.create(model, cfg, total_steps)
+    adam = _find_states(jax_state.opt_state, ("count", "mu", "nu"), [])
+    sched = [s for s in _find_states(jax_state.opt_state, ("count",), [])
+             if "mu" not in s._fields]
+    if len(adam) != 1:
+        raise ValueError(f"expected one AdamW state in the optax state, found {len(adam)}")
+    count = int(np.asarray(adam[0].count))
+    step = int(np.asarray(jax_state.step))
+    if any(int(np.asarray(s.count)) != count for s in sched) or count != step:
+        raise ValueError(f"optax counts {count}, {[int(np.asarray(s.count)) for s in sched]} "
+                         f"disagree with the step {step}")
+    mu, nu = convert_jax_params(adam[0].mu), convert_jax_params(adam[0].nu)
+    names = set(state.trainable)
+    if set(mu) != names or set(nu) != names:
+        raise KeyError(
+            f"AdamW moments and trainable params do not match 1:1: moments only "
+            f"{sorted(set(mu) - names)[:10]}, params only {sorted(names - set(mu))[:10]}"
+        )
+    for name, p in state.trainable.items():
+        if mu[name].shape != tuple(p.shape) or nu[name].shape != tuple(p.shape):
+            raise ValueError(f"{name}: moment shape {mu[name].shape} != {tuple(p.shape)}")
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(mu[name]).to(p.device, p.dtype),
+            "exp_avg_sq": torch.from_numpy(nu[name]).to(p.device, p.dtype),
+        }
+    state.step = step
+    return state

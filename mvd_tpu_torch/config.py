@@ -1,13 +1,17 @@
 """Model configuration dataclasses of the PyTorch port.
 
-A copy of the model half of ``mvd_tpu/config.py`` (the port imports nothing
-of the JAX package): the SD2.1 UNet, VAE, CLIP text tower, camera encoder and
-noise-schedule settings, and the ``TINY_*`` variants the tests use. Field
-names and defaults are the JAX package's, so a config built for one side
-describes the same model on the other. Fields of paths the port does not
-run yet (remat, attention_impl, joint multi-view attention, ray-map
-conditioning, samplers other than DDPM) are left out until they are
-ported; so are the training and data configs and the YAML loader.
+A copy of the model and train-step half of ``mvd_tpu/config.py`` (the port
+imports nothing of the JAX package): the SD2.1 UNet, VAE, CLIP text tower,
+camera encoder and noise-schedule settings, the ``TINY_*`` variants the
+tests use, and the loss, optimizer and train settings that the train step
+reads. Field names and defaults are the JAX package's, so a config built
+for one side describes the same model on the other. Fields of paths the
+port does not run yet (remat, attention_impl, joint multi-view attention,
+ray-map conditioning, samplers other than DDPM, gradient accumulation,
+checkpointing, validation and logging intervals, the mesh) are left out
+until they are ported; so are the loop's batch, image size, view count and
+seed (the step takes them from its batch), the data configs and the YAML
+loader.
 """
 
 from __future__ import annotations
@@ -146,3 +150,35 @@ TINY_MODEL = ModelConfig(
     camera_encoder=CameraEncoderConfig(output_dim=48, hidden_dim=32),
     dtype="float32",
 )
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    use_snr_loss: bool = True
+    snr_gamma: float = 5.0
+    # "per_sample" applies the Min-SNR weights per sample; "faithful"
+    # reproduces the reference's scalar_mse * mean(w)
+    weighting: str = "per_sample"
+    # frozen-UNet feature matching of x0-hat against the target; 0 = off
+    feature_matching_weight: float = 0.0
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    learning_rate: float = 1e-5
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+    warmup_fraction: float = 0.05
+    schedule: str = "cosine"  # cosine | constant
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    train_denoising_unet: bool = False
+    # encode only the unique source view of each (B, V) group and tile the
+    # posterior moments to the V rows
+    unique_source_encode: bool = True

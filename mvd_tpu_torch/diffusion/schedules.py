@@ -1,12 +1,13 @@
 """Noise schedules and the DDPM sampling step (PyTorch).
 
-Counterpart of the sampling half of ``mvd_tpu/diffusion/schedules.py``:
-diffusers DDPMScheduler semantics (scaled-linear betas, v-prediction,
-``fixed_small`` variance, 'leading' timestep spacing with steps_offset) and
-the ShiftSNR rewrite of the betas. ``ddpm_step`` takes its noise as an
-argument, so a caller (or a test) decides where the random numbers come
-from. Not ported yet: DDIM, DPM-Solver++, inversion and the training-side
-SNR helpers.
+Counterpart of the DDPM and training parts of
+``mvd_tpu/diffusion/schedules.py``: diffusers DDPMScheduler semantics
+(scaled-linear betas, v-prediction, ``fixed_small`` variance, 'leading'
+timestep spacing with steps_offset), the ShiftSNR rewrite of the betas, the
+forward process (``add_noise``, ``get_velocity``) and the Min-SNR weight.
+Timesteps are an int or a tensor of per-row timesteps. ``ddpm_step`` takes
+its noise as an argument, so a caller (or a test) decides where the random
+numbers come from. Not ported yet: DDIM, DPM-Solver++ and inversion.
 """
 
 from __future__ import annotations
@@ -83,9 +84,45 @@ class NoiseSchedule:
         return 1.0
 
 
-def compute_snr(schedule: NoiseSchedule, timesteps: torch.Tensor) -> torch.Tensor:
-    ac = schedule.alphas_cumprod[timesteps]
+def _timesteps(schedule: NoiseSchedule, timesteps) -> torch.Tensor:
+    return torch.as_tensor(timesteps, device=schedule.alphas_cumprod.device).long()
+
+
+def compute_snr(schedule: NoiseSchedule, timesteps) -> torch.Tensor:
+    """SNR_t = alpha_bar_t / (1 - alpha_bar_t), in the sqrt form."""
+    ac = schedule.alphas_cumprod[_timesteps(schedule, timesteps)]
     return (torch.sqrt(ac) / torch.sqrt(1.0 - ac)) ** 2
+
+
+def _gather_sqrt_ac(schedule: NoiseSchedule, timesteps, ndim: int):
+    """sqrt(alpha_bar_t), sqrt(1 - alpha_bar_t), shaped to broadcast over a
+    tensor of rank ``ndim`` whose leading dims are the timesteps'. An int
+    timestep indexes without a host-to-device copy, which would synchronise
+    the sampling loop's stream."""
+    if isinstance(timesteps, int):
+        ac = schedule.alphas_cumprod[timesteps]
+    else:
+        t = _timesteps(schedule, timesteps)
+        ac = schedule.alphas_cumprod[t].float().reshape(t.shape + (1,) * (ndim - t.dim()))
+    return torch.sqrt(ac), torch.sqrt(1.0 - ac)
+
+
+def add_noise(schedule: NoiseSchedule, sample: torch.Tensor, noise: torch.Tensor, timesteps) -> torch.Tensor:
+    """x_t = sqrt(a_bar) x_0 + sqrt(1 - a_bar) eps (DDPMScheduler.add_noise)."""
+    sa, so = _gather_sqrt_ac(schedule, timesteps, sample.dim())
+    return (sa * sample + so * noise).to(sample.dtype)
+
+
+def get_velocity(schedule: NoiseSchedule, sample: torch.Tensor, noise: torch.Tensor, timesteps) -> torch.Tensor:
+    """v = sqrt(a_bar) eps - sqrt(1 - a_bar) x_0 (DDPMScheduler.get_velocity)."""
+    sa, so = _gather_sqrt_ac(schedule, timesteps, sample.dim())
+    return (sa * noise - so * sample).to(sample.dtype)
+
+
+def min_snr_weight(schedule: NoiseSchedule, timesteps, gamma: float = 5.0) -> torch.Tensor:
+    """w_t = min(SNR_t, gamma) / SNR_t (Min-SNR)."""
+    snr = compute_snr(schedule, timesteps)
+    return torch.clamp(snr, max=gamma) / snr
 
 
 def snr_to_betas(snr: torch.Tensor) -> torch.Tensor:
@@ -133,10 +170,10 @@ def inference_timesteps(schedule: NoiseSchedule, num_inference_steps: int) -> np
     return np.clip(ts, 0, T - 1).astype(np.int32)
 
 
-def pred_original_sample(schedule: NoiseSchedule, model_output, sample, timestep: int):
-    """x0-hat for the schedule's prediction type at an integer timestep."""
-    ac = schedule.alphas_cumprod[timestep]
-    sa, so = torch.sqrt(ac), torch.sqrt(1.0 - ac)
+def pred_original_sample(schedule: NoiseSchedule, model_output, sample, timesteps):
+    """x0-hat for the schedule's prediction type at an int timestep or at
+    per-row timesteps."""
+    sa, so = _gather_sqrt_ac(schedule, timesteps, sample.dim())
     p = schedule.prediction_type
     if p == "epsilon":
         return (sample - so * model_output) / sa

@@ -16,12 +16,19 @@ it lost to XLA's own fusion on the TPU. Eager PyTorch has no such fusion, so
 here every GroupNorm on a CUDA tensor launches the kernel. A CPU tensor takes
 ``groupnorm_silu_plain``, the plain version the tests and ``chip_smoke.py``
 compare the kernel with.
+
+``groupnorm_silu_diff`` is the differentiable entry: an ``autograd.Function``
+whose forward is K2 and whose backward (``groupnorm_silu_vjp``) recomputes
+through the f32 plain formulation with PyTorch autograd, as the JAX custom
+VJP recomputes through its XLA formulation. The JAX package has no Pallas
+backward for GroupNorm, so this backward is PyTorch ops by design.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -106,3 +113,53 @@ def groupnorm_silu(
 
 groupnorm_silu.launches = 0
 groupnorm_silu.plain_calls = 0
+
+
+def groupnorm_silu_vjp(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    dy: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-5,
+    apply_silu: bool = True,
+    needs: Tuple[bool, bool, bool] = (True, True, True),
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dx, dscale, dbias) of GroupNorm(+SiLU) by recomputing the f32 plain
+    formulation under autograd; None where ``needs`` says no."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip((x, scale, bias), needs)]
+        y = groupnorm_silu_plain(*inputs, num_groups, eps, apply_silu)
+        wanted = [t for t, n in zip(inputs, needs) if n]
+        grads = iter(torch.autograd.grad(y, wanted, dy))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """K2 forward, recompute backward. Saves (x, scale, bias)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, apply_silu)
+        return groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        grads = groupnorm_silu_vjp(x, scale, bias, dy, *ctx.args, needs=ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
+def groupnorm_silu_diff(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-5,
+    apply_silu: bool = True,
+) -> torch.Tensor:
+    """``groupnorm_silu``, differentiable in x, scale and bias."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+        return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+    return groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu)

@@ -74,7 +74,7 @@ class CameraEncoder(nn.Module):
     def forward(self, source_camera: torch.Tensor, target_camera: torch.Tensor):
         """(B,4,4) cameras -> (camera_embedding (B, D), film dict)."""
         cfg = self.cfg
-        dtype = self.final_dense_0.weight.dtype
+        dtype = self.final_dense_0.dtype
         R, T = relative_transform(source_camera.float(), target_camera.float())
         B = R.shape[0]
         r_emb = self.rotation_encoder(R.reshape(B, 9))

@@ -6,9 +6,12 @@ carry across mechanically (``checkpoint/from_jax.py``).
 
 Layout: activations are NCHW tensors in ``torch.channels_last`` memory, so
 the NHWC views that the GroupNorm kernel and the attention projections take
-are free permutes. Compute dtype follows the weights: ``Linear`` and
-``Conv2d`` cast their input to their weight's dtype, as flax's
-``Dense(dtype=...)`` does under the pipeline's pre-cast compute params.
+are free permutes. ``Linear`` and ``Conv2d`` compute in their
+``compute_dtype``, by default their weight's dtype (the sampling pipeline
+pre-casts a bf16 copy of the params). ``set_compute_dtype`` sets it on a
+whole tree for training: input, weight and bias are then cast to it by a
+differentiable cast, as flax's ``Dense(dtype=bf16)`` does with f32 params,
+so the f32 master weights receive f32 gradients.
 """
 
 from __future__ import annotations
@@ -21,21 +24,51 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import attention_packed
-from ..kernels.groupnorm_silu import groupnorm_silu
+from ..kernels.groupnorm_silu import groupnorm_silu_diff
 
 
-class Linear(nn.Linear):
-    """``nn.Linear`` that casts its input to the weight's dtype."""
+class _ComputeDtype:
+    """``compute_dtype`` (None: the weight's dtype) for a module with
+    ``weight`` and ``bias``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.weight.dtype
+
+    def _weights(self):
+        """(weight, bias) in the compute dtype; uncast on the sampling path,
+        which sets no compute dtype."""
+        dt = self.compute_dtype
+        if dt is None:
+            return self.weight, self.bias
+        return self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+
+class Linear(_ComputeDtype, nn.Linear):
+    """``nn.Linear`` computing in its compute dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        w, b = self._weights()
+        return F.linear(x.to(w.dtype), w, b)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that casts its input to the weight's dtype."""
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` computing in its compute dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        w, b = self._weights()
+        return self._conv_forward(x.to(w.dtype), w, b)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Set the compute dtype of every ``Linear`` and ``Conv2d`` under
+    ``module`` (None: back to each weight's dtype); returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            m.compute_dtype = dtype
+    return module
 
 
 class LayerNorm(nn.Module):
@@ -118,7 +151,7 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW (any memory format) -> NCHW in channels_last memory."""
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        y = groupnorm_silu(
+        y = groupnorm_silu_diff(
             nhwc, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu
         )
         return y.permute(0, 3, 1, 2)

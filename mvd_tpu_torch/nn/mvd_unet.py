@@ -10,6 +10,10 @@ Counterpart of ``mvd_tpu/nn/mvd_unet.py``:
      weights (they are step-invariant);
   3. denoising: the UNet with text context, adapter K/V and FiLM params.
 
+``forward`` is the training call (the JAX ``__call__``): the camera encoder
+and the adapters run with gradient, the frozen feature pass without, and
+the adapter K/V are projected inside the adapters, not precomputed.
+
 Conditioning tensors are tiled across the classifier-free-guidance batch
 (unconditional half first). Not ported yet: the separate image-encoder UNet
 (``share_image_encoder=False``), ray-map conditioning and the encoder cache.
@@ -66,7 +70,6 @@ class MultiViewUNet(nn.Module):
             out[key] = (F.linear(f, w_k), F.linear(f, w_v))
         return out
 
-    @torch.no_grad()
     def prepare_conditioning(
         self,
         encoder_hidden_states: torch.Tensor,  # (B or B*, 77, D)
@@ -77,7 +80,9 @@ class MultiViewUNet(nn.Module):
         precompute_kv: bool = False,
     ):
         """Step-invariant conditioning, computed once: FiLM params from the
-        cameras and per-layer reference features (or adapter K/V)."""
+        cameras (with gradient where grad mode is on) and per-layer reference
+        features (or adapter K/V) from a feature pass that never records
+        gradient."""
         cfg = self.cfg
         film = None
         if cfg.use_camera_conditioning and target_camera is not None:
@@ -97,7 +102,8 @@ class MultiViewUNet(nn.Module):
                 enc_text = encoder_hidden_states[b:]
             else:
                 enc_text = encoder_hidden_states[:b]
-            feats = self.extract_features(source_image_latents, enc_text)
+            with torch.no_grad():  # frozen tower; its features are detached
+                feats = self.extract_features(source_image_latents, enc_text)
             ref_features = {}
             for name, f in feats.items():
                 f = normalize_ref_feature(f)  # (b, H, W, C) f32
@@ -121,3 +127,25 @@ class MultiViewUNet(nn.Module):
             sample, timestep, encoder_hidden_states,
             ref_features=ref_features, film=film, ref_scale=ref_scale,
         )[0]
+
+    def forward(
+        self,
+        sample: torch.Tensor,  # (B*, h, w, 4) NHWC
+        timestep: torch.Tensor,  # () or (B*,)
+        encoder_hidden_states: torch.Tensor,  # (B or B*, 77, D)
+        source_camera: Optional[torch.Tensor] = None,  # (B, 4, 4)
+        target_camera: Optional[torch.Tensor] = None,
+        source_image_latents: Optional[torch.Tensor] = None,  # (B, h, w, 4)
+        ref_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        """Conditioning and one denoise in a single differentiable call
+        -> f32 NHWC prediction."""
+        Bs = sample.shape[0]
+        if encoder_hidden_states.shape[0] < Bs:  # CFG text repeat
+            encoder_hidden_states = encoder_hidden_states.repeat(
+                Bs // encoder_hidden_states.shape[0], 1, 1)
+        film, ref_features = self.prepare_conditioning(
+            encoder_hidden_states, source_camera, target_camera, source_image_latents,
+            cfg_batch=Bs,
+        )
+        return self.denoise(sample, timestep, encoder_hidden_states, film, ref_features, ref_scale)

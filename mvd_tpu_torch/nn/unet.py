@@ -106,7 +106,7 @@ class UNet2DCondition(nn.Module):
         B = sample.shape[0]
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)
-        dtype = self.conv_in.weight.dtype
+        dtype = self.conv_in.dtype
         temb = self.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0]))
         ctx = encoder_hidden_states.to(dtype)
 

@@ -1,9 +1,27 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: random flax params from a numpy seed (no jitted init), and the
-signal-to-noise ratio the parity bars are stated in."""
+package: random flax params from a numpy seed (no jitted init), the
+signal-to-noise ratio the parity bars are stated in, and the depth cut of
+TINY_MODEL that keeps the JAX compiles short."""
+
+import dataclasses
 
 import jax
 import numpy as np
+
+
+def cut_config(cfg):
+    """TINY_MODEL cut to two UNet levels of one resnet each and one VAE
+    resnet per level (widths and the VAE's 8x scale kept): still a
+    cross-attention level with adapters, the mid block, FiLM at every block
+    boundary and the feature pass, at a fraction of the JAX compile. Works
+    on the JAX package's config and on the port's alike."""
+    unet = dataclasses.replace(
+        cfg.unet, block_out_channels=(32, 64), num_attention_heads=(2, 4),
+        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+    )
+    vae = dataclasses.replace(cfg.vae, layers_per_block=1)
+    return dataclasses.replace(cfg, unet=unet, vae=vae)
 
 
 def snr_db(want, got) -> float:

@@ -10,16 +10,25 @@ add the ragged edges the main path never reaches (Sq and Sk that are not
 multiples of the 64-row tiles, C with 3 channels per group, tiny rows).
 Tolerances are those of ``chip_smoke.py``: for K1 a bf16 rounding step of
 the output either way (rtol 2e-2, atol 2e-3) and a relative RMS error of at
-most 1e-2 over the whole output; one bf16 rounding of y for K2.
+most 1e-2 over the whole output; one bf16 rounding of y for K2. K3a/K3b
+round P and dS to bf16 before their products, where the plain version keeps
+f32: rtol 2e-2 with an atol of 5e-2 times the case's RMS gradient, and a
+relative RMS error of at most 1e-2 for each of dq, dk and dv.
 """
 
 import pytest
 import torch
 
 from mvd_tpu_torch.kernels import (
+    attention_packed,
+    attention_packed_bwd_plain,
     attention_packed_plain,
+    flash_attention_packed_bwd,
+    flash_attention_packed_bwd_dkv,
+    flash_attention_packed_bwd_dq,
     flash_attention_packed_fwd,
     groupnorm_silu,
+    groupnorm_silu_diff,
     groupnorm_silu_plain,
 )
 
@@ -80,3 +89,93 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 2, 2, 12, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         groupnorm_silu(x, torch.ones(12, device="cuda"), torch.zeros(12, device="cuda"), 4)
+
+
+def _assert_grad_close(got, want, what):
+    """K3's tolerance: rtol 2e-2, atol 5e-2 x RMS(want), relative RMS error
+    at most 1e-2."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean().sqrt()
+    torch.testing.assert_close(got, want, atol=5e-2 * rms.item(), rtol=2e-2, msg=what)
+    assert (got - want).pow(2).mean().sqrt() <= 1e-2 * rms, what
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,heads",
+    [(2, 200, 77, 2), (1, 130, 300, 3), (1, 144, 144, 4), (3, 1, 1, 1), (1, 65, 129, 4)],
+)
+def test_flash_bwd_kernels_match_plain(cuda, B, Sq, Sk, heads):
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v = randn((B, Sq, heads * 64)), randn((B, Sk, heads * 64)), randn((B, Sk, heads * 64))
+    do = randn((B, Sq, heads * 64))
+    out, lse = flash_attention_packed_fwd(q, k, v, heads)
+    n_dq, n_dkv = flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches
+    dq, dk, dv = flash_attention_packed_bwd(q, k, v, out, lse, do, heads)
+    torch.cuda.synchronize()
+    assert flash_attention_packed_bwd_dq.launches == n_dq + 1
+    assert flash_attention_packed_bwd_dkv.launches == n_dkv + 1
+    want = attention_packed_bwd_plain(q, k, v, out, lse, do, heads)
+    for name, g, w, like in zip("dq dk dv".split(), (dq, dk, dv), want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == like.shape
+        _assert_grad_close(g, w, f"{name} at {(B, Sq, Sk, heads)}")
+
+
+def test_flash_autograd_matches_plain_autograd(cuda):
+    B, Sq, Sk, heads = 2, 200, 77, 3
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v, do = (randn(s) for s in ((B, Sq, heads * 64), (B, Sk, heads * 64),
+                                       (B, Sk, heads * 64), (B, Sq, heads * 64)))
+    want = torch.autograd.grad(
+        attention_packed_plain(*(t.requires_grad_() for t in (q, k, v)), heads)[0], (q, k, v), do
+    )
+    n_dq, n_dkv = flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches
+    got = torch.autograd.grad(attention_packed(q, k, v, heads), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches) == (
+        n_dq + 1, n_dkv + 1)
+    for name, g, w in zip("dq dk dv".split(), got, want):
+        _assert_grad_close(g, w, name)
+    # frozen k/v (the text cross-attention): K3a only
+    k, v = k.detach(), v.detach()
+    (dq,) = torch.autograd.grad(attention_packed(q, k, v, heads), (q,), do)
+    torch.cuda.synchronize()
+    assert flash_attention_packed_bwd_dkv.launches == n_dkv + 1
+    assert flash_attention_packed_bwd_dq.launches == n_dq + 2
+    _assert_grad_close(dq, want[0], "dq with frozen k/v")
+    # no gradient wanted: the forward kernel alone
+    with torch.inference_mode():
+        attention_packed(q, k, v, heads)
+    assert flash_attention_packed_bwd_dq.launches == n_dq + 2
+
+
+def test_groupnorm_autograd_matches_plain_autograd(cuda):
+    x = (torch.randn((2, 9, 9, 320), generator=cuda, device="cuda") * 2 + 0.5).bfloat16()
+    w = 1 + 0.1 * torch.randn(320, generator=cuda, device="cuda")
+    b = 0.1 * torch.randn(320, generator=cuda, device="cuda")
+    dy = torch.randn(x.shape, generator=cuda, device="cuda").bfloat16()
+    args = (32, 1e-6, True)
+    launches, plain = groupnorm_silu.launches, groupnorm_silu.plain_calls
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    got = torch.autograd.grad(groupnorm_silu_diff(*leaves, *args), leaves, dy)
+    torch.cuda.synchronize()
+    assert (groupnorm_silu.launches, groupnorm_silu.plain_calls) == (launches + 1, plain)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    want = torch.autograd.grad(groupnorm_silu_plain(*leaves, *args), leaves, dy)
+    for g, w_ in zip(got, want):  # the backward recomputes the plain version
+        torch.testing.assert_close(g, w_)
+
+
+def test_bwd_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 128, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 8, 2, device="cuda")
+    with pytest.raises(TypeError):
+        flash_attention_packed_bwd_dq(q.float(), q, q, q, lse, lse, 2)  # f32
+    with pytest.raises(ValueError):
+        flash_attention_packed_bwd_dkv(q, q, q, q, lse, lse, 4)  # head_dim 32
+    wide = torch.zeros(1, 8, 256, device="cuda", dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError):
+        flash_attention_packed_bwd_dq(wide, q, q, q, lse, lse, 2)  # not contiguous
+    with pytest.raises(ValueError):
+        flash_attention_packed_bwd_dkv(q, q, q, wide, lse, lse, 2)  # dO not contiguous
+    with pytest.raises(ValueError):
+        flash_attention_packed_bwd_dq(q, q, q, q, lse[..., :1], lse, 2)  # lse shape

@@ -6,10 +6,8 @@ test replays the JAX pipeline's key splits (initial latents, VAE sample
 noise, one DDPM noise per step) and hands the draws to the port. Bars:
 >= 50 dB on the images after 3 DDPM steps (error compounds across steps),
 >= 60 dB for one denoise step and for the schedule. TINY_MODEL is cut in
-depth (``_cut``, widths kept) so the JAX compile stays short.
+depth (``cut_config``, widths kept) so the JAX compile stays short.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import random_params, snr_db
+from _torch_port_util import cut_config, random_params, snr_db
 from mvd_tpu.camera import orbit_cameras
 from mvd_tpu.config import TINY_MODEL as J_TINY
 from mvd_tpu.diffusion import ddpm_step as j_ddpm_step
@@ -39,21 +37,7 @@ LAT = J_TINY.unet.sample_size
 HW = LAT * 8
 
 
-def _cut(cfg):
-    """TINY_MODEL cut to two UNet levels of one resnet each and one VAE
-    resnet per level (widths and the VAE's 8x scale kept): still a
-    cross-attention level with adapters, the mid block, FiLM at every block
-    boundary and the feature pass, at a fraction of the JAX compile."""
-    unet = dataclasses.replace(
-        cfg.unet, block_out_channels=(32, 64), num_attention_heads=(2, 4),
-        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
-        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
-    )
-    vae = dataclasses.replace(cfg.vae, layers_per_block=1)
-    return dataclasses.replace(cfg, unet=unet, vae=vae)
-
-
-J_CFG, T_CFG = _cut(J_TINY), _cut(TINY_MODEL)
+J_CFG, T_CFG = cut_config(J_TINY), cut_config(TINY_MODEL)
 
 
 @pytest.fixture(scope="module")
