@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases; any failure exits non-zero:
+Five phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -12,12 +12,20 @@ Four phases; any failure exits non-zero:
    version and one PyTorch library call computing the same function (a
    yardstick the port never calls), beside the least time the card could
    take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 tensor /
-   67 TFLOP/s f32, whichever is larger);
+   1,979 TOP/s int8 tensor / 67 TFLOP/s f32, whichever is larger). K6
+   (int8) is also checked against exact attention (>= 30 dB), and, through
+   ``Int8FlashAttention``, forward and straight-through backward at the
+   768² train shape; K5 ((B, H, S, D)) forward and backward;
 3. main path: ``MVDPipeline.create`` at full SD2.1 width with random weights
    from seed 0, then 4-view 512² generation, 20-step DDPM, guidance 1.0, a
    zero source image and ``orbit_cameras(4)``, in bf16. Checks the images,
    that every kernel launched exactly as often as the model structure says
    and that no plain version ran, then times a second call;
+3b. int8: the same pipeline and weights with ``attention_impl="int8"``:
+   the same checks, K6 at exactly the sites the JAX package quantizes on a
+   TPU (610 launches, K1 at the other 702), the PSNR of its images against
+   phase 3's from the same weights and noise, and later calls of the two
+   pipelines timed in turns;
 4. train: holds K3a/K3b against the plain backward at every attention shape
    of the 768² train step (timed beside the backward of
    ``scaled_dot_product_attention``, a yardstick the port never calls), then
@@ -29,8 +37,9 @@ Four phases; any failure exits non-zero:
    launches of every kernel in each step against the model structure, and
    no plain call; prints s/step, samples/s and the peak memory.
 
-With ``--trace OUT.json`` it also traces one more generation and one more
-train step with ``torch.profiler`` and prints, and writes to OUT.json (the
+With ``--trace OUT.json`` it also traces one more generation, one more int8
+generation and one more train step with ``torch.profiler`` and prints, and
+writes to OUT.json (the int8 generation under ``"int8_generation"``, the
 train step under ``"train_step"``), the wall time, the summed device-kernel
 time, the device's idle share, the share of each port kernel and the
 kernels that take the most device time.
@@ -43,6 +52,7 @@ repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import math
@@ -54,6 +64,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+INT8_TENSOR_OPS = 1979e12
 STEPS, VIEWS, RES = 20, 4, 512
 TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TOTAL = 6, 768, 3, 100
 
@@ -91,7 +102,7 @@ def phase_build() -> float:
     for name in KERNEL_SOURCES:
         _build.load(name)
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(KERNEL_SOURCES)} sources built in {secs:.1f} s")
     return secs
@@ -219,6 +230,174 @@ def phase_kernels():
     return results
 
 
+# (label, B, Sq, Sk, heads): the int8 sites of 512² generation (K6, D = 64),
+# and the largest of the 768² train step, where K6 runs through
+# Int8FlashAttention with its straight-through backward
+INT8_CASES = [("self 64x64", 4, 4096, 4096, 5), ("self 32x32", 4, 1024, 1024, 10)]
+INT8_TRAIN_CASE = ("self 96x96", 6, 9216, 9216, 5)
+INT8_MIN_DB = 30.0  # int8 against exact attention: the JAX package's own bar
+# K6 and its plain version quantize P identically and differ by f32 rounding
+# before the bf16 output (measured on the H100: max abs err 2.4e-4, relative
+# RMS error 1e-5), so K6 is held tighter than K1: rtol 1e-2 still covers one
+# bf16 rounding step, and the relative RMS error may reach only 1e-3.
+INT8_TOL, INT8_REL_RMS = dict(atol=1e-3, rtol=1e-2), 1e-3
+# (label, B, heads, Sq, Sk): K5 at the hot self shape and a ragged text shape
+K5_CASES = [("self 64x64", 4, 5, 4096, 4096), ("text 64x64", 4, 5, 4096, 77)]
+
+
+def _snr_db(got, want) -> float:
+    want = want.float()
+    return 10 * math.log10(want.pow(2).mean().item() / (got.float() - want).pow(2).mean().item())
+
+
+def _check_out(out, lse, ref_out, ref_lse, what, tol=ATTN_TOL, rel_rms_max=ATTN_REL_RMS):
+    """K1's tolerance (or the one given) on out, lse's, and the bound on the
+    relative RMS error of out; returns (max abs err, relative RMS error)."""
+    err = max(_max_err(out, ref_out, tol, f"{what} out"),
+              _max_err(lse, ref_lse, LSE_TOL, f"{what} lse"))
+    ref_rms = ref_out.float().pow(2).mean().sqrt().item()
+    rel_rms = (out.float() - ref_out.float()).pow(2).mean().sqrt().item() / ref_rms
+    if not rel_rms <= rel_rms_max:
+        raise AssertionError(f"{what} out: relative RMS error {rel_rms:.3g} > {rel_rms_max}")
+    return err, rel_rms
+
+
+def phase_int8_kernels():
+    """K6 against its plain version at the int8 sites of the main path, and
+    Int8FlashAttention forward and backward at the 768² train shape."""
+    import torch
+
+    from mvd_tpu_torch.kernels import (
+        attention_packed_int8_plain,
+        attention_packed_plain,
+        flash_attention_packed_fwd,
+        flash_attention_packed_int8,
+        flash_attention_packed_int8_fwd,
+    )
+    from mvd_tpu_torch.kernels.flash_attention import int8_operands, launch_int8
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    results = []
+    print(f"[kernels] K6 tolerance out {INT8_TOL} and relative RMS error <= {INT8_REL_RMS}, lse "
+          f"{LSE_TOL}, against its plain version; int8 against exact >= {INT8_MIN_DB} dB")
+    for label, B, Sq, Sk, H in INT8_CASES:
+        D, HD = 64, H * 64
+        q, k, v = randn(B, Sq, HD), randn(B, Sk, HD), randn(B, Sk, HD)
+        out, lse = flash_attention_packed_int8_fwd(q, k, v, H)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = attention_packed_int8_plain(q, k, v, H)
+        err, rel_rms = _check_out(out, lse, ref_out, ref_lse, f"K6 {label}", INT8_TOL, INT8_REL_RMS)
+        db = _snr_db(out, attention_packed_plain(q, k, v, H)[0])
+        if not db >= INT8_MIN_DB:
+            raise AssertionError(f"K6 {label}: int8 against exact {db:.2f} dB < {INT8_MIN_DB}")
+        iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
+        ops = int8_operands(q, k, v, H)
+        ms = time_ms(lambda: launch_int8(ops, H), iters)
+        wrapper_ms = time_ms(lambda: flash_attention_packed_int8_fwd(q, k, v, H), iters)
+        k1_ms = time_ms(lambda: flash_attention_packed_fwd(q, k, v, H), iters)
+        plain_ms = time_ms(lambda: attention_packed_int8_plain(q, k, v, H), max(2, iters // 4), 1)
+        int_ops = 4.0 * B * H * Sq * Sk * D
+        # the kernel's inputs (int8 q, k, v; f32 scales) and outputs (bf16 out, f32 lse)
+        nbytes = B * Sq * HD + 2.0 * B * Sk * HD + 4.0 * (B * Sq * H + B * H + B * HD) \
+            + 2.0 * B * Sq * HD + 4.0 * B * Sq * H
+        t_ops, t_bytes = int_ops / INT8_TENSOR_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        results.append(dict(
+            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            wrapper_ms=wrapper_ms, k1_ms=k1_ms, int8_vs_exact_db=db, rel_rms=rel_rms,
+            exponentials=float(B * H * Sq * Sk),
+        ))
+        print(f"[kernels] K6 {label}: err {err:.3g} rel RMS err {rel_rms:.3g}, int8 vs exact "
+              f"{db:.2f} dB; kernel {ms:.4f} ms, with the PyTorch quantizers {wrapper_ms:.4f} ms, "
+              f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({B * H * Sq * Sk:.3g} exponentials)")
+        del q, k, v, out, lse, ref_out, ref_lse, ops
+
+    label, B, Sq, Sk, H = INT8_TRAIN_CASE
+    HD = H * 64
+    q, k, v, do = randn(B, Sq, HD), randn(B, Sk, HD), randn(B, Sk, HD), randn(B, Sq, HD)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_packed_int8(*leaves, H)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    rows = [attention_packed_int8_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], H) for b in range(B)]
+    ref_out, ref_lse = (torch.cat(parts) for parts in zip(*rows))
+    lse = flash_attention_packed_int8_fwd(q, k, v, H)[1]
+    err, rel_rms = _check_out(out.detach(), lse, ref_out, ref_lse, f"Int8FlashAttention {label}",
+                              INT8_TOL, INT8_REL_RMS)
+    want = _plain_bwd_by_row(q, k, v, ref_out, ref_lse, do, H)
+    checks = {n: _check_grad(g, w, f"Int8FlashAttention {label} {n}")
+              for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    del got, want, rows
+    ms = time_ms(lambda: flash_attention_packed_int8_fwd(q, k, v, H), 3)
+    step_ms = time_ms(lambda: torch.autograd.grad(flash_attention_packed_int8(*leaves, H), leaves, do), 3)
+    print(f"[kernels] Int8FlashAttention {label}: out err {err:.3g} rel RMS err {rel_rms:.3g}; "
+          + ", ".join(f"{n} rel RMS err {r:.3g}" for n, (_, _, r) in checks.items())
+          + f"; K6 with quantizers {ms:.4f} ms, forward + backward {step_ms:.4f} ms")
+    del q, k, v, do, leaves, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return {"flash_attn_int8": results}
+
+
+def phase_k5():
+    """K5 and the (B, H, S, D) backward against their plain versions,
+    timed beside scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.kernels import attention_plain, flash_attention_fwd
+    from mvd_tpu_torch.kernels.flash_attention import (
+        _delta,
+        flash_attention_packed_bwd,
+        flash_attention_packed_bwd_dkv,
+        flash_attention_packed_bwd_dq,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    results = []
+    for label, B, H, Sq, Sk in K5_CASES:
+        D = 64
+        q, k, v, do = randn(B, H, Sq, D), randn(B, H, Sk, D), randn(B, H, Sk, D), randn(B, H, Sq, D)
+        out, lse = flash_attention_fwd(q, k, v)
+        got = flash_attention_packed_bwd(q, k, v, out, lse, do, H, layout="bhsd")
+        torch.cuda.synchronize()
+        ref_out, ref_lse = attention_plain(q, k, v)
+        err, rel_rms = _check_out(out, lse, ref_out, ref_lse, f"K5 {label}")
+        want = _plain_bwd_by_row(q, k, v, out, lse, do, H, layout="bhsd")
+        checks = {n: _check_grad(g, w, f"K5 {label} {n}")
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        del got, want
+        iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v), iters)
+        plain_ms = time_ms(lambda: attention_plain(q, k, v), max(2, iters // 4), 1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+        delta = _delta(out, do, H, "bhsd")
+        bwd_ms = time_ms(lambda: (flash_attention_packed_bwd_dq(q, k, v, do, lse, delta, H, layout="bhsd"),
+                                  flash_attention_packed_bwd_dkv(q, k, v, do, lse, delta, H, layout="bhsd")), iters)
+        leaf = q.detach().requires_grad_(), k.detach().requires_grad_(), v.detach().requires_grad_()
+        o_lib = F.scaled_dot_product_attention(*leaf)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o_lib, leaf, do, retain_graph=True), iters)
+        flops = 4.0 * B * H * Sq * Sk * D
+        nbytes = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 4.0 * B * Sq * H
+        t_ops, t_bytes = flops / BF16_TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        results.append(dict(
+            case=label, max_abs_err=max([err] + [c[0] for c in checks.values()]), ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes", rel_rms=rel_rms,
+            bwd_ms=bwd_ms, library_bwd_ms=lib_bwd_ms,
+        ))
+        print(f"[kernels] K5 {label}: err {err:.3g} rel RMS err {rel_rms:.3g}, backward "
+              + ", ".join(f"{n} rel RMS err {r:.3g}" for n, (_, _, r) in checks.items())
+              + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
+              f"{max(t_ops, t_bytes):.4f} ms; K3a + K3b on (B, H, S, D) {bwd_ms:.4f} ms, "
+              f"sdpa backward {lib_bwd_ms:.4f} ms")
+        del q, k, v, do, out, lse, ref_out, ref_lse, leaf, o_lib, delta
+    torch.cuda.empty_cache()
+    return {"flash_attn_fwd_bhsd": results}
+
+
 def expected_launches(pipe, steps: int):
     """Launch counts the model structure implies for one generation with
     guidance 1.0 and image conditioning: attention sites per transformer
@@ -233,10 +412,36 @@ def expected_launches(pipe, steps: int):
     vae_gn = sum(isinstance(m, GroupNorm) for m in vae.modules())
     return {
         "flash_attn_fwd": blocks * 2 + blocks * 4 * steps,
+        "flash_attn_fwd_bhsd": 0,
         "flash_attn_bwd_dq": 0,
         "flash_attn_bwd_dkv": 0,
+        "flash_attn_int8": 0,
         "groupnorm_silu": unet_gn * (steps + 1) + vae_gn,
     }
+
+
+def expected_int8_launches(pipe, steps: int):
+    """As ``expected_launches`` with ``attention_impl="int8"``: each
+    attention site of a transformer block at latent side s (s² tokens; text
+    K/V 77 tokens; the adapters' K/V come from the same level) runs K6 where
+    ``int8_site`` says the JAX package quantizes on a TPU, K1 elsewhere."""
+    from mvd_tpu_torch.kernels import int8_site
+    from mvd_tpu_torch.nn.layers import BasicTransformerBlock
+
+    unet = pipe.model["mvd"].unet
+    last = len(pipe.config.unet.block_out_channels) - 1
+    n_int8 = n_exact = 0
+    for name, m in unet.named_modules():
+        if not isinstance(m, BasicTransformerBlock):
+            continue
+        kind, index = name.split("_")[:2]  # down_<i>_attn_<j>, mid_attn_0, up_<i>_attn_<j>
+        level = int(index) if kind == "down" else last - int(index) if kind == "up" else last
+        S = (RES // 8 >> level) ** 2
+        sites = [(S, S), (S, 77)] + steps * [(S, S), (S, 77), (S, S), (S, S)]
+        quantized = sum(int8_site(sq, sk) for sq, sk in sites)
+        n_int8 += quantized
+        n_exact += len(sites) - quantized
+    return {**expected_launches(pipe, steps), "flash_attn_fwd": n_exact, "flash_attn_int8": n_int8}
 
 
 def main_path_call():
@@ -287,7 +492,7 @@ def phase_main_path():
     pipe.compute_model  # cast once, outside the counted run
     reset_counts()
     t0 = time.perf_counter()
-    images = pipe(prompts, seed=0, **kwargs)["images"]
+    images = first_images = pipe(prompts, seed=0, **kwargs)["images"]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches, plain = read_counts()
@@ -311,7 +516,60 @@ def phase_main_path():
     print(f"[main] second call {dt:.3f} s per {VIEWS}-view batch = {VIEWS / dt:.4f} img/s, "
           f"peak memory {peak:.2f} GiB")
     metrics = dict(sec_per_batch=dt, img_per_s=VIEWS / dt, peak_gib=peak, first_call_s=first_s)
-    return launches, metrics, (pipe, prompts, kwargs)
+    return launches, metrics, (pipe, prompts, kwargs), first_images
+
+
+def phase_int8_main_path(call, bf16_images):
+    """The main path with ``attention_impl="int8"``, on phase 3's weights."""
+    import torch
+
+    from mvd_tpu_torch.pipeline import MVDPipeline
+    from mvd_tpu_torch.pipeline.pipeline import build_model
+
+    pipe, prompts, kwargs = call
+    cfg = dataclasses.replace(
+        pipe.config, unet=dataclasses.replace(pipe.config.unet, attention_impl="int8"))
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = build_model(cfg)
+    model.load_state_dict(pipe.model.state_dict())
+    pipe8 = MVDPipeline(cfg, model, "cuda", pipe.tokenizer)
+    pipe8.compute_model  # cast once, outside the counted run
+    torch.cuda.synchronize()
+    print(f"[int8] built the int8 pipeline from phase 3's weights in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t0 = time.perf_counter()
+    images = pipe8(prompts, seed=0, **kwargs)["images"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, plain = read_counts()
+    want = expected_int8_launches(pipe8, STEPS)
+    print(f"[int8] first call {first_s:.2f} s; launches {launches} (expected {want}); plain calls {plain}")
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"kernel launches {launches} != expected {want}, or plain calls {plain}")
+    if tuple(images.shape) != (VIEWS, RES, RES, 3):
+        raise AssertionError(f"int8 images shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
+        raise AssertionError("int8 images not finite or outside [0, 1]")
+    mse = (images.float() - bf16_images.float()).pow(2).mean().item()
+    psnr = 10 * math.log10(1.0 / mse) if mse > 0 else math.inf
+    print(f"[int8] images {tuple(images.shape)} in [{images.min().item():.4f}, "
+          f"{images.max().item():.4f}], mean {images.mean().item():.4f}; PSNR against phase 3's "
+          f"images (same weights and noise) {psnr:.2f} dB")
+    # later calls of both pipelines in turns, so that host noise shows as spread
+    turns = {"bf16": [], "int8": []}
+    for which in ("bf16", "int8", "int8", "bf16"):
+        t0 = time.perf_counter()
+        (pipe if which == "bf16" else pipe8)(prompts, seed=1, **kwargs)
+        torch.cuda.synchronize()
+        turns[which].append(time.perf_counter() - t0)
+    dt = sum(turns["int8"]) / 2
+    print(f"[int8] later calls in turns (bf16, int8, int8, bf16): bf16 "
+          f"{turns['bf16'][0]:.3f} / {turns['bf16'][1]:.3f} s, int8 {turns['int8'][0]:.3f} / "
+          f"{turns['int8'][1]:.3f} s per {VIEWS}-view batch; int8 {VIEWS / dt:.4f} img/s")
+    metrics = dict(sec_per_batch=dt, img_per_s=VIEWS / dt, first_call_s=first_s,
+                   psnr_vs_bf16_db=psnr, turns_s=turns)
+    return launches, metrics, (pipe8, prompts, kwargs)
 
 
 # (label, B, Sq, Sk, heads): every attention shape of the 768² train step,
@@ -353,7 +611,7 @@ def _check_grad(got, want, what):
     return err.max().item(), rms, rel_rms
 
 
-def _plain_bwd_by_row(q, k, v, out, lse, do, heads):
+def _plain_bwd_by_row(q, k, v, out, lse, do, heads, layout="packed"):
     """The plain backward one batch row at a time (the f32 score matrices of
     a whole 96² batch would not fit beside the model)."""
     import torch
@@ -361,7 +619,7 @@ def _plain_bwd_by_row(q, k, v, out, lse, do, heads):
     from mvd_tpu_torch.kernels import attention_packed_bwd_plain
 
     rows = [attention_packed_bwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
-                                       lse[b:b + 1], do[b:b + 1], heads)
+                                       lse[b:b + 1], do[b:b + 1], heads, layout=layout)
             for b in range(q.shape[0])]
     return tuple(torch.cat(parts) for parts in zip(*rows))
 
@@ -453,8 +711,10 @@ def expected_train_launches(model):
     enc_gn = sum(isinstance(m, GroupNorm) for m in model["vae"].encoder.modules())
     return {
         "flash_attn_fwd": blocks * 2 + blocks * 4,
+        "flash_attn_fwd_bhsd": 0,
         "flash_attn_bwd_dq": blocks * 4,
         "flash_attn_bwd_dkv": blocks * 3,
+        "flash_attn_int8": 0,
         "groupnorm_silu": unet_gn * 2 + enc_gn * 2,
     }
 
@@ -556,7 +816,9 @@ def phase_train():
 
 # device-kernel name fragments of each port kernel in a torch.profiler trace
 TRACE_GROUPS = {
-    "K1 flash_fwd_packed": ("flash_fwd_packed",),
+    "K1 flash_fwd (packed)": ("flash_fwd_kernel<64, false>",),
+    "K5 flash_fwd (B, H, S, D)": ("flash_fwd_kernel<64, true>",),
+    "K6 flash_fwd_int8": ("flash_fwd_int8",),
     "K3a flash_bwd_dq": ("flash_bwd_dq",),
     "K3b flash_bwd_dkv": ("flash_bwd_dkv",),
     "K2 gn_*": ("gn_stats", "gn_apply"),
@@ -619,6 +881,16 @@ KERNEL_META = {
         source="mvd_tpu_torch/csrc/groupnorm_silu.cu",
         replaces="mvd_tpu/kernels/groupnorm_silu.py:77", primary="unet 64x64x320 silu",
     ),
+    "flash_attn_int8": dict(
+        name="K6 int8 packed flash-attention forward", route="cuda",
+        source="mvd_tpu_torch/csrc/flash_attn_int8.cu",
+        replaces="mvd_tpu/kernels/flash_attention.py:354", primary="self 64x64",
+    ),
+    "flash_attn_fwd_bhsd": dict(
+        name="K5 (B, H, S, D) flash-attention forward", route="cuda",
+        source="mvd_tpu_torch/csrc/flash_attn_fwd.cu",
+        replaces="mvd_tpu/kernels/flash_attention.py:69", primary="self 64x64",
+    ),
 }
 
 
@@ -649,13 +921,20 @@ def main(argv=None) -> int:
 
     phase_build()
     results = phase_kernels()
-    launches, main_metrics, call = phase_main_path()
+    results.update(phase_int8_kernels())
+    results.update(phase_k5())
+    launches, main_metrics, call, images = phase_main_path()
     traces = {}
     if args.trace:
         pipe, prompts, kwargs = call
         traces = trace_run(lambda: pipe(prompts, seed=2, **kwargs), "generation")
         del pipe
-    del call  # free the generation pipeline before the train phase
+    int8_launches, int8_metrics, int8_call = phase_int8_main_path(call, images)
+    if args.trace:
+        pipe, prompts, kwargs = int8_call
+        traces["int8_generation"] = trace_run(lambda: pipe(prompts, seed=2, **kwargs), "int8 generation")
+        del pipe
+    del call, int8_call, images  # free the generation pipelines before the train phase
     torch.cuda.empty_cache()
     results.update(phase_train_kernels())
     train_launches, train_metrics, train_call = phase_train()
@@ -671,19 +950,23 @@ def main(argv=None) -> int:
         cases = results[key]
         prim = next(c for c in cases if c["case"] == meta["primary"])
         # each kernel's launches are those of the path it serves: generation
-        # for K1/K2 (their train-step launches beside them), the train steps
-        # for K3a/K3b
+        # for K1/K2 (their int8-generation and train-step launches beside
+        # them), the int8 generation for K6, the train steps for K3a/K3b; K5
+        # is an entry point no model path calls
         on_train = key.startswith("flash_attn_bwd")
+        path_launches = int8_launches if key == "flash_attn_int8" else launches
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
-            launches=train_launches[key] if on_train else launches[key],
+            launches=train_launches[key] if on_train else path_launches[key],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=prim["ms"], plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
             bound_by=prim["bound_by"], library_ms=prim["library_ms"],
-            shape=meta["primary"], train_launches=train_launches[key], cases=cases,
+            shape=meta["primary"], train_launches=train_launches[key],
+            int8_generation_launches=int8_launches[key], cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
+    print(f"[int8] {json.dumps(int8_metrics)}")
     print(f"[train] {json.dumps(train_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,7 @@ camera encoder and noise-schedule settings, the ``TINY_*`` variants the
 tests use, and the loss, optimizer and train settings that the train step
 reads. Field names and defaults are the JAX package's, so a config built
 for one side describes the same model on the other. Fields of paths the
-port does not run yet (remat, attention_impl, joint multi-view attention,
+port does not run yet (remat, joint multi-view attention,
 ray-map conditioning, samplers other than DDPM, gradient accumulation,
 checkpointing, validation and logging intervals, the mesh) are left out
 until they are ported; so are the loop's batch, image size, view count and
@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Tuple
+
+from .kernels.flash_attention import check_impl
 
 
 @dataclass(frozen=True)
@@ -47,8 +49,16 @@ class UNetConfig:
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     transformer_layers_per_block: int = 1
+    # auto | pallas | xla: exact attention (K1 at every site on the card);
+    # int8: the sites the JAX package quantizes on the TPU run K6
+    # (kernels/flash_attention.py:int8_site), the others K1. The JAX
+    # package's CPU-interpret choices raise here.
+    attention_impl: str = "auto"
     with_adapters: bool = True  # image cross-attention adapters in every attn
     img_ref_scale: float = 0.3  # adapter output scale
+
+    def __post_init__(self):
+        check_impl(self.attention_impl)
 
 
 TINY_UNET = UNetConfig(

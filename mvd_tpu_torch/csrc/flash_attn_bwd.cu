@@ -1,5 +1,8 @@
-// K3a / K3b: packed flash-attention backward for Hopper (sm_90a), bf16 in,
-// bf16 out, f32 log-sum-exp and delta.
+// K3a / K3b: flash-attention backward for Hopper (sm_90a), bf16 in, bf16
+// out, f32 log-sum-exp and delta, on the packed (B, S, H*D) layout of K1 or
+// the (B, H, S, D) layout of K5 (a compile-time choice, as in
+// flash_attn_fwd.cu: the layout changes only where a head's rows start and
+// their stride).
 //
 // Replace the TPU kernels mvd_tpu/kernels/flash_attention.py:_bwd_dq_kernel
 // (K3a) and :_bwd_dkv_kernel (K3b), launched from _flash_bwd. Same math,
@@ -12,7 +15,8 @@
 // Design:
 //  * the packed (B, S, H*D) layout is read directly: a CTA reads its head's D
 //    columns out of the packed rows (row stride H*D), so the JAX VJP's head
-//    transposes are gone;
+//    transposes are gone; (B, H, S, D), the JAX _flash_bwd's own layout, is
+//    read with row stride D;
 //  * K3a: one CTA per (q-tile of 64 rows, head, batch), four warps of 16 query
 //    rows. Q and dO stay in registers as mma A-fragments; K/V tiles of 64
 //    keys are staged in shared memory; S = Q K^T and dP = dO V^T run on the
@@ -70,6 +74,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// Where (batch b, head h, row 0) of a tensor with S rows per head starts,
+// its row stride, and where (b, h, row) sits in lse and delta.
+template <bool BHSD>
+struct Layout {
+  static __device__ __forceinline__ size_t base(int b, int h, int S, int heads, int D) {
+    return BHSD ? ((size_t)b * heads + h) * S * D : (size_t)b * S * heads * D + (size_t)h * D;
+  }
+  static __device__ __forceinline__ int ld(int heads, int D) { return BHSD ? D : heads * D; }
+  static __device__ __forceinline__ size_t stat(int b, int h, int row, int S, int heads) {
+    return BHSD ? ((size_t)b * heads + h) * S + row : ((size_t)b * S + row) * heads + h;
+  }
+};
 
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), as in K1:
 //   A: a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..), a2 (row g, k 2t+8..),
@@ -175,7 +192,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&ac
   }
 }
 
-template <int D>
+template <int D, bool BHSD>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -186,24 +203,25 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   __shared__ __align__(16) __nv_bfloat16 k_s[BK * LD];
   __shared__ __align__(16) __nv_bfloat16 v_s[BK * LD];
 
+  using L = Layout<BHSD>;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int HD = heads * D;
+  const int ld = L::ld(heads, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * BQ + warp * 16 + g;  // query rows r0 and r0 + 8
 
-  const size_t q_off = (size_t)b * Sq * HD + h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Sk * HD + h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Sk * HD + h * D;
+  const size_t q_off = L::base(b, h, Sq, heads, D);
+  const __nv_bfloat16* kb = k + L::base(b, h, Sk, heads, D);
+  const __nv_bfloat16* vb = v + L::base(b, h, Sk, heads, D);
 
   uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a_frags<D>(qf, q + q_off, r0, Sq, HD, t);
-  load_a_frags<D>(dof, dout + q_off, r0, Sq, HD, t);
+  load_a_frags<D>(qf, q + q_off, r0, Sq, ld, t);
+  load_a_frags<D>(dof, dout + q_off, r0, Sq, ld, t);
   float lse2[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + r * 8;
-    const size_t i = ((size_t)b * Sq + row) * heads + h;
+    const size_t i = L::stat(b, h, row, Sq, heads);
     lse2[r] = row < Sq ? lse[i] * LOG2E : INFINITY;  // +inf: P = 0
     dlt[r] = row < Sq ? delta[i] : 0.f;
   }
@@ -214,7 +232,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   for (int kv0 = 0; kv0 < Sk; kv0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    stage_pair<D>(k_s, v_s, kb, vb, kv0, Sk, HD);
+    stage_pair<D>(k_s, v_s, kb, vb, kv0, Sk, ld);
     __syncthreads();
 
     float s[8][4], dp[8][4];
@@ -236,10 +254,10 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     }
     mma_acc<D>(acc, s, k_s, g, t);  // dq += dS K
   }
-  store_rows<D>(dq + q_off, acc, r0, Sq, HD, scale, t);
+  store_rows<D>(dq + q_off, acc, r0, Sq, ld, scale, t);
 }
 
-template <int D>
+template <int D, bool BHSD>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -252,19 +270,20 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   __shared__ float lse_s[BQ];
   __shared__ float dlt_s[BQ];
 
+  using L = Layout<BHSD>;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int HD = heads * D;
+  const int ld = L::ld(heads, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * BK + warp * 16 + g;  // key rows r0 and r0 + 8
 
-  const size_t k_off = (size_t)b * Sk * HD + h * D;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * HD + h * D;
-  const __nv_bfloat16* dob = dout + (size_t)b * Sq * HD + h * D;
+  const size_t k_off = L::base(b, h, Sk, heads, D);
+  const __nv_bfloat16* qb = q + L::base(b, h, Sq, heads, D);
+  const __nv_bfloat16* dob = dout + L::base(b, h, Sq, heads, D);
 
   uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D>(kf, k + k_off, r0, Sk, HD, t);
-  load_a_frags<D>(vf, v + k_off, r0, Sk, HD, t);
+  load_a_frags<D>(kf, k + k_off, r0, Sk, ld, t);
+  load_a_frags<D>(vf, v + k_off, r0, Sk, ld, t);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -275,10 +294,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   for (int q0 = 0; q0 < Sq; q0 += BQ) {
     __syncthreads();  // the previous tile is consumed
-    stage_pair<D>(q_s, do_s, qb, dob, q0, Sq, HD);
+    stage_pair<D>(q_s, do_s, qb, dob, q0, Sq, ld);
     for (int r = threadIdx.x; r < BQ; r += NWARPS * 32) {
       const int row = q0 + r;
-      const size_t i = ((size_t)b * Sq + row) * heads + h;
+      const size_t i = L::stat(b, h, row, Sq, heads);
       lse_s[r] = row < Sq ? lse[i] * LOG2E : INFINITY;  // +inf: P = 0
       dlt_s[r] = row < Sq ? delta[i] : 0.f;
     }
@@ -305,8 +324,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     mma_acc<D>(dv_acc, st, do_s, g, t);  // dv += P^T dO
     mma_acc<D>(dk_acc, dpt, q_s, g, t);  // dk += dS^T Q
   }
-  store_rows<D>(dk + k_off, dk_acc, r0, Sk, HD, scale, t);
-  store_rows<D>(dv + k_off, dv_acc, r0, Sk, HD, 1.f, t);
+  store_rows<D>(dk + k_off, dk_acc, r0, Sk, ld, scale, t);
+  store_rows<D>(dv + k_off, dv_acc, r0, Sk, ld, 1.f, t);
 }
 
 bool bad_args(int B, int Sq, int Sk, int heads, int head_dim) {
@@ -314,18 +333,13 @@ bool bad_args(int B, int Sq, int Sk, int heads, int head_dim) {
          heads > 65535;
 }
 
-}  // namespace
-
-// q, dout: (B, Sq, heads*head_dim); k, v: (B, Sk, heads*head_dim); all bf16,
-// contiguous, 16-byte aligned. lse and delta: (B, Sq, heads) f32. dq: like q.
-// Returns cudaGetLastError() after the launch on `stream`.
-extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse, const void* delta,
-                                      void* dq, int B, int Sq, int Sk, int heads,
-                                      int head_dim, float scale, void* stream) {
+template <bool BHSD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int Sq, int Sk, int heads, int head_dim,
+              float scale, void* stream) {
   if (bad_args(B, Sq, Sk, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sq + BQ - 1) / BQ, heads, B);
-  flash_bwd_dq_kernel<64><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_kernel<64, BHSD><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -333,18 +347,61 @@ extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// As above; dk and dv: like k.
-extern "C" int flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                       const void* dout, const void* lse, const void* delta,
-                                       void* dk, void* dv, int B, int Sq, int Sk, int heads,
-                                       int head_dim, float scale, void* stream) {
+template <bool BHSD>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int heads,
+               int head_dim, float scale, void* stream) {
   if (bad_args(B, Sq, Sk, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sk + BK - 1) / BK, heads, B);
-  flash_bwd_dkv_kernel<64><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dkv_kernel<64, BHSD><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sk, heads, scale,
       scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Packed (K1's layout). q, dout: (B, Sq, heads*head_dim); k, v: (B, Sk,
+// heads*head_dim); all bf16, contiguous, 16-byte aligned. lse and delta:
+// (B, Sq, heads) f32. dq: like q. Returns cudaGetLastError() after the launch
+// on `stream`.
+extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dq, int B, int Sq, int Sk, int heads,
+                                      int head_dim, float scale, void* stream) {
+  return launch_dq<false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, heads, head_dim, scale,
+                          stream);
+}
+
+// As above; dk and dv: like k.
+extern "C" int flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int Sq, int Sk, int heads,
+                                       int head_dim, float scale, void* stream) {
+  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, heads, head_dim,
+                           scale, stream);
+}
+
+// (B, H, S, D) (K5's layout). q, dout: (B, heads, Sq, head_dim); k, v:
+// (B, heads, Sk, head_dim); lse and delta: (B, heads, Sq) f32; otherwise as
+// the packed entries.
+extern "C" int flash_attn_bwd_dq_bhsd_bf16(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dq, int B, int Sq, int Sk,
+                                           int heads, int head_dim, float scale,
+                                           void* stream) {
+  return launch_dq<true>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, heads, head_dim, scale,
+                         stream);
+}
+
+extern "C" int flash_attn_bwd_dkv_bhsd_bf16(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, void* dk, void* dv, int B,
+                                            int Sq, int Sk, int heads, int head_dim,
+                                            float scale, void* stream) {
+  return launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, heads, head_dim,
+                          scale, stream);
 }

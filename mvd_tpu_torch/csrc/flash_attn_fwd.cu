@@ -1,15 +1,22 @@
-// K1: packed flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out,
-// f32 log-sum-exp.
+// K1 and K5: flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out,
+// f32 log-sum-exp. One kernel, two layouts:
 //
-// Replaces the TPU kernel mvd_tpu/kernels/flash_attention.py:_fwd_kernel_packed
-// (called by _flash_fwd_packed). Same function: non-causal multi-head
-// attention on the packed (B, S, H*D) layout, online softmax with f32 state,
-// returns out (B, Sq, H*D) and lse (B, Sq, H).
+//  * K1 replaces the TPU kernel mvd_tpu/kernels/flash_attention.py:
+//    _fwd_kernel_packed (called by _flash_fwd_packed): the packed (B, S, H*D)
+//    layout, out (B, Sq, H*D), lse (B, Sq, H);
+//  * K5 replaces _fwd_kernel_grid (called by _flash_fwd, the kernels
+//    package's public flash_attention): the (B, H, S, D) layout, out
+//    (B, H, Sq, D), lse (B, H, Sq).
+//
+// Same function in both: non-causal multi-head attention, online softmax
+// with f32 state. The layout only changes where a head's rows start and
+// their stride (Layout below), a compile-time choice, so K1's code is the
+// same as with one layout.
 //
 // Design:
 //  * one CTA per (q-tile of 64 rows, head, batch); four warps, 16 query rows
-//    each. A CTA reads its head's D columns straight out of the packed rows
-//    (row stride H*D), so no head transposes are needed;
+//    each. A CTA reads its head's D columns by stride (row stride H*D
+//    packed, D in (B, H, S, D)), so no head transposes are needed;
 //  * K/V tiles of 64 keys are staged in shared memory (rows padded to 72
 //    bf16 so the 4-byte fragment loads hit 32 distinct banks); Q stays in
 //    registers as mma A-fragments for the whole loop;
@@ -62,14 +69,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Where (batch b, head h, row 0) of a tensor with S rows per head starts,
+// its row stride, and where (b, h, row) sits in the log-sum-exp.
+template <bool BHSD>
+struct Layout {
+  static __device__ __forceinline__ size_t base(int b, int h, int S, int heads, int D) {
+    return BHSD ? ((size_t)b * heads + h) * S * D : (size_t)b * S * heads * D + (size_t)h * D;
+  }
+  static __device__ __forceinline__ int ld(int heads, int D) { return BHSD ? D : heads * D; }
+  static __device__ __forceinline__ size_t stat(int b, int h, int row, int S, int heads) {
+    return BHSD ? ((size_t)b * heads + h) * S + row : ((size_t)b * S + row) * heads + h;
+  }
+};
+
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A: a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..), a2 (row g, k 2t+8..),
 //      a3 (row g+8, k 2t+8..);
 //   B: b0 (k 2t..2t+1, col g), b1 (k 2t+8..2t+9, col g);
 //   C: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, cols 2t, 2t+1).
-template <int D>
+template <int D, bool BHSD>
 __global__ void __launch_bounds__(NWARPS * 32)
-flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ q,
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
@@ -81,15 +101,16 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) __nv_bfloat16 k_s[BK * LD];
   __shared__ __align__(16) __nv_bfloat16 v_s[BK * LD];
 
+  using L = Layout<BHSD>;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int HD = heads * D;
+  const int ld = L::ld(heads, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
 
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * HD + h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Sk * HD + h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Sk * HD + h * D;
+  const __nv_bfloat16* qb = q + L::base(b, h, Sq, heads, D);
+  const __nv_bfloat16* kb = k + L::base(b, h, Sk, heads, D);
+  const __nv_bfloat16* vb = v + L::base(b, h, Sk, heads, D);
 
   uint32_t qf[KSTEPS][4];
 #pragma unroll
@@ -99,7 +120,7 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ q,
       const int row = r0 + (i & 1) * 8;
       const int col = kk * 16 + 2 * t + (i >> 1) * 8;
       qf[kk][i] = row < Sq
-          ? *reinterpret_cast<const uint32_t*>(qb + (size_t)row * HD + col)
+          ? *reinterpret_cast<const uint32_t*>(qb + (size_t)row * ld + col)
           : 0u;
     }
   }
@@ -117,8 +138,8 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ q,
       const int row = c / (D / 8), col = (c % (D / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (kv0 + row < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(kv0 + row) * HD + col);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(kv0 + row) * HD + col);
+        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(kv0 + row) * ld + col);
+        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(kv0 + row) * ld + col);
       }
       *reinterpret_cast<uint4*>(k_s + row * LD + col) = kv;
       *reinterpret_cast<uint4*>(v_s + row * LD + col) = vv;
@@ -202,34 +223,49 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = r0 + r * 8;
     if (row >= Sq) continue;
     const float inv = 1.f / l[r];
-    __nv_bfloat16* orow = out + ((size_t)b * Sq + row) * HD + h * D;
+    __nv_bfloat16* orow = out + L::base(b, h, Sq, heads, D) + (size_t)row * ld;
 #pragma unroll
     for (int dt = 0; dt < DTILES; ++dt) {
       *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t) =
           __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
     }
     if (t == 0) {
-      lse[((size_t)b * Sq + row) * heads + h] = m[r] * 0.69314718055994531f + logf(l[r]);
+      lse[L::stat(b, h, row, Sq, heads)] = m[r] * 0.69314718055994531f + logf(l[r]);
     }
   }
 }
 
-}  // namespace
-
-// q: (B, Sq, heads*head_dim), k and v: (B, Sk, heads*head_dim), all bf16 and
-// contiguous with 16-byte aligned rows; out: like q; lse: (B, Sq, heads) f32.
-// Returns cudaGetLastError() after the launch on `stream`.
-extern "C" int flash_attn_fwd_packed_bf16(const void* q, const void* k, const void* v,
-                                          void* out, void* lse, int B, int Sq, int Sk,
-                                          int heads, int head_dim, float scale,
-                                          void* stream) {
-  if (head_dim != 64 || B <= 0 || Sq <= 0 || Sk <= 0 || heads <= 0) {
+template <bool BHSD>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
+           int Sk, int heads, int head_dim, float scale, void* stream) {
+  if (head_dim != 64 || B <= 0 || Sq <= 0 || Sk <= 0 || heads <= 0 || B > 65535 ||
+      heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((Sq + BQ - 1) / BQ, heads, B);
-  flash_fwd_packed_kernel<64><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<64, BHSD><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), Sq, Sk, heads, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1. q: (B, Sq, heads*head_dim), k and v: (B, Sk, heads*head_dim), all bf16
+// and contiguous with 16-byte aligned rows; out: like q; lse: (B, Sq, heads)
+// f32. Returns cudaGetLastError() after the launch on `stream`.
+extern "C" int flash_attn_fwd_packed_bf16(const void* q, const void* k, const void* v,
+                                          void* out, void* lse, int B, int Sq, int Sk,
+                                          int heads, int head_dim, float scale,
+                                          void* stream) {
+  return launch<false>(q, k, v, out, lse, B, Sq, Sk, heads, head_dim, scale, stream);
+}
+
+// K5. q: (B, heads, Sq, head_dim), k and v: (B, heads, Sk, head_dim), all
+// bf16 and contiguous, 16-byte aligned; out: like q; lse: (B, heads, Sq) f32.
+extern "C" int flash_attn_fwd_bhsd_bf16(const void* q, const void* k, const void* v,
+                                        void* out, void* lse, int B, int Sq, int Sk,
+                                        int heads, int head_dim, float scale, void* stream) {
+  return launch<true>(q, k, v, out, lse, B, Sq, Sk, heads, head_dim, scale, stream);
 }

@@ -1,14 +1,36 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version."""
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+The attention entry points mirror the JAX kernels package
+(``mvd_tpu/kernels/__init__.py``: ``attention``, ``flash_attention``,
+``xla_attention``) plus the packed and int8 functions the model calls.
+"""
 
 from .flash_attention import (  # noqa: F401
+    ATTENTION_IMPLS,
     FlashAttention,
+    Int8FlashAttention,
+    attention,
     attention_packed,
     attention_packed_bwd_plain,
+    attention_packed_int8_plain,
     attention_packed_plain,
+    attention_plain,
+    check_impl,
+    flash_attention,
+    flash_attention_fwd,
     flash_attention_packed_bwd,
     flash_attention_packed_bwd_dkv,
     flash_attention_packed_bwd_dq,
     flash_attention_packed_fwd,
+    flash_attention_packed_int8,
+    flash_attention_packed_int8_fwd,
+    int8_site,
+    int8_tiles,
+    quantize_channels,
+    quantize_heads,
+    quantize_rows,
+    smooth_k,
+    xla_attention,
 )
 from .groupnorm_silu import (  # noqa: F401
     GroupNormSiLU,
@@ -20,14 +42,17 @@ from .groupnorm_silu import (  # noqa: F401
 
 # kernel -> the wrapper that launches it and counts its launches
 KERNELS = {
-    "flash_attn_fwd": flash_attention_packed_fwd,
-    "flash_attn_bwd_dq": flash_attention_packed_bwd_dq,
-    "flash_attn_bwd_dkv": flash_attention_packed_bwd_dkv,
-    "groupnorm_silu": groupnorm_silu,
+    "flash_attn_fwd": flash_attention_packed_fwd,  # K1
+    "flash_attn_fwd_bhsd": flash_attention_fwd,  # K5
+    "flash_attn_bwd_dq": flash_attention_packed_bwd_dq,  # K3a, both layouts
+    "flash_attn_bwd_dkv": flash_attention_packed_bwd_dkv,  # K3b, both layouts
+    "flash_attn_int8": flash_attention_packed_int8_fwd,  # K6
+    "groupnorm_silu": groupnorm_silu,  # K2
 }
 # source name under csrc/ -> the kernels it holds
 KERNEL_SOURCES = {
-    "flash_attn_fwd": ("flash_attn_fwd",),
+    "flash_attn_fwd": ("flash_attn_fwd", "flash_attn_fwd_bhsd"),
     "flash_attn_bwd": ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"),
+    "flash_attn_int8": ("flash_attn_int8",),
     "groupnorm_silu": ("groupnorm_silu",),
 }

@@ -172,9 +172,10 @@ class CrossViewAdapter(nn.Module):
     """Image cross-attention adapter: queries from the view's normed hidden
     states, keys/values from the frozen feature pass (or precomputed K/V)."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int):
+    def __init__(self, dim: int, heads: int, head_dim: int, attention_impl: str = "auto"):
         super().__init__()
         self.heads = heads
+        self.attention_impl = attention_impl
         inner = heads * head_dim
         self.to_q_ref = Linear(dim, inner, bias=False)
         self.to_k_ref = Linear(dim, inner, bias=False)
@@ -191,16 +192,18 @@ class CrossViewAdapter(nn.Module):
         else:
             ref = ref.to(hidden.dtype)
             k, v = self.to_k_ref(ref), self.to_v_ref(ref)
-        return self.to_out_ref(attention_packed(q, k, v, self.heads))
+        return self.to_out_ref(attention_packed(q, k, v, self.heads, impl=self.attention_impl))
 
 
 class Attention(nn.Module):
     """Multi-head attention, self (context=None) or cross, on the packed
     layout. Only ``num_views == 1`` is ported."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None):
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None,
+                 attention_impl: str = "auto"):
         super().__init__()
         self.heads = heads
+        self.attention_impl = attention_impl
         inner = heads * head_dim
         ctx = dim if context_dim is None else context_dim
         self.to_q = Linear(dim, inner, bias=False)
@@ -211,7 +214,7 @@ class Attention(nn.Module):
     def forward(self, hidden: torch.Tensor, context: Optional[torch.Tensor] = None):
         ctx = hidden if context is None else context.to(hidden.dtype)
         q, k, v = self.to_q(hidden), self.to_k(ctx), self.to_v(ctx)
-        return self.to_out(attention_packed(q, k, v, self.heads))
+        return self.to_out(attention_packed(q, k, v, self.heads, impl=self.attention_impl))
 
 
 class FeedForward(nn.Module):
@@ -234,17 +237,18 @@ class BasicTransformerBlock(nn.Module):
     adapters, ``ref_scale`` times the adapter output joins the attention
     output before the residual add."""
 
-    def __init__(self, dim, heads, head_dim, context_dim, with_adapters=False, ref_scale=0.3):
+    def __init__(self, dim, heads, head_dim, context_dim, with_adapters=False, ref_scale=0.3,
+                 attention_impl="auto"):
         super().__init__()
         self.with_adapters = with_adapters
         self.ref_scale = ref_scale
         self.norm1 = StreamingLayerNorm(dim)
-        self.attn1 = Attention(dim, heads, head_dim)
+        self.attn1 = Attention(dim, heads, head_dim, attention_impl=attention_impl)
         self.norm2 = StreamingLayerNorm(dim)
-        self.attn2 = Attention(dim, heads, head_dim, context_dim)
+        self.attn2 = Attention(dim, heads, head_dim, context_dim, attention_impl)
         if with_adapters:
-            self.adapter_self = CrossViewAdapter(dim, heads, head_dim)
-            self.adapter_cross = CrossViewAdapter(dim, heads, head_dim)
+            self.adapter_self = CrossViewAdapter(dim, heads, head_dim, attention_impl)
+            self.adapter_cross = CrossViewAdapter(dim, heads, head_dim, attention_impl)
         self.norm3 = StreamingLayerNorm(dim)
         self.ff = FeedForward(dim)
 
@@ -277,7 +281,7 @@ class Transformer2D(nn.Module):
     GroupNorm (eps 1e-6) -> linear proj_in -> blocks -> proj_out -> residual."""
 
     def __init__(self, channels, heads, head_dim, context_dim, num_layers=1,
-                 norm_num_groups=32, with_adapters=False, ref_scale=0.3):
+                 norm_num_groups=32, with_adapters=False, ref_scale=0.3, attention_impl="auto"):
         super().__init__()
         inner = heads * head_dim
         self.num_layers = num_layers
@@ -285,7 +289,7 @@ class Transformer2D(nn.Module):
         self.proj_in = Linear(channels, inner)
         for i in range(num_layers):
             setattr(self, f"transformer_blocks_{i}", BasicTransformerBlock(
-                inner, heads, head_dim, context_dim, with_adapters, ref_scale
+                inner, heads, head_dim, context_dim, with_adapters, ref_scale, attention_impl
             ))
         self.proj_out = Linear(inner, channels)
 

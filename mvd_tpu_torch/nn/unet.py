@@ -56,6 +56,7 @@ class UNet2DCondition(nn.Module):
             return Transformer2D(
                 channels, heads, ch[i_block] // heads, cfg.cross_attention_dim,
                 cfg.transformer_layers_per_block, G, cfg.with_adapters, cfg.img_ref_scale,
+                cfg.attention_impl,
             )
 
         self.time_embedding = TimestepEmbedMLP(ch[0], temb_dim)

@@ -3,7 +3,9 @@
 These tests need an NVIDIA Hopper GPU and ``nvcc``; elsewhere they skip.
 They import nothing of JAX, so they run on a machine that has only torch:
 
-    python -m pytest tests/test_torch_port_cuda.py -m gpu -q
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -m gpu -q
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX.)
 
 ``chip_smoke.py`` holds the kernels to the main path's shapes; these cases
 add the ragged edges the main path never reaches (Sq and Sk that are not
@@ -13,20 +15,29 @@ the output either way (rtol 2e-2, atol 2e-3) and a relative RMS error of at
 most 1e-2 over the whole output; one bf16 rounding of y for K2. K3a/K3b
 round P and dS to bf16 before their products, where the plain version keeps
 f32: rtol 2e-2 with an atol of 5e-2 times the case's RMS gradient, and a
-relative RMS error of at most 1e-2 for each of dq, dk and dv.
+relative RMS error of at most 1e-2 for each of dq, dk and dv. K6 (int8)
+is held to its plain version, which repeats its quantization, at K1's
+tolerance; its straight-through gradients and K5's backward at K3's.
 """
 
 import pytest
 import torch
 
 from mvd_tpu_torch.kernels import (
+    attention,
     attention_packed,
     attention_packed_bwd_plain,
+    attention_packed_int8_plain,
     attention_packed_plain,
+    attention_plain,
+    flash_attention,
+    flash_attention_fwd,
     flash_attention_packed_bwd,
     flash_attention_packed_bwd_dkv,
     flash_attention_packed_bwd_dq,
     flash_attention_packed_fwd,
+    flash_attention_packed_int8,
+    flash_attention_packed_int8_fwd,
     groupnorm_silu,
     groupnorm_silu_diff,
     groupnorm_silu_plain,
@@ -179,3 +190,111 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda):
         flash_attention_packed_bwd_dkv(q, q, q, wide, lse, lse, 2)  # dO not contiguous
     with pytest.raises(ValueError):
         flash_attention_packed_bwd_dq(q, q, q, q, lse[..., :1], lse, 2)  # lse shape
+
+
+def _assert_out_close(out, want, lse, want_lse, what):
+    """K1's tolerance: out atol 2e-3 + rtol 2e-2 and relative RMS error at
+    most 1e-2; lse atol 2e-3 + rtol 1e-4."""
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-3, rtol=2e-2, msg=what)
+    err_rms = (out.float() - want.float()).pow(2).mean().sqrt()
+    assert err_rms <= 1e-2 * want.float().pow(2).mean().sqrt(), what
+    torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=1e-4, msg=what)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,heads,block_k,k_mean",
+    [(4, 4096, 4096, 5, 1024, 0.0), (4, 1024, 1024, 10, 1024, 0.0), (1, 256, 384, 2, 128, 0.7),
+     (2, 128, 2048, 1, 1024, 0.7)],
+)
+def test_int8_kernel_matches_plain(cuda, B, Sq, Sk, heads, block_k, k_mean):
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda")
+    q, v = randn((B, Sq, heads * 64)).bfloat16(), randn((B, Sk, heads * 64)).bfloat16()
+    k = (randn((B, Sk, heads * 64)) + k_mean).bfloat16()
+    launches, plain = flash_attention_packed_int8_fwd.launches, flash_attention_packed_int8_fwd.plain_calls
+    out, lse = flash_attention_packed_int8_fwd(q, k, v, heads, block_k=block_k)
+    torch.cuda.synchronize()
+    assert flash_attention_packed_int8_fwd.launches == launches + 1
+    assert flash_attention_packed_int8_fwd.plain_calls == plain
+    assert out.dtype == torch.bfloat16 and lse.shape == (B, Sq, heads)
+    want_out, want_lse = attention_packed_int8_plain(q, k, v, heads, block_k=block_k)
+    _assert_out_close(out, want_out, lse, want_lse, f"K6 at {(B, Sq, Sk, heads, block_k)}")
+    exact = attention_packed_plain(q, k, v, heads)[0].float()
+    snr = 10 * torch.log10(exact.pow(2).mean() / (out.float() - exact).pow(2).mean())
+    assert snr >= 30, f"int8 vs exact {snr.item():.1f} dB"
+
+
+def test_int8_autograd_matches_plain(cuda):
+    """The straight-through gradient: K3a/K3b at K6's (out, lse)."""
+    B, S, heads = 2, 1024, 2
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v, do = (randn((B, S, heads * 64)) for _ in range(4))
+    out8, lse8 = attention_packed_int8_plain(q, k, v, heads)
+    want = attention_packed_bwd_plain(q, k, v, out8, lse8, do, heads)
+    n = (flash_attention_packed_int8_fwd.launches, flash_attention_packed_bwd_dq.launches,
+         flash_attention_packed_bwd_dkv.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention_packed_int8(*leaves, heads), leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed_int8_fwd.launches, flash_attention_packed_bwd_dq.launches,
+            flash_attention_packed_bwd_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    for name, g, w in zip("dq dk dv".split(), got, want):
+        _assert_grad_close(g, w, f"int8 straight-through {name}")
+
+
+def test_int8_routing_on_the_card(cuda):
+    """impl="int8" runs K6 only where the JAX package quantizes; text sites
+    (Sk = 77) and short sequences run K1."""
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, kv, text = randn((1, 1024, 128)), randn((1, 1024, 128)), randn((1, 77, 128))
+    n8, n1 = flash_attention_packed_int8_fwd.launches, flash_attention_packed_fwd.launches
+    attention_packed(q, kv, kv, 2, impl="int8")
+    attention_packed(q, text, text, 2, impl="int8")
+    attention_packed(q[:, :256], kv[:, :256], kv[:, :256], 2, impl="int8")
+    assert (flash_attention_packed_int8_fwd.launches, flash_attention_packed_fwd.launches) == (
+        n8 + 1, n1 + 2)
+
+
+@pytest.mark.parametrize(
+    "B,heads,Sq,Sk", [(2, 3, 200, 77), (1, 2, 130, 300), (3, 1, 1, 1), (4, 5, 4096, 77)]
+)
+def test_k5_matches_plain(cuda, B, heads, Sq, Sk):
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v, do = randn((B, heads, Sq, 64)), randn((B, heads, Sk, 64)), randn((B, heads, Sk, 64)), randn((B, heads, Sq, 64))
+    n5, n1 = flash_attention_fwd.launches, flash_attention_packed_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_packed_fwd.launches) == (n5 + 1, n1)
+    assert lse.shape == (B, heads, Sq)
+    want_out, want_lse = attention_plain(q, k, v)
+    _assert_out_close(out, want_out, lse, want_lse, f"K5 at {(B, heads, Sq, Sk)}")
+    want = attention_packed_bwd_plain(q, k, v, out, lse, do, heads, layout="bhsd")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_dq, n_dkv = flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches) == (
+        n_dq + 1, n_dkv + 1)
+    for name, g, w, like in zip("dq dk dv".split(), got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == like.shape
+        _assert_grad_close(g, w, f"K5 backward {name} at {(B, heads, Sq, Sk)}")
+    for impl in ("auto", "pallas", "xla"):  # every impl runs K5 on the card
+        torch.testing.assert_close(attention(q, k, v, impl), out, atol=0, rtol=0)
+
+
+def test_k6_and_k5_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 1024, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_packed_int8_fwd(q[:, :200], q, q, 2)  # Sq does not tile
+    with pytest.raises(ValueError):
+        flash_attention_packed_int8_fwd(q, q[:, :77], q[:, :77], 2)  # Sk does not tile
+    with pytest.raises(ValueError):
+        flash_attention_packed_int8_fwd(q, q, q, 4)  # head_dim 32
+    with pytest.raises(TypeError):
+        flash_attention_packed_int8_fwd(q.float(), q.float(), q.float(), 2)  # f32
+    x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(x.float(), x.float(), x.float())
+    with pytest.raises(ValueError):
+        flash_attention_fwd(x[..., :32].contiguous(), x[..., :32].contiguous(), x[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        attention(x, x, x, "pallas_interpret")

@@ -108,9 +108,9 @@ def test_adapter_casts_precomputed_kv_to_compute_dtype(monkeypatch):
     seen = []
     real = tl.attention_packed
 
-    def spy(q, k, v, heads):
+    def spy(q, k, v, heads, **kwargs):
         seen.append((q.dtype, k.dtype, v.dtype))
-        return real(q, k, v, heads)
+        return real(q, k, v, heads, **kwargs)
 
     monkeypatch.setattr(tl, "attention_packed", spy)
     tm = tl.CrossViewAdapter(32, 2, 16).to(torch.bfloat16)
