@@ -57,14 +57,11 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
-INT8_TENSOR_OPS = 1979e12
 STEPS, VIEWS, RES = 20, 4, 512
 TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TOTAL = 6, 768, 3, 100
 
@@ -80,21 +77,6 @@ def card_line() -> str:
         return "unknown, unknown"
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_build() -> float:
     from mvd_tpu_torch.kernels import KERNEL_SOURCES, _build
 
@@ -104,20 +86,16 @@ def phase_build() -> float:
         for line in _build.build_logs.get(name, "").splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    smem = _build.load("flash_attn_fwd").flash_attn_fwd_smem_bytes
+    print(f"[build] flash_attn_fwd: dynamic shared memory per CTA (K1 and K5) {smem(2)} bytes "
+          f"with 2 consumer warpgroups, {smem(3)} with 3")
     print(f"[build] {len(KERNEL_SOURCES)} sources built in {secs:.1f} s")
     return secs
 
 
-# (label, B, Sq, Sk, heads): every K1 site of the 512² main path, D = 64
-ATTN_CASES = [
-    ("self 64x64", 4, 4096, 4096, 5),
-    ("text 64x64", 4, 4096, 77, 5),
-    ("self 32x32", 4, 1024, 1024, 10),
-    ("text 32x32", 4, 1024, 77, 10),
-    ("self 16x16", 4, 256, 256, 20),
-    ("self 8x8 (mid)", 4, 64, 64, 20),
-    ("text 8x8 (mid)", 4, 64, 77, 20),
-]
+# K1/K5 tile edges (128 query rows and 128 keys per tile): one row or key,
+# one short of and one past a tile, one past 32 tiles; every (Sq, Sk) pair
+EDGE_SIZES = (1, 127, 129, 4097)
 # (label, B, H, W, C, silu): UNet and VAE GroupNorm shapes
 GN_CASES = [
     ("unet 64x64x320 silu", 4, 64, 64, 320, True),
@@ -129,26 +107,67 @@ GN_CASES = [
     ("vae 512x512x128 silu", 4, 512, 512, 128, True),
     ("vae 64x64x512 attn", 4, 64, 64, 512, False),
 ]
-# K1 out: one bf16 ulp is at most 2^-7 = 0.0078 of |out|, so rtol 2e-2 covers a
-# rounding step either way; atol 2e-3 is below a tenth of the smallest typical
-# |out| (about 0.026 at Sk = 4096). The relative RMS error over the whole
-# output catches a small error spread over every element (P rounded too
-# coarsely, a wrong rescale) that stays under the elementwise bound.
-ATTN_TOL = dict(atol=2e-3, rtol=2e-2)
-ATTN_REL_RMS = 1e-2
-LSE_TOL = dict(atol=2e-3, rtol=1e-4)
+# K1/K5's tolerances are ATTN_TOL, ATTN_REL_RMS and LSE_TOL in
+# mvd_tpu_torch/kernels/measure.py
 GN_TOL = dict(atol=1e-2, rtol=1e-2)  # one bf16 rounding of y (|y| up to ~5)
 
 
-def _max_err(got, want, tol, what):
+def _attn_bound_fields(bounds, ms):
+    """A K1/K5 case's bound (operations or bytes, whichever is larger), the
+    exponentials' bound beside it, and the kernel's share of each."""
+    t_ops, t_bytes = bounds["ops_ms"], bounds["bytes_ms"]
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops_bound_ms=t_ops, exp_bound_ms=bounds["exp_ms"],
+                ops_bound_share=t_ops / ms, exp_bound_share=bounds["exp_ms"] / ms)
+
+
+def _bound_text(case, clock) -> str:
+    return (f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}); share of the operations "
+            f"bound {case['ops_bound_share']:.3f}, of the exponentials' bound "
+            f"({case['exp_bound_ms']:.4f} ms at {clock / 1e6:.0f} MHz) {case['exp_bound_share']:.3f}")
+
+
+def check_tile_edges(layout: str) -> float:
+    """K1 (``layout="packed"``) or K5 (``"bhsd"``) against its plain version
+    at every (Sq, Sk) of EDGE_SIZES, batch 2, 2 heads, different data per
+    batch; then batch independence: with batch 1's K and V turned to NaN,
+    batch 0's out and lse stay bitwise the same (a tensor map that read
+    past a batch's last row into the next batch would bring the NaN in).
+    Returns the largest absolute error."""
     import torch
 
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    bad = err > tol["atol"] + tol["rtol"] * want.abs()
-    if not torch.isfinite(got).all() or bad.any():
-        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max abs err {err.max().item():.3g}")
-    return err.max().item()
+    from mvd_tpu_torch.kernels import (
+        attention_packed_plain,
+        attention_plain,
+        flash_attention_fwd,
+        flash_attention_packed_fwd,
+    )
+    from mvd_tpu_torch.kernels.measure import check_attention
+
+    B, H, bhsd = 2, 2, layout == "bhsd"
+    name = "K5" if bhsd else "K1"
+    gen = torch.Generator("cuda").manual_seed(4)
+    make = lambda S: torch.randn((B, H, S, 64) if bhsd else (B, S, H * 64), generator=gen,
+                                 device="cuda").bfloat16()
+    kernel = flash_attention_fwd if bhsd else (lambda q, k, v: flash_attention_packed_fwd(q, k, v, H))
+    plain = attention_plain if bhsd else (lambda q, k, v: attention_packed_plain(q, k, v, H))
+    worst = 0.0
+    for Sq in EDGE_SIZES:
+        for Sk in EDGE_SIZES:
+            q, k, v = make(Sq), make(Sk), make(Sk)
+            out, lse = kernel(q, k, v)
+            torch.cuda.synchronize()
+            worst = max(worst, check_attention(out, lse, *plain(q, k, v), f"{name} Sq {Sq} Sk {Sk}")[0])
+    q, k, v = make(4097), make(129), make(129)
+    out, lse = kernel(q, k, v)
+    k[1], v[1] = float("nan"), float("nan")
+    out2, lse2 = kernel(q, k, v)
+    torch.cuda.synchronize()
+    if not (torch.equal(out[0], out2[0]) and torch.equal(lse[0], lse2[0])):
+        raise AssertionError(f"{name}: batch 0's out or lse changed with batch 1's K/V")
+    print(f"[kernels] {name} tile edges: Sq, Sk in {EDGE_SIZES} (B {B}, {H} heads) within "
+          f"tolerance, max abs err {worst:.3g}; batch 0 bitwise unchanged by NaN in batch 1's K/V")
+    return worst
 
 
 def phase_kernels():
@@ -161,7 +180,21 @@ def phase_kernels():
         groupnorm_silu,
         groupnorm_silu_plain,
     )
+    from mvd_tpu_torch.kernels.measure import (
+        ATTN_CASES,
+        ATTN_REL_RMS,
+        ATTN_TOL,
+        F32_FLOPS,
+        HBM_BYTES_PER_S,
+        LSE_TOL,
+        attn_bounds,
+        check_attention,
+        max_err,
+        sm_clock_hz,
+        time_ms,
+    )
 
+    clock = sm_clock_hz()
     gen = torch.Generator("cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     results = {"flash_attn_fwd": [], "groupnorm_silu": []}
@@ -174,29 +207,22 @@ def phase_kernels():
         out, lse = flash_attention_packed_fwd(q, k, v, H)
         torch.cuda.synchronize()
         ref_out, ref_lse = attention_packed_plain(q, k, v, H)
-        err = max(_max_err(out, ref_out, ATTN_TOL, f"K1 {label} out"),
-                  _max_err(lse, ref_lse, LSE_TOL, f"K1 {label} lse"))
-        ref_rms = ref_out.float().pow(2).mean().sqrt().item()
-        rel_rms = (out.float() - ref_out.float()).pow(2).mean().sqrt().item() / ref_rms
-        print(f"[kernels] K1 {label}: typical |out| (RMS) {ref_rms:.4f}, "
-              f"relative RMS error {rel_rms:.3g}")
-        if not rel_rms <= ATTN_REL_RMS:
-            raise AssertionError(f"K1 {label} out: relative RMS error {rel_rms:.3g} > {ATTN_REL_RMS}")
+        err, rel_rms = check_attention(out, lse, ref_out, ref_lse, f"K1 {label}")
+        print(f"[kernels] K1 {label}: typical |out| (RMS) "
+              f"{ref_out.float().pow(2).mean().sqrt().item():.4f}, relative RMS error {rel_rms:.3g}")
         iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
         ms = time_ms(lambda: flash_attention_packed_fwd(q, k, v, H), iters)
         plain_ms = time_ms(lambda: attention_packed_plain(q, k, v, H), max(2, iters // 4), 1)
         split = lambda t, s: t.view(B, s, H, D).transpose(1, 2)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(split(q, Sq), split(k, Sk), split(v, Sk)), iters)
-        flops = 4.0 * B * H * Sq * Sk * D
-        nbytes = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 4.0 * B * Sq * H
-        t_ops, t_bytes = flops / BF16_TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         results["flash_attn_fwd"].append(dict(
             case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            **_attn_bound_fields(attn_bounds(B, Sq, Sk, H, clock), ms),
         ))
         print(f"[kernels] K1 {label}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"sdpa {lib_ms:.4f} ms bound {max(t_ops, t_bytes):.4f} ms")
+              f"sdpa {lib_ms:.4f} ms " + _bound_text(results["flash_attn_fwd"][-1], clock))
         del q, k, v, out, lse, ref_out, ref_lse
+    results["flash_attn_fwd"].append(dict(case="tile edges", max_abs_err=check_tile_edges("packed")))
     for label, B, Hh, W, C, silu in GN_CASES:
         G = 32
         x = (randn(B, Hh, W, C) * 2 + 0.5).bfloat16()
@@ -204,7 +230,7 @@ def phase_kernels():
         eps = 1e-6
         y = groupnorm_silu(x, w, b, G, eps, silu)
         torch.cuda.synchronize()
-        err = _max_err(y, groupnorm_silu_plain(x, w, b, G, eps, silu), GN_TOL, f"K2 {label}")
+        err = max_err(y, groupnorm_silu_plain(x, w, b, G, eps, silu), GN_TOL, f"K2 {label}")
         iters = max(5, min(100, int(4e9 / x.numel())))
         ms = time_ms(lambda: groupnorm_silu(x, w, b, G, eps, silu), iters)
         plain_ms = time_ms(lambda: groupnorm_silu_plain(x, w, b, G, eps, silu), max(2, iters // 4), 1)
@@ -250,18 +276,6 @@ def _snr_db(got, want) -> float:
     return 10 * math.log10(want.pow(2).mean().item() / (got.float() - want).pow(2).mean().item())
 
 
-def _check_out(out, lse, ref_out, ref_lse, what, tol=ATTN_TOL, rel_rms_max=ATTN_REL_RMS):
-    """K1's tolerance (or the one given) on out, lse's, and the bound on the
-    relative RMS error of out; returns (max abs err, relative RMS error)."""
-    err = max(_max_err(out, ref_out, tol, f"{what} out"),
-              _max_err(lse, ref_lse, LSE_TOL, f"{what} lse"))
-    ref_rms = ref_out.float().pow(2).mean().sqrt().item()
-    rel_rms = (out.float() - ref_out.float()).pow(2).mean().sqrt().item() / ref_rms
-    if not rel_rms <= rel_rms_max:
-        raise AssertionError(f"{what} out: relative RMS error {rel_rms:.3g} > {rel_rms_max}")
-    return err, rel_rms
-
-
 def phase_int8_kernels():
     """K6 against its plain version at the int8 sites of the main path, and
     Int8FlashAttention forward and backward at the 768² train shape."""
@@ -275,6 +289,13 @@ def phase_int8_kernels():
         flash_attention_packed_int8_fwd,
     )
     from mvd_tpu_torch.kernels.flash_attention import int8_operands, launch_int8
+    from mvd_tpu_torch.kernels.measure import (
+        HBM_BYTES_PER_S,
+        INT8_TENSOR_OPS,
+        LSE_TOL,
+        check_attention,
+        time_ms,
+    )
 
     gen = torch.Generator("cuda").manual_seed(2)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
@@ -287,7 +308,7 @@ def phase_int8_kernels():
         out, lse = flash_attention_packed_int8_fwd(q, k, v, H)
         torch.cuda.synchronize()
         ref_out, ref_lse = attention_packed_int8_plain(q, k, v, H)
-        err, rel_rms = _check_out(out, lse, ref_out, ref_lse, f"K6 {label}", INT8_TOL, INT8_REL_RMS)
+        err, rel_rms = check_attention(out, lse, ref_out, ref_lse, f"K6 {label}", INT8_TOL, INT8_REL_RMS)
         db = _snr_db(out, attention_packed_plain(q, k, v, H)[0])
         if not db >= INT8_MIN_DB:
             raise AssertionError(f"K6 {label}: int8 against exact {db:.2f} dB < {INT8_MIN_DB}")
@@ -324,7 +345,7 @@ def phase_int8_kernels():
     rows = [attention_packed_int8_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], H) for b in range(B)]
     ref_out, ref_lse = (torch.cat(parts) for parts in zip(*rows))
     lse = flash_attention_packed_int8_fwd(q, k, v, H)[1]
-    err, rel_rms = _check_out(out.detach(), lse, ref_out, ref_lse, f"Int8FlashAttention {label}",
+    err, rel_rms = check_attention(out.detach(), lse, ref_out, ref_lse, f"Int8FlashAttention {label}",
                               INT8_TOL, INT8_REL_RMS)
     want = _plain_bwd_by_row(q, k, v, ref_out, ref_lse, do, H)
     checks = {n: _check_grad(g, w, f"Int8FlashAttention {label} {n}")
@@ -353,7 +374,9 @@ def phase_k5():
         flash_attention_packed_bwd_dkv,
         flash_attention_packed_bwd_dq,
     )
+    from mvd_tpu_torch.kernels.measure import attn_bounds, check_attention, sm_clock_hz, time_ms
 
+    clock = sm_clock_hz()
     gen = torch.Generator("cuda").manual_seed(3)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
     results = []
@@ -364,7 +387,7 @@ def phase_k5():
         got = flash_attention_packed_bwd(q, k, v, out, lse, do, H, layout="bhsd")
         torch.cuda.synchronize()
         ref_out, ref_lse = attention_plain(q, k, v)
-        err, rel_rms = _check_out(out, lse, ref_out, ref_lse, f"K5 {label}")
+        err, rel_rms = check_attention(out, lse, ref_out, ref_lse, f"K5 {label}")
         want = _plain_bwd_by_row(q, k, v, out, lse, do, H, layout="bhsd")
         checks = {n: _check_grad(g, w, f"K5 {label} {n}")
                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -379,21 +402,18 @@ def phase_k5():
         leaf = q.detach().requires_grad_(), k.detach().requires_grad_(), v.detach().requires_grad_()
         o_lib = F.scaled_dot_product_attention(*leaf)
         lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o_lib, leaf, do, retain_graph=True), iters)
-        flops = 4.0 * B * H * Sq * Sk * D
-        nbytes = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 4.0 * B * Sq * H
-        t_ops, t_bytes = flops / BF16_TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         results.append(dict(
             case=label, max_abs_err=max([err] + [c[0] for c in checks.values()]), ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes", rel_rms=rel_rms,
-            bwd_ms=bwd_ms, library_bwd_ms=lib_bwd_ms,
+            plain_ms=plain_ms, library_ms=lib_ms, rel_rms=rel_rms, bwd_ms=bwd_ms,
+            library_bwd_ms=lib_bwd_ms, **_attn_bound_fields(attn_bounds(B, Sq, Sk, H, clock), ms),
         ))
         print(f"[kernels] K5 {label}: err {err:.3g} rel RMS err {rel_rms:.3g}, backward "
               + ", ".join(f"{n} rel RMS err {r:.3g}" for n, (_, _, r) in checks.items())
-              + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
-              f"{max(t_ops, t_bytes):.4f} ms; K3a + K3b on (B, H, S, D) {bwd_ms:.4f} ms, "
-              f"sdpa backward {lib_bwd_ms:.4f} ms")
+              + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+              + _bound_text(results[-1], clock)
+              + f"; K3a + K3b on (B, H, S, D) {bwd_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms")
         del q, k, v, do, out, lse, ref_out, ref_lse, leaf, o_lib, delta
+    results.append(dict(case="tile edges", max_abs_err=check_tile_edges("bhsd")))
     torch.cuda.empty_cache()
     return {"flash_attn_fwd_bhsd": results}
 
@@ -635,6 +655,7 @@ def phase_train_kernels():
         flash_attention_packed_fwd,
     )
     from mvd_tpu_torch.kernels.flash_attention import _delta
+    from mvd_tpu_torch.kernels.measure import BF16_TENSOR_FLOPS, HBM_BYTES_PER_S, time_ms
 
     gen = torch.Generator("cuda").manual_seed(1)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
@@ -814,10 +835,11 @@ def phase_train():
     return launches, metrics, (state, step, batch, gen)
 
 
-# device-kernel name fragments of each port kernel in a torch.profiler trace
+# device-kernel name patterns (regular expressions) of each port kernel in a
+# torch.profiler trace
 TRACE_GROUPS = {
-    "K1 flash_fwd (packed)": ("flash_fwd_kernel<64, false>",),
-    "K5 flash_fwd (B, H, S, D)": ("flash_fwd_kernel<64, true>",),
+    "K1 flash_fwd (packed)": (r"flash_fwd_wgmma<\d+, false>",),
+    "K5 flash_fwd (B, H, S, D)": (r"flash_fwd_wgmma<\d+, true>",),
     "K6 flash_fwd_int8": ("flash_fwd_int8",),
     "K3a flash_bwd_dq": ("flash_bwd_dq",),
     "K3b flash_bwd_dkv": ("flash_bwd_dkv",),
@@ -843,7 +865,7 @@ def trace_run(fn, label: str) -> dict:
     if busy_ms <= 0:
         raise AssertionError(f"the {label} trace holds no device time")
     shares = {
-        g: sum(e.self_device_time_total for e in kernels if any(f in e.key for f in frags)) / 1e3
+        g: sum(e.self_device_time_total for e in kernels if any(re.search(f, e.key) for f in frags)) / 1e3
         for g, frags in TRACE_GROUPS.items()
     }
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]

@@ -1,5 +1,5 @@
 // K1 and K5: flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out,
-// f32 log-sum-exp. One kernel, two layouts:
+// f32 log-sum-exp (natural log). One kernel, two layouts:
 //
 //  * K1 replaces the TPU kernel mvd_tpu/kernels/flash_attention.py:
 //    _fwd_kernel_packed (called by _flash_fwd_packed): the packed (B, S, H*D)
@@ -8,258 +8,426 @@
 //    package's public flash_attention): the (B, H, S, D) layout, out
 //    (B, H, Sq, D), lse (B, H, Sq).
 //
-// Same function in both: non-causal multi-head attention, online softmax
-// with f32 state. The layout only changes where a head's rows start and
-// their stride (Layout below), a compile-time choice, so K1's code is the
-// same as with one layout.
-//
-// Design:
-//  * one CTA per (q-tile of 64 rows, head, batch); four warps, 16 query rows
-//    each. A CTA reads its head's D columns by stride (row stride H*D
-//    packed, D in (B, H, S, D)), so no head transposes are needed;
-//  * K/V tiles of 64 keys are staged in shared memory (rows padded to 72
-//    bf16 so the 4-byte fragment loads hit 32 distinct banks); Q stays in
-//    registers as mma A-fragments for the whole loop;
-//  * S = Q K^T and O += P V run on the tensor cores through
-//    mma.sync.m16n8k16 (bf16 operands, f32 accumulate). The S accumulator
-//    fragment is re-packed in registers as the A-fragment of P, so P never
-//    touches shared memory;
-//  * the online-softmax state (row max m, row sum l, accumulator O) is f32;
-//    the softmax scale is folded with log2(e) into one multiply on S and
-//    exp2 is used throughout;
-//  * the ragged Sq and Sk edges are masked in the kernel: query rows past Sq
-//    load as zero and are not stored, key columns past Sk score -inf and
-//    their V rows stage as zero. The host pads nothing.
+// Same function in both: non-causal multi-head attention, D = 64, online
+// softmax with f32 state. The layout only changes the tensor maps and where
+// a row's output and lse are stored (a compile-time choice).
 //
 // Bound on the H100: at the UNet's self-attention sites (Sq = Sk = 4096,
-// D = 64) the tensor-core operations bound it (4*Sq*Sk*D per head against
-// 989 TFLOP/s bf16); at Sk = 77 the bytes of Q and O do. This first kernel
-// uses mma.sync without TMA, wgmma or warp specialisation, and overlaps the
-// tile loads only through several CTAs per SM.
+// D = 64) the tensor-core operations (4 Sq Sk D per head at 989 TFLOP/s
+// bf16) and the exponentials (Sq Sk per head at 16 per clock per SM) take
+// about as long, so both the matrix products and the softmax have to run
+// near their rates and overlap; at Sk = 77 the bytes of Q and O bound it.
+//
+// Design (warp-specialised, one CTA of NWG + 1 warpgroups per
+// (q-tile of 64 * NWG rows, head, batch), one CTA per SM):
+//  * TMA loads every tile through a 3-D tensor map with the 128-byte swizzle
+//    (one head's row of 64 bf16 is 128 bytes): dims {H*D, S, B} packed,
+//    {D, S, B*H} in (B, H, S, D). Rows past S arrive as zeros from within
+//    the same batch and head, so the ragged edges need no load code;
+//  * the last warpgroup is the producer: one thread loads the CTA's Q tile
+//    once, then K and V tiles of BK = 128 keys into a ring of STAGES stages
+//    in dynamic shared memory, each stage with a full and an empty
+//    mbarrier. It gives its registers to the consumers (setmaxnreg);
+//  * each consumer warpgroup owns 64 query rows. S = Q K^T runs as
+//    wgmma m64n128k16 with Q and K both read from shared memory through
+//    descriptors whose swizzle matches TMA's; the scores stay in registers;
+//  * P = exp2(S c - m c) with c = scale * log2(e): one FFMA and one EX2 per
+//    score; the row max and sum run as 4 partial chains per row; the key
+//    mask runs only on the last tile and only when Sk is not a multiple of
+//    BK;
+//  * P is packed to bf16 in registers and is wgmma's register A operand for
+//    O += P V (m64n64k16): the accumulator layout of the first product is
+//    the A-fragment layout of the second, so P never touches shared memory.
+//    V is the B operand in its stored (keys x D) order, read MN-major
+//    through the descriptor's transpose bit;
+//  * the online-softmax state (row max m, row sum l of the f32 P, and O) is
+//    f32; out = O / l in bf16 and lse = m c ln 2 + ln l are stored straight
+//    from registers, skipping rows past Sq;
+//  * a consumer issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} together and
+//    runs the softmax of S_i while P V is in flight, so a stage is held one
+//    tile longer (hence 3 stages). ptxas still puts its wait for P V ahead
+//    of most of the softmax, so the overlap is partial; it measured about
+//    9% faster at S = 4096 than the loop without it;
+//  * NWG is 2 (BQ = 128) or 3 (BQ = 192), whichever needs fewer waves of
+//    CTAs times rows per CTA on this card's SMs (3 on a tie): 2 at S = 4096,
+//    3 at S = 1024 and 9216. Three warpgroups get 160 registers a thread
+//    (ptxas spills 56 bytes), two 240.
+// Tried on the H100 and not kept, because they did not gain at S = 4096
+// (PERF.md, PR 4): ordering the consumer warpgroups' products with named
+// barriers ("ping-pong"); separate K and V barriers; 2 or 4 stages.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_ptx.cuh"
+
 namespace {
 
-constexpr int BQ = 64;      // query rows per CTA
-constexpr int BK = 64;      // keys per shared-memory tile
-constexpr int NWARPS = BQ / 16;
-constexpr int PAD = 8;      // bf16 of padding per shared-memory row
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
+constexpr int D = 64;
+constexpr int BK = 128;                      // keys per K/V tile
+constexpr int STAGES = 3;                    // K/V ring stages
+constexpr int ROW_BYTES = D * 2;             // one head's row, bf16
+constexpr int KV_TILE_BYTES = BK * ROW_BYTES;
+constexpr float LN2 = 0.69314718055994531f;
+
+// registers per thread of the producer and of each consumer warpgroup, all
+// 65,536 of the SM between them (one CTA per SM)
+__host__ __device__ constexpr int producer_regs(int nwg) { return nwg == 2 ? 24 : 32; }
+__host__ __device__ constexpr int consumer_regs(int nwg) { return nwg == 2 ? 240 : 160; }
+
+constexpr int MAX_DEVICES = 64;  // devices whose launch settings are cached
+
+template <int NWG>
+constexpr int smem_bytes() {  // 1024 of alignment slack, Q, K and V rings, barriers
+  return 1024 + 64 * NWG * ROW_BYTES + 2 * STAGES * KV_TILE_BYTES + 8 * (2 * STAGES + 1);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// S = Q K^T for one 64-row slab of Q against a K tile of BK keys: D / 16
+// k-steps, each 32 bytes further into the swizzled rows; committed as one
+// wgmma group.
+__device__ __forceinline__ void issue_scores(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
+  wgmma_m64n128k16_ss<false>(s, q_desc, k_desc);
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) wgmma_m64n128k16_ss<true>(s, q_desc + 2 * kk, k_desc + 2 * kk);
+  wgmma_commit();
 }
 
-// D(16x8, f32) += A(16x16, bf16, row-major) * B(16x8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// O += P V for a V tile of BK keys: BK / 16 k-steps of 16 rows of 128
+// bytes; committed as one wgmma group.
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[BK / 16][4],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n64k16_rs(o, p[kk], v_desc + kk * (16 * ROW_BYTES >> 4));
+  wgmma_commit();
 }
 
-// Where (batch b, head h, row 0) of a tensor with S rows per head starts,
-// its row stride, and where (b, h, row) sits in the log-sum-exp.
-template <bool BHSD>
-struct Layout {
-  static __device__ __forceinline__ size_t base(int b, int h, int S, int heads, int D) {
-    return BHSD ? ((size_t)b * heads + h) * S * D : (size_t)b * S * heads * D + (size_t)h * D;
-  }
-  static __device__ __forceinline__ int ld(int heads, int D) { return BHSD ? D : heads * D; }
-  static __device__ __forceinline__ size_t stat(int b, int h, int row, int S, int heads) {
-    return BHSD ? ((size_t)b * heads + h) * S + row : ((size_t)b * S + row) * heads + h;
-  }
-};
-
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A: a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..), a2 (row g, k 2t+8..),
-//      a3 (row g+8, k 2t+8..);
-//   B: b0 (k 2t..2t+1, col g), b1 (k 2t+8..2t+9, col g);
-//   C: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, cols 2t, 2t+1).
-template <int D, bool BHSD>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                        int Sq, int Sk, int heads, float scale_log2) {
-  constexpr int KSTEPS = D / 16;  // k-steps of S = Q K^T
-  constexpr int DTILES = D / 8;   // n-tiles of O
-  constexpr int NT = BK / 8;      // n-tiles of one score tile
-  constexpr int LD = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 k_s[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BK * LD];
-
-  using L = Layout<BHSD>;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int ld = L::ld(heads, D);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
-
-  const __nv_bfloat16* qb = q + L::base(b, h, Sq, heads, D);
-  const __nv_bfloat16* kb = k + L::base(b, h, Sk, heads, D);
-  const __nv_bfloat16* vb = v + L::base(b, h, Sk, heads, D);
-
-  uint32_t qf[KSTEPS][4];
+// Scores of keys past Sk (only in the last tile, starting at key kv0) to -inf.
+__device__ __forceinline__ void mask_keys(float (&s)[64], int kv0, int Sk, int t) {
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
+  for (int j = 0; j < BK / 8; ++j) {
+    const int col = kv0 + 8 * j + 2 * t;
+    if (col >= Sk) s[4 * j] = s[4 * j + 2] = -INFINITY;
+    if (col + 1 >= Sk) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+  }
+}
+
+// One online-softmax step for rows g (r = 0) and g + 8 (r = 1): the new row
+// max m (raw score units), the scores turned in place into P = exp2(S c -
+// m c), the row sums l rescaled and added to. Returns in alpha the factor
+// exp2((m_old - m) c) that O still has to be multiplied by. The max and the
+// sum each run as 4 partial chains per row, so that their latency hides
+// behind the exponentials.
+__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float c) {
+  float mx[2][4], sum[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + (i & 1) * 8;
-      const int col = kk * 16 + 2 * t + (i >> 1) * 8;
-      qf[kk][i] = row < Sq
-          ? *reinterpret_cast<const uint32_t*>(qb + (size_t)row * ld + col)
-          : 0u;
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      mx[r][k] = m[r];
+      sum[r][k] = 0.f;
     }
   }
-
-  float o[DTILES][4];
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int kv0 = 0; kv0 < Sk; kv0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    constexpr int CHUNKS = BK * D / 8;  // 16-byte chunks per tile
-    for (int c = threadIdx.x; c < CHUNKS; c += NWARPS * 32) {
-      const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kv0 + row < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(kv0 + row) * ld + col);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(kv0 + row) * ld + col);
-      }
-      *reinterpret_cast<uint4*>(k_s + row * LD + col) = kv;
-      *reinterpret_cast<uint4*>(v_s + row * LD + col) = vv;
+  for (int j = 0; j < BK / 8; ++j) {
+    mx[0][j & 3] = fmaxf(mx[0][j & 3], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1][j & 3] = fmaxf(mx[1][j & 3], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    alpha[r] = ex2((m[r] - x) * c);  // 0 on the first tile (m = -inf)
+    m[r] = x;
+    mc[r] = x * c;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -mc[e >> 1]));
+      sum[e >> 1][j & 3] += s[4 * j + e];
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+  }
+}
 
-    float s[NT][4];
+// P in f32 (the score accumulator's layout) to bf16 A-fragments, one per
+// k-step of 16 keys: score n8-blocks 2kk and 2kk + 1.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[64]) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = k_s + (n * 8 + g) * LD + 2 * t;
+  for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
+    for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  }
+}
+
+template <int NWG, bool BHSD>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, int Sq, int Sk, int heads, float c) {
+  constexpr int BQ = 64 * NWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle needs 1024 B
+  const uint32_t k_s = q_s + BQ * ROW_BYTES;
+  const uint32_t v_s = k_s + STAGES * KV_TILE_BYTES;
+  const uint32_t bars = v_s + STAGES * KV_TILE_BYTES;  // full, then empty, per stage; Q's
+  const uint32_t q_bar = bars + 16 * STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
+  const int n_tiles = (Sk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == NWG * 128) {  // the producer's thread: descriptors early
+    tma_prefetch_map(&q_map);
+    tma_prefetch_map(&k_map);
+    tma_prefetch_map(&v_map);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NWG);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // producer: one thread issues every load of the CTA
+    setmaxnreg_dec<producer_regs(NWG)>();
+    if (threadIdx.x == NWG * 128) {
+      const int c0 = BHSD ? 0 : h * D, c2 = BHSD ? b * heads + h : b;
+      mbar_arrive_expect_tx(q_bar, BQ * ROW_BYTES);
+      tma_load_3d(q_s, &q_map, c0, q0, c2, q_bar);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(full(s), 2 * KV_TILE_BYTES);
+        tma_load_3d(k_s + s * KV_TILE_BYTES, &k_map, c0, i * BK, c2, full(s));
+        tma_load_3d(v_s + s * KV_TILE_BYTES, &v_map, c0, i * BK, c2, full(s));
       }
     }
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64 wg .. q0 + 64 wg + 63. The
+    // products of tile i are issued together, S_i = Q K_i^T first and then
+    // O += P_{i-1} V_{i-1}, so that P V runs while the softmax of S_i does;
+    // O is rescaled once P V is done.
+    setmaxnreg_inc<consumer_regs(NWG)>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint64_t q_desc = desc_sw128(q_s + wg * 64 * ROW_BYTES);
+    auto k_desc = [&](int s) { return desc_sw128(k_s + s * KV_TILE_BYTES); };
+    auto v_desc = [&](int s) { return desc_sw128(v_s + s * KV_TILE_BYTES); };
+    const int last_masked = Sk % BK != 0 ? n_tiles - 1 : -1;
 
-    float mx[2] = {m[0], m[1]};
+    float o[32];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = kv0 + n * 8 + 2 * t + (i & 1);
-        const float x = col < Sk ? s[n][i] * scale_log2 : -INFINITY;
-        s[n][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
-      }
-    }
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float s_acc[64];
+    uint32_t p[BK / 16][4];
+    float m[2] = {-INFINITY, -INFINITY};  // row max of the raw scores, rows g and g + 8
+    float l[2] = {0.f, 0.f};              // this thread's share of the row sums
     float alpha[2];
+
+    mbar_wait(q_bar, 0);
+    mbar_wait(full(0), 0);
+    wgmma_fence();
+    issue_scores(s_acc, q_desc, k_desc(0));
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    if (last_masked == 0) mask_keys(s_acc, 0, Sk, t);
+    softmax_step(s_acc, m, l, alpha, c);
+    pack_p(p, s_acc);
+
+    for (int i = 1; i < n_tiles; ++i) {
+      const int s = i % STAGES, prev = (i - 1) % STAGES;
+      mbar_wait(full(s), (i / STAGES) & 1);
+      wgmma_fence();
+      issue_scores(s_acc, q_desc, k_desc(s));
+      issue_pv(o, p, v_desc(prev));
+      wgmma_wait<1>();  // the scores; P V may still run
+      fence_regs(s_acc);
+      if (i == last_masked) mask_keys(s_acc, i * BK, Sk, t);
+      softmax_step(s_acc, m, l, alpha, c);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s_acc);
+      if (tid == 0) mbar_arrive(empty(prev));  // this warpgroup is done with stage prev
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      pack_p(p, s_acc);
+    }
+    wgmma_fence();
+    issue_pv(o, p, v_desc((n_tiles - 1) % STAGES));
+    wgmma_wait<0>();
+    fence_regs(o);
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
-      m[r] = mx[r];
-      l[r] *= alpha[r];
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
+    const int row0 = q0 + wg * 64 + warp * 16 + g;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / l[r];
+      const size_t at = BHSD ? ((size_t)b * heads + h) * Sq + row : ((size_t)b * Sq + row) * heads + h;
+      __nv_bfloat16* orow = out + at * D;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f(s[n][i] - m[i >> 1]);
-        s[n][i] = p;
-        l[i >> 1] += p;
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
-    }
-#pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_floats(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_floats(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_floats(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_floats(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        const __nv_bfloat16* vcol = v_s + (j * 16 + 2 * t) * LD + dt * 8 + g;
-        const uint32_t b0 = pack_bf16(vcol[0], vcol[LD]);
-        const uint32_t b1 = pack_bf16(vcol[8 * LD], vcol[9 * LD]);
-        mma_bf16(o[dt], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + r * 8;
-    if (row >= Sq) continue;
-    const float inv = 1.f / l[r];
-    __nv_bfloat16* orow = out + L::base(b, h, Sq, heads, D) + (size_t)row * ld;
-#pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
-    }
-    if (t == 0) {
-      lse[L::stat(b, h, row, Sq, heads)] = m[r] * 0.69314718055994531f + logf(l[r]);
+      if (t == 0) lse[at] = m[r] * c * LN2 + logf(l[r]);
     }
   }
 }
 
-template <bool BHSD>
+// cuTensorMapEncodeTiled, from the driver at run time (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Tensor map of a bf16 tensor of `outer` blocks of `rows` rows of `row_elems`
+// elements, read in boxes of 64 elements by `box_rows` rows of one block,
+// with the 128-byte swizzle. Returns the CUresult.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int row_elems, int rows, int outer,
+           int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)row_elems, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_elems * 2, (cuuint64_t)row_elems * rows * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// Returns 0, a CUDA error code after the launch, or minus the CUresult of a
+// failed tensor-map encode.
+template <int NWG, bool BHSD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
-           int Sk, int heads, int head_dim, float scale, void* stream) {
-  if (head_dim != 64 || B <= 0 || Sq <= 0 || Sk <= 0 || heads <= 0 || B > 65535 ||
+           int Sk, int heads, float scale, int dev, cudaStream_t stream) {
+  constexpr int SMEM = smem_bytes<NWG>();
+  const EncodeTiled fn = encode_fn();
+  if (!fn) return static_cast<int>(cudaErrorSymbolNotFound);
+  // packed: {H*D, S, B}; (B, H, S, D): {D, S, B*H}
+  const int row_elems = BHSD ? D : heads * D, outer = BHSD ? B * heads : B;
+  CUtensorMap q_map, k_map, v_map;
+  int err = encode(fn, &q_map, q, row_elems, Sq, outer, 64 * NWG);
+  if (!err) err = encode(fn, &k_map, k, row_elems, Sk, outer, BK);
+  if (!err) err = encode(fn, &v_map, v, row_elems, Sk, outer, BK);
+  if (err) return -err;
+
+  auto kernel = flash_fwd_wgmma<NWG, BHSD>;
+  // the attribute holds per device: set once per instantiation and device
+  static bool smem_set[MAX_DEVICES] = {};
+  if (dev >= MAX_DEVICES || !smem_set[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < MAX_DEVICES) smem_set[dev] = true;
+  }
+  const dim3 grid((Sq + 64 * NWG - 1) / (64 * NWG), heads, B);
+  kernel<<<grid, 128 * (NWG + 1), SMEM, stream>>>(q_map, k_map, v_map,
+                                                   static_cast<__nv_bfloat16*>(out),
+                                                   static_cast<float*>(lse), Sq, Sk, heads,
+                                                   scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 3 consumer warpgroups when the grid's waves on device dev's SMs times the
+// rows per CTA come out no larger than with 2 (one CTA per SM).
+bool three_consumers(int B, int Sq, int heads, int dev) {
+  static int sms_of[MAX_DEVICES] = {};
+  int sms = dev < MAX_DEVICES ? sms_of[dev] : 0;
+  if (!sms) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) sms = 132;
+    if (dev < MAX_DEVICES) sms_of[dev] = sms;
+  }
+  auto cost = [&](int bq) {
+    const long long ctas = (long long)((Sq + bq - 1) / bq) * heads * B;
+    return (ctas + sms - 1) / sms * bq;
+  };
+  return cost(192) <= cost(128);
+}
+
+template <bool BHSD>
+int launch_any(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
+               int Sk, int heads, int head_dim, float scale, void* stream) {
+  if (head_dim != D || B <= 0 || Sq <= 0 || Sk <= 0 || heads <= 0 || B > 65535 ||
       heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, heads, B);
-  flash_fwd_kernel<64, BHSD><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), Sq, Sk, heads, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return three_consumers(B, Sq, heads, dev)
+             ? launch<3, BHSD>(q, k, v, out, lse, B, Sq, Sk, heads, scale, dev, st)
+             : launch<2, BHSD>(q, k, v, out, lse, B, Sq, Sk, heads, scale, dev, st);
 }
 
 }  // namespace
 
 // K1. q: (B, Sq, heads*head_dim), k and v: (B, Sk, heads*head_dim), all bf16
-// and contiguous with 16-byte aligned rows; out: like q; lse: (B, Sq, heads)
-// f32. Returns cudaGetLastError() after the launch on `stream`.
+// and contiguous, 16-byte aligned; out: like q; lse: (B, Sq, heads) f32.
+// Returns 0 or an error code (see launch) after the launch on `stream`.
 extern "C" int flash_attn_fwd_packed_bf16(const void* q, const void* k, const void* v,
                                           void* out, void* lse, int B, int Sq, int Sk,
                                           int heads, int head_dim, float scale,
                                           void* stream) {
-  return launch<false>(q, k, v, out, lse, B, Sq, Sk, heads, head_dim, scale, stream);
+  return launch_any<false>(q, k, v, out, lse, B, Sq, Sk, heads, head_dim, scale, stream);
 }
 
 // K5. q: (B, heads, Sq, head_dim), k and v: (B, heads, Sk, head_dim), all
@@ -267,5 +435,11 @@ extern "C" int flash_attn_fwd_packed_bf16(const void* q, const void* k, const vo
 extern "C" int flash_attn_fwd_bhsd_bf16(const void* q, const void* k, const void* v,
                                         void* out, void* lse, int B, int Sq, int Sk,
                                         int heads, int head_dim, float scale, void* stream) {
-  return launch<true>(q, k, v, out, lse, B, Sq, Sk, heads, head_dim, scale, stream);
+  return launch_any<true>(q, k, v, out, lse, B, Sq, Sk, heads, head_dim, scale, stream);
+}
+
+// Dynamic shared memory of one CTA with `consumers` (2 or 3) consumer
+// warpgroups, for the build report.
+extern "C" int flash_attn_fwd_smem_bytes(int consumers) {
+  return consumers == 3 ? smem_bytes<3>() : smem_bytes<2>();
 }

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -39,37 +39,48 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
-    src = os.path.join(CSRC, f"{name}.cu")
+    """Whether ``lib<name>.so`` is missing or older than its ``.cu`` or any
+    header under ``csrc/``."""
     lib = _lib_path(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    sources = [os.path.join(CSRC, f"{name}.cu")]
+    sources += [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in sources)
 
 
-def build_all(names: Iterable[str]) -> float:
-    """Compile the named sources that are missing or older than their
-    ``.cu``, one ``nvcc`` each, in parallel. Returns the wall seconds."""
-    t0 = time.perf_counter()
-    stale = [name for name in names if _stale(name)]
-    if not stale:
-        return time.perf_counter() - t0
+def compile_all(jobs: Dict[str, Tuple[str, str]]) -> None:
+    """Run one ``nvcc`` per job ``name -> (source, library)``, all at once;
+    each library is replaced only when its build succeeds. ptxas's report
+    lands in ``build_logs[name]``."""
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in stale:
-        tmp = _lib_path(name) + f".{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    for name, (src, lib) in jobs.items():
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        tmp = lib + f".{os.getpid()}.tmp"
+        procs[name] = (tmp, lib, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
-    for name, (tmp, proc) in procs.items():
+    for name, (tmp, lib, proc) in procs.items():
         out, _ = proc.communicate()
         build_logs[name] = out
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            failed.append(f"{os.path.basename(jobs[name][0])} (nvcc exit {proc.returncode}):\n{out}")
         else:
-            os.replace(tmp, _lib_path(name))
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def build_all(names: Iterable[str]) -> float:
+    """Compile the named sources that are stale (``_stale``), one ``nvcc``
+    each, in parallel. Returns the wall seconds."""
+    t0 = time.perf_counter()
+    stale = [name for name in names if _stale(name)]
+    if stale:
+        compile_all({n: (os.path.join(CSRC, f"{n}.cu"), _lib_path(n)) for n in stale})
     return time.perf_counter() - t0
 
 
@@ -82,6 +93,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise when a kernel's C entry returned a CUDA error code."""
+    """Raise when a kernel's C entry returned an error: a CUDA error code,
+    or minus a driver ``CUresult`` (a tensor-map encode that failed)."""
+    if err < 0:
+        raise RuntimeError(f"{what}: tensor-map encode failed, CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

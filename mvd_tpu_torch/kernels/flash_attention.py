@@ -9,13 +9,14 @@ the output ``(B, Sq, H*D)`` and the log-sum-exp ``(B, Sq, H)`` in f32.
 K5 replaces ``_fwd_kernel_grid`` (through ``_flash_fwd``, the kernels
 package's public ``flash_attention``/``attention``): the same function on
 ``(B, H, S, D)``, lse ``(B, H, Sq)``. K5 is K1's kernel given the other
-layout's strides, one source with two layouts; its launches count apart.
+layout's tensor maps, one source with two layouts; its launches count apart.
 
 On the H100 the self-attention sites (Sq = Sk = 4096 at 512², D = 64) are
-bound by tensor-core operations and the Sk = 77 text sites by the bytes of
-Q and O. The kernel keeps Q in registers, stages K/V tiles in shared memory,
-runs both products on the tensor cores (``mma.sync``) and never writes the
-score matrix to device memory; the source's header says more.
+bound by tensor-core operations and exponentials about equally, and the
+Sk = 77 text sites by the bytes of Q and O. The kernel is warp-specialised:
+a producer loads Q and a ring of K/V tiles with TMA, consumer warpgroups run
+both products with ``wgmma`` and never write the score matrix to device
+memory; the source's header says more.
 
 Every call on a CUDA tensor launches the kernel, whatever the sequence
 lengths: the JAX package's ``Sq >= 1024`` threshold is a TPU tuning. A CPU

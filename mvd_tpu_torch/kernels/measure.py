@@ -1,0 +1,101 @@
+"""The H100's peak rates, the least times they give a kernel, and the checks
+and timer that ``chip_smoke.py`` and ``python -m
+mvd_tpu_torch.cli.bench_flash_fwd`` share.
+
+Nothing here runs at import; ``torch`` and ``nvidia-smi`` are reached only
+inside the functions.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+# H100 SXM peak rates
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
+INT8_TENSOR_OPS = 1979e12
+SMS, EX2_PER_CLOCK_PER_SM = 132, 16  # MUFU.EX2 results per clock per SM
+D = 64  # head width of every attention site
+
+# (label, B, Sq, Sk, heads): every K1 site of the 512² main path, D = 64
+ATTN_CASES = [
+    ("self 64x64", 4, 4096, 4096, 5),
+    ("text 64x64", 4, 4096, 77, 5),
+    ("self 32x32", 4, 1024, 1024, 10),
+    ("text 32x32", 4, 1024, 77, 10),
+    ("self 16x16", 4, 256, 256, 20),
+    ("self 8x8 (mid)", 4, 64, 64, 20),
+    ("text 8x8 (mid)", 4, 64, 77, 20),
+]
+
+# K1 out: one bf16 ulp is at most 2^-7 = 0.0078 of |out|, so rtol 2e-2 covers a
+# rounding step either way; atol 2e-3 is below a tenth of the smallest typical
+# |out| (about 0.026 at Sk = 4096). The relative RMS error over the whole
+# output catches a small error spread over every element (P rounded too
+# coarsely, a wrong rescale) that stays under the elementwise bound.
+ATTN_TOL = dict(atol=2e-3, rtol=2e-2)
+ATTN_REL_RMS = 1e-2
+LSE_TOL = dict(atol=2e-3, rtol=1e-4)
+
+
+def sm_clock_hz() -> float:
+    """The SM clock's maximum as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def attn_bounds(B: int, Sq: int, Sk: int, H: int, clock_hz: float) -> dict:
+    """Least times (ms) of one attention forward at head width D: its bf16
+    tensor operations at BF16_TENSOR_FLOPS, its bytes (q, k, v, out once,
+    lse) at HBM_BYTES_PER_S and its B·H·Sq·Sk exponentials at
+    EX2_PER_CLOCK_PER_SM per clock on SMS SMs."""
+    flops = 4.0 * B * H * Sq * Sk * D
+    nbytes = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 4.0 * B * Sq * H
+    exps = float(B) * H * Sq * Sk
+    return dict(ops_ms=flops / BF16_TENSOR_FLOPS * 1e3, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                exp_ms=exps / (SMS * EX2_PER_CLOCK_PER_SM * clock_hz) * 1e3)
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(got, want, tol, what) -> float:
+    """The largest absolute error; raises when ``got`` is not finite or an
+    element is off by more than ``tol["atol"] + tol["rtol"] * |want|``."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = err > tol["atol"] + tol["rtol"] * want.abs()
+    if not torch.isfinite(got).all() or bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max abs err {err.max().item():.3g}")
+    return err.max().item()
+
+
+def check_attention(out, lse, ref_out, ref_lse, what, tol=ATTN_TOL, rel_rms_max=ATTN_REL_RMS):
+    """K1's tolerance (or the one given) on out, LSE_TOL on lse, and the
+    bound on the relative RMS error of out; returns (max abs err, relative
+    RMS error) and raises AssertionError when a bound is broken."""
+    err = max(max_err(out, ref_out, tol, f"{what} out"), max_err(lse, ref_lse, LSE_TOL, f"{what} lse"))
+    ref_rms = ref_out.float().pow(2).mean().sqrt().item()
+    rel_rms = (out.float() - ref_out.float()).pow(2).mean().sqrt().item() / ref_rms
+    if not rel_rms <= rel_rms_max:
+        raise AssertionError(f"{what} out: relative RMS error {rel_rms:.3g} > {rel_rms_max}")
+    return err, rel_rms

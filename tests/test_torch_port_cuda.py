@@ -9,7 +9,8 @@ They import nothing of JAX, so they run on a machine that has only torch:
 
 ``chip_smoke.py`` holds the kernels to the main path's shapes; these cases
 add the ragged edges the main path never reaches (Sq and Sk that are not
-multiples of the 64-row tiles, C with 3 channels per group, tiny rows).
+multiples of the tiles, K1/K5 at every pair of 1, 127, 129 and 4097 and with
+NaN in the other batch, C with 3 channels per group, tiny rows).
 Tolerances are those of ``chip_smoke.py``: for K1 a bf16 rounding step of
 the output either way (rtol 2e-2, atol 2e-3) and a relative RMS error of at
 most 1e-2 over the whole output; one bf16 rounding of y for K2. K3a/K3b
@@ -45,6 +46,11 @@ from mvd_tpu_torch.kernels import (
 
 pytestmark = pytest.mark.gpu
 
+# K1/K5 tile edges (128 query rows and 128 keys per tile): one row or key,
+# one short of and one past a tile, one past 32 tiles; B 2 and 2 heads
+EDGE_SIZES = (1, 127, 129, 4097)
+EDGES = [(Sq, Sk) for Sq in EDGE_SIZES for Sk in EDGE_SIZES]
+
 
 @pytest.fixture
 def cuda():
@@ -55,7 +61,8 @@ def cuda():
 
 @pytest.mark.parametrize(
     "B,Sq,Sk,heads",
-    [(2, 200, 77, 2), (1, 130, 300, 3), (3, 1, 1, 1), (1, 65, 129, 4), (4, 4096, 77, 5)],
+    [(2, 200, 77, 2), (1, 130, 300, 3), (3, 1, 1, 1), (1, 65, 129, 4), (4, 4096, 77, 5)]
+    + [(2, Sq, Sk, 2) for Sq, Sk in EDGES],
 )
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, heads):
     randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
@@ -102,11 +109,12 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         groupnorm_silu(x, torch.ones(12, device="cuda"), torch.zeros(12, device="cuda"), 4)
 
 
-def _assert_grad_close(got, want, what):
+def _assert_grad_close(got, want, what, rms=None):
     """K3's tolerance: rtol 2e-2, atol 5e-2 x RMS(want), relative RMS error
-    at most 1e-2."""
+    at most 1e-2. ``rms`` replaces RMS(want) where the exact gradient is 0
+    and ``want`` holds only rounding noise."""
     got, want = got.float(), want.float()
-    rms = want.pow(2).mean().sqrt()
+    rms = want.pow(2).mean().sqrt() if rms is None else torch.as_tensor(rms)
     torch.testing.assert_close(got, want, atol=5e-2 * rms.item(), rtol=2e-2, msg=what)
     assert (got - want).pow(2).mean().sqrt() <= 1e-2 * rms, what
 
@@ -131,8 +139,9 @@ def test_flash_bwd_kernels_match_plain(cuda, B, Sq, Sk, heads):
         _assert_grad_close(g, w, f"{name} at {(B, Sq, Sk, heads)}")
 
 
-def test_flash_autograd_matches_plain_autograd(cuda):
-    B, Sq, Sk, heads = 2, 200, 77, 3
+@pytest.mark.parametrize("B,Sq,Sk,heads", [(2, 200, 77, 3), (2, 4097, 129, 2)])
+def test_flash_autograd_matches_plain_autograd(cuda, B, Sq, Sk, heads):
+    """K3a/K3b consume K1's (out, lse), also at a ragged Sq."""
     randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
     q, k, v, do = (randn(s) for s in ((B, Sq, heads * 64), (B, Sk, heads * 64),
                                        (B, Sk, heads * 64), (B, Sq, heads * 64)))
@@ -256,6 +265,7 @@ def test_int8_routing_on_the_card(cuda):
 
 @pytest.mark.parametrize(
     "B,heads,Sq,Sk", [(2, 3, 200, 77), (1, 2, 130, 300), (3, 1, 1, 1), (4, 5, 4096, 77)]
+    + [(2, 2, Sq, Sk) for Sq, Sk in EDGES],
 )
 def test_k5_matches_plain(cuda, B, heads, Sq, Sk):
     randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
@@ -274,11 +284,37 @@ def test_k5_matches_plain(cuda, B, heads, Sq, Sk):
     torch.cuda.synchronize()
     assert (flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches) == (
         n_dq + 1, n_dkv + 1)
+    # With one key, O = V and dS = P (dO V^T - rowsum(dO O)) is exactly 0, so
+    # dq and dk are rounding noise in both versions: hold them to the size
+    # of their terms instead, RMS(dO V^T) RMS(K or Q) / sqrt(D), times
+    # sqrt(Sq) for dk's sum over the rows.
+    scale = {}
+    if Sk == 1:
+        dp = (do.float() * v.float()).sum(-1).pow(2).mean().sqrt() / 8
+        scale = {"dq": dp * k.float().pow(2).mean().sqrt(),
+                 "dk": dp * q.float().pow(2).mean().sqrt() * Sq**0.5}
     for name, g, w, like in zip("dq dk dv".split(), got, want, (q, k, v)):
         assert g.dtype == torch.bfloat16 and g.shape == like.shape
-        _assert_grad_close(g, w, f"K5 backward {name} at {(B, heads, Sq, Sk)}")
+        _assert_grad_close(g, w, f"K5 backward {name} at {(B, heads, Sq, Sk)}", rms=scale.get(name))
     for impl in ("auto", "pallas", "xla"):  # every impl runs K5 on the card
         torch.testing.assert_close(attention(q, k, v, impl), out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["packed", "bhsd"])
+def test_flash_kernel_reads_only_its_batch(cuda, layout):
+    """Batch 0's out and lse stay bitwise the same when batch 1's K and V
+    turn to NaN: the ragged tail tiles (Sq 4097, Sk 129) read no row of
+    the next batch."""
+    B, heads, Sq, Sk = 2, 2, 4097, 129
+    shape = (lambda S: (B, heads, S, 64)) if layout == "bhsd" else (lambda S: (B, S, heads * 64))
+    q, k, v = (torch.randn(shape(S), generator=cuda, device="cuda").bfloat16() for S in (Sq, Sk, Sk))
+    fwd = flash_attention_fwd if layout == "bhsd" else (lambda q, k, v: flash_attention_packed_fwd(q, k, v, heads))
+    out, lse = fwd(q, k, v)
+    k[1], v[1] = float("nan"), float("nan")
+    out2, lse2 = fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out2[0]) and torch.equal(lse[0], lse2[0])
+    assert out2[1].float().isnan().any()  # batch 1 did read its own NaN
 
 
 def test_k6_and_k5_reject_what_they_do_not_take(cuda):

@@ -7,6 +7,8 @@ kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py``. Bar: >= 60 dB.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from mvd_tpu_torch.kernels.flash_attention import (
     flash_attention_packed_fwd,
 )
 from mvd_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
+from mvd_tpu_torch.kernels.measure import attn_bounds, check_attention
 
 BAR_DB = 60.0
 
@@ -129,3 +132,57 @@ def test_build_raises_without_nvcc(monkeypatch):
     )
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["flash_attn_fwd"])
+
+
+@pytest.mark.parametrize(
+    "newer,stale", [(None, False), ("common.cuh", True), ("k.cu", True), ("libk.so", False)]
+)
+def test_build_is_stale_when_a_source_or_header_is_newer(monkeypatch, tmp_path, newer, stale):
+    """A library is rebuilt when its .cu or any header under csrc/ is newer."""
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    for f in (csrc / "k.cu", csrc / "common.cuh", csrc / "other.cu", build / "libk.so"):
+        f.write_text("")
+    mtimes = {"k.cu": 100.0, "common.cuh": 100.0, "other.cu": 900.0, "libk.so": 200.0}
+    if newer:
+        mtimes[newer] = 300.0
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+    monkeypatch.setattr(_build.os.path, "getmtime", lambda p: mtimes[os.path.basename(p)])
+    assert _build._stale("k") is stale
+
+
+@pytest.mark.parametrize(
+    "fault,passes",
+    [("none", True), ("spread", False), ("one", False), ("lse", False), ("nan", False)],
+)
+def test_check_attention_bounds(fault, passes):
+    """The on-card check of K1/K5: a 1.5% error on every element stays under
+    the elementwise bound (2%) and is caught by the relative RMS bound; one
+    element 10% off, lse off by 1e-2 and a NaN are caught elementwise."""
+    gen = torch.Generator().manual_seed(0)
+    ref_out, ref_lse = torch.randn(2, 64, 128, generator=gen), 5 + torch.rand(2, 64, 2, generator=gen)
+    out, lse = ref_out.clone(), ref_lse.clone()
+    if fault == "spread":
+        out *= 1.015
+    elif fault == "one":
+        out[1, 7, 3] = ref_out[1, 7, 3] * 1.1 + 0.01
+    elif fault == "lse":
+        lse[0, 3, 1] += 1e-2
+    elif fault == "nan":
+        out[0, 0, 0] = float("nan")
+    if passes:
+        assert check_attention(out, lse, ref_out, ref_lse, "k") == (0.0, 0.0)
+    else:
+        with pytest.raises(AssertionError):
+            check_attention(out, lse, ref_out, ref_lse, "k")
+
+
+def test_attn_bounds_at_the_hot_site():
+    """B4 S4096² H5 on the H100 at 1980 MHz: 8.59e10 bf16 FLOP over 989
+    TFLOP/s and 3.36e8 exponentials at 16 per clock on 132 SMs."""
+    b = attn_bounds(4, 4096, 4096, 5, 1.98e9)
+    assert b["ops_ms"] == pytest.approx(0.086856, rel=1e-4)
+    assert b["exp_ms"] == pytest.approx(0.080236, rel=1e-4)
+    assert b["bytes_ms"] == pytest.approx(2 * 4 * 4 * 4096 * 320 / 3.35e9 + 4 * 4 * 4096 * 5 / 3.35e9, rel=1e-6)
