@@ -28,7 +28,9 @@ Five phases; any failure exits non-zero:
    pipelines timed in turns;
 4. train: holds K3a/K3b against the plain backward at every attention shape
    of the 768² train step (timed beside the backward of
-   ``scaled_dot_product_attention``, a yardstick the port never calls), then
+   ``scaled_dot_product_attention``, a yardstick the port never calls, and
+   their bounds), at every tile-edge (Sq, Sk) in both layouts, for batch
+   independence under NaN and for bitwise repeatability, then
    builds the adapter + camera-encoder train step at full SD2.1 width from
    seed 0 (bf16 compute, f32 masters, batch 6, one view, Min-SNR
    v-prediction, AdamW) and takes 3 steps on a seeded random pixel batch.
@@ -58,23 +60,11 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 
 STEPS, VIEWS, RES = 20, 4, 512
 TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TOTAL = 6, 768, 3, 100
-
-
-def card_line() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30, check=True,
-        ).stdout.strip().splitlines()
-        return out[0] if out else "unknown, unknown"
-    except (OSError, subprocess.SubprocessError):
-        return "unknown, unknown"
 
 
 def phase_build() -> float:
@@ -89,6 +79,9 @@ def phase_build() -> float:
     smem = _build.load("flash_attn_fwd").flash_attn_fwd_smem_bytes
     print(f"[build] flash_attn_fwd: dynamic shared memory per CTA (K1 and K5) {smem(2)} bytes "
           f"with 2 consumer warpgroups, {smem(3)} with 3")
+    smem = _build.load("flash_attn_bwd").flash_attn_bwd_smem_bytes
+    print(f"[build] flash_attn_bwd: dynamic shared memory per CTA {smem(0)} bytes (K3a), "
+          f"{smem(1)} (K3b)")
     print(f"[build] {len(KERNEL_SOURCES)} sources built in {secs:.1f} s")
     return secs
 
@@ -294,6 +287,8 @@ def phase_int8_kernels():
         INT8_TENSOR_OPS,
         LSE_TOL,
         check_attention,
+        check_grad,
+        plain_bwd_by_row,
         time_ms,
     )
 
@@ -347,8 +342,8 @@ def phase_int8_kernels():
     lse = flash_attention_packed_int8_fwd(q, k, v, H)[1]
     err, rel_rms = check_attention(out.detach(), lse, ref_out, ref_lse, f"Int8FlashAttention {label}",
                               INT8_TOL, INT8_REL_RMS)
-    want = _plain_bwd_by_row(q, k, v, ref_out, ref_lse, do, H)
-    checks = {n: _check_grad(g, w, f"Int8FlashAttention {label} {n}")
+    want = plain_bwd_by_row(q, k, v, ref_out, ref_lse, do, H)
+    checks = {n: check_grad(g, w, f"Int8FlashAttention {label} {n}")
               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
     del got, want, rows
     ms = time_ms(lambda: flash_attention_packed_int8_fwd(q, k, v, H), 3)
@@ -374,7 +369,14 @@ def phase_k5():
         flash_attention_packed_bwd_dkv,
         flash_attention_packed_bwd_dq,
     )
-    from mvd_tpu_torch.kernels.measure import attn_bounds, check_attention, sm_clock_hz, time_ms
+    from mvd_tpu_torch.kernels.measure import (
+        attn_bounds,
+        check_attention,
+        check_grad,
+        plain_bwd_by_row,
+        sm_clock_hz,
+        time_ms,
+    )
 
     clock = sm_clock_hz()
     gen = torch.Generator("cuda").manual_seed(3)
@@ -388,8 +390,8 @@ def phase_k5():
         torch.cuda.synchronize()
         ref_out, ref_lse = attention_plain(q, k, v)
         err, rel_rms = check_attention(out, lse, ref_out, ref_lse, f"K5 {label}")
-        want = _plain_bwd_by_row(q, k, v, out, lse, do, H, layout="bhsd")
-        checks = {n: _check_grad(g, w, f"K5 {label} {n}")
+        want = plain_bwd_by_row(q, k, v, out, lse, do, H, layout="bhsd")
+        checks = {n: check_grad(g, w, f"K5 {label} {n}")
                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
         del got, want
         iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
@@ -592,56 +594,67 @@ def phase_int8_main_path(call, bf16_images):
     return launches, metrics, (pipe8, prompts, kwargs)
 
 
-# (label, B, Sq, Sk, heads): every attention shape of the 768² train step,
-# D = 64. Self-attention and both adapters share the self shapes; the text
-# cross-attention (Sk = 77) needs no dk/dv on the path but is held here too.
-TRAIN_ATTN_CASES = [
-    ("self 96x96", 6, 9216, 9216, 5),
-    ("text 96x96", 6, 9216, 77, 5),
-    ("self 48x48", 6, 2304, 2304, 10),
-    ("text 48x48", 6, 2304, 77, 10),
-    ("self 24x24", 6, 576, 576, 20),
-    ("text 24x24", 6, 576, 77, 20),
-    ("self 12x12 (mid)", 6, 144, 144, 20),
-    ("text 12x12 (mid)", 6, 144, 77, 20),
-]
-# K3a/K3b round P and dS to bf16 before their products, where the plain
-# version keeps f32, and round dq/dk/dv to bf16: each term carries a relative
-# error of about 2^-9, and the sums over Sk (or Sq) terms average it, so the
-# relative RMS error stays near 3e-3. Elementwise: rtol 2e-2 (a bf16 rounding
-# step of the result either way) plus an atol of 5e-2 times the case's RMS
-# gradient for elements near zero; the relative RMS bound catches an error
-# spread over every element.
-GRAD_RTOL, GRAD_ATOL_RMS, GRAD_REL_RMS = 2e-2, 5e-2, 1e-2
-
-
-def _check_grad(got, want, what):
-    """(max abs err, typical |grad| (RMS), relative RMS error); raises when
-    the elementwise or the relative RMS bound is broken."""
+def check_bwd_tile_edges(layout: str) -> float:
+    """K3a/K3b (through ``flash_attention_packed_bwd``) in ``layout``
+    ("packed" or "bhsd") against the plain backward at every (Sq, Sk) of
+    EDGE_SIZES, batch 2, 2 heads, different data per batch; then batch
+    independence (with batch 1's q, k, v and dO turned to NaN, batch 0's dq,
+    dk and dv stay bitwise the same: a tensor map or statistics slice that
+    read past a batch's last row would bring the NaN in) and repeatability
+    (two launches on the same inputs are bitwise equal). Returns the largest
+    absolute error."""
     import torch
 
-    got, want = got.float(), want.float()
-    rms = want.pow(2).mean().sqrt().item()
-    err = (got - want).abs()
-    bad = err > GRAD_ATOL_RMS * rms + GRAD_RTOL * want.abs()
-    rel_rms = (got - want).pow(2).mean().sqrt().item() / rms
-    if not torch.isfinite(got).all() or bad.any() or not rel_rms <= GRAD_REL_RMS:
-        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max abs err "
-                             f"{err.max().item():.3g}, relative RMS error {rel_rms:.3g}")
-    return err.max().item(), rms, rel_rms
+    from mvd_tpu_torch.kernels import (
+        attention_packed_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_packed_bwd,
+        flash_attention_packed_fwd,
+    )
+    from mvd_tpu_torch.kernels.measure import check_grad
 
-
-def _plain_bwd_by_row(q, k, v, out, lse, do, heads, layout="packed"):
-    """The plain backward one batch row at a time (the f32 score matrices of
-    a whole 96² batch would not fit beside the model)."""
-    import torch
-
-    from mvd_tpu_torch.kernels import attention_packed_bwd_plain
-
-    rows = [attention_packed_bwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
-                                       lse[b:b + 1], do[b:b + 1], heads, layout=layout)
-            for b in range(q.shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*rows))
+    B, H, bhsd = 2, 2, layout == "bhsd"
+    gen = torch.Generator("cuda").manual_seed(5)
+    make = lambda S: torch.randn((B, H, S, 64) if bhsd else (B, S, H * 64), generator=gen,
+                                 device="cuda").bfloat16()
+    fwd = flash_attention_fwd if bhsd else (lambda q, k, v: flash_attention_packed_fwd(q, k, v, H))
+    bwd = lambda q, k, v, out, lse, do: flash_attention_packed_bwd(q, k, v, out, lse, do, H, layout=layout)
+    worst = 0.0
+    for Sq in EDGE_SIZES:
+        for Sk in EDGE_SIZES:
+            q, k, v, do = make(Sq), make(Sk), make(Sk), make(Sq)
+            out, lse = fwd(q, k, v)
+            got = bwd(q, k, v, out, lse, do)
+            torch.cuda.synchronize()
+            want = attention_packed_bwd_plain(q, k, v, out, lse, do, H, layout=layout)
+            # With one key, O = V and dS = P (dO V^T - rowsum(dO O)) is exactly
+            # 0, so dq and dk are rounding noise in both versions: they are held
+            # to the size of their terms, RMS(dO V^T) RMS(K or Q) / sqrt(D),
+            # times sqrt(Sq) for dk's sum over the rows.
+            scale = {}
+            if Sk == 1:
+                dp = (do.float() * v.float()).sum(-1).pow(2).mean().sqrt().item() / 8
+                scale = {"dq": dp * k.float().pow(2).mean().sqrt().item(),
+                         "dk": dp * q.float().pow(2).mean().sqrt().item() * Sq**0.5}
+            for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                what = f"K3 {layout} Sq {Sq} Sk {Sk} {n}"
+                worst = max(worst, check_grad(g, w, what, rms=scale.get(n))[0])
+    q, k, v, do = make(4097), make(129), make(129), make(4097)
+    out, lse = fwd(q, k, v)
+    first = bwd(q, k, v, out, lse, do)
+    again = bwd(q, k, v, out, lse, do)
+    for t in (q, k, v, do):
+        t[1] = float("nan")
+    poisoned = bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"K3 {layout}: two launches on the same inputs differ")
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(first, poisoned)):
+        raise AssertionError(f"K3 {layout}: batch 0's gradients changed with NaN in batch 1")
+    print(f"[train-kernels] K3a/K3b {layout} tile edges: Sq, Sk in {EDGE_SIZES} (B {B}, {H} heads) "
+          f"within tolerance, max abs err {worst:.3g}; batch 0 bitwise unchanged by NaN in batch "
+          f"1's q, k, v, dO; two launches bitwise equal")
+    return worst
 
 
 def phase_train_kernels():
@@ -655,7 +668,16 @@ def phase_train_kernels():
         flash_attention_packed_fwd,
     )
     from mvd_tpu_torch.kernels.flash_attention import _delta
-    from mvd_tpu_torch.kernels.measure import BF16_TENSOR_FLOPS, HBM_BYTES_PER_S, time_ms
+    from mvd_tpu_torch.kernels.measure import (
+        GRAD_ATOL_RMS,
+        GRAD_REL_RMS,
+        GRAD_RTOL,
+        TRAIN_ATTN_CASES,
+        bwd_bounds,
+        check_grad,
+        plain_bwd_by_row,
+        time_ms,
+    )
 
     gen = torch.Generator("cuda").manual_seed(1)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
@@ -669,8 +691,8 @@ def phase_train_kernels():
         out, lse = flash_attention_packed_fwd(q, k, v, H)
         got = flash_attention_packed_bwd(q, k, v, out, lse, do, H)
         torch.cuda.synchronize()
-        want = _plain_bwd_by_row(q, k, v, out, lse, do, H)
-        checks = {name: _check_grad(g, w, f"K3 {label} {name}")
+        want = plain_bwd_by_row(q, k, v, out, lse, do, H)
+        checks = {name: check_grad(g, w, f"K3 {label} {name}")
                   for name, g, w in zip(("dq", "dk", "dv"), got, want)}
         print(f"[train-kernels] K3 {label}: " + ", ".join(
             f"{n} typical |grad| {rms:.4g} max err {e:.3g} rel RMS err {r:.3g}"
@@ -680,7 +702,7 @@ def phase_train_kernels():
         iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
         ms_dq = time_ms(lambda: flash_attention_packed_bwd_dq(q, k, v, do, lse, delta, H), iters)
         ms_dkv = time_ms(lambda: flash_attention_packed_bwd_dkv(q, k, v, do, lse, delta, H), iters)
-        plain_ms = time_ms(lambda: _plain_bwd_by_row(q, k, v, out, lse, do, H), 2, 1)
+        plain_ms = time_ms(lambda: plain_bwd_by_row(q, k, v, out, lse, do, H), 2, 1)
 
         def sdpa_bwd_ms(grad_q: bool):
             split = lambda t, s: t.detach().view(B, s, H, D).transpose(1, 2)
@@ -693,24 +715,28 @@ def phase_train_kernels():
             return time_ms(lambda: torch.autograd.grad(oh, inputs, doh, retain_graph=True), iters)
 
         lib_dq, lib_dkv = sdpa_bwd_ms(True), sdpa_bwd_ms(False)
-        io_in = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 2 * 4.0 * B * Sq * H
-        for key, ms, lib, mults, out_bytes in (
-            ("flash_attn_bwd_dq", ms_dq, lib_dq, 6.0, 2.0 * B * Sq * H * D),
-            ("flash_attn_bwd_dkv", ms_dkv, lib_dkv, 8.0, 2 * 2.0 * B * Sk * H * D),
-        ):
-            t_ops = mults * B * H * Sq * Sk * D / BF16_TENSOR_FLOPS * 1e3
-            t_bytes = (io_in + out_bytes) / HBM_BYTES_PER_S * 1e3
-            err = max(checks[n][0] for n in (("dq",) if key.endswith("dq") else ("dk", "dv")))
+        bounds = bwd_bounds(B, Sq, Sk, H)
+        for key, part, ms, lib in (("flash_attn_bwd_dq", "dq", ms_dq, lib_dq),
+                                   ("flash_attn_bwd_dkv", "dkv", ms_dkv, lib_dkv)):
+            err = max(checks[n][0] for n in (("dq",) if part == "dq" else ("dk", "dv")))
             results[key].append(dict(
                 case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
-                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms=bounds[part]["bound_ms"], bound_by=bounds[part]["bound_by"],
+                bound_share=bounds[part]["bound_ms"] / ms,
             ))
+        dq_row, dkv_row = results["flash_attn_bwd_dq"][-1], results["flash_attn_bwd_dkv"][-1]
         print(f"[train-kernels] K3 {label}: K3a {ms_dq:.4f} ms (sdpa bwd dq {lib_dq:.4f} ms), "
               f"K3b {ms_dkv:.4f} ms (sdpa bwd dk,dv {lib_dkv:.4f} ms), plain dq,dk,dv "
-              f"{plain_ms:.2f} ms, bounds {results['flash_attn_bwd_dq'][-1]['bound_ms']:.4f} / "
-              f"{results['flash_attn_bwd_dkv'][-1]['bound_ms']:.4f} ms")
+              f"{plain_ms:.2f} ms, bounds {dq_row['bound_ms']:.4f} / {dkv_row['bound_ms']:.4f} ms "
+              f"({dq_row['bound_by']}), share of bound {dq_row['bound_share']:.3f} / "
+              f"{dkv_row['bound_share']:.3f}")
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
+    for layout in ("packed", "bhsd"):
+        worst = check_bwd_tile_edges(layout)
+        for key in results:
+            results[key].append(dict(case=f"tile edges {layout}", max_abs_err=worst))
+    torch.cuda.empty_cache()
     return results
 
 
@@ -841,8 +867,8 @@ TRACE_GROUPS = {
     "K1 flash_fwd (packed)": (r"flash_fwd_wgmma<\d+, false>",),
     "K5 flash_fwd (B, H, S, D)": (r"flash_fwd_wgmma<\d+, true>",),
     "K6 flash_fwd_int8": ("flash_fwd_int8",),
-    "K3a flash_bwd_dq": ("flash_bwd_dq",),
-    "K3b flash_bwd_dkv": ("flash_bwd_dkv",),
+    "K3a flash_bwd_dq": (r"flash_bwd_dq_wgmma<",),
+    "K3b flash_bwd_dkv": (r"flash_bwd_dkv_wgmma<",),
     "K2 gn_*": ("gn_stats", "gn_apply"),
 }
 TRACE_TOP = 25
@@ -889,12 +915,12 @@ KERNEL_META = {
         replaces="mvd_tpu/kernels/flash_attention.py:170", primary="self 64x64",
     ),
     "flash_attn_bwd_dq": dict(
-        name="K3a flash-attention backward dq", route="cuda",
+        name="K3a flash-attention backward dq (flash_bwd_dq_wgmma)", route="cuda",
         source="mvd_tpu_torch/csrc/flash_attn_bwd.cu",
         replaces="mvd_tpu/kernels/flash_attention.py:557", primary="self 96x96",
     ),
     "flash_attn_bwd_dkv": dict(
-        name="K3b flash-attention backward dk/dv", route="cuda",
+        name="K3b flash-attention backward dk/dv (flash_bwd_dkv_wgmma)", route="cuda",
         source="mvd_tpu_torch/csrc/flash_attn_bwd.cu",
         replaces="mvd_tpu/kernels/flash_attention.py:598", primary="self 96x96",
     ),
@@ -938,6 +964,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from mvd_tpu_torch.kernels.measure import card_line
+
     card = card_line()
     print(f"[card] {card}")
 

@@ -1,8 +1,8 @@
 // K3a / K3b: flash-attention backward for Hopper (sm_90a), bf16 in, bf16
 // out, f32 log-sum-exp and delta, on the packed (B, S, H*D) layout of K1 or
 // the (B, H, S, D) layout of K5 (a compile-time choice, as in
-// flash_attn_fwd.cu: the layout changes only where a head's rows start and
-// their stride).
+// flash_attn_fwd.cu: the layout changes only the tensor maps and where a
+// row's gradient is stored).
 //
 // Replace the TPU kernels mvd_tpu/kernels/flash_attention.py:_bwd_dq_kernel
 // (K3a) and :_bwd_dkv_kernel (K3b), launched from _flash_bwd. Same math,
@@ -10,355 +10,396 @@
 //   K3a: dq = sum_k dS K * scale,          dS = P * (dO V^T - delta);
 //   K3b: dk = sum_q dS^T Q * scale,  dv = sum_q P^T dO.
 // P and dS are rounded to bf16 right before their products, where the TPU
-// kernels cast them; every accumulator is f32.
+// kernels cast them; every accumulator is f32. Two kernels, as on the TPU:
+// K3a alone serves the sites whose K/V need no gradient, and no kernel uses
+// atomics, so results are bitwise repeatable.
 //
-// Design:
-//  * the packed (B, S, H*D) layout is read directly: a CTA reads its head's D
-//    columns out of the packed rows (row stride H*D), so the JAX VJP's head
-//    transposes are gone; (B, H, S, D), the JAX _flash_bwd's own layout, is
-//    read with row stride D;
-//  * K3a: one CTA per (q-tile of 64 rows, head, batch), four warps of 16 query
-//    rows. Q and dO stay in registers as mma A-fragments; K/V tiles of 64
-//    keys are staged in shared memory; S = Q K^T and dP = dO V^T run on the
-//    tensor cores (mma.sync.m16n8k16, bf16 operands, f32 accumulate), dS is
-//    formed in registers and re-packed as the A-fragment of dS K;
-//  * K3b: one CTA per (k-tile of 64 keys, head, batch), four warps of 16
-//    keys. K and V stay in registers; Q/dO tiles of 64 rows with their lse
-//    and delta are staged in shared memory. The products are taken in the
-//    transposed form (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come out
-//    of the accumulators already as the A-fragments of P^T dO and dS^T Q;
-//  * the TPU kernels carried their sums in VMEM scratch across sequential
-//    grid steps; on the GPU the reduction axis is a loop inside the CTA and
-//    nothing is carried across CTAs (no atomics);
-//  * ragged edges are masked in the kernel: key columns past Sk get P = 0
-//    (their K/V rows stage as zero), query rows past Sq get lse = +inf and
-//    so P = 0 and dS = 0, and neither reads past the end nor stores. The
-//    host pads nothing.
-//
-// Bound on the H100: at the UNet's self-attention and adapter sites
+// Bound on the H100: at the train step's self-attention and adapter sites
 // (Sq = Sk = 9216 at 768^2, D = 64) the tensor-core operations bound both
-// (6 Sq Sk D per head for K3a, 8 Sq Sk D for K3b, against 989 TFLOP/s bf16).
-// This first version uses mma.sync without ldmatrix, cp.async/TMA, wgmma or
-// warp specialisation, and overlaps tile loads only through several CTAs
-// per SM.
+// (K3a 3 products, K3b 4, each 2 Sq Sk D per head, against 989 TFLOP/s
+// bf16); the exponentials (Sq Sk per head) come next. So every product runs
+// as wgmma, and the elementwise work of one warpgroup overlaps the products
+// of the other.
+//
+// Design (warp-specialised like K1; one CTA of 2 consumer warpgroups and a
+// producer warpgroup, one CTA per SM):
+//  * TMA loads every bf16 tile (128 rows of one head's 64 columns) through a
+//    3-D tensor map with the 128-byte swizzle, {H*D, S, B} packed, {D, S, B*H}
+//    in (B, H, S, D), so rows past Sq or Sk arrive as zeros from within the
+//    same batch and head and nothing reads across a batch;
+//  * lse and delta come as f32 (B, H, Sq_pad) from the wrapper, Sq_pad = Sq
+//    rounded up to 128, lse padded with +inf and delta with 0: padded query
+//    rows get P = 0 and dS = 0. (TMA cannot cut one head out of the packed
+//    (B, Sq, H) statistics: their row stride of 4 H bytes is not a multiple
+//    of 16.)
+//  * K3b, one CTA per (128 keys, head, batch): the producer loads the CTA's
+//    K and V tiles once, then streams Q and dO tiles of 128 query rows with
+//    their lse and delta slices (1-D bulk copies) through a ring of STAGES
+//    stages with full/empty mbarriers. Consumer warpgroup w owns keys
+//    64w..64w+63 and takes the products transposed: S^T = K Q^T and
+//    dP^T = V dO^T as wgmma m64n128k16 with both operands K-major in shared
+//    memory; P^T and dS^T, packed to bf16 in registers, are the register A
+//    operand of dv += P^T dO and dk += dS^T Q (m64n64k16), whose B (dO, Q)
+//    is read MN-major through the descriptor's transpose bit from the same
+//    swizzled tiles the first products read K-major;
+//  * K3a, one CTA per (128 query rows, head, batch): the producer loads Q and
+//    dO once and streams K/V tiles of 128 keys; consumer warpgroup w owns
+//    query rows 64w..64w+63, with their lse and delta in registers: S = Q K^T
+//    and dP = dO V^T (m64n128k16, K-major), then dq += dS K with dS from
+//    registers and K read MN-major. The key mask runs only on a ragged last
+//    tile (zero K rows give S = 0, and exp(-lse) may overflow);
+//  * nothing goes through shared memory but the TMA tiles and statistics;
+//    the TPU kernels carried their sums in VMEM scratch across sequential
+//    grid steps, here the reduction axis is the loop inside the CTA.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int PAD = 8;  // bf16 of padding per shared-memory row
+using namespace flash;
+
+constexpr int NWG = 2;                        // consumer warpgroups of 64 rows
+constexpr int THREADS = 128 * (NWG + 1);
+constexpr int STAGES = 3;                     // ring stages
+constexpr int STAT_BYTES = TILE * 4;          // one tile's lse (or delta), f32
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // all 65,536 of the SM
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+static_assert(64 * NWG == TILE, "a CTA's rows are one tile");
+
+// 1024 of alignment slack; the CTA's two resident tiles, the ring's two
+// tiles per stage, K3b's statistics per stage; full and empty barriers per
+// stage and one for the resident tiles.
+constexpr int smem_bytes(bool dkv) {
+  return 1024 + 2 * TILE_BYTES + 2 * STAGES * TILE_BYTES + (dkv ? STAGES * 2 * STAT_BYTES : 0) +
+         8 * (2 * STAGES + 1);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D(16x8, f32) += A(16x16, bf16, row-major) * B(16x8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Where (batch b, head h, row 0) of a tensor with S rows per head starts,
-// its row stride, and where (b, h, row) sits in lse and delta.
+// Store rows 16 warp + g and + 8 of a warpgroup's 64 x D f32 accumulator,
+// times `mul`, as bf16; row0 is the warpgroup's first row, rows past S are
+// skipped.
 template <bool BHSD>
-struct Layout {
-  static __device__ __forceinline__ size_t base(int b, int h, int S, int heads, int D) {
-    return BHSD ? ((size_t)b * heads + h) * S * D : (size_t)b * S * heads * D + (size_t)h * D;
-  }
-  static __device__ __forceinline__ int ld(int heads, int D) { return BHSD ? D : heads * D; }
-  static __device__ __forceinline__ size_t stat(int b, int h, int row, int S, int heads) {
-    return BHSD ? ((size_t)b * heads + h) * S + row : ((size_t)b * S + row) * heads + h;
-  }
-};
-
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), as in K1:
-//   A: a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..), a2 (row g, k 2t+8..),
-//      a3 (row g+8, k 2t+8..);
-//   B: b0 (k 2t..2t+1, col g), b1 (k 2t+8..2t+9, col g);
-//   C: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, cols 2t, 2t+1).
-
-// A-fragments of 16 rows x D columns of a packed tensor, rows r0 and r0 + 8
-// (zero past `rows`).
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
-                                             const __nv_bfloat16* base, int r0,
-                                             int rows, int ld, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + (i & 1) * 8;
-      const int col = kk * 16 + 2 * t + (i >> 1) * 8;
-      f[kk][i] = row < rows
-          ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * ld + col)
-          : 0u;
-    }
-  }
-}
-
-// Stage two 64 x D tiles (rows r0.. of a and b, zero past `rows`) into
-// shared memory with row stride D + PAD.
-template <int D>
-__device__ __forceinline__ void stage_pair(__nv_bfloat16* a_s, __nv_bfloat16* b_s,
-                                           const __nv_bfloat16* a, const __nv_bfloat16* b,
-                                           int r0, int rows, int ld) {
-  constexpr int LD = D + PAD;
-  constexpr int CHUNKS = 64 * D / 8;  // 16-byte chunks per tile
-  for (int c = threadIdx.x; c < CHUNKS; c += NWARPS * 32) {
-    const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 av = make_uint4(0u, 0u, 0u, 0u), bv = av;
-    if (r0 + row < rows) {
-      av = *reinterpret_cast<const uint4*>(a + (size_t)(r0 + row) * ld + col);
-      bv = *reinterpret_cast<const uint4*>(b + (size_t)(r0 + row) * ld + col);
-    }
-    *reinterpret_cast<uint4*>(a_s + row * LD + col) = av;
-    *reinterpret_cast<uint4*>(b_s + row * LD + col) = bv;
-  }
-}
-
-// c[n] += A (16 x D, registers) * T^T for the 64 staged rows of T (8 n-tiles
-// of 8 rows): the product with a shared-memory tile read row-major.
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&c)[8][4], const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* t_s, int g, int t) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const __nv_bfloat16* row = t_s + (n * 8 + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(row + kk * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(row + kk * 16 + 8);
-      mma_bf16(c[n], a[kk], b0, b1);
-    }
-  }
-}
-
-// acc (16 x D) += X (16 x 64, the f32 accumulator fragments x, rounded to
-// bf16) * T for the 64 staged rows of T (D columns).
-template <int D>
-__device__ __forceinline__ void mma_acc(float (&acc)[D / 8][4], const float (&x)[8][4],
-                                        const __nv_bfloat16* t_s, int g, int t) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t a[4];
-    a[0] = pack_floats(x[2 * j][0], x[2 * j][1]);
-    a[1] = pack_floats(x[2 * j][2], x[2 * j][3]);
-    a[2] = pack_floats(x[2 * j + 1][0], x[2 * j + 1][1]);
-    a[3] = pack_floats(x[2 * j + 1][2], x[2 * j + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const __nv_bfloat16* col = t_s + (j * 16 + 2 * t) * LD + dt * 8 + g;
-      const uint32_t b0 = pack_bf16(col[0], col[LD]);
-      const uint32_t b1 = pack_bf16(col[8 * LD], col[9 * LD]);
-      mma_bf16(acc[dt], a, b0, b1);
-    }
-  }
-}
-
-// Store rows r0 and r0 + 8 (if < rows) of a 16 x D f32 accumulator, times
-// `mul`, as bf16 into a packed tensor.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&acc)[D / 8][4],
-                                           int r0, int rows, int ld, float mul, int t) {
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, const float (&acc)[32],
+                                           int row0, int S, int b, int h, int heads, float mul,
+                                           int warp, int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + r * 8;
-    if (row >= rows) continue;
-    __nv_bfloat16* dst = base + (size_t)row * ld;
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+    const size_t at = BHSD ? ((size_t)b * heads + h) * S + row : ((size_t)b * S + row) * heads + h;
+    __nv_bfloat16* out = dst + at * D;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * r] * mul, acc[dt][2 * r + 1] * mul);
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
   }
 }
 
-template <int D, bool BHSD>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int heads, float scale,
-                    float scale_log2) {
-  constexpr int LD = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 k_s[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BK * LD];
-
-  using L = Layout<BHSD>;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int ld = L::ld(heads, D);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g;  // query rows r0 and r0 + 8
-
-  const size_t q_off = L::base(b, h, Sq, heads, D);
-  const __nv_bfloat16* kb = k + L::base(b, h, Sk, heads, D);
-  const __nv_bfloat16* vb = v + L::base(b, h, Sk, heads, D);
-
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a_frags<D>(qf, q + q_off, r0, Sq, ld, t);
-  load_a_frags<D>(dof, dout + q_off, r0, Sq, ld, t);
-  float lse2[2], dlt[2];
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + r * 8;
-    const size_t i = L::stat(b, h, row, Sq, heads);
-    lse2[r] = row < Sq ? lse[i] * LOG2E : INFINITY;  // +inf: P = 0
-    dlt[r] = row < Sq ? delta[i] : 0.f;
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// K3b: dk, dv for the CTA's 128 keys. c = scale * log2(e).
+template <bool BHSD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int heads, float scale,
+                    float c) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sm = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
+  const uint32_t k_s = smem_u32(sm);  // the swizzle needs 1024-byte alignment
+  const uint32_t v_s = k_s + TILE_BYTES;
+  const uint32_t q_ring = v_s + TILE_BYTES;
+  const uint32_t do_ring = q_ring + STAGES * TILE_BYTES;
+  const uint32_t stat_off = 2 * TILE_BYTES + 2 * STAGES * TILE_BYTES;  // lse, delta per stage
+  const uint32_t bars = k_s + stat_off + STAGES * 2 * STAT_BYTES;
+  const uint32_t kv_bar = bars + 16 * STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * TILE;
+  const int n_tiles = (Sq + TILE - 1) / TILE;
+  const size_t stat_row = ((size_t)b * heads + h) * (size_t)(n_tiles * TILE);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == NWG * 128) {
+    tma_prefetch_map(&q_map);
+    tma_prefetch_map(&k_map);
+    tma_prefetch_map(&v_map);
+    tma_prefetch_map(&do_map);
   }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int kv0 = 0; kv0 < Sk; kv0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    stage_pair<D>(k_s, v_s, kb, vb, kv0, Sk, ld);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NWG);
     }
-    mma_rows<D>(s, qf, k_s, g, t);    // S = Q K^T
-    mma_rows<D>(dp, dof, v_s, g, t);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = kv0 + n * 8 + 2 * t + (i & 1);
-        const float p = col < Sk ? exp2f(s[n][i] * scale_log2 - lse2[i >> 1]) : 0.f;
-        s[n][i] = p * (dp[n][i] - dlt[i >> 1]);  // dS
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // producer: one thread issues every load of the CTA
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == NWG * 128) {
+      const int c0 = BHSD ? 0 : h * D, c2 = BHSD ? b * heads + h : b;
+      mbar_arrive_expect_tx(kv_bar, 2 * TILE_BYTES);
+      tma_load_3d(k_s, &k_map, c0, k0, c2, kv_bar);
+      tma_load_3d(v_s, &v_map, c0, k0, c2, kv_bar);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t stats = k_s + stat_off + s * 2 * STAT_BYTES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(full(s), 2 * TILE_BYTES + 2 * STAT_BYTES);
+        tma_load_3d(q_ring + s * TILE_BYTES, &q_map, c0, i * TILE, c2, full(s));
+        tma_load_3d(do_ring + s * TILE_BYTES, &do_map, c0, i * TILE, c2, full(s));
+        bulk_load(stats, lse + stat_row + i * TILE, STAT_BYTES, full(s));
+        bulk_load(stats + STAT_BYTES, delta + stat_row + i * TILE, STAT_BYTES, full(s));
       }
     }
-    mma_acc<D>(acc, s, k_s, g, t);  // dq += dS K
+  } else {
+    // consumer warpgroup wg: keys k0 + 64 wg .. k0 + 64 wg + 63; accumulators
+    // are keys x queries (S^T, dP^T) and keys x D (dk, dv)
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint64_t k_desc = desc_sw128(k_s + wg * 64 * ROW_BYTES);
+    const uint64_t v_desc = desc_sw128(v_s + wg * 64 * ROW_BYTES);
+
+    float dk_acc[32], dv_acc[32];
+    zero(dk_acc);
+    zero(dv_acc);
+    float st[64], dpt[64];
+    uint32_t pa[TILE / 16][4], dsa[TILE / 16][4];
+
+    mbar_wait(kv_bar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      const uint64_t q_desc = desc_sw128(q_ring + s * TILE_BYTES);
+      const uint64_t do_desc = desc_sw128(do_ring + s * TILE_BYTES);
+      const float* lse_s = reinterpret_cast<const float*>(sm + stat_off + s * 2 * STAT_BYTES);
+      const float* dlt_s = lse_s + TILE;
+      mbar_wait(full(s), (i / STAGES) & 1);
+      wgmma_fence();
+      issue_scores(st, k_desc, q_desc);    // S^T = K Q^T
+      issue_scores(dpt, v_desc, do_desc);  // dP^T = V dO^T
+      wgmma_wait<1>();                     // S^T; dP^T may still run
+      fence_regs(st);
+      // P^T = exp2(S^T c - lse log2(e)); columns are queries 8j + 2t, + 1
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+        const float l0 = l.x * LOG2E, l1 = l.y * LOG2E;
+        st[4 * j] = ex2(fmaf(st[4 * j], c, -l0));
+        st[4 * j + 1] = ex2(fmaf(st[4 * j + 1], c, -l1));
+        st[4 * j + 2] = ex2(fmaf(st[4 * j + 2], c, -l0));
+        st[4 * j + 3] = ex2(fmaf(st[4 * j + 3], c, -l1));
+      }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - delta), from the f32 P^T
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(dlt_s + 8 * j + 2 * t);
+        dpt[4 * j] = st[4 * j] * (dpt[4 * j] - d.x);
+        dpt[4 * j + 1] = st[4 * j + 1] * (dpt[4 * j + 1] - d.y);
+        dpt[4 * j + 2] = st[4 * j + 2] * (dpt[4 * j + 2] - d.x);
+        dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - d.y);
+      }
+      pack_p(pa, st);
+      pack_p(dsa, dpt);
+      wgmma_fence();
+      issue_pv(dv_acc, pa, do_desc);   // dv += P^T dO
+      issue_pv(dk_acc, dsa, q_desc);   // dk += dS^T Q
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      if (tid == 0) mbar_arrive(empty(s));  // this warpgroup is done with stage s
+    }
+    store_rows<BHSD>(dk, dk_acc, k0 + wg * 64, Sk, b, h, heads, scale, warp, g, t);
+    store_rows<BHSD>(dv, dv_acc, k0 + wg * 64, Sk, b, h, heads, 1.f, warp, g, t);
   }
-  store_rows<D>(dq + q_off, acc, r0, Sq, ld, scale, t);
 }
 
-template <int D, bool BHSD>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-                     int Sk, int heads, float scale, float scale_log2) {
-  constexpr int LD = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 q_s[BQ * LD];
-  __shared__ __align__(16) __nv_bfloat16 do_s[BQ * LD];
-  __shared__ float lse_s[BQ];
-  __shared__ float dlt_s[BQ];
+// K3a: dq for the CTA's 128 query rows. c = scale * log2(e).
+template <bool BHSD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
+                   int Sk, int heads, float scale, float c) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle needs 1024 B
+  const uint32_t do_s = q_s + TILE_BYTES;
+  const uint32_t k_ring = do_s + TILE_BYTES;
+  const uint32_t v_ring = k_ring + STAGES * TILE_BYTES;
+  const uint32_t bars = v_ring + STAGES * TILE_BYTES;
+  const uint32_t q_bar = bars + 16 * STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
 
-  using L = Layout<BHSD>;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int ld = L::ld(heads, D);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * BK + warp * 16 + g;  // key rows r0 and r0 + 8
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TILE;
+  const int n_tiles = (Sk + TILE - 1) / TILE;
+  const int wg = threadIdx.x / 128;
 
-  const size_t k_off = L::base(b, h, Sk, heads, D);
-  const __nv_bfloat16* qb = q + L::base(b, h, Sq, heads, D);
-  const __nv_bfloat16* dob = dout + L::base(b, h, Sq, heads, D);
-
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D>(kf, k + k_off, r0, Sk, ld, t);
-  load_a_frags<D>(vf, v + k_off, r0, Sk, ld, t);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dk_acc[dt][0] = dk_acc[dt][1] = dk_acc[dt][2] = dk_acc[dt][3] = 0.f;
-    dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
+  if (threadIdx.x == NWG * 128) {
+    tma_prefetch_map(&q_map);
+    tma_prefetch_map(&k_map);
+    tma_prefetch_map(&v_map);
+    tma_prefetch_map(&do_map);
   }
-
-  for (int q0 = 0; q0 < Sq; q0 += BQ) {
-    __syncthreads();  // the previous tile is consumed
-    stage_pair<D>(q_s, do_s, qb, dob, q0, Sq, ld);
-    for (int r = threadIdx.x; r < BQ; r += NWARPS * 32) {
-      const int row = q0 + r;
-      const size_t i = L::stat(b, h, row, Sq, heads);
-      lse_s[r] = row < Sq ? lse[i] * LOG2E : INFINITY;  // +inf: P = 0
-      dlt_s[r] = row < Sq ? delta[i] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NWG);
     }
-    __syncthreads();
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float st[8][4], dpt[8][4];  // keys x queries
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    }
-    mma_rows<D>(st, kf, q_s, g, t);    // S^T = K Q^T
-    mma_rows<D>(dpt, vf, do_s, g, t);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = n * 8 + 2 * t + (i & 1);
-        const float p = exp2f(st[n][i] * scale_log2 - lse_s[qc]);
-        st[n][i] = p;
-        dpt[n][i] = p * (dpt[n][i] - dlt_s[qc]);  // dS^T
+  if (wg == NWG) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == NWG * 128) {
+      const int c0 = BHSD ? 0 : h * D, c2 = BHSD ? b * heads + h : b;
+      mbar_arrive_expect_tx(q_bar, 2 * TILE_BYTES);
+      tma_load_3d(q_s, &q_map, c0, q0, c2, q_bar);
+      tma_load_3d(do_s, &do_map, c0, q0, c2, q_bar);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), 2 * TILE_BYTES);
+        tma_load_3d(k_ring + s * TILE_BYTES, &k_map, c0, i * TILE, c2, full(s));
+        tma_load_3d(v_ring + s * TILE_BYTES, &v_map, c0, i * TILE, c2, full(s));
       }
     }
-    mma_acc<D>(dv_acc, st, do_s, g, t);  // dv += P^T dO
-    mma_acc<D>(dk_acc, dpt, q_s, g, t);  // dk += dS^T Q
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64 wg .. q0 + 64 wg + 63, this
+    // thread's rows g and g + 8 of its warp's 16
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint64_t q_desc = desc_sw128(q_s + wg * 64 * ROW_BYTES);
+    const uint64_t do_desc = desc_sw128(do_s + wg * 64 * ROW_BYTES);
+    auto k_desc = [&](int s) { return desc_sw128(k_ring + s * TILE_BYTES); };
+    auto v_desc = [&](int s) { return desc_sw128(v_ring + s * TILE_BYTES); };
+    const int last_masked = Sk % TILE != 0 ? n_tiles - 1 : -1;
+
+    // the rows' statistics, padded to whole tiles (lse +inf, delta 0)
+    const size_t stat_row = ((size_t)b * heads + h) * (size_t)((Sq + TILE - 1) / TILE * TILE);
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t at = stat_row + q0 + wg * 64 + warp * 16 + g + 8 * r;
+      lse2[r] = lse[at] * LOG2E;
+      dlt[r] = delta[at];
+    }
+
+    float dq_acc[32];
+    zero(dq_acc);
+    float s_acc[64], dp[64];
+    uint32_t dsa[TILE / 16][4];
+
+    mbar_wait(q_bar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(full(s), (i / STAGES) & 1);
+      wgmma_fence();
+      issue_scores(s_acc, q_desc, k_desc(s));  // S = Q K^T
+      issue_scores(dp, do_desc, v_desc(s));    // dP = dO V^T
+      wgmma_wait<1>();
+      fence_regs(s_acc);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[4 * j + e] = ex2(fmaf(s_acc[4 * j + e], c, -lse2[e >> 1]));
+      }
+      if (i == last_masked) {  // P = 0 for keys past Sk
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const int col = i * TILE + 8 * j + 2 * t;
+          if (col >= Sk) s_acc[4 * j] = s_acc[4 * j + 2] = 0.f;
+          if (col + 1 >= Sk) s_acc[4 * j + 1] = s_acc[4 * j + 3] = 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = s_acc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]);
+      }
+      pack_p(dsa, dp);
+      wgmma_fence();
+      issue_pv(dq_acc, dsa, k_desc(s));  // dq += dS K
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      if (tid == 0) mbar_arrive(empty(s));
+    }
+    store_rows<BHSD>(dq, dq_acc, q0 + wg * 64, Sq, b, h, heads, scale, warp, g, t);
   }
-  store_rows<D>(dk + k_off, dk_acc, r0, Sk, ld, scale, t);
-  store_rows<D>(dv + k_off, dv_acc, r0, Sk, ld, 1.f, t);
 }
 
-bool bad_args(int B, int Sq, int Sk, int heads, int head_dim) {
-  return head_dim != 64 || B <= 0 || Sq <= 0 || Sk <= 0 || heads <= 0 || B > 65535 ||
-         heads > 65535;
-}
+// One K3a (DKV false: out0 = dq) or K3b (DKV true: out0 = dk, out1 = dv)
+// launch. Returns 0, a CUDA error code after the launch, or minus the
+// CUresult of a failed tensor-map encode.
+template <bool DKV, bool BHSD>
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* out0, void* out1, int B, int Sq, int Sk, int heads,
+           int head_dim, float scale, void* stream) {
+  if (head_dim != D || B <= 0 || Sq <= 0 || Sk <= 0 || heads <= 0 || B > 65535 ||
+      heads > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const EncodeTiled fn = encode_fn();
+  if (!fn) return static_cast<int>(cudaErrorSymbolNotFound);
+  // packed: {H*D, S, B}; (B, H, S, D): {D, S, B*H}
+  const int row_elems = BHSD ? D : heads * D, outer = BHSD ? B * heads : B;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int err = encode(fn, &q_map, q, row_elems, Sq, outer, TILE);
+  if (!err) err = encode(fn, &k_map, k, row_elems, Sk, outer, TILE);
+  if (!err) err = encode(fn, &v_map, v, row_elems, Sk, outer, TILE);
+  if (!err) err = encode(fn, &do_map, dout, row_elems, Sq, outer, TILE);
+  if (err) return -err;
 
-template <bool BHSD>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int Sq, int Sk, int heads, int head_dim,
-              float scale, void* stream) {
-  if (bad_args(B, Sq, Sk, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Sq + BQ - 1) / BQ, heads, B);
-  flash_bwd_dq_kernel<64, BHSD><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), Sq, Sk, heads, scale, scale * LOG2E);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool BHSD>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int heads,
-               int head_dim, float scale, void* stream) {
-  if (bad_args(B, Sq, Sk, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Sk + BK - 1) / BK, heads, B);
-  flash_bwd_dkv_kernel<64, BHSD><<<grid, NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sk, heads, scale,
-      scale * LOG2E);
+  constexpr int SMEM = smem_bytes(DKV);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+  const float c = scale * LOG2E;
+  if constexpr (DKV) {
+    e = allow_smem<flash_bwd_dkv_wgmma<BHSD>>(SMEM, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((Sk + TILE - 1) / TILE, heads, B);
+    flash_bwd_dkv_wgmma<BHSD><<<grid, THREADS, SMEM, st>>>(
+        q_map, k_map, v_map, do_map, l, d, static_cast<__nv_bfloat16*>(out0),
+        static_cast<__nv_bfloat16*>(out1), Sq, Sk, heads, scale, c);
+  } else {
+    e = allow_smem<flash_bwd_dq_wgmma<BHSD>>(SMEM, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((Sq + TILE - 1) / TILE, heads, B);
+    flash_bwd_dq_wgmma<BHSD><<<grid, THREADS, SMEM, st>>>(
+        q_map, k_map, v_map, do_map, l, d, static_cast<__nv_bfloat16*>(out0), Sq, Sk, heads,
+        scale, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,14 +407,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 // Packed (K1's layout). q, dout: (B, Sq, heads*head_dim); k, v: (B, Sk,
 // heads*head_dim); all bf16, contiguous, 16-byte aligned. lse and delta:
-// (B, Sq, heads) f32. dq: like q. Returns cudaGetLastError() after the launch
-// on `stream`.
+// f32 (B, heads, Sq_pad), Sq_pad = Sq rounded up to 128 (flash_attn_bwd_rows),
+// padded with +inf and 0, 16-byte aligned. dq: like q. Returns 0 or an error
+// code (see launch) after the launch on `stream`.
 extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int B, int Sq, int Sk, int heads,
                                       int head_dim, float scale, void* stream) {
-  return launch_dq<false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, heads, head_dim, scale,
-                          stream);
+  return launch<false, false>(q, k, v, dout, lse, delta, dq, nullptr, B, Sq, Sk, heads,
+                              head_dim, scale, stream);
 }
 
 // As above; dk and dv: like k.
@@ -381,20 +423,19 @@ extern "C" int flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void*
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int B, int Sq, int Sk, int heads,
                                        int head_dim, float scale, void* stream) {
-  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, heads, head_dim,
-                           scale, stream);
+  return launch<true, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, heads, head_dim,
+                             scale, stream);
 }
 
 // (B, H, S, D) (K5's layout). q, dout: (B, heads, Sq, head_dim); k, v:
-// (B, heads, Sk, head_dim); lse and delta: (B, heads, Sq) f32; otherwise as
-// the packed entries.
+// (B, heads, Sk, head_dim); lse and delta as for the packed entries.
 extern "C" int flash_attn_bwd_dq_bhsd_bf16(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,
                                            const void* delta, void* dq, int B, int Sq, int Sk,
                                            int heads, int head_dim, float scale,
                                            void* stream) {
-  return launch_dq<true>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, heads, head_dim, scale,
-                         stream);
+  return launch<false, true>(q, k, v, dout, lse, delta, dq, nullptr, B, Sq, Sk, heads,
+                             head_dim, scale, stream);
 }
 
 extern "C" int flash_attn_bwd_dkv_bhsd_bf16(const void* q, const void* k, const void* v,
@@ -402,6 +443,13 @@ extern "C" int flash_attn_bwd_dkv_bhsd_bf16(const void* q, const void* k, const 
                                             const void* delta, void* dk, void* dv, int B,
                                             int Sq, int Sk, int heads, int head_dim,
                                             float scale, void* stream) {
-  return launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, heads, head_dim,
-                          scale, stream);
+  return launch<true, true>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, heads, head_dim,
+                            scale, stream);
 }
+
+// The row multiple of the padded statistics (lse, delta) both kernels take.
+extern "C" int flash_attn_bwd_rows() { return TILE; }
+
+// Dynamic shared memory of one K3a (dkv 0) or K3b (dkv 1) CTA, for the build
+// report.
+extern "C" int flash_attn_bwd_smem_bytes(int dkv) { return smem_bytes(dkv != 0); }

@@ -62,17 +62,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper_ptx.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace flash;
 
-constexpr int D = 64;
-constexpr int BK = 128;                      // keys per K/V tile
+constexpr int BK = TILE;                     // keys per K/V tile
 constexpr int STAGES = 3;                    // K/V ring stages
-constexpr int ROW_BYTES = D * 2;             // one head's row, bf16
-constexpr int KV_TILE_BYTES = BK * ROW_BYTES;
+constexpr int KV_TILE_BYTES = TILE_BYTES;
 constexpr float LN2 = 0.69314718055994531f;
 
 // registers per thread of the producer and of each consumer warpgroup, all
@@ -80,41 +78,9 @@ constexpr float LN2 = 0.69314718055994531f;
 __host__ __device__ constexpr int producer_regs(int nwg) { return nwg == 2 ? 24 : 32; }
 __host__ __device__ constexpr int consumer_regs(int nwg) { return nwg == 2 ? 240 : 160; }
 
-constexpr int MAX_DEVICES = 64;  // devices whose launch settings are cached
-
 template <int NWG>
 constexpr int smem_bytes() {  // 1024 of alignment slack, Q, K and V rings, barriers
   return 1024 + 64 * NWG * ROW_BYTES + 2 * STAGES * KV_TILE_BYTES + 8 * (2 * STAGES + 1);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S = Q K^T for one 64-row slab of Q against a K tile of BK keys: D / 16
-// k-steps, each 32 bytes further into the swizzled rows; committed as one
-// wgmma group.
-__device__ __forceinline__ void issue_scores(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
-  wgmma_m64n128k16_ss<false>(s, q_desc, k_desc);
-#pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk) wgmma_m64n128k16_ss<true>(s, q_desc + 2 * kk, k_desc + 2 * kk);
-  wgmma_commit();
-}
-
-// O += P V for a V tile of BK keys: BK / 16 k-steps of 16 rows of 128
-// bytes; committed as one wgmma group.
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[BK / 16][4],
-                                         uint64_t v_desc) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n64k16_rs(o, p[kk], v_desc + kk * (16 * ROW_BYTES >> 4));
-  wgmma_commit();
 }
 
 // Scores of keys past Sk (only in the last tile, starting at key kv0) to -inf.
@@ -170,16 +136,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
-  }
-}
-
-// P in f32 (the score accumulator's layout) to bf16 A-fragments, one per
-// k-step of 16 keys: score n8-blocks 2kk and 2kk + 1.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
   }
 }
 
@@ -316,43 +272,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver at run time (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// Tensor map of a bf16 tensor of `outer` blocks of `rows` rows of `row_elems`
-// elements, read in boxes of 64 elements by `box_rows` rows of one block,
-// with the 128-byte swizzle. Returns the CUresult.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int row_elems, int rows, int outer,
-           int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)row_elems, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)row_elems * 2, (cuuint64_t)row_elems * rows * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
-}
-
 // Returns 0, a CUDA error code after the launch, or minus the CUresult of a
 // failed tensor-map encode.
 template <int NWG, bool BHSD>
@@ -370,14 +289,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
   if (err) return -err;
 
   auto kernel = flash_fwd_wgmma<NWG, BHSD>;
-  // the attribute holds per device: set once per instantiation and device
-  static bool smem_set[MAX_DEVICES] = {};
-  if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < MAX_DEVICES) smem_set[dev] = true;
-  }
+  const cudaError_t e = allow_smem<flash_fwd_wgmma<NWG, BHSD>>(SMEM, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + 64 * NWG - 1) / (64 * NWG), heads, B);
   kernel<<<grid, 128 * (NWG + 1), SMEM, stream>>>(q_map, k_map, v_map,
                                                    static_cast<__nv_bfloat16*>(out),

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads,
 // wgmma descriptors and instructions, register reallocation. Header only;
-// included by the kernels that use them (flash_attn_fwd.cu). A change here
+// included by the kernels that use them (through flash_common.cuh). A change here
 // rebuilds every source under csrc/ (kernels/_build.py compares the mtimes
 // of the headers too).
 
@@ -64,6 +64,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` into
+// shared memory at `dst`, both 16-byte aligned; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {

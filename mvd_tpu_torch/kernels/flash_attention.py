@@ -30,7 +30,11 @@ K3a (dq) and K3b (dk, dv) replace ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
 ``autograd.Function`` that saves the forward's (q, k, v, out, lse) as the
 JAX custom VJP does, so the backward never re-runs the forward, and that
 launches K3b only when k or v needs a gradient. delta = rowsum(dO * O) is a
-PyTorch reduction, as it is XLA outside the kernel in the JAX package.
+PyTorch reduction, as it is XLA outside the kernel in the JAX package. Both
+kernels are built like K1 (TMA ring, warp-specialised ``wgmma``, the second
+product's P or dS from registers) and take lse and delta as f32 (B, H,
+Sq_pad), padded to whole 128-row tiles (``bwd_stats``): TMA cannot cut one
+head's column out of the packed (B, Sq, H) statistics.
 
 K6 replaces ``_fwd_kernel_packed_int8`` (through ``_flash_fwd_packed_int8``):
 SageAttention-style int8 attention, chosen with
@@ -283,10 +287,17 @@ def attention_packed_bwd_plain(
     return _bwd_plain_parts(q, k, v, do, lse, delta, heads, scale, True, True, layout)
 
 
+# query rows per K3a/K3b tile: the kernels take lse and delta as f32 (B, H,
+# Sq_pad), Sq_pad = Sq rounded up to this (the C entry flash_attn_bwd_rows)
+BWD_ROWS = 128
+
+
 @functools.cache
 def _bwd_entries():
     """The C entries of K3a and K3b by layout, built and loaded on first call."""
     lib = _build.load("flash_attn_bwd")
+    if lib.flash_attn_bwd_rows() != BWD_ROWS:
+        raise RuntimeError(f"flash_attn_bwd.cu pads to {lib.flash_attn_bwd_rows()} rows, not {BWD_ROWS}")
     entries = {
         PACKED: (lib.flash_attn_bwd_dq_bf16, lib.flash_attn_bwd_dkv_bf16),
         BHSD: (lib.flash_attn_bwd_dq_bhsd_bf16, lib.flash_attn_bwd_dkv_bhsd_bf16),
@@ -305,10 +316,39 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, heads, layout):
     B, Sq = q.shape[0], _seq(q, layout)
     want = (B, heads, Sq) if layout == BHSD else (B, Sq, heads)
     for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or t.shape != want or not t.is_contiguous():
+        if t is not None and (t.dtype != torch.float32 or t.shape != want or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous f32 {want} tensor")
-    if not (q.device == do.device == lse.device == delta.device):
+    if not (q.device == do.device == lse.device) or (delta is not None and delta.device != q.device):
         raise ValueError("backward inputs on different devices")
+
+
+def _padded_stat(x: torch.Tensor, value: float) -> torch.Tensor:
+    """A per-row statistic (B, H, Sq) as the kernels take it: f32 (B, H,
+    Sq_pad), the rows past Sq set to ``value``."""
+    B, H, Sq = x.shape
+    out = torch.full((B, H, -(-Sq // BWD_ROWS) * BWD_ROWS), value, dtype=torch.float32, device=x.device)
+    out[..., :Sq] = x
+    return out
+
+
+def _padded_stats(lse: torch.Tensor, delta: torch.Tensor, layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wrappers' lse and delta in ``layout``'s order as the kernels take
+    them: lse padded with +inf, delta with 0."""
+    return _padded_stat(_stat_to_heads(lse, layout), math.inf), _padded_stat(_stat_to_heads(delta, layout), 0.0)
+
+
+def bwd_stats(out: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, heads: int,
+              layout: str = PACKED) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3a/K3b's statistics from the forward's out and lse and the incoming
+    dO: lse (transposed from (B, Sq, H) when packed) and delta = rowsum(dO *
+    O), computed straight into the same layout, as f32 (B, H, Sq_pad), Sq_pad
+    = Sq rounded up to BWD_ROWS. Padded rows hold lse +inf, so P = 0 there,
+    and delta 0."""
+    lse_p = _padded_stat(_stat_to_heads(lse, layout), math.inf)
+    delta_p = torch.zeros_like(lse_p)
+    prod = _to_heads(do, heads, layout) * _to_heads(out, heads, layout)
+    torch.sum(prod, dim=-1, out=delta_p[..., :prod.shape[2]])
+    return lse_p, delta_p
 
 
 def _bwd_args(q, k, heads, scale, layout):
@@ -323,11 +363,25 @@ def _bwd_args(q, k, heads, scale, layout):
     return heads, scale, dims
 
 
+def _launch_bwd(want_dq, q, k, v, do, lse_p, delta_p, dims, layout):
+    """One K3a (``want_dq``: returns (dq,)) or K3b (returns (dk, dv)) launch
+    on checked CUDA inputs and ``bwd_stats``-shaped statistics, counted on
+    its wrapper."""
+    dq_fn, dkv_fn = _bwd_entries()[layout]
+    entry, wrapper = (dq_fn, flash_attention_packed_bwd_dq) if want_dq else (dkv_fn, flash_attention_packed_bwd_dkv)
+    outs = (torch.empty_like(q),) if want_dq else (torch.empty_like(k), torch.empty_like(v))
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse_p.data_ptr(),
+                delta_p.data_ptr(), *(t.data_ptr() for t in outs), *dims)
+    _build.check(err, entry.__name__)
+    wrapper.launches += 1
+    return outs
+
+
 def flash_attention_packed_bwd_dq(q, k, v, do, lse, delta, heads, scale=None, layout=PACKED) -> torch.Tensor:
     """K3a: dq, like q, from q, k, v, dO, lse and delta (packed: (B, Sq, H);
     ``layout`` "bhsd": (B, H, Sq), heads read from q). CUDA tensors go to the
-    kernel (anything it does not take raises); CPU tensors to the plain
-    version."""
+    kernel (anything it does not take raises), lse and delta padded as
+    ``bwd_stats`` lays them out; CPU tensors to the plain version."""
     heads, scale, dims = _bwd_args(q, k, heads, scale, layout)
     if q.device.type == "cpu":
         flash_attention_packed_bwd_dq.plain_calls += 1
@@ -335,13 +389,7 @@ def flash_attention_packed_bwd_dq(q, k, v, do, lse, delta, heads, scale=None, la
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_bwd_inputs(q, k, v, do, lse, delta, heads, layout)
-    dq = torch.empty_like(q)
-    entry = _bwd_entries()[layout][0]
-    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), *dims)
-    _build.check(err, entry.__name__)
-    flash_attention_packed_bwd_dq.launches += 1
-    return dq
+    return _launch_bwd(True, q, k, v, do, *_padded_stats(lse, delta, layout), dims, layout)[0]
 
 
 def flash_attention_packed_bwd_dkv(q, k, v, do, lse, delta, heads, scale=None, layout=PACKED):
@@ -353,13 +401,7 @@ def flash_attention_packed_bwd_dkv(q, k, v, do, lse, delta, heads, scale=None, l
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_bwd_inputs(q, k, v, do, lse, delta, heads, layout)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    entry = _bwd_entries()[layout][1]
-    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
-    _build.check(err, entry.__name__)
-    flash_attention_packed_bwd_dkv.launches += 1
-    return dk, dv
+    return _launch_bwd(False, q, k, v, do, *_padded_stats(lse, delta, layout), dims, layout)
 
 
 for _fn in (flash_attention_packed_bwd_dq, flash_attention_packed_bwd_dkv):
@@ -381,14 +423,22 @@ def flash_attention_packed_bwd(
     layout: str = PACKED,
 ):
     """Attention backward: (dq, dk, dv), None where not needed. delta is a
-    PyTorch reduction; K3a runs when dq is needed, K3b when dk and dv are.
+    PyTorch reduction (on the card straight into the kernels' padded layout,
+    ``bwd_stats``); K3a runs when dq is needed, K3b when dk and dv are.
     ``layout`` "bhsd" takes K5's (B, H, S, D) tensors."""
-    delta = _delta(out, do, heads, layout)
-    args = (q, k, v, do, lse, delta, heads, scale)
-    dq = flash_attention_packed_bwd_dq(*args, layout=layout) if need_dq else None
-    dk = dv = None
-    if need_dkv:
-        dk, dv = flash_attention_packed_bwd_dkv(*args, layout=layout)
+    if q.device.type != "cuda":
+        delta = _delta(out, do, heads, layout)
+        args = (q, k, v, do, lse, delta, heads, scale)
+        dq = flash_attention_packed_bwd_dq(*args, layout=layout) if need_dq else None
+        dk = dv = None
+        if need_dkv:
+            dk, dv = flash_attention_packed_bwd_dkv(*args, layout=layout)
+        return dq, dk, dv
+    heads, scale, dims = _bwd_args(q, k, heads, scale, layout)
+    _check_bwd_inputs(q, k, v, do, lse, None, heads, layout)
+    stats = bwd_stats(out, do, lse, heads, layout)
+    dq = _launch_bwd(True, q, k, v, do, *stats, dims, layout)[0] if need_dq else None
+    dk, dv = _launch_bwd(False, q, k, v, do, *stats, dims, layout) if need_dkv else (None, None)
     return dq, dk, dv
 
 

@@ -1,6 +1,6 @@
 """The H100's peak rates, the least times they give a kernel, and the checks
 and timer that ``chip_smoke.py`` and ``python -m
-mvd_tpu_torch.cli.bench_flash_fwd`` share.
+mvd_tpu_torch.cli.bench_flash_fwd`` / ``bench_flash_bwd`` share.
 
 Nothing here runs at import; ``torch`` and ``nvidia-smi`` are reached only
 inside the functions.
@@ -38,6 +38,41 @@ ATTN_TOL = dict(atol=2e-3, rtol=2e-2)
 ATTN_REL_RMS = 1e-2
 LSE_TOL = dict(atol=2e-3, rtol=1e-4)
 
+# (label, B, Sq, Sk, heads): every attention shape of the 768² train step,
+# D = 64. Self-attention and both adapters share the self shapes; the text
+# cross-attention (Sk = 77) needs no dk/dv on the path but is held here too.
+TRAIN_ATTN_CASES = [
+    ("self 96x96", 6, 9216, 9216, 5),
+    ("text 96x96", 6, 9216, 77, 5),
+    ("self 48x48", 6, 2304, 2304, 10),
+    ("text 48x48", 6, 2304, 77, 10),
+    ("self 24x24", 6, 576, 576, 20),
+    ("text 24x24", 6, 576, 77, 20),
+    ("self 12x12 (mid)", 6, 144, 144, 20),
+    ("text 12x12 (mid)", 6, 144, 77, 20),
+]
+# K3a/K3b round P and dS to bf16 before their products, where the plain
+# version keeps f32, and round dq/dk/dv to bf16: each term carries a relative
+# error of about 2^-9, and the sums over Sk (or Sq) terms average it, so the
+# relative RMS error stays near 3e-3. Elementwise: rtol 2e-2 (a bf16 rounding
+# step of the result either way) plus an atol of 5e-2 times the case's RMS
+# gradient for elements near zero; the relative RMS bound catches an error
+# spread over every element.
+GRAD_RTOL, GRAD_ATOL_RMS, GRAD_REL_RMS = 2e-2, 5e-2, 1e-2
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout.strip().splitlines()
+        return out[0] if out else "unknown, unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown, unknown"
+
 
 def sm_clock_hz() -> float:
     """The SM clock's maximum as ``nvidia-smi`` reports it."""
@@ -58,6 +93,23 @@ def attn_bounds(B: int, Sq: int, Sk: int, H: int, clock_hz: float) -> dict:
     exps = float(B) * H * Sq * Sk
     return dict(ops_ms=flops / BF16_TENSOR_FLOPS * 1e3, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 exp_ms=exps / (SMS * EX2_PER_CLOCK_PER_SM * clock_hz) * 1e3)
+
+
+def bwd_bounds(B: int, Sq: int, Sk: int, H: int) -> dict:
+    """Least times (ms) of K3a (``"dq"``) and K3b (``"dkv"``) at head width
+    D: their bf16 tensor operations (K3a S, dP and dq, K3b S^T, dP^T, dv and
+    dk, each 2 Sq Sk D per head) at BF16_TENSOR_FLOPS, and their bytes (q,
+    k, v, dO in bf16 and lse, delta (B, Sq, H) in f32 read once, dq or dk and
+    dv written once) at HBM_BYTES_PER_S; ``bound_ms`` is the larger,
+    ``bound_by`` says which."""
+    io_in = 2.0 * (2 * B * Sq * H * D + 2 * B * Sk * H * D) + 2 * 4.0 * B * Sq * H
+    bounds = {}
+    for key, products, out_bytes in (("dq", 3, 2.0 * B * Sq * H * D), ("dkv", 4, 2 * 2.0 * B * Sk * H * D)):
+        t_ops = 2.0 * products * B * H * Sq * Sk * D / BF16_TENSOR_FLOPS * 1e3
+        t_bytes = (io_in + out_bytes) / HBM_BYTES_PER_S * 1e3
+        bounds[key] = dict(ops_ms=t_ops, bytes_ms=t_bytes, bound_ms=max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return bounds
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -99,3 +151,38 @@ def check_attention(out, lse, ref_out, ref_lse, what, tol=ATTN_TOL, rel_rms_max=
     if not rel_rms <= rel_rms_max:
         raise AssertionError(f"{what} out: relative RMS error {rel_rms:.3g} > {rel_rms_max}")
     return err, rel_rms
+
+
+def check_grad(got, want, what, rms=None):
+    """K3a/K3b's check of one gradient: (max abs err, typical |grad| (RMS),
+    relative RMS error); raises AssertionError when ``got`` is not finite,
+    an element is off by more than GRAD_ATOL_RMS * RMS + GRAD_RTOL * |want|,
+    or the relative RMS error exceeds GRAD_REL_RMS. ``rms`` replaces
+    RMS(want) as the typical size where the exact gradient is 0 and ``want``
+    holds only rounding noise."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if rms is None:
+        rms = want.pow(2).mean().sqrt().item()
+    err = (got - want).abs()
+    bad = err > GRAD_ATOL_RMS * rms + GRAD_RTOL * want.abs()
+    rel_rms = (got - want).pow(2).mean().sqrt().item() / rms
+    if not torch.isfinite(got).all() or bad.any() or not rel_rms <= GRAD_REL_RMS:
+        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max abs err "
+                             f"{err.max().item():.3g}, relative RMS error {rel_rms:.3g}")
+    return err.max().item(), rms, rel_rms
+
+
+def plain_bwd_by_row(q, k, v, out, lse, do, heads, layout="packed"):
+    """The plain backward (``attention_packed_bwd_plain``) one batch row at a
+    time: the f32 score matrices of a whole 96² batch would not fit beside
+    the model."""
+    import torch
+
+    from mvd_tpu_torch.kernels import attention_packed_bwd_plain
+
+    rows = [attention_packed_bwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
+                                       lse[b:b + 1], do[b:b + 1], heads, layout=layout)
+            for b in range(q.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*rows))

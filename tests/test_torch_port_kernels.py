@@ -19,12 +19,14 @@ from mvd_tpu.kernels.flash_attention import _flash_fwd_packed, _round_up
 from mvd_tpu.kernels.groupnorm_silu import _pallas_gn_silu, xla_groupnorm_silu
 from mvd_tpu_torch.kernels import _build
 from mvd_tpu_torch.kernels.flash_attention import (
+    BWD_ROWS,
     _check_cuda_inputs,
     attention_packed,
+    bwd_stats,
     flash_attention_packed_fwd,
 )
 from mvd_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
-from mvd_tpu_torch.kernels.measure import attn_bounds, check_attention
+from mvd_tpu_torch.kernels.measure import attn_bounds, bwd_bounds, check_attention, check_grad
 
 BAR_DB = 60.0
 
@@ -186,3 +188,73 @@ def test_attn_bounds_at_the_hot_site():
     assert b["ops_ms"] == pytest.approx(0.086856, rel=1e-4)
     assert b["exp_ms"] == pytest.approx(0.080236, rel=1e-4)
     assert b["bytes_ms"] == pytest.approx(2 * 4 * 4 * 4096 * 320 / 3.35e9 + 4 * 4 * 4096 * 5 / 3.35e9, rel=1e-6)
+
+
+@pytest.mark.parametrize("fault,passes", [("none", True), ("spread", False), ("one", False), ("nan", False)])
+def test_check_grad_bounds(fault, passes):
+    """The on-card check of K3a/K3b: a 1.5% error on every element stays
+    under the elementwise bound (rtol 2%) and is caught by the relative RMS
+    bound (1%); one element 10% + 0.1 off and a NaN are caught elementwise."""
+    want = torch.randn(2, 64, 128, generator=torch.Generator().manual_seed(0))
+    got = want.clone()
+    if fault == "spread":
+        got *= 1.015
+    elif fault == "one":
+        got[1, 7, 3] = want[1, 7, 3] * 1.1 + 0.1
+    elif fault == "nan":
+        got[0, 0, 0] = float("nan")
+    if passes:
+        err, rms, rel_rms = check_grad(got, want, "g")
+        assert (err, rel_rms) == (0.0, 0.0) and rms == pytest.approx(1.0, rel=0.05)
+    else:
+        with pytest.raises(AssertionError):
+            check_grad(got, want, "g")
+
+
+def test_bwd_bounds_at_the_hot_site():
+    """B6 S9216² H5 on the H100: K3a's 3 and K3b's 4 products of 2 Sq Sk D
+    FLOP per head over 989 TFLOP/s bound both; the bytes are q, k, v, dO
+    (bf16), lse and delta (f32) once and the gradients once."""
+    b = bwd_bounds(6, 9216, 9216, 5)
+    assert b["dq"]["ops_ms"] == pytest.approx(0.9893, rel=1e-4)
+    assert b["dkv"]["ops_ms"] == pytest.approx(1.3191, rel=1e-4)
+    io = 2 * 4 * 6 * 9216 * 320 + 2 * 4 * 6 * 9216 * 5
+    assert b["dq"]["bytes_ms"] == pytest.approx((io + 2 * 6 * 9216 * 320) / 3.35e9, rel=1e-9)
+    assert b["dkv"]["bytes_ms"] == pytest.approx((io + 4 * 6 * 9216 * 320) / 3.35e9, rel=1e-9)
+    for part in ("dq", "dkv"):
+        assert (b[part]["bound_ms"], b[part]["bound_by"]) == (b[part]["ops_ms"], "operations")
+
+
+@pytest.mark.parametrize("layout,B,Sq,heads", [("packed", 2, 130, 3), ("packed", 1, 128, 2), ("bhsd", 2, 1, 3)])
+def test_bwd_stats_match_the_jax_reordering(layout, B, Sq, heads):
+    """The statistics the K3a/K3b kernels take, (B, H, Sq_pad) f32, against
+    the JAX package's own reordering, written out in numpy:
+    ``_flash_attention_packed_bwd`` hands ``_flash_bwd`` lse.transpose(0, 2,
+    1) and the heads of out and dO as (B, H, S, D)
+    (``mvd_tpu/kernels/flash_attention.py:289-304``), and ``_flash_bwd``
+    takes delta = sum(dO * out, -1) in f32 (:649). Rows past Sq up to the
+    next multiple of 128 hold lse +inf and delta 0."""
+    rng = np.random.default_rng(7)
+    D = 64
+    shape = (B, heads, Sq, D) if layout == "bhsd" else (B, Sq, heads * D)
+    out, do = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    lse = rng.standard_normal((B, heads, Sq) if layout == "bhsd" else (B, Sq, heads)).astype(np.float32)
+    if layout == "packed":
+        tr = lambda t: t.reshape(B, Sq, heads, D).transpose(0, 2, 1, 3)
+        want_lse, out_h, do_h = lse.transpose(0, 2, 1), tr(out), tr(do)
+    else:
+        want_lse, out_h, do_h = lse, out, do
+    # out and dO reach the kernels in bf16: the reference takes the same values
+    as_bf16 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).bfloat16()
+    bf = lambda a: as_bf16(a).float().numpy()
+    want_delta = np.sum(bf(do_h).astype(np.float32) * bf(out_h).astype(np.float32), axis=-1)
+
+    got_lse, got_delta = bwd_stats(as_bf16(out), as_bf16(do), torch.from_numpy(lse), heads, layout)
+    sq_pad = -(-Sq // BWD_ROWS) * BWD_ROWS
+    assert got_lse.shape == got_delta.shape == (B, heads, sq_pad)
+    assert got_lse.dtype == got_delta.dtype == torch.float32
+    assert got_lse.is_contiguous() and got_delta.is_contiguous()
+    np.testing.assert_array_equal(got_lse[..., :Sq].numpy(), want_lse)
+    np.testing.assert_allclose(got_delta[..., :Sq].numpy(), want_delta, rtol=1e-5, atol=1e-5)
+    assert torch.isinf(got_lse[..., Sq:]).all() and (got_lse[..., Sq:] > 0).all()
+    assert (got_delta[..., Sq:] == 0).all()
