@@ -15,12 +15,18 @@ Five phases; any failure exits non-zero:
    1,979 TOP/s int8 tensor / 67 TFLOP/s f32, whichever is larger). K6
    (int8) is also checked against exact attention (>= 30 dB), and, through
    ``Int8FlashAttention``, forward and straight-through backward at the
-   768² train shape; K5 ((B, H, S, D)) forward and backward;
+   768² train shape; K5 ((B, H, S, D)) forward and backward. K2 runs at the
+   GroupNorm shapes of generation and of the train step, on both of its
+   paths, timed through the wrapper and through its C entry alone (device
+   time by CUDA-graph replay), and is checked for bitwise repeatability and
+   for batch 0 unchanged by NaN in batch 1;
 3. main path: ``MVDPipeline.create`` at full SD2.1 width with random weights
    from seed 0, then 4-view 512² generation, 20-step DDPM, guidance 1.0, a
    zero source image and ``orbit_cameras(4)``, in bf16. Checks the images,
-   that every kernel launched exactly as often as the model structure says
-   and that no plain version ran, then times a second call;
+   that every kernel launched exactly as often as the model structure says,
+   that no plain version ran and that the denoise loop never waited for
+   the device (``torch.cuda.set_sync_debug_mode("error")``); prints K2's
+   summed bytes bound over every GroupNorm call; then times a second call;
 3b. int8: the same pipeline and weights with ``attention_impl="int8"``:
    the same checks, K6 at exactly the sites the JAX package quantizes on a
    TPU (610 launches, K1 at the other 702), the PSNR of its images against
@@ -89,20 +95,9 @@ def phase_build() -> float:
 # K1/K5 tile edges (128 query rows and 128 keys per tile): one row or key,
 # one short of and one past a tile, one past 32 tiles; every (Sq, Sk) pair
 EDGE_SIZES = (1, 127, 129, 4097)
-# (label, B, H, W, C, silu): UNet and VAE GroupNorm shapes
-GN_CASES = [
-    ("unet 64x64x320 silu", 4, 64, 64, 320, True),
-    ("unet 64x64x320 transformer", 4, 64, 64, 320, False),
-    ("unet 32x32x960 silu", 4, 32, 32, 960, True),
-    ("unet 16x16x2560 silu", 4, 16, 16, 2560, True),
-    ("unet 8x8x1280 silu", 4, 8, 8, 1280, True),
-    ("vae 512x512x256 silu", 4, 512, 512, 256, True),
-    ("vae 512x512x128 silu", 4, 512, 512, 128, True),
-    ("vae 64x64x512 attn", 4, 64, 64, 512, False),
-]
-# K1/K5's tolerances are ATTN_TOL, ATTN_REL_RMS and LSE_TOL in
+# K1/K5's tolerances are ATTN_TOL, ATTN_REL_RMS and LSE_TOL, K2's shapes
+# GN_CASES and TRAIN_GN_CASES and its tolerance GN_TOL, in
 # mvd_tpu_torch/kernels/measure.py
-GN_TOL = dict(atol=1e-2, rtol=1e-2)  # one bf16 rounding of y (|y| up to ~5)
 
 
 def _attn_bound_fields(bounds, ms):
@@ -163,26 +158,95 @@ def check_tile_edges(layout: str) -> float:
     return worst
 
 
+def check_groupnorm() -> list:
+    """K2 against its plain version at every shape of GN_CASES and
+    TRAIN_GN_CASES, on the path ``launch_plan`` picks there; timed through
+    the wrapper and through the C entry alone (y and scratch allocated
+    once, device time by CUDA-graph replay), beside the plain version,
+    ``group_norm`` + ``silu`` and the bytes bound; two calls bitwise equal,
+    and batch 0 bitwise unchanged when batch 1 turns to NaN."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.kernels import groupnorm_silu, groupnorm_silu_plain
+    from mvd_tpu_torch.kernels.groupnorm_silu import FUSED, TWO_PASS, _entry, launch, launch_plan
+    from mvd_tpu_torch.kernels.measure import (
+        GN_CASES,
+        GN_TOL,
+        TRAIN_GN_CASES,
+        gn_bounds,
+        max_err,
+        time_graph_ms,
+        time_ms,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(6)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    results, paths = [], set()
+    G, eps = 32, 1e-6
+    for label, B, Hh, W, C, silu in GN_CASES + TRAIN_GN_CASES:
+        x = (randn(B, Hh, W, C) * 2 + 0.5).bfloat16()
+        w, b = 1 + 0.1 * randn(C), 0.1 * randn(C)
+        y = groupnorm_silu(x, w, b, G, eps, silu)
+        again = groupnorm_silu(x, w, b, G, eps, silu)
+        torch.cuda.synchronize()
+        err = max_err(y, groupnorm_silu_plain(x, w, b, G, eps, silu), GN_TOL, f"K2 {label}")
+        if not torch.equal(y, again):
+            raise AssertionError(f"K2 {label}: two calls on the same input differ")
+        del again
+        plan = launch_plan(B, Hh * W, C, G)
+        paths.add(plan.path)
+        iters = max(5, min(100, int(4e9 / x.numel())))
+        yy = torch.empty_like(x)
+        scratch = torch.empty(plan.scratch, device="cuda") if plan.scratch else None
+        ms = time_graph_ms(lambda: launch(_entry(), x, w, b, yy, scratch, G, eps, silu, plan), iters)
+        wrapper_ms = time_ms(lambda: groupnorm_silu(x, w, b, G, eps, silu), iters)
+        plain_ms = time_ms(lambda: groupnorm_silu_plain(x, w, b, G, eps, silu), max(2, iters // 4), 1)
+        xn = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
+        wb, bb = w.bfloat16(), b.bfloat16()  # F.group_norm takes params in x's dtype
+
+        def lib():
+            out = F.group_norm(xn, G, wb, bb, eps)
+            return F.silu(out) if silu else out
+
+        lib_ms = time_ms(lib, iters)
+        x[1] = float("nan")
+        poisoned = groupnorm_silu(x, w, b, G, eps, silu)
+        torch.cuda.synchronize()
+        if not torch.equal(poisoned[0], y[0]):
+            raise AssertionError(f"K2 {label}: batch 0 changed with NaN in batch 1")
+        bound = gn_bounds(B, Hh * W, C, silu)
+        path = "fused" if plan.path == FUSED else "two-pass"
+        results.append(dict(case=label, max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, path=path, plan=dataclasses.asdict(plan),
+                            bound_share=bound["bound_ms"] / ms, **bound))
+        print(f"[kernels] K2 {label}: {path} (cluster {plan.cluster}, set {plan.set}, rows {plan.rows}, "
+              f"{plan.grid[0] * plan.grid[1] * plan.grid[2]} CTAs); err {err:.3g}; C entry {ms:.4f} ms, "
+              f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, group_norm+silu {lib_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share of bound "
+              f"{bound['bound_ms'] / ms:.3f}")
+        del x, y, yy, scratch, poisoned
+        torch.cuda.empty_cache()
+    if paths != {FUSED, TWO_PASS}:
+        raise AssertionError(f"K2's cases took only path(s) {paths}")
+    print(f"[kernels] K2: both paths within {GN_TOL} at {len(results)} shapes; two calls bitwise equal "
+          f"and batch 0 bitwise unchanged by NaN in batch 1 at every shape")
+    return results
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
 
-    from mvd_tpu_torch.kernels import (
-        attention_packed_plain,
-        flash_attention_packed_fwd,
-        groupnorm_silu,
-        groupnorm_silu_plain,
-    )
+    from mvd_tpu_torch.kernels import attention_packed_plain, flash_attention_packed_fwd
     from mvd_tpu_torch.kernels.measure import (
         ATTN_CASES,
         ATTN_REL_RMS,
         ATTN_TOL,
-        F32_FLOPS,
-        HBM_BYTES_PER_S,
+        GN_TOL,
         LSE_TOL,
         attn_bounds,
         check_attention,
-        max_err,
         sm_clock_hz,
         time_ms,
     )
@@ -216,35 +280,7 @@ def phase_kernels():
               f"sdpa {lib_ms:.4f} ms " + _bound_text(results["flash_attn_fwd"][-1], clock))
         del q, k, v, out, lse, ref_out, ref_lse
     results["flash_attn_fwd"].append(dict(case="tile edges", max_abs_err=check_tile_edges("packed")))
-    for label, B, Hh, W, C, silu in GN_CASES:
-        G = 32
-        x = (randn(B, Hh, W, C) * 2 + 0.5).bfloat16()
-        w, b = 1 + 0.1 * randn(C), 0.1 * randn(C)
-        eps = 1e-6
-        y = groupnorm_silu(x, w, b, G, eps, silu)
-        torch.cuda.synchronize()
-        err = max_err(y, groupnorm_silu_plain(x, w, b, G, eps, silu), GN_TOL, f"K2 {label}")
-        iters = max(5, min(100, int(4e9 / x.numel())))
-        ms = time_ms(lambda: groupnorm_silu(x, w, b, G, eps, silu), iters)
-        plain_ms = time_ms(lambda: groupnorm_silu_plain(x, w, b, G, eps, silu), max(2, iters // 4), 1)
-        xn = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
-        wb, bb = w.bfloat16(), b.bfloat16()  # F.group_norm takes params in x's dtype
-
-        def lib():
-            yy = F.group_norm(xn, G, wb, bb, eps)
-            return F.silu(yy) if silu else yy
-
-        lib_ms = time_ms(lib, iters)
-        nbytes = 2.0 * 2 * x.numel() + 2 * 4.0 * C
-        flops = (10.0 if silu else 5.0) * x.numel()
-        t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        results["groupnorm_silu"].append(dict(
-            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-        ))
-        print(f"[kernels] K2 {label}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"group_norm+silu {lib_ms:.4f} ms bound {max(t_ops, t_bytes):.4f} ms")
-        del x, y
+    results["groupnorm_silu"] = check_groupnorm()
     torch.cuda.empty_cache()
     return results
 
@@ -502,6 +538,58 @@ def read_counts():
             {name: fn.plain_calls for name, fn in KERNELS.items()})
 
 
+def sync_checked_loop(pipe) -> list:
+    """Makes the next call of ``pipe.denoise_loop`` (from the first denoise
+    step to the last ``ddpm_step``) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that any call in it that
+    waits for the device raises; the decode and the output copy stay
+    outside. Returns a list that holds True once the loop ran so."""
+    import torch
+
+    inner, ran = pipe.denoise_loop, []
+
+    def checked(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inner(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del pipe.denoise_loop
+        ran.append(True)
+        return out
+
+    pipe.denoise_loop = checked
+    return ran
+
+
+def record_groupnorm_calls(model) -> tuple:
+    """(calls, hooks): every GroupNorm call of ``model`` from now on, as
+    (B, HW, C, groups, silu), recorded by forward pre-hooks (which touch no
+    tensor data); remove the hooks when done."""
+    from mvd_tpu_torch.nn.layers import GroupNorm
+
+    calls = []
+
+    def hook(mod, inputs):
+        B, C, H, W = inputs[0].shape
+        calls.append((B, H * W, C, mod.num_groups, mod.fuse_silu))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, GroupNorm)]
+    return calls, hooks
+
+
+def groupnorm_summary(calls) -> dict:
+    """The summed bytes bound of K2 over ``calls`` and the device kernels
+    its plans launch (one per fused call, two per two-pass call)."""
+    from mvd_tpu_torch.kernels.groupnorm_silu import FUSED, launch_plan
+    from mvd_tpu_torch.kernels.measure import gn_bounds
+
+    fused = sum(launch_plan(B, HW, C, G).path == FUSED for B, HW, C, G, _ in calls)
+    return dict(calls=len(calls), fused_calls=fused, two_pass_calls=len(calls) - fused,
+                device_kernels=fused + 2 * (len(calls) - fused),
+                bound_ms=sum(gn_bounds(B, HW, C, silu)["bound_ms"] for B, HW, C, _, silu in calls))
+
+
 def phase_main_path():
     import torch
 
@@ -511,17 +599,31 @@ def phase_main_path():
     n_params = sum(p.numel() for p in pipe.model.parameters())
     print(f"[main] created full-width pipeline ({n_params / 1e6:.1f} M params) "
           f"in {time.perf_counter() - t0:.1f} s")
-    pipe.compute_model  # cast once, outside the counted run
+    # pipe.compute_model casts once, outside the counted run
+    gn_calls, hooks = record_groupnorm_calls(pipe.compute_model)
+    checked = sync_checked_loop(pipe)
     reset_counts()
     t0 = time.perf_counter()
     images = first_images = pipe(prompts, seed=0, **kwargs)["images"]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
     launches, plain = read_counts()
     want = expected_launches(pipe, STEPS)
     print(f"[main] first call {first_s:.2f} s; launches {launches} (expected {want}); plain calls {plain}")
     if launches != want or any(plain.values()):
         raise AssertionError(f"kernel launches {launches} != expected {want}, or plain calls {plain}")
+    if checked != [True]:
+        raise AssertionError("the denoise loop did not run under the sync check")
+    print(f"[main] the {STEPS}-step denoise loop ran under torch.cuda.set_sync_debug_mode(\"error\"): "
+          f"no call in it waited for the device")
+    gn = groupnorm_summary(gn_calls)
+    if gn["calls"] != want["groupnorm_silu"]:
+        raise AssertionError(f"{gn['calls']} GroupNorm calls recorded, {want['groupnorm_silu']} launched")
+    print(f"[main] K2: {gn['calls']} GroupNorm calls, {gn['fused_calls']} fused (one device kernel "
+          f"each) and {gn['two_pass_calls']} two-pass (two each): {gn['device_kernels']} device "
+          f"kernels; summed bytes bound of every call {gn['bound_ms']:.3f} ms")
     if tuple(images.shape) != (VIEWS, RES, RES, 3):
         raise AssertionError(f"images shape {tuple(images.shape)}")
     if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
@@ -537,7 +639,8 @@ def phase_main_path():
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[main] second call {dt:.3f} s per {VIEWS}-view batch = {VIEWS / dt:.4f} img/s, "
           f"peak memory {peak:.2f} GiB")
-    metrics = dict(sec_per_batch=dt, img_per_s=VIEWS / dt, peak_gib=peak, first_call_s=first_s)
+    metrics = dict(sec_per_batch=dt, img_per_s=VIEWS / dt, peak_gib=peak, first_call_s=first_s,
+                   groupnorm=gn)
     return launches, metrics, (pipe, prompts, kwargs), first_images
 
 
@@ -869,7 +972,7 @@ TRACE_GROUPS = {
     "K6 flash_fwd_int8": ("flash_fwd_int8",),
     "K3a flash_bwd_dq": (r"flash_bwd_dq_wgmma<",),
     "K3b flash_bwd_dkv": (r"flash_bwd_dkv_wgmma<",),
-    "K2 gn_*": ("gn_stats", "gn_apply"),
+    "K2 gn_fused_cluster, gn_partial_*": ("gn_fused_cluster", r"gn_partial_(stats|apply)"),
 }
 TRACE_TOP = 25
 
@@ -890,10 +993,10 @@ def trace_run(fn, label: str) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         raise AssertionError(f"the {label} trace holds no device time")
-    shares = {
-        g: sum(e.self_device_time_total for e in kernels if any(re.search(f, e.key) for f in frags)) / 1e3
-        for g, frags in TRACE_GROUPS.items()
-    }
+    ours = {g: [e for e in kernels if any(re.search(f, e.key) for f in frags)]
+            for g, frags in TRACE_GROUPS.items()}
+    shares = {g: sum(e.self_device_time_total for e in es) / 1e3 for g, es in ours.items()}
+    counts = {g: sum(e.count for e in es) for g, es in ours.items()}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
     rows = [dict(kernel=e.key[:120], calls=e.count, device_ms=e.self_device_time_total / 1e3)
             for e in top]
@@ -901,11 +1004,11 @@ def trace_run(fn, label: str) -> dict:
     print(f"[trace] {label}: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, kernel launches {n_launch}")
     for g, ms in shares.items():
-        print(f"[trace]   {g}: {ms:.2f} ms ({ms / busy_ms:.3f} of device time)")
+        print(f"[trace]   {g}: {ms:.2f} ms ({ms / busy_ms:.3f} of device time) in {counts[g]} kernels")
     for r in rows:
         print(f"[trace]   {r['device_ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                kernel_launches=n_launch, port_kernels_ms=shares, top=rows)
+                kernel_launches=n_launch, port_kernels_ms=shares, port_kernel_counts=counts, top=rows)
 
 
 KERNEL_META = {
@@ -925,7 +1028,8 @@ KERNEL_META = {
         replaces="mvd_tpu/kernels/flash_attention.py:598", primary="self 96x96",
     ),
     "groupnorm_silu": dict(
-        name="K2 GroupNorm(+SiLU) forward", route="cuda",
+        name="K2 GroupNorm(+SiLU) forward (gn_fused_cluster; gn_partial_stats + gn_partial_apply)",
+        route="cuda",
         source="mvd_tpu_torch/csrc/groupnorm_silu.cu",
         replaces="mvd_tpu/kernels/groupnorm_silu.py:77", primary="unet 64x64x320 silu",
     ),
@@ -979,6 +1083,11 @@ def main(argv=None) -> int:
         pipe, prompts, kwargs = call
         traces = trace_run(lambda: pipe(prompts, seed=2, **kwargs), "generation")
         del pipe
+        k2 = "K2 gn_fused_cluster, gn_partial_*"
+        k2_ms, gn = traces["port_kernels_ms"][k2], main_metrics["groupnorm"]
+        print(f"[trace] K2: {k2_ms:.2f} ms of device time in {traces['port_kernel_counts'][k2]} "
+              f"kernels (the plans say {gn['device_kernels']}) against the summed bytes bound "
+              f"{gn['bound_ms']:.3f} ms of its {gn['calls']} calls: share {gn['bound_ms'] / k2_ms:.3f}")
     int8_launches, int8_metrics, int8_call = phase_int8_main_path(call, images)
     if args.trace:
         pipe, prompts, kwargs = int8_call

@@ -16,6 +16,8 @@ import subprocess
 import time
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = [
@@ -90,6 +92,13 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _libs[name] = ctypes.CDLL(_lib_path(name))
     return _libs[name]
+
+
+def on_device(t: torch.Tensor) -> torch.cuda.device:
+    """The context every kernel launch runs in: ``t``'s device made current,
+    since the C entries read ``cudaGetDevice()`` for per-device attributes
+    and launch on ``t``'s stream."""
+    return torch.cuda.device(t.device)
 
 
 def check(err: int, what: str) -> None:

@@ -199,10 +199,11 @@ def _fwd(wrapper, layout, q, k, v, heads, scale):
     lse_shape = (B, heads, Sq) if layout == BHSD else (B, Sq, heads)
     lse = torch.empty(lse_shape, dtype=torch.float32, device=q.device)
     entry = _fwd_entries()[layout]
-    err = entry(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, Sq, Sk, heads, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with _build.on_device(q):
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Sk, heads, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, entry.__name__)
     wrapper.launches += 1
     return out, lse
@@ -370,8 +371,9 @@ def _launch_bwd(want_dq, q, k, v, do, lse_p, delta_p, dims, layout):
     dq_fn, dkv_fn = _bwd_entries()[layout]
     entry, wrapper = (dq_fn, flash_attention_packed_bwd_dq) if want_dq else (dkv_fn, flash_attention_packed_bwd_dkv)
     outs = (torch.empty_like(q),) if want_dq else (torch.empty_like(k), torch.empty_like(v))
-    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse_p.data_ptr(),
-                delta_p.data_ptr(), *(t.data_ptr() for t in outs), *dims)
+    with _build.on_device(q):
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse_p.data_ptr(),
+                    delta_p.data_ptr(), *(t.data_ptr() for t in outs), *dims)
     _build.check(err, entry.__name__)
     wrapper.launches += 1
     return outs
@@ -637,11 +639,12 @@ def launch_int8(ops, heads: int, scale: Optional[float] = None, block_k: int = I
         scale = 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, HD), dtype=torch.bfloat16, device=q8.device)
     lse = torch.empty((B, Sq, heads), dtype=torch.float32, device=q8.device)
-    err = _int8_entry()(
-        q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(), sq.data_ptr(), sk.data_ptr(),
-        sv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Sq, Sk, heads, D,
-        min(block_k, Sk), float(scale), torch.cuda.current_stream(q8.device).cuda_stream,
-    )
+    with _build.on_device(q8):
+        err = _int8_entry()(
+            q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(), sq.data_ptr(), sk.data_ptr(),
+            sv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Sq, Sk, heads, D,
+            min(block_k, Sk), float(scale), torch.cuda.current_stream(q8.device).cuda_stream,
+        )
     _build.check(err, "flash_attn_fwd_int8")
     return out, lse
 

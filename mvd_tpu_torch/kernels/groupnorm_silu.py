@@ -1,15 +1,18 @@
 """K2: GroupNorm(+SiLU) forward on NHWC (``csrc/groupnorm_silu.cu``).
 
 Replaces the TPU kernel ``mvd_tpu/kernels/groupnorm_silu.py:_gn_silu_kernel``
-(through ``_pallas_gn_silu`` / ``groupnorm_silu``): per-channel f32 sum and
-sum of squares folded to G groups, ``(x - mean) * rstd * gamma + beta``, an
-optional SiLU, in one more pass.
+(through ``_pallas_gn_silu`` / ``groupnorm_silu``): per-group f32 sum and sum
+of squares, ``(x - mean) * rstd * gamma + beta``, an optional SiLU.
 
-On the H100 it is bound by bytes (x read, y written). The TPU kernel ran one
-program per batch row; the CUDA version splits the statistics over (row
-chunk, batch) blocks with per-group atomics, so every SM has work at every
-shape of the main path, and applies the affine (+SiLU) with 16-byte loads
-and stores; the source's header says more.
+On the H100 it is bound by bytes (x read, y written). ``launch_plan`` picks
+one of the kernel's two paths for each shape and the C entry takes the plan
+as it is: where a batch row's slab of a group set fits in the shared memory
+of one thread-block cluster, one launch reads x once into shared memory,
+reduces across the cluster through distributed shared memory and applies
+from there (``FUSED``); larger slabs take two launches, per-CTA partials
+summed in a fixed order by the apply pass (``TWO_PASS``). Neither uses a
+memset or atomics, so a call is bitwise repeatable. The source's header
+says more.
 
 The JAX package gates its kernel off by default (``MVD_FUSED_GN``) because
 it lost to XLA's own fusion on the TPU. Eager PyTorch has no such fusion, so
@@ -27,8 +30,10 @@ backward for GroupNorm, so this backward is PyTorch ops by design.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -62,13 +67,133 @@ def groupnorm_silu_plain(
     return y.reshape(B, H, W, C).to(x.dtype)
 
 
+FUSED, TWO_PASS = 0, 1  # the kernel's two paths
+SMEM_MAX = 232448  # dynamic shared memory one CTA may take (227 KB)
+MAX_THREADS = 512  # the two-pass kernels' block; fused CTAs take 256 (bench_groupnorm --sweep)
+CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes; 16 is past the portable 8
+FILL = 256  # CTAs that fill the card: two on each of its 132 SMs
+# The fused path reads strided row segments of set * 2 bytes: below
+# MIN_SEGMENT_BYTES a shape takes the two-pass path, below WIDE_SEGMENT_BYTES
+# a plan is taken only where no wider one fits. A CTA holds at most
+# SLAB_MAX_BYTES of x: past that, one CTA per SM serialises its loads and
+# stores and the two-pass path wins (bench_groupnorm, PERF.md).
+MIN_SEGMENT_BYTES, WIDE_SEGMENT_BYTES = 64, 160
+SLAB_MAX_BYTES = 128 * 1024
+TWO_PASS_CTAS = 264  # two resident CTAs of 512 threads on each of the 132 SMs
+
+
+@dataclasses.dataclass(frozen=True)
+class GNPlan:
+    """One K2 launch: ``path`` (FUSED or TWO_PASS), the CTAs of a cluster
+    (``cluster``, 1 on the two-pass path), the channels of a group set
+    (``set``), the rows of x per CTA, the threads per CTA and the dynamic
+    shared memory per CTA in bytes. ``grid`` is (x, y, z) of the launch, and
+    ``scratch`` the f32 elements of the two-pass partials."""
+
+    path: int
+    cluster: int
+    set: int
+    rows: int
+    threads: int
+    smem: int
+    grid: Tuple[int, int, int]
+    scratch: int
+
+    def c_args(self) -> Tuple[int, ...]:
+        return (self.path, self.cluster, self.set, self.rows, self.threads, self.smem)
+
+
+def _smem_bytes(path: int, rows: int, set_: int, threads: int, cpg: int) -> int:
+    """``smem_bytes`` of ``csrc/groupnorm_silu.cu``: the fused path's slab
+    (rows x set bf16, rounded up to 16 bytes), the fold's 2 x rows_par x set
+    floats, 4 floats per group of the set and 2 x max(groups, warps) warp
+    sums."""
+    slab = -(-rows * set_ * 2 // 16) * 16 if path == FUSED else 0
+    gs = set_ // cpg
+    return slab + 2 * (threads // (set_ // 8)) * set_ * 4 + 4 * gs * 4 + 2 * max(gs, threads // 32) * 4
+
+
+def _set_widths(C: int, G: int):
+    """Group-set widths, narrowest first: multiples of 8 channels and of
+    C/G that divide C, at most 8 * MAX_THREADS channels."""
+    base = math.lcm(8, C // G)
+    return [w for w in range(base, min(C, 8 * MAX_THREADS) + 1, base) if C % w == 0]
+
+
+def fused_plans(B: int, HW: int, C: int, G: int) -> List[Tuple[tuple, GNPlan]]:
+    """Every one-launch plan whose slab share fits one CTA's shared memory,
+    each with its preference key (smaller is better): row segments of at
+    least WIDE_SEGMENT_BYTES, then up to FILL CTAs, smaller clusters (less
+    to synchronise), wider sets."""
+    plans = []
+    for set_ in _set_widths(C, G):
+        vpr = set_ // 8
+        for cs in CLUSTERS:
+            rows = -(-HW // cs)
+            if -(-HW // rows) != cs:  # a CTA of the cluster would hold no row
+                continue
+            threads = max(min(256, -(-rows * vpr // 32) * 32), -(-vpr // 32) * 32)
+            smem = _smem_bytes(FUSED, rows, set_, threads, C // G)
+            # the cluster's partials are gathered into the fold's terms
+            if smem > SMEM_MAX or cs * (set_ // (C // G)) > threads // vpr * set_:
+                continue
+            ctas = B * (C // set_) * cs
+            key = (set_ * 2 < WIDE_SEGMENT_BYTES, -min(ctas, FILL), cs, -set_)
+            plans.append((key, GNPlan(FUSED, cs, set_, rows, threads, smem, ((C // set_) * cs, B, 1), 0)))
+    return plans
+
+
+def plan_fused(B: int, HW: int, C: int, G: int) -> Optional[GNPlan]:
+    """The preferred one-launch plan with row segments of at least
+    MIN_SEGMENT_BYTES (or whole rows) and at most SLAB_MAX_BYTES of x per
+    CTA, or None where there is none."""
+    plans = [(k, p) for k, p in fused_plans(B, HW, C, G)
+             if (p.set * 2 >= MIN_SEGMENT_BYTES or p.set == C) and p.rows * p.set * 2 <= SLAB_MAX_BYTES]
+    return min(plans, key=lambda kp: kp[0])[1] if plans else None
+
+
+def plan_two_pass(B: int, HW: int, C: int, G: int) -> GNPlan:
+    """The two-launch plan: the widest group set, 512 threads, and rows per
+    CTA such that about TWO_PASS_CTAS CTAs cover the tensor."""
+    set_ = _set_widths(C, G)[-1]
+    sets = C // set_
+    threads = MAX_THREADS
+    rows = -(-HW // max(1, -(-TWO_PASS_CTAS // (B * sets))))
+    chunks = -(-HW // rows)
+    return GNPlan(TWO_PASS, 1, set_, rows, threads,
+                  _smem_bytes(TWO_PASS, rows, set_, threads, C // G), (chunks, sets, B),
+                  B * G * chunks * 2)
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(B: int, HW: int, C: int, G: int) -> GNPlan:
+    """The plan of one K2 call on (B, HW, C) with G groups: fused where a
+    cluster holds the slab, else two passes."""
+    return plan_fused(B, HW, C, G) or plan_two_pass(B, HW, C, G)
+
+
 @functools.cache
 def _entry():
     """The C entry, built and loaded on first call, its signature set once."""
     fn = _build.load("groupnorm_silu").groupnorm_silu_bf16
-    fn.argtypes = [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P]
+    fn.argtypes = [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 7 + [_P]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(entry, x, scale, bias, y, scratch, num_groups, eps, apply_silu, plan: GNPlan) -> None:
+    """One call of a K2 C entry (``entry``: this build's or another's) on
+    checked CUDA tensors, into ``y`` and ``scratch`` (None on the fused
+    path). Counts nothing: ``groupnorm_silu`` counts its launches."""
+    B, H, W, C = x.shape
+    with _build.on_device(x):
+        err = entry(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, H * W, C, num_groups,
+            float(eps), int(apply_silu), *plan.c_args(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(err, "groupnorm_silu_bf16")
 
 
 def groupnorm_silu(
@@ -99,14 +224,10 @@ def groupnorm_silu(
     for name, p in (("scale", scale), ("bias", bias)):
         if p.dtype != torch.float32 or p.shape != (C,) or not p.is_contiguous() or p.device != x.device:
             raise ValueError(f"groupnorm {name} must be a contiguous f32 ({C},) tensor on {x.device}")
+    plan = launch_plan(B, H * W, C, num_groups)
     y = torch.empty_like(x)
-    stats = torch.empty(B * num_groups * 2, dtype=torch.float32, device=x.device)
-    err = _entry()(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), B, H * W, C, num_groups, float(eps),
-        int(apply_silu), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "groupnorm_silu_bf16")
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device) if plan.scratch else None
+    launch(_entry(), x, scale, bias, y, scratch, num_groups, eps, apply_silu, plan)
     groupnorm_silu.launches += 1
     return y
 

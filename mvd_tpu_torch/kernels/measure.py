@@ -1,6 +1,7 @@
-"""The H100's peak rates, the least times they give a kernel, and the checks
-and timer that ``chip_smoke.py`` and ``python -m
-mvd_tpu_torch.cli.bench_flash_fwd`` / ``bench_flash_bwd`` share.
+"""The H100's peak rates, the least times they give a kernel, and the cases,
+checks and timer that ``chip_smoke.py`` and ``python -m
+mvd_tpu_torch.cli.bench_flash_fwd`` / ``bench_flash_bwd`` /
+``bench_groupnorm`` share.
 
 Nothing here runs at import; ``torch`` and ``nvidia-smi`` are reached only
 inside the functions.
@@ -59,6 +60,40 @@ TRAIN_ATTN_CASES = [
 # gradient for elements near zero; the relative RMS bound catches an error
 # spread over every element.
 GRAD_RTOL, GRAD_ATOL_RMS, GRAD_REL_RMS = 2e-2, 5e-2, 1e-2
+
+
+# (label, B, H, W, C, silu): GroupNorm shapes of the 512² main path (UNet
+# and VAE decode, B 4), every one at G = 32
+GN_CASES = [
+    ("unet 64x64x320 silu", 4, 64, 64, 320, True),
+    ("unet 64x64x320 transformer", 4, 64, 64, 320, False),
+    ("unet 32x32x960 silu", 4, 32, 32, 960, True),
+    ("unet 16x16x2560 silu", 4, 16, 16, 2560, True),
+    ("unet 8x8x1280 silu", 4, 8, 8, 1280, True),
+    ("vae 512x512x256 silu", 4, 512, 512, 256, True),
+    ("vae 512x512x128 silu", 4, 512, 512, 128, True),
+    ("vae 256x256x256 silu", 4, 256, 256, 256, True),
+    ("vae 128x128x512 silu", 4, 128, 128, 512, True),
+    ("vae 64x64x512 attn", 4, 64, 64, 512, False),
+]
+# and of the 768² train step (B 6): UNet at 96², VAE encoder at 768²
+TRAIN_GN_CASES = [
+    ("train unet 96x96x320 silu", 6, 96, 96, 320, True),
+    ("train unet 96x96x960 silu", 6, 96, 96, 960, True),
+    ("train vae 768x768x128 silu", 6, 768, 768, 128, True),
+    ("train vae 768x768x256 silu", 6, 768, 768, 256, True),
+]
+GN_TOL = dict(atol=1e-2, rtol=1e-2)  # one bf16 rounding of y (|y| up to ~5)
+
+
+def gn_bounds(B: int, HW: int, C: int, silu: bool) -> dict:
+    """Least time (ms) of one GroupNorm(+SiLU): x read and y written once in
+    bf16 plus gamma and beta in f32 at HBM_BYTES_PER_S, or 5 f32 operations
+    per element (10 with the SiLU) at F32_FLOPS, whichever is larger."""
+    n = float(B) * HW * C
+    t_bytes = (2 * 2 * n + 2 * 4.0 * C) / HBM_BYTES_PER_S * 1e3
+    t_ops = (10.0 if silu else 5.0) * n / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def card_line() -> str:
@@ -126,6 +161,28 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters: int = 20, calls: int = 10) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``iters`` times between CUDA events, so that the host's
+    cost per call (Python, ctypes) hides behind the device's. ``fn`` must
+    launch on the current stream and allocate nothing."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, iters) / calls
+    del graph
+    return ms
 
 
 def max_err(got, want, tol, what) -> float:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import List, Mapping, Optional, Sequence, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -204,6 +204,46 @@ class MVDPipeline:
             c = np.tile(c, (B // c.shape[0], 1, 1))
         return torch.as_tensor(c, device=self.device)
 
+    def timesteps(self, num_inference_steps: int) -> List[Tuple[int, torch.Tensor]]:
+        """The descending inference timesteps, each as a Python int (for
+        ``ddpm_step``, which only indexes the schedule) and as a 0-d int64
+        view of one device tensor made here (for the UNet)."""
+        ts = inference_timesteps(self.schedule, num_inference_steps)
+        on_device = torch.as_tensor(ts, dtype=torch.int64).to(self.device)
+        return list(zip(ts.tolist(), on_device.unbind(0)))
+
+    def denoise_loop(
+        self,
+        model: nn.Module,
+        lat: torch.Tensor,
+        timesteps: Sequence[Tuple[int, torch.Tensor]],
+        embeds: torch.Tensor,
+        film,
+        ref_feats,
+        ref_scale: float,
+        guidance_scale: float,
+        num_inference_steps: int,
+        step_noises: Optional[torch.Tensor] = None,
+        gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``denoise`` + ``ddpm_step`` at each of ``timesteps`` (pairs from
+        ``MVDPipeline.timesteps``), with the noise of ``step_noises`` (steps,
+        B, h, w, 4), already on the device, or drawn from ``gen``. Nothing
+        here waits for the device."""
+        do_cfg = guidance_scale > 1.0
+        for i, (t, t_dev) in enumerate(timesteps):
+            inp = torch.cat([lat, lat], dim=0) if do_cfg else lat
+            pred = model["mvd"].denoise(inp, t_dev, embeds, film, ref_feats, ref_scale)
+            if do_cfg:
+                un, co = pred.chunk(2, dim=0)
+                pred = un + guidance_scale * (co - un)
+            if step_noises is not None:
+                noise = step_noises[i]
+            else:
+                noise = torch.randn(lat.shape, generator=gen, device=lat.device)
+            lat = ddpm_step(self.schedule, pred, t, lat, noise, num_inference_steps)
+        return lat
+
     @torch.inference_mode()
     def __call__(
         self,
@@ -276,20 +316,14 @@ class MVDPipeline:
             precompute_kv=True,
         )
 
-        for i, t in enumerate(inference_timesteps(self.schedule, num_inference_steps)):
-            t = int(t)
-            inp = torch.cat([lat, lat], dim=0) if do_cfg else lat
-            pred = model["mvd"].denoise(
-                inp, torch.tensor(t, device=dev), embeds, film, ref_feats, ref_scale
-            )
-            if do_cfg:
-                un, co = pred.chunk(2, dim=0)
-                pred = un + guidance_scale * (co - un)
-            if step_noises is not None:
-                noise = torch.as_tensor(step_noises[i], dtype=torch.float32, device=dev)
-            else:
-                noise = torch.randn(lat.shape, generator=gen, device=dev)
-            lat = ddpm_step(self.schedule, pred, t, lat, noise, num_inference_steps)
+        # host-to-device copies happen here, once: inside the loop a pageable
+        # copy would wait for the device to drain at every step
+        if step_noises is not None:
+            step_noises = torch.as_tensor(step_noises, dtype=torch.float32, device=dev)
+        lat = self.denoise_loop(
+            model, lat, self.timesteps(num_inference_steps), embeds, film, ref_feats,
+            ref_scale, guidance_scale, num_inference_steps, step_noises, gen,
+        )
 
         img = model["vae"].decode(lat / cfg.vae.scaling_factor)
         img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)

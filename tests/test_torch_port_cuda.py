@@ -43,6 +43,8 @@ from mvd_tpu_torch.kernels import (
     groupnorm_silu_diff,
     groupnorm_silu_plain,
 )
+from mvd_tpu_torch.kernels import _build
+from mvd_tpu_torch.kernels.groupnorm_silu import FUSED, TWO_PASS, launch_plan
 
 pytestmark = pytest.mark.gpu
 
@@ -80,22 +82,50 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, heads):
     torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=1e-4)
 
 
-@pytest.mark.parametrize(
-    "shape,groups,silu",
-    [((2, 5, 7, 96), 32, True), ((1, 1, 1, 64), 32, False), ((3, 9, 9, 2560), 32, True),
-     ((1, 3, 3, 8), 1, True)],
-)
-def test_groupnorm_kernel_matches_plain(cuda, shape, groups, silu):
+# K2 shapes: ragged and tiny ones, then both sides of the switch between the
+# fused path (one cluster launch) and the two-pass path (launch_plan)
+GN_SHAPES = [((2, 5, 7, 96), 32, True), ((1, 1, 1, 64), 32, False), ((3, 9, 9, 2560), 32, True),
+             ((1, 3, 3, 8), 1, True), ((4, 64, 64, 320), 32, True), ((6, 96, 96, 320), 32, True),
+             ((6, 96, 96, 960), 32, True), ((2, 256, 256, 128), 32, True)]
+GN_PATHS = {(4, 64, 64, 320): FUSED, (6, 96, 96, 320): FUSED, (6, 96, 96, 960): TWO_PASS,
+            (2, 256, 256, 128): TWO_PASS}
+
+
+def _gn_inputs(cuda, shape):
     x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).bfloat16()
     C = shape[-1]
     w = 1 + 0.1 * torch.randn(C, generator=cuda, device="cuda")
     b = 0.1 * torch.randn(C, generator=cuda, device="cuda")
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape,groups,silu", GN_SHAPES)
+def test_groupnorm_kernel_matches_plain(cuda, shape, groups, silu):
+    x, w, b = _gn_inputs(cuda, shape)
+    B, H, W, C = shape
+    if shape in GN_PATHS:
+        assert launch_plan(B, H * W, C, groups).path == GN_PATHS[shape]
     launches = groupnorm_silu.launches
     y = groupnorm_silu(x, w, b, groups, 1e-6, silu)
     torch.cuda.synchronize()
     assert groupnorm_silu.launches == launches + 1
     want = groupnorm_silu_plain(x, w, b, groups, 1e-6, silu)
     torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("shape", list(GN_PATHS))
+def test_groupnorm_kernel_is_repeatable_and_reads_only_its_batch(cuda, shape):
+    """On both paths: two calls are bitwise equal (no atomics), and batch
+    0's output stays bitwise the same when batch 1 turns to NaN."""
+    x, w, b = _gn_inputs(cuda, shape)
+    y = groupnorm_silu(x, w, b, 32, 1e-6, True)
+    again = groupnorm_silu(x, w, b, 32, 1e-6, True)
+    x[1] = float("nan")
+    poisoned = groupnorm_silu(x, w, b, 32, 1e-6, True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert torch.equal(y[0], poisoned[0])
+    assert poisoned[1].float().isnan().all()
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -334,3 +364,61 @@ def test_k6_and_k5_reject_what_they_do_not_take(cuda):
         flash_attention_fwd(x[..., :32].contiguous(), x[..., :32].contiguous(), x[..., :32].contiguous())
     with pytest.raises(ValueError):
         attention(x, x, x, "pallas_interpret")
+
+
+def test_denoise_loop_never_waits_for_the_device(cuda):
+    """The sampler loop (3 denoise + ddpm_step iterations of a 20-step
+    schedule, after prepare_conditioning) at tiny width with 64-wide heads
+    in bf16 makes no call that synchronizes with the device: the timesteps
+    and the step noise reach the device before the loop."""
+    import dataclasses
+
+    from mvd_tpu_torch.camera import orbit_cameras
+    from mvd_tpu_torch.config import TINY_MODEL, TINY_UNET
+    from mvd_tpu_torch.pipeline import MVDPipeline
+
+    unet = dataclasses.replace(TINY_UNET, block_out_channels=(64, 128, 128, 128),
+                               num_attention_heads=(1, 2, 2, 2))
+    cfg = dataclasses.replace(TINY_MODEL, unet=unet, dtype="bfloat16")
+    pipe = MVDPipeline.create(cfg, seed=0, device="cuda")
+    model = pipe.compute_model
+    B, s = 2, unet.sample_size
+    with torch.inference_mode():
+        embeds = model["text_encoder"](pipe._ids(["a 3d object"] * B, 1))
+        cams = torch.as_tensor(orbit_cameras(B), device="cuda")
+        src = torch.randn((B, s, s, 4), generator=cuda, device="cuda")
+        film, refs = model["mvd"].prepare_conditioning(embeds, cams[:1].expand(B, 4, 4), cams, src,
+                                                       cfg_batch=B, precompute_kv=True)
+        lat = torch.randn((B, s, s, 4), generator=cuda, device="cuda")
+        noises = torch.randn((3, B, s, s, 4), generator=cuda, device="cuda")
+        steps = pipe.timesteps(20)[:3]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipe.denoise_loop(model, lat, steps, embeds, film, refs, 1.0, 1.0, 20, noises)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == lat.shape and torch.isfinite(out).all()
+
+
+def test_every_launch_runs_on_the_tensors_device(cuda, monkeypatch):
+    """Each kernel wrapper enters _build.on_device with the device of the
+    tensors it launches on, around its C call."""
+    seen = []
+    real = _build.on_device
+
+    def record(t):
+        seen.append(t.device)
+        return real(t)
+
+    monkeypatch.setattr(_build, "on_device", record)
+    randn = lambda *s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v, do = randn(1, 1024, 128), randn(1, 1024, 128), randn(1, 1024, 128), randn(1, 1024, 128)
+    out, lse = flash_attention_packed_fwd(q, k, v, 2)  # K1
+    flash_attention_fwd(randn(1, 2, 64, 64), randn(1, 2, 64, 64), randn(1, 2, 64, 64))  # K5
+    flash_attention_packed_bwd(q, k, v, out, lse, do, 2)  # K3a, K3b
+    flash_attention_packed_int8_fwd(q, k, v, 2)  # K6
+    x = randn(2, 8, 8, 64)
+    groupnorm_silu(x, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"), 32)  # K2
+    torch.cuda.synchronize()
+    assert seen == [q.device] * 6

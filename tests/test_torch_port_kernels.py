@@ -25,7 +25,15 @@ from mvd_tpu_torch.kernels.flash_attention import (
     bwd_stats,
     flash_attention_packed_fwd,
 )
-from mvd_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
+from mvd_tpu_torch.kernels.groupnorm_silu import (
+    FUSED,
+    MAX_THREADS,
+    SMEM_MAX,
+    TWO_PASS,
+    _smem_bytes,
+    groupnorm_silu,
+    launch_plan,
+)
 from mvd_tpu_torch.kernels.measure import attn_bounds, bwd_bounds, check_attention, check_grad
 
 BAR_DB = 60.0
@@ -258,3 +266,88 @@ def test_bwd_stats_match_the_jax_reordering(layout, B, Sq, heads):
     np.testing.assert_allclose(got_delta[..., :Sq].numpy(), want_delta, rtol=1e-5, atol=1e-5)
     assert torch.isinf(got_lse[..., Sq:]).all() and (got_lse[..., Sq:] > 0).all()
     assert (got_delta[..., Sq:] == 0).all()
+
+
+def _unet_gn_shapes(B, s, ch=(320, 640, 1280, 1280), layers=2, attn=(True, True, True, False)):
+    """(B, HW, C, silu) of every GroupNorm of one SD2.1 UNet pass at latent
+    side s: resnet norm1/norm2 (SiLU), transformer norms (none), the skip
+    concatenations of the up path, conv_norm_out."""
+    out, skips, c_prev = [], [ch[0]], ch[0]
+    for i, c in enumerate(ch):
+        hw = (s >> i) ** 2
+        for _ in range(layers):
+            out += [(B, hw, c_prev, True), (B, hw, c, True)] + [(B, hw, c, False)] * attn[i]
+            c_prev = c
+            skips.append(c)
+        if i < len(ch) - 1:
+            skips.append(c)
+    hw = (s >> (len(ch) - 1)) ** 2
+    out += [(B, hw, c_prev, True)] * 4 + [(B, hw, c_prev, False)]
+    for u, c in enumerate(reversed(ch)):
+        level = len(ch) - 1 - u
+        hw = (s >> level) ** 2
+        for _ in range(layers + 1):
+            out += [(B, hw, c_prev + skips.pop(), True), (B, hw, c, True)] + [(B, hw, c, False)] * attn[level]
+            c_prev = c
+    return out + [(B, s * s, ch[0], True)]
+
+
+def _vae_gn_shapes(B, res, ch=(128, 256, 512, 512), layers=2, decoder=False):
+    """(B, HW, C, silu) of every GroupNorm of the SD VAE encoder at image
+    side res, or of its decoder at latent side res."""
+    if decoder:
+        out, c_prev = [(B, res * res, ch[-1], True)] * 4 + [(B, res * res, ch[-1], False)], ch[-1]
+        for i, c in enumerate(reversed(ch)):
+            hw = (res << i) ** 2
+            for _ in range(layers + 1):
+                out += [(B, hw, c_prev, True), (B, hw, c, True)]
+                c_prev = c
+        return out + [(B, (res << len(ch) - 1) ** 2, ch[0], True)]
+    out, c_prev = [], ch[0]
+    for i, c in enumerate(ch):
+        for _ in range(layers):
+            out += [(B, (res >> i) ** 2, c_prev, True), (B, (res >> i) ** 2, c, True)]
+            c_prev = c
+    hw = (res >> len(ch) - 1) ** 2
+    return out + [(B, hw, c_prev, True)] * 4 + [(B, hw, c_prev, False), (B, hw, c_prev, True)]
+
+
+def test_groupnorm_shape_lists_match_the_model_structure():
+    """The enumerations above count what chip_smoke.py's expected launches
+    count: 61 GroupNorms per UNet pass, 22 in the VAE encoder, 30 in its
+    decoder."""
+    assert len(_unet_gn_shapes(4, 64)) == 61
+    assert len(_vae_gn_shapes(1, 512)) == 22 and len(_vae_gn_shapes(4, 64, decoder=True)) == 30
+    assert {(hw, c) for _, hw, c, _ in _unet_gn_shapes(4, 64)} >= {(4096, 960), (64, 2560), (256, 1920)}
+
+
+# every GroupNorm shape of 512² generation (UNet at B 4, the source encode
+# at B 1, the decode at B 4) and of the 768² train step (UNet and both
+# encodes at B 6), then ragged ones, as (B, HW, C, G)
+_GN_PLAN_SHAPES = sorted(
+    {(B, hw, c, 32) for B, hw, c, _ in _unet_gn_shapes(4, 64) + _vae_gn_shapes(1, 512)
+     + _vae_gn_shapes(4, 64, decoder=True) + _unet_gn_shapes(6, 96) + _vae_gn_shapes(6, 768)}
+) + [(2, 35, 96, 32), (1, 1, 64, 32), (3, 81, 2560, 32), (1, 9, 8, 1)]
+
+
+@pytest.mark.parametrize("B,HW,C,G", _GN_PLAN_SHAPES)
+def test_groupnorm_launch_plan_covers_every_row_and_channel_once(B, HW, C, G):
+    plan = launch_plan(B, HW, C, G)
+    cpg, vpr = C // G, plan.set // 8
+    # group sets: whole groups, 16-byte row segments, tiling the channels
+    assert plan.set % 8 == 0 and plan.set % cpg == 0 and C % plan.set == 0
+    # threads: warps, every vector lane of a row segment taken
+    assert plan.threads % 32 == 0 and vpr <= plan.threads <= MAX_THREADS
+    assert plan.smem == _smem_bytes(plan.path, plan.rows, plan.set, plan.threads, cpg) <= SMEM_MAX
+    chunks = -(-HW // plan.rows)
+    # row ranges [i * rows, min((i + 1) * rows, HW)) tile [0, HW), none empty
+    starts = [i * plan.rows for i in range(chunks)]
+    assert starts[-1] < HW <= chunks * plan.rows
+    if plan.path == FUSED:
+        assert plan.grid == ((C // plan.set) * plan.cluster, B, 1) and plan.scratch == 0
+        assert plan.cluster == chunks and 1 <= plan.cluster <= 16
+        # the cluster's partials fit where the fold's terms were
+        assert plan.cluster * (plan.set // cpg) <= plan.threads // vpr * plan.set
+    else:
+        assert plan.path == TWO_PASS and plan.cluster == 1
+        assert plan.grid == (chunks, C // plan.set, B) and plan.scratch == B * G * chunks * 2
