@@ -12,10 +12,14 @@ Five phases; any failure exits non-zero:
    version and one PyTorch library call computing the same function (a
    yardstick the port never calls), beside the least time the card could
    take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 tensor /
-   1,979 TOP/s int8 tensor / 67 TFLOP/s f32, whichever is larger). K6
-   (int8) is also checked against exact attention (>= 30 dB), and, through
-   ``Int8FlashAttention``, forward and straight-through backward at the
-   768² train shape; K5 ((B, H, S, D)) forward and backward. K2 runs at the
+   1,979 TOP/s int8 tensor / 67 TFLOP/s f32, whichever is larger; for K6
+   also its exponentials at 16 a clock per SM). K6 (int8) is held to its
+   plain core on the operands its quantizer K6q writes, and with K6q to the
+   plain version and to exact attention (>= 30 dB); K6q to the plain
+   quantizers; both timed by CUDA-graph replay beside the eager quantizers
+   and K1 at the same shape; through ``Int8FlashAttention``, forward and
+   straight-through backward at the 768² train shape; K5 ((B, H, S, D))
+   forward and backward. K2 runs at the
    GroupNorm shapes of generation and of the train step, on both of its
    paths, timed through the wrapper and through its C entry alone (device
    time by CUDA-graph replay), and is checked for bitwise repeatability and
@@ -29,7 +33,8 @@ Five phases; any failure exits non-zero:
    summed bytes bound over every GroupNorm call; then times a second call;
 3b. int8: the same pipeline and weights with ``attention_impl="int8"``:
    the same checks, K6 at exactly the sites the JAX package quantizes on a
-   TPU (610 launches, K1 at the other 702), the PSNR of its images against
+   TPU (610 launches, K6q before each, K1 at the other 702), the PSNR of
+   its images against
    phase 3's from the same weights and noise, and later calls of the two
    pipelines timed in turns;
 4. train: holds K3a/K3b against the plain backward at every attention shape
@@ -88,6 +93,8 @@ def phase_build() -> float:
     smem = _build.load("flash_attn_bwd").flash_attn_bwd_smem_bytes
     print(f"[build] flash_attn_bwd: dynamic shared memory per CTA {smem(0)} bytes (K3a), "
           f"{smem(1)} (K3b)")
+    print(f"[build] flash_attn_int8: dynamic shared memory per CTA (K6) "
+          f"{_build.load('flash_attn_int8').flash_attn_int8_smem_bytes()} bytes")
     print(f"[build] {len(KERNEL_SOURCES)} sources built in {secs:.1f} s")
     return secs
 
@@ -285,17 +292,12 @@ def phase_kernels():
     return results
 
 
-# (label, B, Sq, Sk, heads): the int8 sites of 512² generation (K6, D = 64),
-# and the largest of the 768² train step, where K6 runs through
-# Int8FlashAttention with its straight-through backward
-INT8_CASES = [("self 64x64", 4, 4096, 4096, 5), ("self 32x32", 4, 1024, 1024, 10)]
+# the largest int8 site of the 768² train step, where K6 runs through
+# Int8FlashAttention with its straight-through backward; the int8 sites of
+# 512² generation (INT8_CASES) and K6's and K6q's checks (INT8_TOL,
+# INT8_REL_RMS, INT8_MIN_DB, check_quantize) are in
+# mvd_tpu_torch/kernels/measure.py
 INT8_TRAIN_CASE = ("self 96x96", 6, 9216, 9216, 5)
-INT8_MIN_DB = 30.0  # int8 against exact attention: the JAX package's own bar
-# K6 and its plain version quantize P identically and differ by f32 rounding
-# before the bf16 output (measured on the H100: max abs err 2.4e-4, relative
-# RMS error 1e-5), so K6 is held tighter than K1: rtol 1e-2 still covers one
-# bf16 rounding step, and the relative RMS error may reach only 1e-3.
-INT8_TOL, INT8_REL_RMS = dict(atol=1e-3, rtol=1e-2), 1e-3
 # (label, B, heads, Sq, Sk): K5 at the hot self shape and a ragged text shape
 K5_CASES = [("self 64x64", 4, 5, 4096, 4096), ("text 64x64", 4, 5, 4096, 77)]
 
@@ -306,65 +308,99 @@ def _snr_db(got, want) -> float:
 
 
 def phase_int8_kernels():
-    """K6 against its plain version at the int8 sites of the main path, and
+    """K6 against its plain core on identical operands (K6q's) and, with
+    K6q, against the plain version; K6q against the plain quantizers; both
+    timed by CUDA-graph replay beside the eager quantizers, K1 at the same
+    shape and their bounds, at the int8 sites of the main path; and
     Int8FlashAttention forward and backward at the 768² train shape."""
     import torch
 
     from mvd_tpu_torch.kernels import (
+        attention_int8_core_plain,
         attention_packed_int8_plain,
         attention_packed_plain,
         flash_attention_packed_fwd,
         flash_attention_packed_int8,
         flash_attention_packed_int8_fwd,
+        quantize_int8,
+        quantize_int8_plain,
     )
-    from mvd_tpu_torch.kernels.flash_attention import int8_operands, launch_int8
+    from mvd_tpu_torch.kernels.flash_attention import launch_int8
     from mvd_tpu_torch.kernels.measure import (
-        HBM_BYTES_PER_S,
-        INT8_TENSOR_OPS,
+        INT8_CASES,
+        INT8_MIN_DB,
+        INT8_REL_RMS,
+        INT8_TOL,
+        K6Q_K8_OFF_SHARE,
+        K6Q_SK_RTOL,
         LSE_TOL,
         check_attention,
         check_grad,
+        check_quantize,
+        int8_bounds,
+        k6q_bounds,
         plain_bwd_by_row,
+        sm_clock_hz,
+        time_graph_ms,
         time_ms,
     )
 
+    clock = sm_clock_hz()
     gen = torch.Generator("cuda").manual_seed(2)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
-    results = []
+    results = {"flash_attn_int8": [], "quantize_int8": []}
     print(f"[kernels] K6 tolerance out {INT8_TOL} and relative RMS error <= {INT8_REL_RMS}, lse "
-          f"{LSE_TOL}, against its plain version; int8 against exact >= {INT8_MIN_DB} dB")
+          f"{LSE_TOL}, against its plain core on identical operands and, with K6q, against the plain "
+          f"version; int8 against exact >= {INT8_MIN_DB} dB. K6q: q8, sq, v8t, sv bitwise; sk within "
+          f"{K6Q_SK_RTOL}, k8 off by at most 1 in at most {K6Q_K8_OFF_SHARE} of its elements")
     for label, B, Sq, Sk, H in INT8_CASES:
-        D, HD = 64, H * 64
+        HD = H * 64
         q, k, v = randn(B, Sq, HD), randn(B, Sk, HD), randn(B, Sk, HD)
-        out, lse = flash_attention_packed_int8_fwd(q, k, v, H)
+        ops = quantize_int8(q, k, v, H)
+        out, lse = launch_int8(ops, H)
+        wrap_out, wrap_lse = flash_attention_packed_int8_fwd(q, k, v, H)
         torch.cuda.synchronize()
-        ref_out, ref_lse = attention_packed_int8_plain(q, k, v, H)
-        err, rel_rms = check_attention(out, lse, ref_out, ref_lse, f"K6 {label}", INT8_TOL, INT8_REL_RMS)
-        db = _snr_db(out, attention_packed_plain(q, k, v, H)[0])
+        want = quantize_int8_plain(q, k, v, H)
+        qcheck = check_quantize(ops, want, f"K6q {label}")
+        q_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(ops, want))
+        del want
+        err, rel_rms = check_attention(out, lse, *attention_int8_core_plain(ops, H), f"K6 {label}",
+                                       INT8_TOL, INT8_REL_RMS)
+        wrap_err, wrap_rms = check_attention(wrap_out, wrap_lse, *attention_packed_int8_plain(q, k, v, H),
+                                             f"K6q + K6 {label}", INT8_TOL, INT8_REL_RMS)
+        db = _snr_db(wrap_out, attention_packed_plain(q, k, v, H)[0])
         if not db >= INT8_MIN_DB:
             raise AssertionError(f"K6 {label}: int8 against exact {db:.2f} dB < {INT8_MIN_DB}")
-        iters = max(3, min(50, int(2e10 / (B * H * Sq * Sk * D))))
-        ops = int8_operands(q, k, v, H)
-        ms = time_ms(lambda: launch_int8(ops, H), iters)
-        wrapper_ms = time_ms(lambda: flash_attention_packed_int8_fwd(q, k, v, H), iters)
-        k1_ms = time_ms(lambda: flash_attention_packed_fwd(q, k, v, H), iters)
-        plain_ms = time_ms(lambda: attention_packed_int8_plain(q, k, v, H), max(2, iters // 4), 1)
-        int_ops = 4.0 * B * H * Sq * Sk * D
-        # the kernel's inputs (int8 q, k, v; f32 scales) and outputs (bf16 out, f32 lse)
-        nbytes = B * Sq * HD + 2.0 * B * Sk * HD + 4.0 * (B * Sq * H + B * H + B * HD) \
-            + 2.0 * B * Sq * HD + 4.0 * B * Sq * H
-        t_ops, t_bytes = int_ops / INT8_TENSOR_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        results.append(dict(
-            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-            wrapper_ms=wrapper_ms, k1_ms=k1_ms, int8_vs_exact_db=db, rel_rms=rel_rms,
-            exponentials=float(B * H * Sq * Sk),
+        ms = time_graph_ms(lambda: launch_int8(ops, H))
+        q_ms = time_graph_ms(lambda: quantize_int8(q, k, v, H))
+        wrapper_ms = time_graph_ms(lambda: flash_attention_packed_int8_fwd(q, k, v, H))
+        k1_ms = time_graph_ms(lambda: flash_attention_packed_fwd(q, k, v, H))
+        plain_ms = time_ms(lambda: attention_int8_core_plain(ops, H), 2, 1)
+        eager_ms = time_ms(lambda: quantize_int8_plain(q, k, v, H), 10)
+        b6, bq = int8_bounds(B, Sq, Sk, H, clock), k6q_bounds(B, Sq, Sk, H)
+        results["flash_attn_int8"].append(dict(
+            case=label, max_abs_err=max(err, wrap_err), ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=b6["bound_ms"], bound_by=b6["bound_by"], ops_bound_ms=b6["ops_ms"],
+            exp_bound_ms=b6["exp_ms"], bytes_bound_ms=b6["bytes_ms"], bound_share=b6["bound_ms"] / ms,
+            ops_bound_share=b6["ops_ms"] / ms, with_k6q_ms=wrapper_ms, k1_ms=k1_ms,
+            int8_vs_exact_db=db, rel_rms=rel_rms, with_k6q_rel_rms=wrap_rms,
         ))
-        print(f"[kernels] K6 {label}: err {err:.3g} rel RMS err {rel_rms:.3g}, int8 vs exact "
-              f"{db:.2f} dB; kernel {ms:.4f} ms, with the PyTorch quantizers {wrapper_ms:.4f} ms, "
-              f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-              f"({B * H * Sq * Sk:.3g} exponentials)")
-        del q, k, v, out, lse, ref_out, ref_lse, ops
+        results["quantize_int8"].append(dict(
+            case=label, max_abs_err=q_err, ms=q_ms, plain_ms=eager_ms, library_ms=None,
+            bound_ms=bq["bound_ms"], bound_by=bq["bound_by"], bound_share=bq["bound_ms"] / q_ms,
+            two_read_ms=bq["two_read_ms"], **qcheck,
+        ))
+        print(f"[kernels] K6q {label}: {q_ms:.4f} ms against the eager quantizers' {eager_ms:.4f} ms; "
+              f"bytes bound {bq['bound_ms']:.4f} ms, share {bq['bound_ms'] / q_ms:.3f} (k and v read "
+              f"twice: {bq['two_read_ms']:.4f} ms); sk relative error {qcheck['sk_rel_err']:.3g}, k8 off "
+              f"in a share {qcheck['k8_off_share']:.3g}")
+        print(f"[kernels] K6 {label}: err {err:.3g} rel RMS err {rel_rms:.3g} (with K6q against the "
+              f"plain version {wrap_err:.3g} / {wrap_rms:.3g}), int8 vs exact {db:.2f} dB; K6 "
+              f"{ms:.4f} ms, K6q + K6 {wrapper_ms:.4f} ms, K1 {k1_ms:.4f} ms, plain core {plain_ms:.4f} "
+              f"ms; bound {b6['bound_ms']:.4f} ms (exponentials at {clock / 1e6:.0f} MHz; operations "
+              f"{b6['ops_ms']:.4f}, bytes {b6['bytes_ms']:.4f}), share {b6['bound_ms'] / ms:.3f}, of "
+              f"the operations bound {b6['ops_ms'] / ms:.3f}")
+        del q, k, v, ops, out, lse, wrap_out, wrap_lse
 
     label, B, Sq, Sk, H = INT8_TRAIN_CASE
     HD = H * 64
@@ -386,10 +422,10 @@ def phase_int8_kernels():
     step_ms = time_ms(lambda: torch.autograd.grad(flash_attention_packed_int8(*leaves, H), leaves, do), 3)
     print(f"[kernels] Int8FlashAttention {label}: out err {err:.3g} rel RMS err {rel_rms:.3g}; "
           + ", ".join(f"{n} rel RMS err {r:.3g}" for n, (_, _, r) in checks.items())
-          + f"; K6 with quantizers {ms:.4f} ms, forward + backward {step_ms:.4f} ms")
+          + f"; K6q + K6 {ms:.4f} ms, forward + backward {step_ms:.4f} ms")
     del q, k, v, do, leaves, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
-    return {"flash_attn_int8": results}
+    return results
 
 
 def phase_k5():
@@ -474,6 +510,7 @@ def expected_launches(pipe, steps: int):
         "flash_attn_bwd_dq": 0,
         "flash_attn_bwd_dkv": 0,
         "flash_attn_int8": 0,
+        "quantize_int8": 0,
         "groupnorm_silu": unet_gn * (steps + 1) + vae_gn,
     }
 
@@ -482,7 +519,8 @@ def expected_int8_launches(pipe, steps: int):
     """As ``expected_launches`` with ``attention_impl="int8"``: each
     attention site of a transformer block at latent side s (s² tokens; text
     K/V 77 tokens; the adapters' K/V come from the same level) runs K6 where
-    ``int8_site`` says the JAX package quantizes on a TPU, K1 elsewhere."""
+    ``int8_site`` says the JAX package quantizes on a TPU, K1 elsewhere;
+    K6q once before each K6."""
     from mvd_tpu_torch.kernels import int8_site
     from mvd_tpu_torch.nn.layers import BasicTransformerBlock
 
@@ -499,7 +537,8 @@ def expected_int8_launches(pipe, steps: int):
         quantized = sum(int8_site(sq, sk) for sq, sk in sites)
         n_int8 += quantized
         n_exact += len(sites) - quantized
-    return {**expected_launches(pipe, steps), "flash_attn_fwd": n_exact, "flash_attn_int8": n_int8}
+    return {**expected_launches(pipe, steps), "flash_attn_fwd": n_exact, "flash_attn_int8": n_int8,
+            "quantize_int8": n_int8}
 
 
 def main_path_call():
@@ -865,6 +904,7 @@ def expected_train_launches(model):
         "flash_attn_bwd_dq": blocks * 4,
         "flash_attn_bwd_dkv": blocks * 3,
         "flash_attn_int8": 0,
+        "quantize_int8": 0,
         "groupnorm_silu": unet_gn * 2 + enc_gn * 2,
     }
 
@@ -969,7 +1009,8 @@ def phase_train():
 TRACE_GROUPS = {
     "K1 flash_fwd (packed)": (r"flash_fwd_wgmma<\d+, false>",),
     "K5 flash_fwd (B, H, S, D)": (r"flash_fwd_wgmma<\d+, true>",),
-    "K6 flash_fwd_int8": ("flash_fwd_int8",),
+    "K6 flash_fwd_int8_wgmma": ("flash_fwd_int8_wgmma",),
+    "K6q k6q_stats, k6q_quantize": (r"k6q_(stats|quantize)",),
     "K3a flash_bwd_dq": (r"flash_bwd_dq_wgmma<",),
     "K3b flash_bwd_dkv": (r"flash_bwd_dkv_wgmma<",),
     "K2 gn_fused_cluster, gn_partial_*": ("gn_fused_cluster", r"gn_partial_(stats|apply)"),
@@ -1034,9 +1075,14 @@ KERNEL_META = {
         replaces="mvd_tpu/kernels/groupnorm_silu.py:77", primary="unet 64x64x320 silu",
     ),
     "flash_attn_int8": dict(
-        name="K6 int8 packed flash-attention forward", route="cuda",
+        name="K6 int8 packed flash-attention forward (flash_fwd_int8_wgmma)", route="cuda",
         source="mvd_tpu_torch/csrc/flash_attn_int8.cu",
         replaces="mvd_tpu/kernels/flash_attention.py:354", primary="self 64x64",
+    ),
+    "quantize_int8": dict(
+        name="K6q K6's quantizers, fused (k6q_stats + k6q_quantize)", route="cuda",
+        source="mvd_tpu_torch/csrc/quantize_int8.cu",
+        replaces="mvd_tpu/kernels/flash_attention.py:450", primary="self 64x64",
     ),
     "flash_attn_fwd_bhsd": dict(
         name="K5 (B, H, S, D) flash-attention forward", route="cuda",
@@ -1110,10 +1156,10 @@ def main(argv=None) -> int:
         prim = next(c for c in cases if c["case"] == meta["primary"])
         # each kernel's launches are those of the path it serves: generation
         # for K1/K2 (their int8-generation and train-step launches beside
-        # them), the int8 generation for K6, the train steps for K3a/K3b; K5
-        # is an entry point no model path calls
+        # them), the int8 generation for K6 and K6q, the train steps for
+        # K3a/K3b; K5 is an entry point no model path calls
         on_train = key.startswith("flash_attn_bwd")
-        path_launches = int8_launches if key == "flash_attn_int8" else launches
+        path_launches = int8_launches if key in ("flash_attn_int8", "quantize_int8") else launches
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],

@@ -40,6 +40,7 @@ from mvd_tpu_torch.kernels.measure import (
     check_grad,
     plain_bwd_by_row,
     time_ms,
+    turns,
 )
 
 LAYOUTS = ("packed", "bhsd")
@@ -50,18 +51,8 @@ def _builds(args) -> dict:
     of every build."""
     from mvd_tpu_torch.kernels import _build
 
-    out = lambda label: os.path.join(_build.BUILD_DIR, "bench", f"libbwd_{label}.so")
-    jobs = {"change": (os.path.join(_build.CSRC, "flash_attn_bwd.cu"), out("change"))}
-    for spec in args.build:
-        label, path = spec.split("=", 1)
-        jobs[label] = (path, out(label))
-    _build.compile_all(jobs)
     builds = {}
-    for label, (_, lib) in jobs.items():
-        for line in _build.build_logs[label].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {label}: {line.strip()}")
-        dll = ctypes.CDLL(lib)
+    for label, (dll, _) in _build.build_variants("flash_attn_bwd", args.build).items():
         build = {"dq": {"packed": dll.flash_attn_bwd_dq_bf16, "bhsd": dll.flash_attn_bwd_dq_bhsd_bf16},
                  "dkv": {"packed": dll.flash_attn_bwd_dkv_bf16, "bhsd": dll.flash_attn_bwd_dkv_bhsd_bf16},
                  "padded": hasattr(dll, "flash_attn_bwd_rows")}
@@ -104,8 +95,7 @@ def main(argv=None) -> int:
         return 2
     print(f"[card] {card_line()}")
     builds = _builds(args)
-    order = list(builds)
-    order = (order + order[::-1]) * args.rounds
+    order = turns(builds, args.rounds)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator("cuda").manual_seed(0)
     scale = 1.0 / math.sqrt(D)

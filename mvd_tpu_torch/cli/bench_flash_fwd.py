@@ -37,6 +37,7 @@ from mvd_tpu_torch.kernels.measure import (
     check_attention,
     sm_clock_hz,
     time_ms,
+    turns,
 )
 
 K5_SITE = ("K5 self 64x64", 4, 4096, 4096, 5)
@@ -47,18 +48,8 @@ def _builds(args) -> dict:
     """label -> (packed entry, (B, H, S, D) entry) of every build."""
     from mvd_tpu_torch.kernels import _build
 
-    out = lambda label: os.path.join(_build.BUILD_DIR, "bench", f"libfwd_{label}.so")
-    jobs = {"change": (os.path.join(_build.CSRC, "flash_attn_fwd.cu"), out("change"))}
-    for spec in args.build:
-        label, path = spec.split("=", 1)
-        jobs[label] = (path, out(label))
-    _build.compile_all(jobs)
     entries = {}
-    for label, (_, lib) in jobs.items():
-        for line in _build.build_logs[label].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {label}: {line.strip()}")
-        dll = ctypes.CDLL(lib)
+    for label, (dll, _) in _build.build_variants("flash_attn_fwd", args.build).items():
         pair = (dll.flash_attn_fwd_packed_bf16, dll.flash_attn_fwd_bhsd_bf16)
         for fn in pair:
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -83,8 +74,7 @@ def main(argv=None) -> int:
     from mvd_tpu_torch.kernels import attention_packed_plain, attention_plain
 
     entries = _builds(args)
-    order = list(entries)
-    order = (order + order[::-1]) * args.rounds
+    order = turns(entries, args.rounds)
     clock = sm_clock_hz()
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator("cuda").manual_seed(0)

@@ -38,6 +38,7 @@ from mvd_tpu_torch.kernels.measure import (
     max_err,
     time_graph_ms,
     time_ms,
+    turns,
 )
 
 G, EPS = 32, 1e-6
@@ -48,18 +49,8 @@ def _builds(args) -> dict:
     """label -> (C entry, takes a plan) of every build."""
     from mvd_tpu_torch.kernels import _build
 
-    out = lambda label: os.path.join(_build.BUILD_DIR, "bench", f"libgn_{label}.so")
-    jobs = {"change": (os.path.join(_build.CSRC, "groupnorm_silu.cu"), out("change"))}
-    for spec in args.build:
-        label, path = spec.split("=", 1)
-        jobs[label] = (path, out(label))
-    _build.compile_all(jobs)
     entries = {}
-    for label, (_, lib) in jobs.items():
-        for line in _build.build_logs[label].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {label}: {line.strip()}")
-        dll = ctypes.CDLL(lib)
+    for label, (dll, _) in _build.build_variants("groupnorm_silu", args.build).items():
         fn = dll.groupnorm_silu_bf16
         planned = hasattr(dll, "groupnorm_silu_max_clusters")
         if planned:
@@ -106,8 +97,7 @@ def main(argv=None) -> int:
     )
 
     entries = _builds(args)
-    order = list(entries)
-    order = (order + order[::-1]) * args.rounds
+    order = turns(entries, args.rounds)
     gen = torch.Generator("cuda").manual_seed(0)
     rows, wrong = [], []
     for label, B, H, W, C, silu in GN_CASES + TRAIN_GN_CASES:

@@ -1,8 +1,9 @@
 // Pieces the flash-attention kernels for Hopper share (flash_attn_fwd.cu: K1,
-// K5; flash_attn_bwd.cu: K3a, K3b): head width 64, tiles of 128 rows of 128
-// bytes loaded by TMA with the 128-byte swizzle, the two wgmma products every
-// kernel is built from, the bf16 packing of an accumulator into the next
-// product's register A operand, and the host-side tensor-map encoding.
+// K5; flash_attn_bwd.cu: K3a, K3b; flash_attn_int8.cu: K6): head width 64,
+// tiles of 128 rows of 128 bytes loaded by TMA with the 128-byte swizzle, the
+// two bf16 wgmma products K1 and K3 are built from, the bf16 packing of an
+// accumulator into the next product's register A operand, and the host-side
+// tensor-map encoding (bf16 and bytes).
 // Header only; a change here rebuilds every source under csrc/.
 
 #pragma once
@@ -112,6 +113,22 @@ inline int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int row_ele
   return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// Tensor map of a byte tensor of `outer` blocks of `rows` rows of
+// `row_bytes` bytes, read in boxes of `box_cols` bytes by `box_rows` rows
+// of one block, with the given swizzle (box_cols at most its span). Returns
+// the CUresult.
+inline int encode_u8(EncodeTiled fn, CUtensorMap* map, const void* ptr, int row_bytes, int rows,
+                     int outer, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)row_bytes, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)row_bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return static_cast<int>(fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims,
+                             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 

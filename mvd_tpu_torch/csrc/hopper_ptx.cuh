@@ -109,6 +109,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same for an operand laid out by TMA's 64-byte swizzle: rows of 64
+// bytes, 8-row groups 512 bytes apart; the tile starts on a 512-byte
+// boundary, and a k-step inside the 64-byte row adds its byte offset / 16.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -128,8 +136,25 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  }
+}
+
 #define HOPPER_RW(x) "+f"(x)
 #define HOPPER_WO(x) "=f"(x)
+#define HOPPER_RWI(x) "+r"(x)
+#define HOPPER_WOI(x) "=r"(x)
 #define HOPPER_D8(C, d, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), \
     C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
 #define HOPPER_D32(C, d) HOPPER_D8(C, d, 0), HOPPER_D8(C, d, 8), HOPPER_D8(C, d, 16), \
@@ -180,6 +205,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOPPER_D32(HOPPER_RW, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D(64x128, s32) (+)= A(64x32) B(32x128), s8, both K-major in shared memory
+// (8-bit operands have no transpose). Integer sums are exact. Accumulator
+// layout as wgmma_m64n128k16_ss's.
+template <bool ACC>
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t a, uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HOPPER_R64
+        ", %64, %65, p;\n}\n"
+        : HOPPER_D64(HOPPER_RWI, d) : "l"(a), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HOPPER_R64
+        ", %64, %65, p;\n}\n"
+        : HOPPER_D64(HOPPER_WOI, d) : "l"(a), "l"(b), "r"(0));
+  }
+}
+
+// D(64x64, s32) += A(64x32, s8, registers) B(32x64, s8, shared memory,
+// K-major). A's fragment per warp is mma.m16n8k32's: a[0] row g, k 4t..4t+3
+// (byte i is k 4t + i); a[1] row g + 8; a[2] row g, k 16+4t..; a[3] row
+// g + 8, k 16+4t...
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HOPPER_R32
+      ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : HOPPER_D32(HOPPER_RWI, d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -10,6 +10,7 @@ from .flash_attention import (  # noqa: F401
     FlashAttention,
     Int8FlashAttention,
     attention,
+    attention_int8_core_plain,
     attention_packed,
     attention_packed_bwd_plain,
     attention_packed_int8_plain,
@@ -28,6 +29,8 @@ from .flash_attention import (  # noqa: F401
     int8_tiles,
     quantize_channels,
     quantize_heads,
+    quantize_int8,
+    quantize_int8_plain,
     quantize_rows,
     smooth_k,
     xla_attention,
@@ -47,6 +50,7 @@ KERNELS = {
     "flash_attn_bwd_dq": flash_attention_packed_bwd_dq,  # K3a, both layouts
     "flash_attn_bwd_dkv": flash_attention_packed_bwd_dkv,  # K3b, both layouts
     "flash_attn_int8": flash_attention_packed_int8_fwd,  # K6
+    "quantize_int8": quantize_int8,  # K6q
     "groupnorm_silu": groupnorm_silu,  # K2
 }
 # source name under csrc/ -> the kernels it holds
@@ -54,5 +58,6 @@ KERNEL_SOURCES = {
     "flash_attn_fwd": ("flash_attn_fwd", "flash_attn_fwd_bhsd"),
     "flash_attn_bwd": ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"),
     "flash_attn_int8": ("flash_attn_int8",),
+    "quantize_int8": ("quantize_int8",),
     "groupnorm_silu": ("groupnorm_silu",),
 }

@@ -86,6 +86,26 @@ def build_all(names: Iterable[str]) -> float:
     return time.perf_counter() - t0
 
 
+def build_variants(name: str, specs: Iterable[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """For a bench: ``csrc/<name>.cu`` as it stands ("change") and each
+    ``LABEL=PATH`` of ``specs`` (another copy of that source, say a parent
+    checkout's), one ``nvcc`` each, in parallel, into ``_build/bench/``.
+    Prints ptxas's register and spill lines. Returns label -> (the loaded
+    library, its path)."""
+    out = lambda label: os.path.join(BUILD_DIR, "bench", f"lib{name}_{label}.so")
+    sources = {"change": os.path.join(CSRC, f"{name}.cu")}
+    sources.update(spec.split("=", 1) for spec in specs)
+    jobs = {f"{name}:{label}": (src, out(label)) for label, src in sources.items()}
+    compile_all(jobs)
+    builds = {}
+    for label in sources:
+        for line in build_logs[f"{name}:{label}"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {label}: {line.strip()}")
+        builds[label] = (ctypes.CDLL(out(label)), out(label))
+    return builds
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _libs:

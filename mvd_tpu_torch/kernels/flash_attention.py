@@ -1,6 +1,7 @@
 """Flash attention of the port: K1 and K5 (forward, ``csrc/flash_attn_fwd.cu``),
-K3a/K3b (backward, ``csrc/flash_attn_bwd.cu``) and K6 (int8 forward,
-``csrc/flash_attn_int8.cu``).
+K3a/K3b (backward, ``csrc/flash_attn_bwd.cu``), K6 (int8 forward,
+``csrc/flash_attn_int8.cu``) and K6q (K6's quantizers,
+``csrc/quantize_int8.cu``).
 
 K1 replaces the TPU kernel ``mvd_tpu/kernels/flash_attention.py:_fwd_kernel_packed``
 (through ``_flash_fwd_packed`` / ``attention_packed``): non-causal multi-head
@@ -38,11 +39,13 @@ head's column out of the packed (B, Sq, H) statistics.
 
 K6 replaces ``_fwd_kernel_packed_int8`` (through ``_flash_fwd_packed_int8``):
 SageAttention-style int8 attention, chosen with
-``UNetConfig.attention_impl="int8"``. K smoothing and the Q, K and V
-quantizers are PyTorch passes outside the kernel, as they are XLA outside the
-Pallas kernel in the JAX package. ``Int8FlashAttention`` gives it the JAX
-package's straight-through gradient: the exact K3a/K3b backward at K6's
-(out, lse).
+``UNetConfig.attention_impl="int8"``. Built like K1, with ``wgmma`` on s8
+operands, and with no per-score conversion on the pipe its exponentials use.
+K smoothing and the Q, K and V quantizers, XLA ops outside the Pallas kernel
+in the JAX package, are K6q on the card: one fused pass in two launches
+(``quantize_int8``) that writes K6's operands, V8 transposed in K6's key
+order (``K6_KEY_ORDER``). ``Int8FlashAttention`` gives K6 the JAX package's
+straight-through gradient: the exact K3a/K3b backward at K6's (out, lse).
 """
 
 from __future__ import annotations
@@ -539,6 +542,100 @@ def _quantize_int8(q, k, v, heads):
     return quantize_rows(q, heads), quantize_heads(smooth_k(k, heads), heads), quantize_channels(v)
 
 
+# K6's key order (csrc/flash_attn_int8.cu): within every 16-key block of
+# V8^T, position 4t + i holds key 8 (i // 2) + 2t + i % 2, the order in which
+# the score accumulator's keys pack into P8's register fragments
+K6_KEY_ORDER = tuple(8 * (i // 2) + 2 * t + i % 2 for t in range(4) for i in range(4))
+
+
+def _key_order_index(Sk: int, device) -> torch.Tensor:
+    """Position -> key over Sk keys (a multiple of 16) in K6's key order."""
+    if Sk % 16:
+        raise ValueError(f"K6's key order takes whole 16-key blocks; got Sk {Sk}")
+    order = torch.tensor(K6_KEY_ORDER, device=device)
+    return (torch.arange(0, Sk, 16, device=device)[:, None] + order).reshape(-1)
+
+
+def v8_to_key_order(v8: torch.Tensor) -> torch.Tensor:
+    """(B, Sk, H*D) int8 -> K6's V8^T: (B, H*D, Sk), keys in K6's order."""
+    return v8.transpose(1, 2)[..., _key_order_index(v8.shape[1], v8.device)].contiguous()
+
+
+def v8_from_key_order(v8t: torch.Tensor) -> torch.Tensor:
+    """K6's V8^T back to (B, Sk, H*D) in the keys' own order."""
+    v8 = torch.empty_like(v8t)
+    v8[..., _key_order_index(v8t.shape[-1], v8t.device)] = v8t
+    return v8.transpose(1, 2)
+
+
+def quantize_int8_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K6q: K6's operands (q8, k8, v8t, sq, sk, sv)
+    from q, k, v (B, S, H*D), the JAX package's quantizers
+    (``_quantize_int8``) in K6's layout: V8 as ``v8_to_key_order`` gives
+    it, sk (B, H), sv (B, H*D)."""
+    B, _, HD = k.shape
+    (q8, sq), (k8, sk), (v8, sv) = _quantize_int8(q, k, v, heads)
+    return q8, k8, v8_to_key_order(v8), sq, sk.reshape(B, heads), sv.reshape(B, HD)
+
+
+@functools.cache
+def _quantize_entry():
+    """The C entry of K6q, built and loaded on first call, and the keys per
+    stats CTA it takes (its scratch is B * ceil(Sk / that) * 4 * H*D f32)."""
+    lib = _build.load("quantize_int8")
+    fn = lib.quantize_int8
+    fn.argtypes = [_P] * 10 + [ctypes.c_int] * 5 + [_P]
+    fn.restype = ctypes.c_int
+    return fn, lib.quantize_int8_stat_rows()
+
+
+def quantize_scratch(B: int, Sk: int, hd: int, device) -> torch.Tensor:
+    """K6q's scratch for its per-split channel statistics."""
+    return torch.empty(B * -(-Sk // _quantize_entry()[1]) * 4 * hd, dtype=torch.float32, device=device)
+
+
+def quantize_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> Tuple[torch.Tensor, ...]:
+    """K6q, K6's quantizers as one fused pass (two launches): (q8, k8, v8t,
+    sq, sk, sv) from bf16 q (B, Sq, H*D) and k, v (B, Sk, H*D), in K6's
+    layout (``quantize_int8_plain`` says what each is). CUDA tensors go to
+    the kernel (bf16, head_dim 64, contiguous, Sq and Sk multiples of 128;
+    anything else raises); CPU tensors to the plain version."""
+    if q.device.type == "cpu":
+        quantize_int8.plain_calls += 1
+        return quantize_int8_plain(q, k, v, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda_inputs(q, k, v, heads)
+    B, Sq, HD = q.shape
+    Sk = k.shape[1]
+    if Sq % 128 or Sk % 128:
+        raise ValueError(f"K6q takes whole 128-row tiles; got Sq {Sq}, Sk {Sk}")
+    dev = q.device
+    ops = (torch.empty((B, Sq, HD), dtype=torch.int8, device=dev),
+           torch.empty((B, Sk, HD), dtype=torch.int8, device=dev),
+           torch.empty((B, HD, Sk), dtype=torch.int8, device=dev),
+           torch.empty((B, Sq, heads), dtype=torch.float32, device=dev),
+           torch.empty((B, heads), dtype=torch.float32, device=dev),
+           torch.empty((B, HD), dtype=torch.float32, device=dev))
+    q8, k8, v8t, sq, sk, sv = ops
+    scratch = quantize_scratch(B, Sk, HD, dev)
+    with _build.on_device(q):
+        err = _quantize_entry()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
+            sk.data_ptr(), v8t.data_ptr(), sv.data_ptr(), scratch.data_ptr(), B, Sq, Sk, heads,
+            HD // heads, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "quantize_int8")
+    quantize_int8.launches += 1
+    return ops
+
+
+quantize_int8.launches = 0
+quantize_int8.plain_calls = 0
+
+
 def int8_tiles(Sq: int, Sk: int, block_k: int = INT8_BLOCK_K) -> bool:
     """Whether (Sq, Sk) tile into the int8 kernel's whole blocks (the JAX
     ``flash_attention_packed_int8`` condition)."""
@@ -565,36 +662,21 @@ def _exact_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def attention_packed_int8_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    heads: int,
-    scale: Optional[float] = None,
-    block_k: int = INT8_BLOCK_K,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K6, as ``_fwd_kernel_packed_int8`` computes
-    it: (out in q's dtype, lse (B, Sq, H) f32).
-
-    P is quantized against the row max of each ``min(block_k, Sk)``-key
-    group, the TPU kernel's k-block. The integer products run as f32
-    matmuls of integer-valued tensors, exact: Q8 K8^T sums stay below
-    127² · D and the group's P8 V8 sums below 127² · 1024 < 2^24."""
-    B, Sq, HD = q.shape
-    Sk = k.shape[1]
+def _int8_core(q8, k8, v8, sq, sk, sv, heads, scale, block_k, out_dtype):
+    """The int8 attention on quantized operands, V8 (B, Sk, H*D) in the keys'
+    own order: (out in ``out_dtype``, lse (B, Sq, H) f32)."""
+    B, Sq, HD = q8.shape
+    Sk = k8.shape[1]
     D = HD // heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
     group = min(block_k, Sk)
     if Sk % group:
         raise ValueError(f"Sk {Sk} is not a whole number of {group}-key groups")
-    (q8, sq), (k8, sk), (v8, sv) = _quantize_int8(q, k, v, heads)
     qh, kh, vh = (_to_heads(t, heads, PACKED) for t in (q8, k8, v8))
-    sqv = sq.transpose(1, 2)[..., None] * (sk.transpose(1, 2)[..., None] * scale)  # (B, H, Sq, 1)
+    sqv = sq.transpose(1, 2)[..., None] * (sk[:, :, None, None] * scale)  # (B, H, Sq, 1)
     svh = sv.reshape(B, heads, 1, D)
-    m = torch.full((B, heads, Sq, 1), -math.inf, device=q.device)
-    l = torch.zeros((B, heads, Sq, 1), device=q.device)
-    acc = torch.zeros((B, heads, Sq, D), device=q.device)
+    m = torch.full((B, heads, Sq, 1), -math.inf, device=q8.device)
+    l = torch.zeros((B, heads, Sq, 1), device=q8.device)
+    acc = torch.zeros((B, heads, Sq, D), device=q8.device)
     with _exact_f32_matmul():
         for g0 in range(0, Sk, group):
             s = (qh @ kh[:, :, g0:g0 + group].transpose(-1, -2)) * sqv
@@ -607,8 +689,51 @@ def attention_packed_int8_plain(
             l = alpha * l + p8.sum(dim=-1, keepdim=True) * gamma
             acc = acc * alpha + (pv * gamma) * svh
             m = m_new
-    out = _from_heads(acc / l, q, PACKED)
+    out = (acc / l).transpose(1, 2).reshape(B, Sq, HD).to(out_dtype)
     return out, _stat_from_heads((m + torch.log(l))[..., 0], PACKED)
+
+
+def attention_int8_core_plain(
+    ops: Tuple[torch.Tensor, ...],
+    heads: int,
+    scale: Optional[float] = None,
+    block_k: int = INT8_BLOCK_K,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6 on its operands (q8, k8, v8t, sq, sk, sv)
+    in the kernel's layout (``quantize_int8``), as ``_fwd_kernel_packed_int8``
+    computes it: (out in ``out_dtype``, the kernel's bf16 by default; lse
+    (B, Sq, H) f32).
+
+    P is quantized against the row max of each ``min(block_k, Sk)``-key
+    group, the TPU kernel's k-block. The integer products run as f32
+    matmuls of integer-valued tensors, exact: Q8 K8^T sums stay below
+    127² · D and the group's P8 V8 sums below 127² · 1024 < 2^24, so the
+    key order of V8^T changes nothing."""
+    q8, k8, v8t, sq, sk, sv = ops
+    if scale is None:
+        scale = 1.0 / math.sqrt(q8.shape[-1] // heads)
+    return _int8_core(q8, k8, v8_from_key_order(v8t), sq, sk, sv, heads, scale, block_k, out_dtype)
+
+
+def attention_packed_int8_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: Optional[float] = None,
+    block_k: int = INT8_BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6 with its quantizers, as
+    ``_flash_fwd_packed_int8`` computes it: (out in q's dtype, lse (B, Sq, H)
+    f32), from the JAX package's quantizers (``_quantize_int8``) and the
+    plain core (``attention_int8_core_plain``'s arithmetic)."""
+    B, Sq, HD = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(HD // heads)
+    (q8, sq), (k8, sk), (v8, sv) = _quantize_int8(q, k, v, heads)
+    return _int8_core(q8, k8, v8, sq, sk.reshape(B, heads), sv.reshape(B, HD), heads, scale,
+                      block_k, q.dtype)
 
 
 @functools.cache
@@ -620,16 +745,8 @@ def _int8_entry():
     return fn
 
 
-def int8_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
-    """K6's inputs from bf16 q, k, v, made by PyTorch on the card: (q8, k8,
-    v8t, sq, sk, sv) with V8 transposed to (B, H*D, Sk), keys contiguous per
-    channel, and sk as (B, H)."""
-    (q8, sq), (k8, sk), (v8, sv) = _quantize_int8(q, k, v, heads)
-    return q8, k8, v8.transpose(1, 2).contiguous(), sq, sk.reshape(sk.shape[0], heads), sv
-
-
 def launch_int8(ops, heads: int, scale: Optional[float] = None, block_k: int = INT8_BLOCK_K):
-    """One K6 launch on ``int8_operands``' output: (out bf16 (B, Sq, H*D),
+    """One K6 launch on ``quantize_int8``'s output: (out bf16 (B, Sq, H*D),
     lse (B, Sq, H) f32). Counts nothing: ``flash_attention_packed_int8_fwd``
     counts its launches."""
     q8, k8, v8t, sq, sk, sv = ops
@@ -658,9 +775,10 @@ def flash_attention_packed_int8_fwd(
     block_k: int = INT8_BLOCK_K,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6, int8 packed attention forward: ``(out (B, Sq, H*D), lse (B, Sq, H)
-    f32)``. Raises on lengths that do not tile (``int8_tiles``). CUDA tensors
-    are quantized by PyTorch and go to the kernel (bf16, head_dim 64,
-    contiguous; anything else raises); CPU tensors to the plain version."""
+    f32)``, its operands made by K6q (``quantize_int8``). Raises on lengths
+    that do not tile (``int8_tiles``). CUDA tensors go to the kernels (bf16,
+    head_dim 64, contiguous, key groups of a multiple of 64; anything else
+    raises); CPU tensors to the plain version (``attention_packed_int8_plain``)."""
     Sq, Sk = q.shape[1], k.shape[1]
     if not int8_tiles(Sq, Sk, block_k):
         raise ValueError(f"int8 attention takes whole tiles; got Sq {Sq}, Sk {Sk}, block_k {block_k}")
@@ -670,7 +788,9 @@ def flash_attention_packed_int8_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k, v, heads)
-    out, lse = launch_int8(int8_operands(q, k, v, heads), heads, scale, block_k)
+    if min(block_k, Sk) % 64:
+        raise ValueError(f"the int8 kernel takes key groups of a multiple of 64; got {min(block_k, Sk)}")
+    out, lse = launch_int8(quantize_int8(q, k, v, heads), heads, scale, block_k)
     flash_attention_packed_int8_fwd.launches += 1
     return out, lse
 

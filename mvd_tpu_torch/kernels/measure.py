@@ -1,7 +1,7 @@
 """The H100's peak rates, the least times they give a kernel, and the cases,
 checks and timer that ``chip_smoke.py`` and ``python -m
 mvd_tpu_torch.cli.bench_flash_fwd`` / ``bench_flash_bwd`` /
-``bench_groupnorm`` share.
+``bench_groupnorm`` / ``bench_flash_int8`` share.
 
 Nothing here runs at import; ``torch`` and ``nvidia-smi`` are reached only
 inside the functions.
@@ -96,6 +96,77 @@ def gn_bounds(B: int, HW: int, C: int, silu: bool) -> dict:
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+# (label, B, Sq, Sk, heads): the int8 sites of 512² generation (K6 and K6q,
+# D = 64): the self and adapter sites of the 64² and 32² levels
+INT8_CASES = [("self 64x64", 4, 4096, 4096, 5), ("self 32x32", 4, 1024, 1024, 10)]
+INT8_MIN_DB = 30.0  # int8 against exact attention: the JAX package's own bar
+# K6 against its plain core on identical operands: both quantize P against
+# the same group max and differ only by f32 rounding before the bf16 output
+# (measured on the H100 with the first K6: max abs err 2.4e-4, relative RMS
+# error 1e-5), so K6 is held tighter than K1: rtol 1e-2 still covers one bf16
+# rounding step, and the relative RMS error may reach only 1e-3.
+INT8_TOL, INT8_REL_RMS = dict(atol=1e-3, rtol=1e-2), 1e-3
+# K6q against the plain quantizers: q8, sq, v8t and sv bitwise. K's mean is
+# a sum over the sequence taken in another order, so it may differ in its
+# last bit; sk (a max of |k - mean| / 127) then moves by about one f32 ulp
+# (relative 1e-6 allows eight), and an element of k8 moves by one only when
+# (k - mean) / sk lies within that ulp of a rounding boundary (at most 1e-4
+# of the elements).
+K6Q_SK_RTOL, K6Q_K8_OFF_SHARE = 1e-6, 1e-4
+
+
+def int8_bounds(B: int, Sq: int, Sk: int, H: int, clock_hz: float) -> dict:
+    """Least times (ms) of one K6 call at head width D: its int8 tensor
+    operations (4 B H Sq Sk D) at INT8_TENSOR_OPS, its B H Sq Sk
+    exponentials at EX2_PER_CLOCK_PER_SM per clock on SMS SMs, and its bytes
+    (int8 q, k, v and the f32 scales read once, bf16 out and f32 lse
+    written once) at HBM_BYTES_PER_S. ``bound_ms`` is the largest;
+    ``bound_by`` is "operations" (tensor or exponentials) or "bytes"."""
+    HD = H * D
+    nbytes = (B * Sq * HD + 2.0 * B * Sk * HD + 4.0 * (B * Sq * H + B * H + B * HD)
+              + 2.0 * B * Sq * HD + 4.0 * B * Sq * H)
+    ops_ms = 4.0 * B * H * Sq * Sk * D / INT8_TENSOR_OPS * 1e3
+    exp_ms = float(B) * H * Sq * Sk / (SMS * EX2_PER_CLOCK_PER_SM * clock_hz) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, exp_ms, bytes_ms)
+    return dict(ops_ms=ops_ms, exp_ms=exp_ms, bytes_ms=bytes_ms, bound_ms=bound,
+                bound_by="bytes" if bound == bytes_ms else "operations")
+
+
+def k6q_bounds(B: int, Sq: int, Sk: int, H: int) -> dict:
+    """Least time (ms) of one K6q call: its bytes (bf16 q, k, v read once;
+    int8 q8, k8, v8t and f32 sq, sk, sv written once) at HBM_BYTES_PER_S;
+    beside it, ``two_read_ms``, the same with k and v read twice, as its two
+    passes do."""
+    HD = H * D
+    inputs = 2.0 * (B * Sq * HD + 2 * B * Sk * HD)
+    outputs = B * Sq * HD + 2.0 * B * Sk * HD + 4.0 * (B * Sq * H + B * H + B * HD)
+    bytes_ms = (inputs + outputs) / HBM_BYTES_PER_S * 1e3
+    two_read_ms = (inputs + 4.0 * B * Sk * HD + outputs) / HBM_BYTES_PER_S * 1e3
+    return dict(bytes_ms=bytes_ms, two_read_ms=two_read_ms, bound_ms=bytes_ms, bound_by="bytes")
+
+
+def check_quantize(got, want, what) -> dict:
+    """K6q's operands ``got`` (q8, k8, v8t, sq, sk, sv) against the plain
+    quantizers' ``want``: q8, v8t, sq and sv bitwise; sk within K6Q_SK_RTOL
+    and k8 off by at most 1 in at most K6Q_K8_OFF_SHARE of its elements.
+    Returns the largest sk relative error and the share of k8 elements off;
+    raises AssertionError when a bound is broken."""
+    import torch
+
+    for name, i in (("q8", 0), ("v8t", 2), ("sq", 3), ("sv", 5)):
+        if got[i].shape != want[i].shape or not torch.equal(got[i], want[i]):
+            raise AssertionError(f"{what} {name}: not bitwise equal to the plain quantizers")
+    sk_rel = ((got[4] - want[4]).abs() / want[4].abs()).max().item()
+    diff = (got[1].int() - want[1].int()).abs()
+    off = (diff > 0).float().mean().item()
+    if not sk_rel <= K6Q_SK_RTOL or diff.max().item() > 1 or off > K6Q_K8_OFF_SHARE:
+        raise AssertionError(f"{what}: sk relative error {sk_rel:.3g} (at most {K6Q_SK_RTOL}), k8 "
+                             f"off by up to {diff.max().item()} in a share {off:.3g} of its elements "
+                             f"(at most 1 in {K6Q_K8_OFF_SHARE})")
+    return dict(sk_rel_err=sk_rel, k8_off_share=off)
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
@@ -145,6 +216,14 @@ def bwd_bounds(B: int, Sq: int, Sk: int, H: int) -> dict:
         bounds[key] = dict(ops_ms=t_ops, bytes_ms=t_bytes, bound_ms=max(t_ops, t_bytes),
                            bound_by="operations" if t_ops >= t_bytes else "bytes")
     return bounds
+
+
+def turns(labels, rounds: int) -> list:
+    """The order in which a bench times its builds: in order, then in
+    reverse, ``rounds`` times, so that drift over the run falls on each
+    alike."""
+    labels = list(labels)
+    return (labels + labels[::-1]) * rounds
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:

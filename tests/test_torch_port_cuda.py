@@ -18,7 +18,10 @@ round P and dS to bf16 before their products, where the plain version keeps
 f32: rtol 2e-2 with an atol of 5e-2 times the case's RMS gradient, and a
 relative RMS error of at most 1e-2 for each of dq, dk and dv. K6 (int8)
 is held to its plain version, which repeats its quantization, at K1's
-tolerance; its straight-through gradients and K5's backward at K3's.
+tolerance through its wrapper, and to its plain core on identical operands
+at ``INT8_TOL`` / ``INT8_REL_RMS`` (``chip_smoke.py``'s); K6q to the plain
+quantizers with ``check_quantize`` (bitwise but for the order of K's mean);
+its straight-through gradients and K5's backward at K3's.
 """
 
 import pytest
@@ -43,8 +46,10 @@ from mvd_tpu_torch.kernels import (
     groupnorm_silu_diff,
     groupnorm_silu_plain,
 )
-from mvd_tpu_torch.kernels import _build
+from mvd_tpu_torch.kernels import _build, quantize_int8, quantize_int8_plain
+from mvd_tpu_torch.kernels.flash_attention import attention_int8_core_plain, launch_int8
 from mvd_tpu_torch.kernels.groupnorm_silu import FUSED, TWO_PASS, launch_plan
+from mvd_tpu_torch.kernels.measure import INT8_REL_RMS, INT8_TOL, check_attention, check_quantize
 
 pytestmark = pytest.mark.gpu
 
@@ -243,7 +248,7 @@ def _assert_out_close(out, want, lse, want_lse, what):
 @pytest.mark.parametrize(
     "B,Sq,Sk,heads,block_k,k_mean",
     [(4, 4096, 4096, 5, 1024, 0.0), (4, 1024, 1024, 10, 1024, 0.0), (1, 256, 384, 2, 128, 0.7),
-     (2, 128, 2048, 1, 1024, 0.7)],
+     (2, 128, 2048, 1, 1024, 0.7), (1, 256, 384, 2, 64, 0.7)],
 )
 def test_int8_kernel_matches_plain(cuda, B, Sq, Sk, heads, block_k, k_mean):
     randn = lambda s: torch.randn(s, generator=cuda, device="cuda")
@@ -260,6 +265,73 @@ def test_int8_kernel_matches_plain(cuda, B, Sq, Sk, heads, block_k, k_mean):
     exact = attention_packed_plain(q, k, v, heads)[0].float()
     snr = 10 * torch.log10(exact.pow(2).mean() / (out.float() - exact).pow(2).mean())
     assert snr >= 30, f"int8 vs exact {snr.item():.1f} dB"
+
+
+def _int8_inputs(gen, B, Sq, Sk, heads, k_mean=0.0):
+    randn = lambda s: torch.randn(s, generator=gen, device="cuda")
+    q, v = randn((B, Sq, heads * 64)).bfloat16(), randn((B, Sk, heads * 64)).bfloat16()
+    return q, (randn((B, Sk, heads * 64)) + k_mean).bfloat16(), v
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,heads,block_k",
+    [(4, 4096, 4096, 5, 1024), (4, 1024, 1024, 10, 1024), (1, 128, 128, 2, 1024),
+     (2, 256, 384, 2, 128), (2, 128, 2048, 1, 1024), (2, 256, 384, 2, 64), (1, 128, 768, 2, 192)],
+)
+def test_int8_kernel_matches_plain_core(cuda, B, Sq, Sk, heads, block_k):
+    """K6 alone against its plain core on identical operands (K6q's), at the
+    two int8 sites, one group (Sk 128), groups of 128 with Sq != Sk and B 2,
+    two groups with Sq != Sk, and groups of 64 and 192 keys (each ending in
+    a half tile)."""
+    ops = quantize_int8(*_int8_inputs(cuda, B, Sq, Sk, heads, 0.7), heads)
+    out, lse = launch_int8(ops, heads, block_k=block_k)
+    torch.cuda.synchronize()
+    want_out, want_lse = attention_int8_core_plain(ops, heads, block_k=block_k)
+    check_attention(out, lse, want_out, want_lse, f"K6 at {(B, Sq, Sk, heads, block_k)}",
+                    INT8_TOL, INT8_REL_RMS)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,heads,k_mean",
+    [(4, 4096, 4096, 5, 0.0), (4, 1024, 1024, 10, 0.7), (2, 256, 640, 2, 0.7), (1, 128, 128, 1, -3.0)],
+)
+def test_quantize_kernel_matches_plain(cuda, B, Sq, Sk, heads, k_mean):
+    """K6q against the plain quantizers: q8, sq, v8t and sv bitwise; sk and
+    k8 within what the order of K's mean allows (``check_quantize``). Ties
+    and zero rows, heads and channels included."""
+    q, k, v = _int8_inputs(cuda, B, Sq, Sk, heads, k_mean)
+    q[0, 3] = 0  # a zero token: its scales at the 1e-6 floor
+    q[0, 4, :64] = torch.arange(64, device="cuda") % 8 + 0.5  # ...
+    q[0, 4, 0] = 127  # ... under a scale of 1: halves, ties to even
+    k[-1, :, :64] = 0.25  # a constant head: k - mean = 0
+    v[:, :, 7] = 0  # a zero channel
+    v[0, :, 9] = torch.where(torch.arange(Sk, device="cuda") % 2 == 1, 127.0, 0.5)  # ties
+    launches = quantize_int8.launches
+    got = quantize_int8(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == launches + 1
+    want = quantize_int8_plain(q, k, v, heads)
+    assert [t.dtype for t in got] == [t.dtype for t in want]
+    check_quantize(got, want, f"K6q at {(B, Sq, Sk, heads)}")
+
+
+def test_int8_kernels_are_repeatable_and_read_only_their_batch(cuda):
+    """K6q and K6: two launches bitwise equal, and batch 0's results bitwise
+    unchanged when batch 1's inputs turn to NaN."""
+    B, Sq, Sk, heads = 2, 256, 1024, 2
+    q, k, v = _int8_inputs(cuda, B, Sq, Sk, heads, 0.7)
+    ops, again = quantize_int8(q, k, v, heads), quantize_int8(q, k, v, heads)
+    out, lse = launch_int8(ops, heads)
+    out2, lse2 = launch_int8(again, heads)
+    q[1], k[1], v[1] = float("nan"), float("nan"), float("nan")
+    poisoned = quantize_int8(q, k, v, heads)
+    out3, lse3 = launch_int8(poisoned, heads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ops, again))
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(ops, poisoned))
+    assert torch.equal(out[0], out3[0]) and torch.equal(lse[0], lse3[0])
+    assert poisoned[3][1].isnan().all() and out3[1].float().isnan().any()  # batch 1 read its NaN
 
 
 def test_int8_autograd_matches_plain(cuda):
@@ -357,6 +429,10 @@ def test_k6_and_k5_reject_what_they_do_not_take(cuda):
         flash_attention_packed_int8_fwd(q, q, q, 4)  # head_dim 32
     with pytest.raises(TypeError):
         flash_attention_packed_int8_fwd(q.float(), q.float(), q.float(), 2)  # f32
+    with pytest.raises(ValueError):
+        flash_attention_packed_int8_fwd(q, q, q, 2, block_k=32)  # key groups of 32
+    with pytest.raises(ValueError):
+        quantize_int8(q[:, :200], q, q, 2)  # Sq not whole 128-row tiles
     x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         flash_attention_fwd(x.float(), x.float(), x.float())
@@ -417,8 +493,8 @@ def test_every_launch_runs_on_the_tensors_device(cuda, monkeypatch):
     out, lse = flash_attention_packed_fwd(q, k, v, 2)  # K1
     flash_attention_fwd(randn(1, 2, 64, 64), randn(1, 2, 64, 64), randn(1, 2, 64, 64))  # K5
     flash_attention_packed_bwd(q, k, v, out, lse, do, 2)  # K3a, K3b
-    flash_attention_packed_int8_fwd(q, k, v, 2)  # K6
+    flash_attention_packed_int8_fwd(q, k, v, 2)  # K6q, K6
     x = randn(2, 8, 8, 64)
     groupnorm_silu(x, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"), 32)  # K2
     torch.cuda.synchronize()
-    assert seen == [q.device] * 6
+    assert seen == [q.device] * 7

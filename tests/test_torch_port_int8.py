@@ -208,6 +208,113 @@ def test_transformer2d_int8_matches_jax_int8_interpret():
 
 
 # ---------------------------------------------------------------------------
+# K6 on the card: its key order, K6q's plain version, the exact conversions
+# ---------------------------------------------------------------------------
+
+
+def _int8_operands(B, S, heads, seed):
+    """bf16-valued q, k, v (B, S, heads * 64) with a K mean of 0.7, values
+    that divide to ties, and rows, heads and channels of zeros that hit the
+    1e-6 floor of the scales."""
+    q, k, v = (_rand((B, S, heads * 64), seed=seed + i) for i in range(3))
+    k += 0.7
+    q[0, 3] = 0.0  # a zero token: every head's scale at the floor
+    # amax 127, so the scale rounds to 1 and q / scale = +-(i + 0.5): ties
+    q[0, 4, :64] = np.where(np.arange(64) % 2, 1, -1) * (np.arange(64) % 8 + 0.5)
+    q[0, 4, 0] = 127.0
+    k[-1, :, 64:128] = 0.25  # a constant head: k - mean = 0, its scale at the floor
+    v[:, :, 7] = 0.0  # a zero channel
+    v[0, :, 9] = np.where(np.arange(S) % 2, 127.0, 0.5)  # sv rounds to 1, v / sv = 0.5: a tie
+    return [torch.from_numpy(t).bfloat16().float() for t in (q, k, v)]
+
+
+def test_k6_key_order_is_a_permutation_of_each_16_key_block():
+    assert sorted(tfa.K6_KEY_ORDER) == list(range(16))
+    # position 4t + i holds key 8 (i // 2) + 2t + i % 2: accumulator keys
+    # 2t, 2t+1 and 8+2t, 9+2t of thread t, in its byte lanes 0-3
+    assert tfa.K6_KEY_ORDER[:8] == (0, 1, 8, 9, 2, 3, 10, 11)
+    v8 = torch.from_numpy(np.random.default_rng(1).integers(-127, 128, (2, 64, 96), dtype=np.int8))
+    v8t = tfa.v8_to_key_order(v8)
+    assert v8t.shape == (2, 96, 64) and v8t.is_contiguous()
+    assert torch.equal(v8t[:, :, 16 + 4], v8[:, 16 + 2])
+    assert torch.equal(tfa.v8_from_key_order(v8t), v8)
+
+
+@pytest.mark.parametrize("block_k", [64, 128, 1024])
+def test_int8_plain_core_is_bitwise_the_same_on_permuted_keys(block_k):
+    """The plain core on K8 and V8 with the keys of every 16-key block in
+    K6's order gives bitwise the (out, lse) it gives in the keys' own order:
+    its integer products are exact f32 sums, whatever their order."""
+    B, S, heads = 1, 256, 2
+    q, k, v = _int8_operands(B, S, heads, seed=60)
+    q8, k8, v8t, sq, sk, sv = tfa.quantize_int8_plain(q, k, v, heads)
+    v8 = tfa.v8_from_key_order(v8t)
+    idx = tfa._key_order_index(S, "cpu")
+    args = (sq, sk, sv, heads, 0.125, block_k, torch.float32)
+    out, lse = tfa._int8_core(q8, k8, v8, *args)
+    out_p, lse_p = tfa._int8_core(q8, k8[:, idx], v8[:, idx], *args)
+    assert torch.equal(out, out_p) and torch.equal(lse, lse_p)
+    # and the core on K6's operand layout is the same function
+    core = tfa.attention_int8_core_plain((q8, k8, v8t, sq, sk, sv), heads, 0.125, block_k, torch.float32)
+    assert torch.equal(core[0], out) and torch.equal(core[1], lse)
+
+
+@pytest.mark.parametrize("B,S,heads", [(2, 256, 5), (2, 128, 10)])
+def test_k6q_plain_is_bitwise_the_eager_quantizers(B, S, heads):
+    """K6q's plain version, through its wrapper on CPU tensors (V8 in K6's
+    key order, sk (B, H), sv (B, H*D)), against ``_quantize_int8``, the
+    eager quantizers bit-equal to the JAX package's, at the int8 sites' head
+    counts: every output bitwise; the 1e-6 floor and ties included."""
+    q, k, v = _int8_operands(B, S, heads, seed=61)
+    calls = tfa.quantize_int8.plain_calls
+    q8, k8, v8t, sq, sk, sv = tfa.quantize_int8(q, k, v, heads)
+    assert tfa.quantize_int8.plain_calls == calls + 1
+    (wq8, wsq), (wk8, wsk), (wv8, wsv) = tfa._quantize_int8(q, k, v, heads)
+    assert sk.shape == (B, heads) and sv.shape == (B, heads * 64) and v8t.shape == (B, heads * 64, S)
+    for got, want in ((q8, wq8), (sq, wsq), (k8, wk8), (sk, wsk.reshape(B, heads)),
+                      (tfa.v8_from_key_order(v8t), wv8), (sv, wsv.reshape(B, -1))):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert (sq[0, 3] == np.float32(1e-6) * np.float32(1 / 127)).all()  # the floor was hit
+    assert (sk[-1, 1] == np.float32(1e-6) * np.float32(1 / 127)) and (k8[-1, :, 64:128] == 0).all()
+    assert (sv[0, 9] == 1.0) and (tfa.v8_from_key_order(v8t)[0, ::2, 9] == 0).all()  # half to even
+
+
+@pytest.mark.parametrize("offset,spread", [(0.0, 1.0), (0.7, 1.0), (-3.0, 0.01), (100.0, 30.0)])
+def test_smoothed_k_amax_from_max_and_min_is_exact(offset, spread):
+    """max_s |k - mean| == max(max k - mean, mean - min k) bitwise in f32:
+    subtracting a constant is monotone under rounding, and |a - b| rounds
+    as a - b does."""
+    k = torch.from_numpy(_rand((3, 500, 320), seed=62) * spread + offset)
+    mean = k.mean(dim=1, keepdim=True)
+    direct = (k - mean).abs().amax(dim=1)
+    via = torch.maximum(k.amax(dim=1) - mean[:, 0], mean[:, 0] - k.amin(dim=1))
+    assert torch.equal(direct, via)
+
+
+def test_magic_number_s32_to_f32_is_exact_for_every_score():
+    """K6's s32 -> f32 conversion, __int_as_float(s + 0x4B400000) - 1.5 * 2^23,
+    equals float32(s) for every |s| <= 127^2 * 64, the largest int8 score."""
+    s = np.arange(-127**2 * 64, 127**2 * 64 + 1, dtype=np.int32)
+    f = (s + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912.0)
+    np.testing.assert_array_equal(f, s.astype(np.float32))
+
+
+def test_int8_bounds_at_the_hot_site():
+    """K6 at B4 S4096² H5: 8.59e10 int8 operations (0.0434 ms at 1,979
+    TOP/s) under 3.36e8 exponentials (0.0802 ms at 16 a clock on 132 SMs at
+    1,980 MHz); K6q moves 47.5 MB (0.0142 ms)."""
+    from mvd_tpu_torch.kernels.measure import int8_bounds, k6q_bounds
+
+    b = int8_bounds(4, 4096, 4096, 5, 1.98e9)
+    assert abs(b["ops_ms"] - 8.59e10 / 1.979e15 * 1e3) < 1e-4
+    assert abs(b["exp_ms"] - 0.0802) < 1e-4 and b["bound_ms"] == b["exp_ms"]
+    assert b["bound_by"] == "operations" and b["bytes_ms"] < b["ops_ms"]
+    q = k6q_bounds(4, 4096, 4096, 5)
+    assert abs(q["bytes_ms"] - 47.52e6 / 3.35e12 * 1e3) < 1e-4 and q["bound_by"] == "bytes"
+    assert abs(q["two_read_ms"] - 68.49e6 / 3.35e12 * 1e3) < 1e-4
+
+
+# ---------------------------------------------------------------------------
 # K5: (B, H, S, D)
 # ---------------------------------------------------------------------------
 
