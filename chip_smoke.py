@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases; any failure exits non-zero:
+Six phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -37,6 +37,21 @@ Five phases; any failure exits non-zero:
    its images against
    phase 3's from the same weights and noise, and later calls of the two
    pipelines timed in turns;
+3c. entry points, on phase 3's pipeline and weights: phase 3's UNet and
+   camera encoder exported under the reference's Lightning names to a
+   ``.ckpt``, loaded by ``checkpoint.load_checkpoint`` into a fresh pipeline
+   (every parameter and the images bitwise phase 3's), and sampled by
+   ``python -m mvd_tpu_torch.cli.infer --checkpoint`` (DPM-Solver++ at 10
+   steps); DPM-Solver++(2M) at 10 steps, DDIM inversion of phase 3's images
+   then DDIM at 20, and DDPM at 20 with ``encoder_reuse=2``, each with its
+   launches held to the structure (a cached step runs the mid block and the
+   up path only), no plain call and its loops under the sync check, then
+   two later calls of each timed in turns with phase 3's DDPM; the
+   ray-conditioned pipeline (conv_in zero-padded by
+   ``zero_pad_conv_in``) with its PSNR against phase 3's images; and the
+   HTTP server of ``cli/serve.py`` on 127.0.0.1, which must answer
+   ``/healthz`` and four ``/generate`` requests (one with a PNG source
+   image, two at once) with 200 and PNGs that decode to 512x512x3;
 4. train: holds K3a/K3b against the plain backward at every attention shape
    of the 768² train step (timed beside the backward of
    ``scaled_dot_product_attention``, a yardstick the port never calls, and
@@ -51,11 +66,12 @@ Five phases; any failure exits non-zero:
    no plain call; prints s/step, samples/s and the peak memory.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
-generation and one more train step with ``torch.profiler`` and prints, and
-writes to OUT.json (the int8 generation under ``"int8_generation"``, the
-train step under ``"train_step"``), the wall time, the summed device-kernel
-time, the device's idle share, the share of each port kernel and the
-kernels that take the most device time.
+generation, one call of each sampler configuration of phase 3c and one more
+train step with ``torch.profiler`` and prints, and writes to OUT.json (the
+int8 generation under ``"int8_generation"``, phase 3c's under
+``"entry_points"``, the train step under ``"train_step"``), the wall time,
+the summed device-kernel time, the device's idle share, the share of each
+port kernel and the kernels that take the most device time.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a GPU, or outside the
@@ -492,26 +508,35 @@ def phase_k5():
     return {"flash_attn_fwd_bhsd": results}
 
 
-def expected_launches(pipe, steps: int):
+def expected_launches(pipe, steps: int, cached_steps: int = 0, inversion: bool = False):
     """Launch counts the model structure implies for one generation with
     guidance 1.0 and image conditioning: attention sites per transformer
     block are attn1 + attn2 in the feature pass, plus both adapters in each
     denoise; every GroupNorm runs once per UNet pass (feature pass + steps)
-    and once per VAE encode (one source image) and decode."""
+    and once per VAE encode (one source image) and decode. ``cached_steps``
+    of the steps run from an encoder cache, which runs the mid block and the
+    up path only. ``inversion``: a DDIM inversion instead, whose VAE encodes
+    the images and the source image and decodes nothing."""
     from mvd_tpu_torch.nn.layers import BasicTransformerBlock, GroupNorm
 
     mvd, vae = pipe.model["mvd"], pipe.model["vae"]
-    blocks = sum(isinstance(m, BasicTransformerBlock) for m in mvd.unet.modules())
-    unet_gn = sum(isinstance(m, GroupNorm) for m in mvd.unet.modules())
-    vae_gn = sum(isinstance(m, GroupNorm) for m in vae.modules())
+    decoder = ("mid_", "up_", "conv_norm_out")
+    count = lambda kind, mods: sum(isinstance(m, kind) for _, m in mods)
+    unet_mods = list(mvd.unet.named_modules())
+    dec_mods = [(n, m) for n, m in unet_mods if n.startswith(decoder)]
+    blocks, dec_blocks = count(BasicTransformerBlock, unet_mods), count(BasicTransformerBlock, dec_mods)
+    unet_gn, dec_gn = count(GroupNorm, unet_mods), count(GroupNorm, dec_mods)
+    vae_gn = (2 * count(GroupNorm, vae.encoder.named_modules()) if inversion
+              else count(GroupNorm, vae.named_modules()))
+    full = steps - cached_steps
     return {
-        "flash_attn_fwd": blocks * 2 + blocks * 4 * steps,
+        "flash_attn_fwd": blocks * 2 + blocks * 4 * full + dec_blocks * 4 * cached_steps,
         "flash_attn_fwd_bhsd": 0,
         "flash_attn_bwd_dq": 0,
         "flash_attn_bwd_dkv": 0,
         "flash_attn_int8": 0,
         "quantize_int8": 0,
-        "groupnorm_silu": unet_gn * (steps + 1) + vae_gn,
+        "groupnorm_silu": unet_gn * (full + 1) + dec_gn * cached_steps + vae_gn,
     }
 
 
@@ -577,15 +602,15 @@ def read_counts():
             {name: fn.plain_calls for name, fn in KERNELS.items()})
 
 
-def sync_checked_loop(pipe) -> list:
+def sync_checked_loop(pipe, name: str = "denoise_loop") -> list:
     """Makes the next call of ``pipe.denoise_loop`` (from the first denoise
-    step to the last ``ddpm_step``) run under
-    ``torch.cuda.set_sync_debug_mode("error")``, so that any call in it that
-    waits for the device raises; the decode and the output copy stay
-    outside. Returns a list that holds True once the loop ran so."""
+    step to the last sampler step), or of the loop method ``name``, run
+    under ``torch.cuda.set_sync_debug_mode("error")``, so that any call in
+    it that waits for the device raises; the decode and the output copy
+    stay outside. Returns a list that holds True once the loop ran so."""
     import torch
 
-    inner, ran = pipe.denoise_loop, []
+    inner, ran = getattr(pipe, name), []
 
     def checked(*args, **kwargs):
         torch.cuda.set_sync_debug_mode("error")
@@ -593,11 +618,11 @@ def sync_checked_loop(pipe) -> list:
             out = inner(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-            del pipe.denoise_loop
+            delattr(pipe, name)
         ran.append(True)
         return out
 
-    pipe.denoise_loop = checked
+    setattr(pipe, name, checked)
     return ran
 
 
@@ -629,6 +654,44 @@ def groupnorm_summary(calls) -> dict:
                 bound_ms=sum(gn_bounds(B, HW, C, silu)["bound_ms"] for B, HW, C, _, silu in calls))
 
 
+def _psnr(images, want) -> float:
+    mse = (images.float() - want.float()).pow(2).mean().item()
+    return 10 * math.log10(1.0 / mse) if mse > 0 else math.inf
+
+
+def _check_images(images, what: str) -> None:
+    import torch
+
+    if tuple(images.shape) != (VIEWS, RES, RES, 3):
+        raise AssertionError(f"{what}: images shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
+        raise AssertionError(f"{what}: images not finite or outside [0, 1]")
+
+
+def _counted_call(fn, want: dict, label: str, loops=(), pipe=None):
+    """One call of ``fn`` with the counts set to 0 before it and read after:
+    the launches must be ``want``, no plain version may run, and each loop
+    method of ``pipe`` named in ``loops`` must run under the sync check.
+    Prints a line that starts with ``label``; returns (the call's result,
+    its seconds, the launches)."""
+    import torch
+
+    checked = [sync_checked_loop(pipe, name) for name in loops]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain = read_counts()
+    print(f"{label} first call {secs:.2f} s; launches {launches} (expected {want}); plain calls {plain}"
+          + (f"; {' and '.join(loops)} under the sync check" if loops else ""))
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"{label} kernel launches {launches} != expected {want}, or plain calls {plain}")
+    if any(ran != [True] for ran in checked):
+        raise AssertionError(f"{label} a loop did not run under the sync check")
+    return out, secs, launches
+
+
 def phase_main_path():
     import torch
 
@@ -640,21 +703,12 @@ def phase_main_path():
           f"in {time.perf_counter() - t0:.1f} s")
     # pipe.compute_model casts once, outside the counted run
     gn_calls, hooks = record_groupnorm_calls(pipe.compute_model)
-    checked = sync_checked_loop(pipe)
-    reset_counts()
-    t0 = time.perf_counter()
-    images = first_images = pipe(prompts, seed=0, **kwargs)["images"]
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    want = expected_launches(pipe, STEPS)
+    out, first_s, launches = _counted_call(lambda: pipe(prompts, seed=0, **kwargs), want, "[main]",
+                                           ("denoise_loop",), pipe)
+    images = first_images = out["images"]
     for h in hooks:
         h.remove()
-    launches, plain = read_counts()
-    want = expected_launches(pipe, STEPS)
-    print(f"[main] first call {first_s:.2f} s; launches {launches} (expected {want}); plain calls {plain}")
-    if launches != want or any(plain.values()):
-        raise AssertionError(f"kernel launches {launches} != expected {want}, or plain calls {plain}")
-    if checked != [True]:
-        raise AssertionError("the denoise loop did not run under the sync check")
     print(f"[main] the {STEPS}-step denoise loop ran under torch.cuda.set_sync_debug_mode(\"error\"): "
           f"no call in it waited for the device")
     gn = groupnorm_summary(gn_calls)
@@ -663,10 +717,7 @@ def phase_main_path():
     print(f"[main] K2: {gn['calls']} GroupNorm calls, {gn['fused_calls']} fused (one device kernel "
           f"each) and {gn['two_pass_calls']} two-pass (two each): {gn['device_kernels']} device "
           f"kernels; summed bytes bound of every call {gn['bound_ms']:.3f} ms")
-    if tuple(images.shape) != (VIEWS, RES, RES, 3):
-        raise AssertionError(f"images shape {tuple(images.shape)}")
-    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
-        raise AssertionError("images not finite or outside [0, 1]")
+    _check_images(images, "main path")
     print(f"[main] images {tuple(images.shape)} in [{images.min().item():.4f}, "
           f"{images.max().item():.4f}], mean {images.mean().item():.4f}, std {images.std().item():.4f}")
 
@@ -701,32 +752,18 @@ def phase_int8_main_path(call, bf16_images):
     pipe8.compute_model  # cast once, outside the counted run
     torch.cuda.synchronize()
     print(f"[int8] built the int8 pipeline from phase 3's weights in {time.perf_counter() - t0:.1f} s")
-    reset_counts()
-    t0 = time.perf_counter()
-    images = pipe8(prompts, seed=0, **kwargs)["images"]
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches, plain = read_counts()
-    want = expected_int8_launches(pipe8, STEPS)
-    print(f"[int8] first call {first_s:.2f} s; launches {launches} (expected {want}); plain calls {plain}")
-    if launches != want or any(plain.values()):
-        raise AssertionError(f"kernel launches {launches} != expected {want}, or plain calls {plain}")
-    if tuple(images.shape) != (VIEWS, RES, RES, 3):
-        raise AssertionError(f"int8 images shape {tuple(images.shape)}")
-    if not torch.isfinite(images).all() or images.min() < 0 or images.max() > 1:
-        raise AssertionError("int8 images not finite or outside [0, 1]")
-    mse = (images.float() - bf16_images.float()).pow(2).mean().item()
-    psnr = 10 * math.log10(1.0 / mse) if mse > 0 else math.inf
+    out, first_s, launches = _counted_call(lambda: pipe8(prompts, seed=0, **kwargs),
+                                           expected_int8_launches(pipe8, STEPS), "[int8]")
+    images = out["images"]
+    _check_images(images, "int8")
+    psnr = _psnr(images, bf16_images)
     print(f"[int8] images {tuple(images.shape)} in [{images.min().item():.4f}, "
           f"{images.max().item():.4f}], mean {images.mean().item():.4f}; PSNR against phase 3's "
           f"images (same weights and noise) {psnr:.2f} dB")
     # later calls of both pipelines in turns, so that host noise shows as spread
     turns = {"bf16": [], "int8": []}
     for which in ("bf16", "int8", "int8", "bf16"):
-        t0 = time.perf_counter()
-        (pipe if which == "bf16" else pipe8)(prompts, seed=1, **kwargs)
-        torch.cuda.synchronize()
-        turns[which].append(time.perf_counter() - t0)
+        turns[which].append(_timed(lambda: (pipe if which == "bf16" else pipe8)(prompts, seed=1, **kwargs)))
     dt = sum(turns["int8"]) / 2
     print(f"[int8] later calls in turns (bf16, int8, int8, bf16): bf16 "
           f"{turns['bf16'][0]:.3f} / {turns['bf16'][1]:.3f} s, int8 {turns['int8'][0]:.3f} / "
@@ -734,6 +771,231 @@ def phase_int8_main_path(call, bf16_images):
     metrics = dict(sec_per_batch=dt, img_per_s=VIEWS / dt, first_call_s=first_s,
                    psnr_vs_bf16_db=psnr, turns_s=turns)
     return launches, metrics, (pipe8, prompts, kwargs)
+
+
+def _timed(fn) -> float:
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _check_png(data: bytes, shape, what: str) -> None:
+    from mvd_tpu_torch.utils.images import decode_png
+
+    img = decode_png(data)
+    if img.shape != shape:
+        raise AssertionError(f"{what}: a PNG decodes to {img.shape}, not {shape}")
+
+
+def phase_entry_points(call, bf16_images, trace: bool = False):
+    """Phase 3c, on phase 3's pipeline and weights at full width, 4 views,
+    512²: (a) the checkpoint round trip through the reference's Lightning
+    names and the infer CLI on that checkpoint; (b) DPM-Solver++(2M) at 10
+    steps, DDIM inversion then DDIM at 20, DDPM at 20 with encoder reuse 2,
+    each with exact launches, no plain call and its loops under the sync
+    check, and timed in turns with phase 3's DDPM (and traced with
+    ``trace``); (c) the zero-padded ray-conditioned pipeline; (d) the HTTP
+    server."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.checkpoint import (
+        export_jax_params,
+        export_lightning_state_dict,
+        load_checkpoint,
+        load_jax_params,
+        zero_pad_conv_in,
+    )
+    from mvd_tpu_torch.cli import infer
+    from mvd_tpu_torch.cli.serve import make_handler
+    from mvd_tpu_torch.pipeline import MVDPipeline
+    from mvd_tpu_torch.pipeline.pipeline import build_model
+    from mvd_tpu_torch.utils.images import encode_png, resize
+
+    pipe, prompts, kwargs = call
+    metrics = {}
+
+    # (a) checkpoint round trip: phase 3's UNet and camera encoder under the
+    # reference's Lightning names, into a fresh pipeline whose every
+    # parameter the checkpoint holds is NaN before the load
+    t0 = time.perf_counter()
+    tree = export_jax_params(pipe.model["mvd"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "last.ckpt")
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in export_lightning_state_dict(tree).items()}
+        torch.save({"state_dict": sd, "epoch": 0}, path)
+        n_keys = len(sd)
+        del sd
+        fresh = MVDPipeline.create(pipe.config, seed=0, device=pipe.device)
+        with torch.no_grad():
+            for name, p in fresh.model["mvd"].named_parameters():
+                if not name.endswith("translation_projection"):
+                    p.fill_(float("nan"))
+        kept, skipped = load_checkpoint(fresh, path)
+        if kept != ["mvd.camera_encoder.translation_projection"] or skipped:
+            raise AssertionError(f"the loader kept {kept} from init and skipped {skipped}")
+        mine = dict(pipe.model.named_parameters())
+        differ = [n for n, p in fresh.model.named_parameters() if not torch.equal(p, mine[n])]
+        if differ:
+            raise AssertionError(f"{len(differ)} parameters differ after the round trip: {differ[:5]}")
+        reloaded = fresh(prompts, seed=0, **kwargs)["images"]
+        torch.cuda.synchronize()
+        if not torch.equal(reloaded, bf16_images):
+            raise AssertionError("the reloaded pipeline's images differ from phase 3's")
+        round_trip_s = time.perf_counter() - t0
+        print(f"[entry] checkpoint: {n_keys} Lightning keys; every parameter bitwise phase 3's after "
+              f"the load (the translation projection kept from init), images bitwise phase 3's at "
+              f"the same noise; {round_trip_s:.1f} s")
+        del fresh, reloaded
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(tmp, "infer")
+        t0 = time.perf_counter()
+        infer.main(["--checkpoint", path, "--sampler", "dpmpp_2m", "--num-steps", "10",
+                    "--image-size", str(RES), "--num-images", "1", "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        names = sorted(os.listdir(out_dir))
+        if names != ["comparison_00.png", "generated_00.png", "source.png"]:
+            raise AssertionError(f"the infer CLI wrote {names}")
+        for name in names[1:]:
+            with open(os.path.join(out_dir, name), "rb") as f:
+                _check_png(f.read(), (RES, RES, 3), f"infer CLI {name}")
+        print(f"[entry] python -m mvd_tpu_torch.cli.infer --checkpoint last.ckpt --sampler dpmpp_2m "
+              f"--num-steps 10 --image-size {RES} --num-images 1: {names}, each decoded, in {cli_s:.1f} s")
+    torch.cuda.empty_cache()
+    metrics["checkpoint"] = dict(lightning_keys=n_keys, round_trip_s=round_trip_s, infer_cli_s=cli_s)
+
+    # (b) samplers, inversion and encoder reuse
+    gen_kw = {k: v for k, v in kwargs.items() if k != "num_inference_steps"}
+    inv_kw = {k: kwargs[k] for k in ("source_camera", "target_camera", "source_images", "ref_scale")}
+
+    def invert_then_ddim(seed):
+        lat = pipe.invert(bf16_images, prompts, num_inference_steps=STEPS, output_type="pt",
+                          **inv_kw)["latents"]
+        return pipe(prompts, seed=seed, num_inference_steps=STEPS, latents=lat, sampler="ddim",
+                    **gen_kw)
+
+    both = lambda a, b: {k: a[k] + b[k] for k in a}
+    runs = [
+        ("dpmpp_2m 10 steps", 10,
+         lambda seed: pipe(prompts, seed=seed, num_inference_steps=10, sampler="dpmpp_2m", **gen_kw),
+         expected_launches(pipe, 10), ("denoise_loop",)),
+        (f"invert + ddim {STEPS} steps", STEPS, invert_then_ddim,
+         both(expected_launches(pipe, STEPS, inversion=True), expected_launches(pipe, STEPS)),
+         ("inversion_loop", "denoise_loop")),
+        (f"ddpm {STEPS} steps, encoder_reuse 2", STEPS,
+         lambda seed: pipe(prompts, seed=seed, num_inference_steps=STEPS, encoder_reuse=2, **gen_kw),
+         expected_launches(pipe, STEPS, cached_steps=STEPS // 2), ("denoise_loop",)),
+    ]
+    for label, steps, fn, want, loops in runs:
+        out, first_s, _ = _counted_call(lambda: fn(0), want, f"[entry] {label}:", loops, pipe)
+        _check_images(out["images"], label)
+        metrics[label] = dict(steps=steps, first_call_s=first_s, launches=want,
+                              psnr_vs_ddpm_db=_psnr(out["images"], bf16_images))
+    # later calls of each, and of phase 3's DDPM, in turns (forward, then
+    # backward), so that host noise shows as spread
+    timed = {f"ddpm {STEPS} steps": lambda seed: pipe(prompts, seed=seed, **kwargs)}
+    timed.update({label: fn for label, _, fn, _, _ in runs})
+    turns = {label: [] for label in timed}
+    for label in list(timed) + list(timed)[::-1]:
+        turns[label].append(_timed(lambda: timed[label](1)))
+    for label, secs in turns.items():
+        dt = sum(secs) / len(secs)
+        row = metrics.setdefault(label, {})
+        row.update(turns_s=secs, sec_per_call=dt, img_per_s=VIEWS / dt)
+        psnr = f"; PSNR against phase 3's images {row['psnr_vs_ddpm_db']:.2f} dB" if "launches" in row else ""
+        print(f"[entry] {label}: later calls in turns {secs[0]:.3f} / {secs[1]:.3f} s per {VIEWS}-view "
+              f"batch, {VIEWS / dt:.4f} img/s{psnr}")
+    if trace:
+        metrics["traces"] = {label: trace_run(lambda: fn(2), f"generation, {label}")
+                             for label, _, fn, _, _ in runs}
+
+    # (c) ray conditioning: phase 3's weights with conv_in zero-padded
+    ray_cfg = dataclasses.replace(pipe.config, use_ray_conditioning=True)
+    with torch.device(pipe.device):
+        model = build_model(ray_cfg)
+    tree["unet"] = zero_pad_conv_in(tree["unet"])
+    load_jax_params(model["mvd"], tree)
+    del tree
+    for net in ("vae", "text_encoder"):
+        model[net].load_state_dict(pipe.model[net].state_dict())
+    ray_pipe = MVDPipeline(ray_cfg, model, pipe.device, pipe.tokenizer)
+    ray_pipe.compute_model  # cast once, outside the counted run
+    out, ray_s, _ = _counted_call(lambda: ray_pipe(prompts, seed=0, **kwargs),
+                                  expected_launches(ray_pipe, STEPS),
+                                  f"[entry] ray-conditioned ddpm {STEPS} steps:", ("denoise_loop",), ray_pipe)
+    _check_images(out["images"], "ray")
+    psnr = _psnr(out["images"], bf16_images)
+    metrics["ray"] = dict(first_call_s=ray_s, psnr_vs_unpadded_db=psnr)
+    print(f"[entry] ray conditioning (conv_in {tuple(model['mvd'].unet.conv_in.weight.shape)}, zero-"
+          f"padded): PSNR against phase 3's images at the same noise {psnr:.2f} dB (bf16; no bar)")
+    del ray_pipe, model, out
+    torch.cuda.empty_cache()
+
+    # (d) the HTTP server over phase 3's pipeline
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(pipe, RES, threading.Lock()))
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get_health():
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    def post(payload):
+        req = urllib.request.Request(url + "/generate", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 200:
+                raise AssertionError(f"/generate answered {r.status}")
+            return json.loads(r.read())
+
+    try:
+        health = get_health()
+        if not (health["ok"] and health["backend"] == pipe.device.type and health["queue_depth"] == 0):
+            raise AssertionError(f"/healthz: {health}")
+        fast = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": 10, "sampler": "dpmpp_2m"}
+        source = resize((bf16_images[0].float().cpu().numpy() * 255).round().astype(np.uint8), 384, 384)
+        replies = {"dpmpp_2m 10 steps": post(fast),
+                   "source image (384² PNG)": post({**fast, "seed": 1, "source_image_b64":
+                                                    base64.b64encode(encode_png(source)).decode()})}
+        both_at_once = {}
+        threads = [threading.Thread(target=lambda i=i: both_at_once.__setitem__(i, post({**fast, "seed": 2 + i})))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if sorted(both_at_once) != [0, 1]:
+            raise AssertionError("a concurrent request did not finish")
+        replies.update({f"concurrent {i}": both_at_once[i] for i in range(2)})
+        for label, reply in replies.items():
+            if len(reply["images_b64"]) != VIEWS:
+                raise AssertionError(f"serve {label}: {len(reply['images_b64'])} images")
+            for b64 in reply["images_b64"]:
+                _check_png(base64.b64decode(b64), (RES, RES, 3), f"serve {label}")
+        health = get_health()
+        if health["queue_depth"] != 0:
+            raise AssertionError(f"/healthz after the requests: {health}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=60)
+    latency = {label: reply["latency_s"] for label, reply in replies.items()}
+    metrics["serve"] = dict(latency_s=latency, compiled_signatures=health["compiled_signatures"])
+    print(f"[entry] serve: /healthz {health}; every /generate answered 200 with {VIEWS} PNGs of "
+          f"{RES}x{RES}x3; latency_s {latency}")
+    return metrics
 
 
 def check_bwd_tile_edges(layout: str) -> float:
@@ -1139,7 +1401,12 @@ def main(argv=None) -> int:
         pipe, prompts, kwargs = int8_call
         traces["int8_generation"] = trace_run(lambda: pipe(prompts, seed=2, **kwargs), "int8 generation")
         del pipe
-    del call, int8_call, images  # free the generation pipelines before the train phase
+    del int8_call
+    torch.cuda.empty_cache()
+    entry_metrics = phase_entry_points(call, images, trace=bool(args.trace))
+    if args.trace:
+        traces["entry_points"] = entry_metrics.pop("traces")
+    del call, images  # free the generation pipelines before the train phase
     torch.cuda.empty_cache()
     results.update(phase_train_kernels())
     train_launches, train_metrics, train_call = phase_train()
@@ -1172,6 +1439,7 @@ def main(argv=None) -> int:
         ))
     print(f"[main] {json.dumps(main_metrics)}")
     print(f"[int8] {json.dumps(int8_metrics)}")
+    print(f"[entry] {json.dumps(entry_metrics)}")
     print(f"[train] {json.dumps(train_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 
 Counterpart of ``mvd_tpu/camera.py``: the relative source->target transform
 and the NeRF-style positional encoding the camera encoder consumes, and the
-look-at / orbit cameras the CLI and ``chip_smoke.py`` build. The ray-map
-functions are not ported yet.
+look-at / orbit cameras the CLI and ``chip_smoke.py`` build, and the
+Plücker ray maps of ray-map conditioning (computed in f32).
 """
 
 from __future__ import annotations
@@ -34,6 +34,47 @@ def positional_encoding(x: torch.Tensor, pos_enc_dim: int, max_freq: float = 10.
     angles = x[..., None] * positional_encoding_freqs(pos_enc_dim, max_freq, x.device)
     enc = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)  # [B, D_in, 2P]
     return enc.reshape(x.shape[:-1] + (-1,))
+
+
+def ray_grid(h: int, w: int, fov_deg: float = 54.43, device=None) -> torch.Tensor:
+    """Unit camera-space ray directions on an (h, w) grid of pixel centres,
+    (h, w, 3) f32: x right, y up, looking down -z (the render rig's
+    convention; 54.43 degrees is its 35 mm lens on a 36 mm sensor)."""
+    half = float(np.tan(np.deg2rad(fov_deg) / 2.0))
+    xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w * 2.0 - 1.0
+    ys = 1.0 - (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h * 2.0
+    y, x = torch.meshgrid(ys * half, xs * half, indexing="ij")
+    d = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+
+def ray_grid_from_intrinsics(K: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Unit camera-space rays from pinhole intrinsics K (..., 3, 3), with
+    (fx, fy, cx, cy) in pixels of the (h, w) grid, in ``ray_grid``'s
+    convention; (..., h, w, 3)."""
+    fx, fy = K[..., 0, 0, None, None], K[..., 1, 1, None, None]
+    cx, cy = K[..., 0, 2, None, None], K[..., 1, 2, None, None]
+    v, u = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=K.device) + 0.5,
+                          torch.arange(w, dtype=torch.float32, device=K.device) + 0.5, indexing="ij")
+    x = (u - cx) / fx
+    y = (cy - v) / fy
+    d = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+
+def plucker_ray_map(source_camera: torch.Tensor, target_camera: torch.Tensor, h: int, w: int,
+                    fov_deg: float = 54.43) -> torch.Tensor:
+    """Per-pixel Plücker rays (d, o x d) of the target view in the source
+    camera's frame, (..., h, w, 6) f32, for camera-to-world matrices
+    (..., 4, 4) or (..., 3, 4): d = R_s^T R_t d_cam, o = R_s^T (T_t - T_s).
+    source == target gives the canonical grid (d = d_cam, moment 0)."""
+    sR, sT = source_camera[..., :3, :3], source_camera[..., :3, 3]
+    tR, tT = target_camera[..., :3, :3], target_camera[..., :3, 3]
+    rel_R = sR.transpose(-1, -2) @ tR
+    o = torch.einsum("...ji,...j->...i", sR, tT - sT)
+    d = torch.einsum("...ij,hwj->...hwi", rel_R, ray_grid(h, w, fov_deg, source_camera.device))
+    o = o[..., None, None, :].expand(d.shape)
+    return torch.cat([d, torch.linalg.cross(o, d, dim=-1)], dim=-1).float()
 
 
 def look_at_camera(position, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)) -> np.ndarray:

@@ -1,1 +1,18 @@
-from .from_jax import convert_jax_params, load_jax_params, load_jax_train_state  # noqa: F401
+from .from_jax import (  # noqa: F401
+    convert_jax_params,
+    export_jax_params,
+    load_jax_params,
+    load_jax_train_state,
+)
+from .torch_convert import (  # noqa: F401
+    convert_camera_encoder_state_dict,
+    convert_clip_text_state_dict,
+    convert_lightning_checkpoint,
+    convert_unet_state_dict,
+    convert_vae_state_dict,
+    export_lightning_state_dict,
+    export_unet_state_dict,
+    load_checkpoint,
+    split_lightning_state_dict,
+    zero_pad_conv_in,
+)

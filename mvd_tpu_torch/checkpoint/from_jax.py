@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..train.state import TrainState
+from .torch_convert import unflatten_tree
 
 
 def _is_masked(value) -> bool:
@@ -66,24 +67,49 @@ def convert_jax_params(tree: Mapping) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Copy a flax param tree into ``module`` in place. Raises if any JAX
-    leaf or any port parameter is left unmatched, or a shape differs."""
+def export_jax_params(module: nn.Module) -> Dict:
+    """The inverse of ``convert_jax_params``: ``module``'s parameters as a
+    flax param tree (nested dicts of numpy arrays, no ``params`` level) in
+    the JAX package's names and layouts."""
+    owners = dict(module.named_modules())
+    flat = {}
+    for name, p in module.named_parameters():
+        *mods, leaf = name.split(".")
+        arr = p.detach().cpu().numpy()
+        if leaf == "weight":
+            if isinstance(owners[".".join(mods)], nn.Embedding):
+                leaf = "embedding"
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            elif arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            else:
+                leaf = "scale"
+        flat[tuple(mods) + (leaf,)] = np.ascontiguousarray(arr)
+    return unflatten_tree(flat)
+
+
+@torch.no_grad()
+def load_jax_params(module: nn.Module, tree: Mapping, keep_missing: bool = False) -> List[str]:
+    """Copy a flax param tree into ``module`` in place. Raises if a JAX leaf
+    has no port parameter or a shape differs, and, unless ``keep_missing``,
+    if a port parameter has no JAX leaf. Returns the names of the port
+    parameters the tree lacks, which keep their values."""
     converted = convert_jax_params(tree)
     params = dict(module.named_parameters())
     only_jax = sorted(set(converted) - set(params))
     only_port = sorted(set(params) - set(converted))
-    if only_jax or only_port:
+    if only_jax or (only_port and not keep_missing):
         raise KeyError(
             f"JAX/port params do not match 1:1: JAX only {only_jax[:10]}"
             f" ({len(only_jax)}), port only {only_port[:10]} ({len(only_port)})"
         )
-    for name, p in params.items():
-        arr = converted[name]
+    for name, arr in converted.items():
+        p = params[name]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX shape {arr.shape} != port shape {tuple(p.shape)}")
         p.copy_(torch.from_numpy(arr).to(p.dtype))
-    return module
+    return only_port
 
 
 def _find_states(node, fields: Tuple[str, ...], found: List[Any]) -> List[Any]:

@@ -1,15 +1,16 @@
-"""Inference CLI of the port: random-init weights from ``--seed``, fixed
-look-at source/target cameras, N generations, and source / generated /
-side-by-side PNGs in ``--output-dir``.
+"""Inference CLI of the port: weights from a reference Lightning
+``--checkpoint`` (else random from ``--seed``), fixed look-at source/target
+cameras, N generations, and source / generated / side-by-side PNGs in
+``--output-dir``.
 
-Same flags as ``mvd_tpu/cli/infer.py`` except ``--checkpoint``,
-``--invert-init``, ``--encoder-reuse``, ``--sampler`` and
-``--use-ray-conditioning``, which are not ported yet; ``--device`` picks the
-device (the GPU by default; without one the CLI raises). ``--tiny`` runs on
-the CPU only: its f32, 16-wide attention heads are not what the GPU kernels
-take (bf16, 64 wide).
+Same flags as ``mvd_tpu/cli/infer.py``; ``--device`` picks the device (the
+GPU by default; without one the CLI raises). ``--checkpoint`` takes a
+``.ckpt`` (an orbax directory raises: the port's own checkpoint IO is not
+written yet). ``--tiny`` runs on the CPU only: its f32, 16-wide attention
+heads are not what the GPU kernels take (bf16, 64 wide).
 
     python -m mvd_tpu_torch.cli.infer --image-size 512 --num-images 2
+    python -m mvd_tpu_torch.cli.infer --checkpoint last.ckpt --sampler dpmpp_2m --num-steps 10
 """
 
 from __future__ import annotations
@@ -35,6 +36,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--reference-rescale-quirk", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="a reference Lightning .ckpt (the multi-view UNet and camera encoder)")
+    p.add_argument("--encoder-reuse", type=int, default=1,
+                   help="k > 1: run the UNet's down path at one of every k steps and reuse its "
+                   "state at the others (approximate; arXiv 2312.09608)")
+    p.add_argument("--sampler", type=str, default=None, choices=["ddpm", "ddim", "dpmpp_2m"],
+                   help="override the config's sampler (dpmpp_2m: second-order DPM-Solver++, "
+                   "about 10 steps where DDIM needs 20-50)")
+    p.add_argument("--use-ray-conditioning", action="store_true",
+                   help="sample a model conditioned on Plücker ray maps (6 more conv_in channels, "
+                   "zero-padded when the checkpoint was trained without them)")
+    p.add_argument("--invert-init", action="store_true",
+                   help="start from the DDIM inversion of the source image under the source "
+                   "camera instead of noise (arXiv 2508.10688)")
     return p
 
 
@@ -42,6 +57,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
 
     from ..camera import look_at_camera, to_homogeneous
+    from ..checkpoint import load_checkpoint
     from ..config import TINY_MODEL, ModelConfig
     from ..pipeline import MVDPipeline
     from ..pipeline.pipeline import resolve_device
@@ -57,7 +73,11 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, unet=dataclasses.replace(cfg.unet, sample_size=args.image_size // 8)
         )
+    if args.use_ray_conditioning:
+        cfg = dataclasses.replace(cfg, use_ray_conditioning=True)
     pipe = MVDPipeline.create(cfg, seed=args.seed, device=args.device)
+    if args.checkpoint:
+        load_checkpoint(pipe, args.checkpoint)
 
     size = args.image_size if not args.tiny else cfg.unet.sample_size * 8
     if args.image_path:
@@ -70,6 +90,15 @@ def main(argv=None):
 
     os.makedirs(args.output_dir, exist_ok=True)
     save_image(src_img[0], os.path.join(args.output_dir, "source.png"))
+
+    init_latents = None
+    if args.invert_init:
+        # the image is the source view: invert it under the source camera
+        init_latents = pipe.invert(
+            (src_img + 1) / 2, args.prompt, num_inference_steps=args.num_steps,
+            source_camera=source_cam, target_camera=source_cam,
+            source_images=(src_img + 1) / 2, ref_scale=args.ref_scale,
+        )["latents"]
     for i in range(args.num_images):
         out = pipe(
             args.prompt,
@@ -82,6 +111,9 @@ def main(argv=None):
             source_images=(src_img + 1) / 2,
             ref_scale=args.ref_scale,
             seed=args.seed + i,
+            encoder_reuse=args.encoder_reuse,
+            sampler=args.sampler,
+            latents=init_latents,
         )
         img = out["images"][0]
         if args.reference_rescale_quirk:

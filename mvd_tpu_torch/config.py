@@ -6,12 +6,11 @@ camera encoder and noise-schedule settings, the ``TINY_*`` variants the
 tests use, and the loss, optimizer and train settings that the train step
 reads. Field names and defaults are the JAX package's, so a config built
 for one side describes the same model on the other. Fields of paths the
-port does not run yet (remat, joint multi-view attention,
-ray-map conditioning, samplers other than DDPM, gradient accumulation,
-checkpointing, validation and logging intervals, the mesh) are left out
-until they are ported; so are the loop's batch, image size, view count and
-seed (the step takes them from its batch), the data configs and the YAML
-loader.
+port does not run yet (remat, joint multi-view attention, the separate
+image-encoder UNet, gradient accumulation, checkpointing, validation and
+logging intervals, the mesh) are left out until they are ported; so are the
+loop's batch, image size, view count and seed (the step takes them from its
+batch), the data configs and the YAML loader.
 """
 
 from __future__ import annotations
@@ -134,6 +133,7 @@ class SchedulerConfig:
     prediction_type: str = "v_prediction"
     shift_mode: str = "interpolated"  # none | default | interpolated
     shift_scale: float = 6.0
+    sampler: str = "ddpm"  # ddpm | ddim | dpmpp_2m
     steps_offset: int = 1
     timestep_spacing: str = "leading"
 
@@ -147,6 +147,12 @@ class ModelConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     use_camera_conditioning: bool = True
     use_image_conditioning: bool = True
+    # Per-pixel Plücker ray map of the target view in the source frame,
+    # concatenated to the UNet's input channels (camera.py:plucker_ray_map);
+    # conv_in takes 6 more channels, zero-padded from checkpoints trained
+    # without them (checkpoint/torch_convert.py:zero_pad_conv_in)
+    use_ray_conditioning: bool = False
+    ray_fov_deg: float = 54.43  # render rig: 35 mm lens, 36 mm sensor
     # Initialize adapter q/k/v/out from the frozen base attention at
     # construction. Applies to fresh inits only.
     adapter_init_from_frozen: bool = True

@@ -1,19 +1,22 @@
-"""Noise schedules and the DDPM sampling step (PyTorch).
+"""Noise schedules and the sampling steps (PyTorch).
 
-Counterpart of the DDPM and training parts of
-``mvd_tpu/diffusion/schedules.py``: diffusers DDPMScheduler semantics
-(scaled-linear betas, v-prediction, ``fixed_small`` variance, 'leading'
-timestep spacing with steps_offset), the ShiftSNR rewrite of the betas, the
-forward process (``add_noise``, ``get_velocity``) and the Min-SNR weight.
-Timesteps are an int or a tensor of per-row timesteps. ``ddpm_step`` takes
-its noise as an argument, so a caller (or a test) decides where the random
-numbers come from. Not ported yet: DDIM, DPM-Solver++ and inversion.
+Counterpart of ``mvd_tpu/diffusion/schedules.py``: diffusers DDPMScheduler
+semantics (scaled-linear betas, v-prediction, ``fixed_small`` variance,
+'leading' timestep spacing with steps_offset), the ShiftSNR rewrite of the
+betas, the forward process (``add_noise``, ``get_velocity``), the Min-SNR
+weight, and the sampling steps: ancestral DDPM, DDIM, the DDIM inversion
+step and DPM-Solver++(2M). Timesteps are an int or a tensor of per-row
+timesteps. A sampling step takes its timestep as a Python int (and the
+DPM-Solver++ state its previous one), so it indexes the device schedule
+without a host round trip; ``ddpm_step`` and ``ddim_step`` with eta > 0 take
+their noise as an argument, so a caller (or a test) decides where the random
+numbers come from.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -184,6 +187,26 @@ def pred_original_sample(schedule: NoiseSchedule, model_output, sample, timestep
     raise ValueError(f"unknown prediction_type: {p}")
 
 
+def pred_epsilon(schedule: NoiseSchedule, model_output, sample, timesteps):
+    """eps-hat for the schedule's prediction type at an int timestep or at
+    per-row timesteps."""
+    sa, so = _gather_sqrt_ac(schedule, timesteps, sample.dim())
+    p = schedule.prediction_type
+    if p == "epsilon":
+        return model_output
+    if p == "v_prediction":
+        return sa * model_output + so * sample
+    if p == "sample":
+        return (sample - sa * model_output) / so
+    raise ValueError(f"unknown prediction_type: {p}")
+
+
+def _ac_at(schedule: NoiseSchedule, t: int) -> torch.Tensor:
+    """alpha_bar at an int timestep; 1 (the clean end) where t < 0."""
+    ac = schedule.alphas_cumprod
+    return ac[t] if t >= 0 else torch.ones_like(ac[0])
+
+
 def ddpm_step(
     schedule: NoiseSchedule,
     model_output: torch.Tensor,
@@ -195,9 +218,8 @@ def ddpm_step(
     """One ancestral DDPM step (DDPMScheduler.step, fixed_small variance)
     with the caller's standard-normal ``noise`` of the sample's shape."""
     prev_t = timestep - schedule.num_train_timesteps // num_inference_steps
-    ac = schedule.alphas_cumprod
-    ac_t = ac[timestep]
-    ac_prev = ac[prev_t] if prev_t >= 0 else torch.ones_like(ac_t)
+    ac_t = schedule.alphas_cumprod[timestep]
+    ac_prev = _ac_at(schedule, prev_t)
     beta_prod_t = 1.0 - ac_t
     beta_prod_prev = 1.0 - ac_prev
     alpha_t = ac_t / ac_prev
@@ -211,3 +233,106 @@ def ddpm_step(
         variance = torch.clamp(beta_prod_prev / beta_prod_t * beta_t, min=1e-20)
         prev_sample = prev_sample + torch.sqrt(variance) * noise.float()
     return prev_sample.to(sample.dtype)
+
+
+def ddim_step(
+    schedule: NoiseSchedule,
+    model_output: torch.Tensor,
+    timestep: int,
+    sample: torch.Tensor,
+    num_inference_steps: int,
+    eta: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One DDIM step (diffusers DDIMScheduler.step); deterministic at
+    eta 0, and with eta > 0 it adds sigma times the caller's standard-normal
+    ``noise``."""
+    prev_t = timestep - schedule.num_train_timesteps // num_inference_steps
+    ac_t = schedule.alphas_cumprod[timestep]
+    ac_prev = _ac_at(schedule, prev_t)
+    x0 = pred_original_sample(schedule, model_output, sample, timestep)
+    eps = pred_epsilon(schedule, model_output, sample, timestep)
+    sigma = 0.0
+    if eta > 0.0:
+        if noise is None:
+            raise ValueError("ddim_step with eta > 0 needs the caller's noise")
+        sigma = eta * torch.sqrt((1 - ac_prev) / (1 - ac_t) * (1 - ac_t / ac_prev))
+    prev_sample = torch.sqrt(ac_prev) * x0 + torch.sqrt(1.0 - ac_prev - sigma**2) * eps
+    if eta > 0.0:
+        prev_sample = prev_sample + sigma * noise.float()
+    return prev_sample.to(sample.dtype)
+
+
+def ddim_inverse_step(
+    schedule: NoiseSchedule,
+    model_output: torch.Tensor,
+    timestep: int,
+    sample: torch.Tensor,
+    num_inference_steps: int,
+) -> torch.Tensor:
+    """One DDIM inversion step: ``sample`` lives at ``timestep - T // n``
+    (clean where that is < 0) and is mapped up the schedule to ``timestep``,
+    with the model evaluated at ``timestep`` (diffusers DDIMInverseScheduler
+    semantics)."""
+    s = timestep - schedule.num_train_timesteps // num_inference_steps
+    ac_s = _ac_at(schedule, s)
+    sa_s, so_s = torch.sqrt(ac_s), torch.sqrt(1.0 - ac_s)
+    p = schedule.prediction_type
+    if p == "epsilon":
+        eps = model_output
+        x0 = (sample - so_s * eps) / sa_s
+    elif p == "v_prediction":
+        x0 = sa_s * sample - so_s * model_output
+        eps = sa_s * model_output + so_s * sample
+    elif p == "sample":
+        x0 = model_output
+        eps = (sample - sa_s * x0) / torch.clamp(so_s, min=1e-12)
+    else:
+        raise ValueError(f"unknown prediction_type: {p}")
+    ac_t = schedule.alphas_cumprod[timestep]
+    return (torch.sqrt(ac_t) * x0 + torch.sqrt(1.0 - ac_t) * eps).to(sample.dtype)
+
+
+def dpmpp_2m_init(sample: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """The multistep state of ``dpmpp_2m_step``: (the previous step's x0
+    prediction, its timestep), with timestep -1 for "no previous step"."""
+    return torch.zeros_like(sample, dtype=torch.float32), -1
+
+
+def dpmpp_2m_step(
+    schedule: NoiseSchedule,
+    model_output: torch.Tensor,
+    timestep: int,
+    sample: torch.Tensor,
+    state: Tuple[torch.Tensor, int],
+    num_inference_steps: int,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, int]]:
+    """One deterministic DPM-Solver++(2M) step (arXiv 2211.01095; diffusers
+    DPMSolverMultistepScheduler with algorithm_type "dpmsolver++",
+    solver_order 2, lower_order_final). First order on the first step (no
+    history) and on the last one, whose endpoint t < 0 is clean (sigma 0):
+    there the step returns x0. Returns (prev_sample, new state)."""
+    x0_prev, t_prev = state
+    prev_t = timestep - schedule.num_train_timesteps // num_inference_steps
+
+    def lam(t: int) -> torch.Tensor:  # log(alpha / sigma)
+        a = schedule.alphas_cumprod[t]
+        return 0.5 * (torch.log(a) - torch.log1p(-a))
+
+    x0 = pred_original_sample(schedule, model_output, sample, timestep).float()
+    if prev_t < 0:
+        prev_sample = x0
+    else:
+        ac_t, ac_s = schedule.alphas_cumprod[timestep], schedule.alphas_cumprod[prev_t]
+        lam_t = lam(timestep)
+        h = lam(prev_t) - lam_t
+        D = x0
+        if t_prev >= 0:
+            r = (lam_t - lam(t_prev)) / h
+            D = (1.0 + 1.0 / (2.0 * r)) * x0 - (1.0 / (2.0 * r)) * x0_prev
+        prev_sample = (torch.sqrt(1.0 - ac_s) / torch.sqrt(1.0 - ac_t)) * sample.float() \
+            - torch.sqrt(ac_s) * torch.expm1(-h) * D
+    return prev_sample.to(model_output.dtype), (x0, timestep)
+
+
+SAMPLERS = ("ddpm", "ddim", "dpmpp_2m")

@@ -15,18 +15,22 @@ and the adapters run with gradient, the frozen feature pass without, and
 the adapter K/V are projected inside the adapters, not precomputed.
 
 Conditioning tensors are tiled across the classifier-free-guidance batch
-(unconditional half first). Not ported yet: the separate image-encoder UNet
-(``share_image_encoder=False``), ray-map conditioning and the encoder cache.
+(unconditional half first). Under ray-map conditioning the Plücker ray map
+of the target view rides the FiLM dict under "ray_map" (tiled like the FiLM
+params), and ``denoise`` hands it to the UNet; the feature pass feeds the
+source view's canonical rays. Not ported yet: the separate image-encoder
+UNet (``share_image_encoder=False``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..camera import plucker_ray_map, ray_grid
 from ..config import ModelConfig
 from .camera_encoder import CameraEncoder, modulation_dims
 from .layers import normalize_ref_feature
@@ -45,7 +49,7 @@ class MultiViewUNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.unet = UNet2DCondition(cfg.unet)
+        self.unet = UNet2DCondition(cfg.unet, extra_in_channels=6 if cfg.use_ray_conditioning else 0)
         if cfg.use_camera_conditioning:
             dims = modulation_dims(
                 cfg.unet.block_out_channels,
@@ -55,9 +59,16 @@ class MultiViewUNet(nn.Module):
             self.camera_encoder = CameraEncoder(cfg.camera_encoder, tuple(sorted(dims.items())))
 
     def extract_features(self, source_latents, encoder_hidden_states) -> Dict[str, torch.Tensor]:
-        """Frozen-encoder pass: full UNet at t=0, features only."""
-        t0 = torch.zeros((source_latents.shape[0],), dtype=torch.int32, device=source_latents.device)
-        return self.unet(source_latents, t0, encoder_hidden_states)[1]
+        """Frozen-encoder pass: full UNet at t=0, features only. Under ray
+        conditioning the source view's own rays in its own frame (the
+        canonical grid: d = d_cam, moment 0) keep conv_in's channel count."""
+        B, h, w, _ = source_latents.shape
+        rays = None
+        if self.cfg.use_ray_conditioning:
+            d = ray_grid(h, w, self.cfg.ray_fov_deg, source_latents.device)
+            rays = torch.cat([d, torch.zeros_like(d)], dim=-1).expand(B, h, w, 6)
+        t0 = torch.zeros((B,), dtype=torch.int32, device=source_latents.device)
+        return self.unet(source_latents, t0, encoder_hidden_states, ray_map=rays)[1]
 
     def _precompute_adapter_kv(self, name: str, feat: torch.Tensor):
         """Project normalized features (b, S, C) through the adapter K/V
@@ -78,11 +89,13 @@ class MultiViewUNet(nn.Module):
         source_image_latents: Optional[torch.Tensor] = None,  # (B, h, w, 4)
         cfg_batch: Optional[int] = None,  # B* (2B under CFG); None -> cond batch
         precompute_kv: bool = False,
+        latent_hw: Optional[Tuple[int, int]] = None,  # the ray map's (h, w)
     ):
         """Step-invariant conditioning, computed once: FiLM params from the
-        cameras (with gradient where grad mode is on) and per-layer reference
-        features (or adapter K/V) from a feature pass that never records
-        gradient."""
+        cameras (with gradient where grad mode is on), the ray map under
+        ray conditioning (its size ``latent_hw``, else the source latents',
+        else the config's sample size), and per-layer reference features (or
+        adapter K/V) from a feature pass that never records gradient."""
         cfg = self.cfg
         film = None
         if cfg.use_camera_conditioning and target_camera is not None:
@@ -93,6 +106,16 @@ class MultiViewUNet(nn.Module):
             if cfg_batch is not None and cam_b < cfg_batch:
                 rep = cfg_batch // cam_b
                 film = {k: (s.repeat(rep, 1), sh.repeat(rep, 1)) for k, (s, sh) in film.items()}
+        if cfg.use_ray_conditioning:
+            if source_camera is None or target_camera is None:
+                raise ValueError("use_ray_conditioning needs source and target cameras")
+            if latent_hw is None:
+                latent_hw = (source_image_latents.shape[1:3] if source_image_latents is not None
+                             else (cfg.unet.sample_size, cfg.unet.sample_size))
+            rays = plucker_ray_map(source_camera, target_camera, *latent_hw, cfg.ray_fov_deg)
+            if cfg_batch is not None and rays.shape[0] < cfg_batch:
+                rays = rays.repeat(cfg_batch // rays.shape[0], 1, 1, 1)
+            film = {**(film or {}), "ray_map": rays}
 
         ref_features = None
         if cfg.use_image_conditioning and source_image_latents is not None:
@@ -117,16 +140,27 @@ class MultiViewUNet(nn.Module):
         return film, ref_features
 
     def denoise(self, sample, timestep, encoder_hidden_states, film=None,
-                ref_features=None, ref_scale=None):
-        """One UNet evaluation with precomputed conditioning -> f32 NHWC."""
-        Bs = sample.shape[0]
+                ref_features=None, ref_scale=None, cached_encoder=None,
+                return_encoder_cache: bool = False):
+        """One UNet evaluation with precomputed conditioning -> f32 NHWC, and
+        with ``return_encoder_cache`` the encoder cache beside it; from a
+        ``cached_encoder`` only the mid block and the up path run (see
+        ``UNet2DCondition.forward``)."""
+        Bs = (sample if cached_encoder is None else cached_encoder[1]).shape[0]
         if encoder_hidden_states.shape[0] < Bs:  # CFG text repeat
             rep = Bs // encoder_hidden_states.shape[0]
             encoder_hidden_states = encoder_hidden_states.repeat(rep, 1, 1)
-        return self.unet(
-            sample, timestep, encoder_hidden_states,
-            ref_features=ref_features, film=film, ref_scale=ref_scale,
-        )[0]
+        rays = None
+        if film is not None and "ray_map" in film:
+            film = dict(film)
+            rays = film.pop("ray_map")
+            film = film or None
+        out = self.unet(
+            sample, timestep, encoder_hidden_states, ref_features=ref_features, film=film,
+            ref_scale=ref_scale, cached_encoder=cached_encoder,
+            return_encoder_cache=return_encoder_cache, ray_map=rays,
+        )
+        return (out[0], out[2]) if return_encoder_cache else out[0]
 
     def forward(
         self,

@@ -8,8 +8,10 @@ per-attention-layer features come back as a dict named
 
 FiLM params arrive as ``name -> (scale, shift)`` of shape (B, C) and apply as
 ``x * scale + shift`` after each down/mid/up block; "output" modulates the
-input latents before conv_in. Not ported yet: remat, the encoder cache of
-encoder-reuse sampling, and the ray-map input.
+input latents before conv_in, and a Plücker ray map, where given, joins them
+as 6 more input channels after it. For encoder-reuse sampling the forward
+returns, or consumes, the down path's state (skip residuals and the
+bottleneck input). Not ported yet: remat.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from .layers import (
 
 Features = Dict[str, torch.Tensor]
 Film = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+# (skip residuals of the down path, NCHW; the bottleneck input)
+EncoderCache = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
 
 
 def apply_film(x: torch.Tensor, film: Optional[Film], name: str) -> torch.Tensor:
@@ -44,7 +48,10 @@ def apply_film(x: torch.Tensor, film: Optional[Film], name: str) -> torch.Tensor
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig):
+    """``extra_in_channels``: input channels beside the latents (6 for a
+    ray map), which conv_in takes after them."""
+
+    def __init__(self, cfg: UNetConfig, extra_in_channels: int = 0):
         super().__init__()
         self.cfg = cfg
         ch = cfg.block_out_channels
@@ -60,7 +67,7 @@ class UNet2DCondition(nn.Module):
             )
 
         self.time_embedding = TimestepEmbedMLP(ch[0], temb_dim)
-        self.conv_in = conv3x3(cfg.in_channels, ch[0])
+        self.conv_in = conv3x3(cfg.in_channels + extra_in_channels, ch[0])
         skip_ch = [ch[0]]
         h_ch = ch[0]
         for i, block_type in enumerate(cfg.down_block_types):
@@ -101,10 +108,20 @@ class UNet2DCondition(nn.Module):
         ref_features: Optional[Dict] = None,
         film: Optional[Film] = None,
         ref_scale: Optional[float] = None,
+        cached_encoder: Optional[EncoderCache] = None,
+        return_encoder_cache: bool = False,
+        ray_map: Optional[torch.Tensor] = None,  # (B, h, w, 6) f32 Plücker rays
     ):
-        """Returns (out (B, h, w, C_out) f32 NHWC, features name -> NHWC)."""
+        """Returns (out (B, h, w, C_out) f32 NHWC, features name -> NHWC),
+        and the encoder cache third with ``return_encoder_cache``.
+
+        Encoder propagation (arXiv 2312.09608): ``return_encoder_cache``
+        also returns the down path's state ``(residuals, h)``, taken before
+        the mid block; ``cached_encoder`` skips the down path and runs the
+        mid block and the up path from such a state (``sample`` and
+        ``ray_map`` are then unused)."""
         cfg = self.cfg
-        B = sample.shape[0]
+        B = (sample if cached_encoder is None else cached_encoder[1]).shape[0]
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)
         dtype = self.conv_in.dtype
@@ -117,23 +134,30 @@ class UNet2DCondition(nn.Module):
         features: Features = {}
         nhwc = lambda t: t.permute(0, 2, 3, 1)
 
-        x = sample.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = apply_film(x, film, "output")
-        h = self.conv_in(x.to(dtype))
-        residuals = [h]
+        if cached_encoder is not None:
+            residuals, h = list(cached_encoder[0]), cached_encoder[1]
+        else:
+            x = sample.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            x = apply_film(x, film, "output")
+            if ray_map is not None:  # after the FiLM, which modulates the latents only
+                x = torch.cat([x, ray_map.permute(0, 3, 1, 2).to(x.dtype)], dim=1)
+                x = x.contiguous(memory_format=torch.channels_last)
+            h = self.conv_in(x.to(dtype))
+            residuals = [h]
 
-        for i, block_type in enumerate(cfg.down_block_types):
-            for j in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{i}_resnet_{j}")(h, temb)
-                if block_type == "CrossAttnDownBlock2D":
-                    fname = f"down_block_{i}_attn_{j}"
-                    h = getattr(self, f"down_{i}_attn_{j}")(h, ctx, get_ref(fname), ref_scale)
-                    features[fname] = nhwc(h)
-                residuals.append(h)
-            if i < len(cfg.down_block_types) - 1:
-                h = getattr(self, f"down_{i}_downsample")(h)
-                residuals.append(h)
-            h = apply_film(h, film, f"down_{i}")
+            for i, block_type in enumerate(cfg.down_block_types):
+                for j in range(cfg.layers_per_block):
+                    h = getattr(self, f"down_{i}_resnet_{j}")(h, temb)
+                    if block_type == "CrossAttnDownBlock2D":
+                        fname = f"down_block_{i}_attn_{j}"
+                        h = getattr(self, f"down_{i}_attn_{j}")(h, ctx, get_ref(fname), ref_scale)
+                        features[fname] = nhwc(h)
+                    residuals.append(h)
+                if i < len(cfg.down_block_types) - 1:
+                    h = getattr(self, f"down_{i}_downsample")(h)
+                    residuals.append(h)
+                h = apply_film(h, film, f"down_{i}")
+        cache = (tuple(residuals), h)
 
         h = self.mid_resnet_0(h, temb)
         h = self.mid_attn_0(h, ctx, get_ref("mid_block_attn_0"), ref_scale)
@@ -153,5 +177,7 @@ class UNet2DCondition(nn.Module):
                 h = getattr(self, f"up_{i}_upsample")(h)
             h = apply_film(h, film, f"up_{i}")
 
-        out = self.conv_out(self.conv_norm_out(h))
-        return nhwc(out).float(), features
+        out = nhwc(self.conv_out(self.conv_norm_out(h))).float()
+        if return_encoder_cache:
+            return out, features, cache
+        return out, features

@@ -1,18 +1,23 @@
 """MVD generation pipeline: text + source view + cameras -> multi-view images.
 
-Counterpart of ``mvd_tpu/pipeline/pipeline.py`` (DDPM, guidance on or off):
+Counterpart of ``mvd_tpu/pipeline/pipeline.py`` (guidance on or off):
 
   * CLIP text encode, CFG concat (unconditional first);
   * VAE encode of the unique source images, moments tiled to the batch;
-  * step-invariant conditioning (camera FiLM, frozen feature pass, adapter
-    K/V) computed once;
-  * the denoise loop, a Python loop of ``denoise`` + ``ddpm_step``;
+  * step-invariant conditioning (camera FiLM, the ray map under ray
+    conditioning, frozen feature pass, adapter K/V) computed once;
+  * the denoise loop, a Python loop of ``denoise`` and the sampler's step
+    (DDPM, DDIM or DPM-Solver++(2M)), optionally with encoder propagation
+    (``encoder_reuse``: the down path runs at the first step of each group
+    and the others reuse its state);
   * VAE decode, then (x/2 + 0.5) clamped to [0, 1].
 
-Runs on the GPU unless the caller passes ``device="cpu"``; without a GPU the
-default raises rather than falling back. Random numbers come from a
-``torch.Generator`` seeded with ``seed``, unless the caller hands in the
-initial latents, the VAE sample noise and the per-step DDPM noise.
+``invert`` maps clean images up the schedule by DDIM inversion, for a
+DDIM resample from them. Runs on the GPU unless the caller passes
+``device="cpu"``; without a GPU the default raises rather than falling back.
+Random numbers come from a ``torch.Generator`` seeded with ``seed``, unless
+the caller hands in the initial latents, the VAE sample noise and the
+per-step DDPM noise.
 """
 
 from __future__ import annotations
@@ -29,8 +34,13 @@ from ..checkpoint.from_jax import load_jax_params
 from ..config import ModelConfig
 from ..data.tokenizer import load_tokenizer
 from ..diffusion.schedules import (
+    SAMPLERS,
     NoiseSchedule,
+    ddim_inverse_step,
+    ddim_step,
     ddpm_step,
+    dpmpp_2m_init,
+    dpmpp_2m_step,
     inference_timesteps,
     make_shifted_schedule,
 )
@@ -160,10 +170,18 @@ class MVDPipeline:
             init_adapters_from_frozen(model["mvd"])
         return cls(config, model, device, tokenizer)
 
-    def load_jax_params(self, tree: Mapping) -> None:
-        """Load the JAX pipeline's params (numpy leaves) into the masters."""
-        load_jax_params(self.model, tree)
+    def load_jax_params(self, tree: Mapping, keep_missing: bool = False) -> List[str]:
+        """Load the JAX pipeline's params (numpy leaves) into the masters.
+        With ``keep_missing`` only the networks the tree names are loaded,
+        and a parameter of theirs the tree lacks keeps its value; returns
+        those parameters' names."""
+        if keep_missing:
+            kept = [f"{net}.{name}" for net, sub in tree.items()
+                    for name in load_jax_params(self.model[net], sub, keep_missing=True)]
+        else:
+            kept = load_jax_params(self.model, tree)
         self._compute_model = None
+        return kept
 
     @property
     def compute_model(self) -> nn.Module:
@@ -179,6 +197,27 @@ class MVDPipeline:
     def _ids(self, prompts: Sequence[str], repeat: int) -> torch.Tensor:
         ids = np.repeat(np.asarray(self.tokenizer(list(prompts))), repeat, axis=0)
         return torch.as_tensor(ids, device=self.device)
+
+    @torch.inference_mode()
+    def encode_text(self, prompts: Union[str, List[str]]) -> torch.Tensor:
+        """Prompts -> CLIP hidden states (B, 77, D) in the compute dtype."""
+        prompts = [prompts] if isinstance(prompts, str) else prompts
+        return self.compute_model["text_encoder"](self._ids(prompts, 1))
+
+    @torch.inference_mode()
+    def vae_encode(self, images, noise=None) -> torch.Tensor:
+        """[-1, 1] NHWC images -> scaled latents: the posterior's mean, or
+        its sample ``mean + std * noise`` where ``noise`` is given."""
+        images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=self.device)
+        return self.compute_model["vae"].encode(images, noise) * self.config.vae.scaling_factor
+
+    @torch.inference_mode()
+    def vae_decode(self, latents) -> torch.Tensor:
+        """Scaled latents -> NHWC images in about [-1, 1]."""
+        latents = torch.as_tensor(latents, device=self.device)
+        return self.compute_model["vae"].decode(latents / self.config.vae.scaling_factor)
 
     def _encode_source(self, model, src_images, B, noise, gen):
         """VAE-encode the unique source images, tile the moments to B and
@@ -225,23 +264,120 @@ class MVDPipeline:
         num_inference_steps: int,
         step_noises: Optional[torch.Tensor] = None,
         gen: Optional[torch.Generator] = None,
+        sampler: str = "ddpm",
+        encoder_reuse: int = 1,
     ) -> torch.Tensor:
-        """``denoise`` + ``ddpm_step`` at each of ``timesteps`` (pairs from
-        ``MVDPipeline.timesteps``), with the noise of ``step_noises`` (steps,
-        B, h, w, 4), already on the device, or drawn from ``gen``. Nothing
-        here waits for the device."""
+        """``denoise`` + the ``sampler``'s step at each of ``timesteps``
+        (pairs from ``MVDPipeline.timesteps``). DDPM takes the noise of
+        ``step_noises`` (steps, B, h, w, 4), already on the device, or draws
+        it from ``gen``; DDIM and DPM-Solver++(2M) draw none. With
+        ``encoder_reuse`` k > 1 the steps run in groups of k: the first of a
+        group runs the whole UNet and keeps its encoder cache, the other
+        k - 1 run the mid block and the up path from it, and the steps past
+        the last whole group run the whole UNet. Nothing here waits for the
+        device."""
         do_cfg = guidance_scale > 1.0
+        state = dpmpp_2m_init(lat) if sampler == "dpmpp_2m" else None
+        grouped = (len(timesteps) // encoder_reuse) * encoder_reuse if encoder_reuse > 1 else 0
+        cache = None
         for i, (t, t_dev) in enumerate(timesteps):
             inp = torch.cat([lat, lat], dim=0) if do_cfg else lat
-            pred = model["mvd"].denoise(inp, t_dev, embeds, film, ref_feats, ref_scale)
+            args = (inp, t_dev, embeds, film, ref_feats, ref_scale)
+            if i < grouped and i % encoder_reuse:
+                pred = model["mvd"].denoise(*args, cached_encoder=cache)
+            elif i < grouped:
+                pred, cache = model["mvd"].denoise(*args, return_encoder_cache=True)
+            else:
+                pred = model["mvd"].denoise(*args)
             if do_cfg:
                 un, co = pred.chunk(2, dim=0)
                 pred = un + guidance_scale * (co - un)
-            if step_noises is not None:
-                noise = step_noises[i]
+            if sampler == "ddim":
+                lat = ddim_step(self.schedule, pred, t, lat, num_inference_steps)
+            elif sampler == "dpmpp_2m":
+                lat, state = dpmpp_2m_step(self.schedule, pred, t, lat, state, num_inference_steps)
             else:
-                noise = torch.randn(lat.shape, generator=gen, device=lat.device)
-            lat = ddpm_step(self.schedule, pred, t, lat, noise, num_inference_steps)
+                if step_noises is not None:
+                    noise = step_noises[i]
+                else:
+                    noise = torch.randn(lat.shape, generator=gen, device=lat.device)
+                lat = ddpm_step(self.schedule, pred, t, lat, noise, num_inference_steps)
+        return lat
+
+    def _conditioning(self, model, embeds, source_camera, target_camera, src_latents, B, cfg_batch,
+                      latent_hw):
+        """prepare_conditioning with the cameras on the device, where the
+        config uses them and the caller gave a target camera."""
+        has_cam = self.config.use_camera_conditioning and target_camera is not None
+        return model["mvd"].prepare_conditioning(
+            embeds,
+            self._cameras(source_camera, B) if has_cam else None,
+            self._cameras(target_camera, B) if has_cam else None,
+            src_latents, cfg_batch=cfg_batch, precompute_kv=True, latent_hw=latent_hw,
+        )
+
+    def _source_images(self, source_images, B) -> Optional[torch.Tensor]:
+        """The unique source images on the device, (n, H, W, 3) with n
+        dividing B, or None where the config takes none."""
+        if not self.config.use_image_conditioning or source_images is None:
+            return None
+        src = torch.as_tensor(source_images, dtype=torch.float32, device=self.device)
+        if src.dim() == 3:
+            src = src[None]
+        if B % src.shape[0]:
+            raise ValueError(f"batch {B} is not a multiple of {src.shape[0]} source images")
+        return src
+
+    @torch.inference_mode()
+    def invert(
+        self,
+        images,
+        prompt: Union[str, List[str], None] = None,
+        num_inference_steps: int = 50,
+        source_camera=None,
+        target_camera=None,
+        source_images=None,
+        ref_scale: float = 0.1,
+        output_type: str = "np",
+    ):
+        """DDIM inversion: clean images ((B, H, W, 3) in [0, 1]) mapped up
+        the noise schedule, so that a DDIM resample with the same prompt,
+        conditioning and step count about reconstructs them
+        (arXiv 2508.10688). Deterministic: mean-mode VAE encode, guidance
+        1.0, no noise draws. Returns {"latents": (B, H/8, W/8, 4)}, to feed
+        back as ``pipe(latents=..., sampler="ddim", guidance_scale=1.0)``."""
+        cfg = self.config
+        prompts = [""] if prompt is None else [prompt] if isinstance(prompt, str) else list(prompt)
+        images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        if images.dim() == 3:
+            images = images[None]
+        B = images.shape[0]
+        if len(prompts) == 1:
+            prompts = prompts * B
+        if len(prompts) != B:
+            raise ValueError(f"{len(prompts)} prompts for {B} images")
+        model = self.compute_model
+        embeds = model["text_encoder"](self._ids(prompts, 1))
+        lat = model["vae"].encode_moments(_signed_range(images))[0] * cfg.vae.scaling_factor
+        src_latents = None
+        src = self._source_images(source_images, B)
+        if src is not None:
+            s_lat = model["vae"].encode_moments(_signed_range(src))[0] * cfg.vae.scaling_factor
+            src_latents = s_lat.repeat(B // s_lat.shape[0], 1, 1, 1)
+        film, ref_feats = self._conditioning(model, embeds, source_camera, target_camera, src_latents,
+                                             B, B, tuple(lat.shape[1:3]))
+        lat = self.inversion_loop(model, lat, self.timesteps(num_inference_steps), embeds, film,
+                                  ref_feats, ref_scale, num_inference_steps)
+        return {"latents": lat.float().cpu().numpy() if output_type == "np" else lat}
+
+    def inversion_loop(self, model, lat, timesteps, embeds, film, ref_feats, ref_scale: float,
+                       num_inference_steps: int) -> torch.Tensor:
+        """``denoise`` + ``ddim_inverse_step`` up ``timesteps`` (pairs from
+        ``MVDPipeline.timesteps``, taken in ascending order). Nothing here
+        waits for the device."""
+        for t, t_dev in reversed(timesteps):
+            pred = model["mvd"].denoise(lat, t_dev, embeds, film, ref_feats, ref_scale)
+            lat = ddim_inverse_step(self.schedule, pred, t, lat, num_inference_steps)
         return lat
 
     @torch.inference_mode()
@@ -263,12 +399,24 @@ class MVDPipeline:
         output_type: str = "np",
         vae_noise=None,
         step_noises=None,
+        encoder_reuse: int = 1,
+        sampler: Optional[str] = None,
     ):
         """Generate images: {"images": (B, H, W, 3) in [0, 1]}.
 
         ``latents`` (B, h, w, 4), ``vae_noise`` (B, h, w, 4) and
         ``step_noises`` (steps, B, h, w, 4) replace the draws from the seeded
-        generator where given."""
+        generator where given. ``sampler`` ("ddpm", "ddim" or "dpmpp_2m",
+        the second-order DPM-Solver++ that needs about 10 steps where DDIM
+        needs 20-50) overrides the config's for this call.
+        ``encoder_reuse`` k > 1 reuses the down path's state for k - 1 of
+        every k steps (arXiv 2312.09608): an approximation, where 1 keeps
+        the exact trajectory."""
+        if encoder_reuse < 1:
+            raise ValueError(f"encoder_reuse must be >= 1, got {encoder_reuse}")
+        sampler = sampler or self.config.scheduler.sampler
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}; expected one of {SAMPLERS}")
         cfg = self.config
         dev = self.device
         prompt = "" if prompt is None else prompt
@@ -298,23 +446,11 @@ class MVDPipeline:
             embeds = text
 
         src_latents = None
-        if cfg.use_image_conditioning and source_images is not None:
-            src = torch.as_tensor(source_images, dtype=torch.float32, device=dev)
-            if src.dim() == 3:
-                src = src[None]
-            if B % src.shape[0]:
-                raise ValueError(f"batch {B} is not a multiple of {src.shape[0]} source images")
+        src = self._source_images(source_images, B)
+        if src is not None:
             src_latents = self._encode_source(model, src, B, vae_noise, gen)
-
-        has_cam = cfg.use_camera_conditioning and target_camera is not None
-        film, ref_feats = model["mvd"].prepare_conditioning(
-            embeds,
-            self._cameras(source_camera, B) if has_cam else None,
-            self._cameras(target_camera, B) if has_cam else None,
-            src_latents,
-            cfg_batch=2 * B if do_cfg else B,
-            precompute_kv=True,
-        )
+        film, ref_feats = self._conditioning(model, embeds, source_camera, target_camera, src_latents,
+                                             B, 2 * B if do_cfg else B, (lat_h, lat_w))
 
         # host-to-device copies happen here, once: inside the loop a pageable
         # copy would wait for the device to drain at every step
@@ -322,7 +458,8 @@ class MVDPipeline:
             step_noises = torch.as_tensor(step_noises, dtype=torch.float32, device=dev)
         lat = self.denoise_loop(
             model, lat, self.timesteps(num_inference_steps), embeds, film, ref_feats,
-            ref_scale, guidance_scale, num_inference_steps, step_noises, gen,
+            ref_scale, guidance_scale, num_inference_steps, step_noises, gen, sampler,
+            encoder_reuse,
         )
 
         img = model["vae"].decode(lat / cfg.vae.scaling_factor)

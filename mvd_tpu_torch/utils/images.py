@@ -1,13 +1,28 @@
-"""Image IO helpers (host-side, numpy + PIL): a copy of
-``mvd_tpu/utils/images.py``, kept in the port so that it imports nothing of
-the JAX package."""
+"""Image IO helpers (host-side, numpy and the standard library only).
+
+Counterpart of ``mvd_tpu/utils/images.py`` without PIL: the machine that
+holds the GPU may not have it. PNG is written and read by a small codec on
+``zlib`` (8-bit RGB out; 8-bit gray, gray+alpha, RGB, RGBA and palette
+images in, non-interlaced, all five scanline filters), and ``resize``
+stands in for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable
+Lanczos-3 whose support widens with the downscale factor, with PIL's 8-bit
+fixed-point coefficients and its uint8 rounding between the horizontal and
+the vertical pass.
+"""
 
 from __future__ import annotations
 
+import math
 import os
+import struct
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels of a decoded pixel before conversion to RGB
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -25,21 +40,177 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
 
 
-def save_image(img: np.ndarray, path: str):
-    from PIL import Image
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, filter 0 on every row)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (None, Sub, Up, Average, Paeth) of ``raw``,
+    h rows of a filter byte and ``row_bytes`` bytes; ``bpp`` bytes a pixel."""
+    if len(raw) < h * (row_bytes + 1):
+        raise ValueError("PNG image data is truncated")
+    data = np.frombuffer(raw, np.uint8, h * (row_bytes + 1)).reshape(h, row_bytes + 1)
+    out = np.zeros((h, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.uint8)
+    for y in range(h):
+        kind, row = int(data[y, 0]), data[y, 1:]
+        if kind == 0:
+            cur = row.copy()
+        elif kind == 1:  # Sub: a running sum per byte of the pixel, mod 256
+            cur = (np.cumsum(row.reshape(-1, bpp).astype(np.int64), axis=0) % 256)
+            cur = cur.astype(np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur = row + prev
+        elif kind in (3, 4):  # Average and Paeth depend on the byte to their left
+            cur = bytearray(row.tobytes())
+            up = prev.tobytes()
+            for i in range(row_bytes):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 255
+                    continue
+                c = up[i - bpp] if i >= bpp else 0
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+                cur[i] = (cur[i] + pred) & 255
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y} has unknown filter type {kind}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
+    it: gray replicated, alpha dropped, palette indices looked up. Takes
+    non-interlaced 8-bit gray, gray+alpha, RGB, RGBA and palette images;
+    raises ``ValueError`` on anything else (16-bit or sub-byte depths,
+    interlacing) and on a damaged file."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG file (only PNG images are read)")
+    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG has no IHDR or no image data")
+    w, h, depth, colour, compression, filtering, interlace = header
+    if colour not in _CHANNELS:
+        raise ValueError(f"PNG colour type {colour} is not a valid type")
+    if depth != 8:
+        raise ValueError(f"PNG bit depth {depth} is not read (8-bit images only)")
+    if interlace != 0:
+        raise ValueError("interlaced PNG is not read (non-interlaced images only)")
+    if compression != 0 or filtering != 0:
+        raise ValueError(f"PNG compression {compression} / filter method {filtering} unknown")
+    ch = _CHANNELS[colour]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    if colour == 3:
+        if palette is None:
+            raise ValueError("palette PNG has no PLTE chunk")
+        if pixels.max(initial=0) >= len(palette):
+            raise ValueError("palette PNG indexes past its PLTE chunk")
+        return palette[pixels[..., 0]]
+    if ch <= 2:  # gray (+ alpha)
+        return np.repeat(pixels[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(pixels[..., :3])
+
+
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    out = np.sinc(x) * np.sinc(x / 3.0)
+    return np.where((x >= -3.0) & (x < 3.0), out, 0.0)
+
+
+_PRECISION_BITS = 22  # PIL's fixed point for 8-bit images (32 - 8 - 2)
+
+
+def _resize_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One Lanczos-3 pass over ``axis`` of a uint8 array, as PIL computes
+    it: support 3 times the scale where it shrinks, taps clamped to the
+    image and renormalized, coefficients in 22-bit fixed point, the sum
+    rounded and clipped to uint8."""
+    in_size = img.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    centers = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(centers - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(centers + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    weights = _lanczos3((taps[None] + xmin[:, None] - centers[:, None] + 0.5) / filterscale)
+    weights = np.where(taps[None] < xmax[:, None], weights, 0.0)
+    total = weights.sum(axis=1, keepdims=True)
+    weights = np.where(total != 0.0, weights / np.where(total != 0.0, total, 1.0), weights)
+    one = float(1 << _PRECISION_BITS)
+    fixed = np.where(weights < 0, np.trunc(-0.5 + weights * one), np.trunc(0.5 + weights * one))
+    fixed = fixed.astype(np.int64)
+    index = np.minimum(xmin[:, None] + taps[None], in_size - 1)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    bcast = (slice(None),) + (None,) * (src.ndim - 1)
+    for k in range(ksize):
+        acc += src[index[:, k]] * fixed[:, k][bcast]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (height, width, C) uint8 by Lanczos-3, standing in
+    for PIL's ``resize((width, height), Image.LANCZOS)``: the horizontal
+    pass first, rounded to uint8, then the vertical one."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"resize takes (H, W, C) uint8, got {img.shape} {img.dtype}")
+    if img.shape[1] != width:
+        img = _resize_axis(img, width, 1)
+    if img.shape[0] != height:
+        img = _resize_axis(img, height, 0)
+    return img
+
+
+def save_image(img: np.ndarray, path: str):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    Image.fromarray(to_uint8(img)).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(to_uint8(img)))
 
 
 def load_image(path: str, size: Optional[int] = None) -> np.ndarray:
-    """PNG -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48, NHWC)."""
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB")
-    if size is not None and img.size != (size, size):
-        img = img.resize((size, size), Image.LANCZOS)
-    arr = np.asarray(img, np.float32) / 255.0
+    """PNG -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48, NHWC),
+    resized to (size, size) where it differs."""
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    if size is not None and img.shape[:2] != (size, size):
+        img = resize(img, size, size)
+    arr = img.astype(np.float32) / 255.0
     return arr * 2.0 - 1.0
 
 

@@ -442,23 +442,33 @@ def test_k6_and_k5_reject_what_they_do_not_take(cuda):
         attention(x, x, x, "pallas_interpret")
 
 
-def test_denoise_loop_never_waits_for_the_device(cuda):
-    """The sampler loop (3 denoise + ddpm_step iterations of a 20-step
-    schedule, after prepare_conditioning) at tiny width with 64-wide heads
-    in bf16 makes no call that synchronizes with the device: the timesteps
-    and the step noise reach the device before the loop."""
+def _pipeline_64(**changes):
+    """TINY_MODEL with 64-wide heads (what the kernels take) in bf16, on the
+    card, random weights from seed 0."""
     import dataclasses
 
-    from mvd_tpu_torch.camera import orbit_cameras
     from mvd_tpu_torch.config import TINY_MODEL, TINY_UNET
     from mvd_tpu_torch.pipeline import MVDPipeline
 
     unet = dataclasses.replace(TINY_UNET, block_out_channels=(64, 128, 128, 128),
                                num_attention_heads=(1, 2, 2, 2))
-    cfg = dataclasses.replace(TINY_MODEL, unet=unet, dtype="bfloat16")
-    pipe = MVDPipeline.create(cfg, seed=0, device="cuda")
+    cfg = dataclasses.replace(TINY_MODEL, unet=unet, dtype="bfloat16", **changes)
+    return MVDPipeline.create(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("sampler,encoder_reuse", [("ddpm", 1), ("ddim", 1), ("dpmpp_2m", 1), ("ddpm", 2)])
+def test_denoise_loop_never_waits_for_the_device(cuda, sampler, encoder_reuse):
+    """The sampler loop (3 denoise + sampler-step iterations of a 20-step
+    schedule, after prepare_conditioning) at tiny width with 64-wide heads
+    in bf16 makes no call that synchronizes with the device, for every
+    sampler and with encoder reuse (a key step, a cached step, a step past
+    the last group): the timesteps and the step noise reach the device
+    before the loop, and the steps index the schedule with Python ints."""
+    from mvd_tpu_torch.camera import orbit_cameras
+
+    pipe = _pipeline_64()
     model = pipe.compute_model
-    B, s = 2, unet.sample_size
+    B, s = 2, pipe.config.unet.sample_size
     with torch.inference_mode():
         embeds = model["text_encoder"](pipe._ids(["a 3d object"] * B, 1))
         cams = torch.as_tensor(orbit_cameras(B), device="cuda")
@@ -471,10 +481,37 @@ def test_denoise_loop_never_waits_for_the_device(cuda):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = pipe.denoise_loop(model, lat, steps, embeds, film, refs, 1.0, 1.0, 20, noises)
+            out = pipe.denoise_loop(model, lat, steps, embeds, film, refs, 1.0, 1.0, 20, noises,
+                                    sampler=sampler, encoder_reuse=encoder_reuse)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert out.shape == lat.shape and torch.isfinite(out).all()
+
+
+def test_checkpoint_loader_puts_every_parameter_on_the_device(cuda, tmp_path):
+    """A Lightning checkpoint of one pipeline's multi-view UNet, loaded by
+    ``load_checkpoint`` into another pipeline on the card, leaves every
+    parameter there, in f32 and equal to the first pipeline's, but the
+    translation projection the reference does not store."""
+    import numpy as np
+
+    from mvd_tpu_torch.checkpoint import export_jax_params, export_lightning_state_dict, load_checkpoint
+
+    src, dst = _pipeline_64(), _pipeline_64()
+    with torch.no_grad():
+        for p in src.model["mvd"].parameters():
+            p.add_(1.0)
+    sd = export_lightning_state_dict(export_jax_params(src.model["mvd"]))
+    path = tmp_path / "last.ckpt"
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}}, path)
+    kept, _ = load_checkpoint(dst, str(path))
+    assert kept == ["mvd.camera_encoder.translation_projection"]
+    want = dict(src.model.named_parameters())
+    for name, p in dst.model.named_parameters():
+        assert p.device.type == "cuda" and p.dtype == torch.float32, name
+        if not name.endswith("translation_projection") and name.startswith("mvd."):
+            assert torch.equal(p, want[name]), name
+    assert dst.compute_model["mvd"].unet.conv_in.weight.device.type == "cuda"
 
 
 def test_every_launch_runs_on_the_tensors_device(cuda, monkeypatch):
