@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases; any failure exits non-zero:
+Seven phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -63,13 +63,33 @@ Six phases; any failure exits non-zero:
    Checks a finite loss and gradients, frozen parameters bitwise unchanged,
    trainable ones unchanged by step 1 (lr 0) and moved by step 2, the
    launches of every kernel in each step against the model structure, and
-   no plain call; prints s/step, samples/s and the peak memory.
+   no plain call; prints s/step, samples/s and the peak memory;
+5. the train entry point: a seeded synthetic corpus (16 objects x 4 views
+   of smooth 512² RGBA PNGs with real alpha, ``orbit_cameras`` ``.npy``
+   cameras, ``prompt.txt``) in a temporary directory, then (a)
+   ``mvd_tpu_torch.cli.train.main`` in this process at phase 4's training
+   point for 3 steps (``metrics_log_interval`` 2): finite
+   ``train/noise_loss`` at steps 1-3 with ``train/lr`` the schedule's, the
+   reconstruction metrics at step 2 and the end-of-run validation finite
+   (SSIM in [-1, 1]), the comparison PNGs decoding to 768 x 2312 x 3, K3a
+   and K3b exactly 64 and 48 per step, no plain call, every frozen
+   parameter bitwise unchanged, the final checkpoint on disk; (b)
+   ``--resume`` to step 5: the restored parameters and AdamW state bitwise
+   the saved ones before the first step, exactly 2 steps, the checkpoints
+   kept the latest plus the top k; (c) ``cli.precompute_latents`` at 768²
+   in bf16, then 2 steps from the cache, each with the structure's
+   launches less the VAE encoder's GroupNorms. Prints the host ms per
+   decoded view, s/step and loader wait per step, samples/s, validation,
+   checkpoint bytes and save/restore seconds, peak memory and the phase's
+   seconds.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
-generation, one call of each sampler configuration of phase 3c and one more
-train step with ``torch.profiler`` and prints, and writes to OUT.json (the
-int8 generation under ``"int8_generation"``, phase 3c's under
-``"entry_points"``, the train step under ``"train_step"``), the wall time,
+generation, one call of each sampler configuration of phase 3c, one more
+train step and one more step of phase 5's Trainer (its pinned batch copy,
+the step, the metric fetch and the log line) with ``torch.profiler`` and
+prints, and writes to OUT.json (the int8 generation under
+``"int8_generation"``, phase 3c's under ``"entry_points"``, the train step
+under ``"train_step"``, the Trainer's under ``"train_entry"``), the wall time,
 the summed device-kernel time, the device's idle share, the share of each
 port kernel and the kernels that take the most device time.
 
@@ -1266,6 +1286,381 @@ def phase_train():
     return launches, metrics, (state, step, batch, gen)
 
 
+CORPUS_OBJECTS, CORPUS_VIEWS, CORPUS_RES = 16, 4, 512
+
+
+def write_corpus(root: str, seed: int = 0) -> int:
+    """A seeded synthetic Objaverse corpus in the rendered-zip layout under
+    ``root/renders_final``: smooth RGBA renders (a soft-edged disk of real
+    alpha over transparent black) at CORPUS_RES², so the loader composites
+    over white and resizes; a 4x4 ``.npy`` camera per view from
+    ``orbit_cameras``; ``prompt.txt``. Returns the corpus's bytes."""
+    import io
+    import zipfile
+
+    import numpy as np
+
+    from mvd_tpu_torch.camera import orbit_cameras
+    from mvd_tpu_torch.utils.images import encode_png
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "renders_final"), exist_ok=True)
+    yy, xx = np.mgrid[0:CORPUS_RES, 0:CORPUS_RES] / CORPUS_RES
+    r = np.hypot(yy - 0.5, xx - 0.5)
+    alpha = (np.clip((0.42 - r) / 0.04, 0.0, 1.0) * 255).round().astype(np.uint8)
+    total = 0
+    for i in range(CORPUS_OBJECTS):
+        path = os.path.join(root, "renders_final", f"obj_{i:03d}.zip")
+        cams = orbit_cameras(CORPUS_VIEWS, start_azimuth_deg=float(rng.uniform(0, 360)))
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+            for v in range(CORPUS_VIEWS):
+                f, ph = rng.uniform(1, 4, 3), rng.uniform(0, 2 * np.pi, 3)
+                rgb = [127.5 + 127.5 * np.sin(2 * np.pi * f[c] * (xx + (c + 1) * yy) + ph[c] + v)
+                       for c in range(3)]
+                rgba = np.stack(rgb + [alpha], -1).round().astype(np.uint8)
+                z.writestr(f"{v:03d}.png", encode_png(rgba))
+                buf = io.BytesIO()
+                np.save(buf, cams[v].astype(np.float32))
+                z.writestr(f"{v:03d}.npy", buf.getvalue())
+            z.writestr("prompt.txt", f"a smooth test object number {i}")
+        total += os.path.getsize(path)
+    return total
+
+
+class _Hooks:
+    """Wraps methods for the length of a ``with`` block: ``wrap(owner,
+    name, make)`` replaces ``owner.name`` by ``make(original)``."""
+
+    def __init__(self):
+        self._undo = []
+
+    def wrap(self, owner, name, make):
+        original = getattr(owner, name)
+        self._undo.append((owner, name, original))
+        setattr(owner, name, make(original))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._undo):
+            setattr(owner, name, original)
+
+
+def _state_snapshot(state) -> dict:
+    """Copies, on the card, of what a checkpoint holds: the multi-view
+    UNet's parameters and buffers, the AdamW state and the counts."""
+    import torch
+
+    params = {k: v.detach().clone() for k, v in state.model["mvd"].state_dict().items()}
+    opt = {name: {k: (v.clone() if torch.is_tensor(v) else v)
+                  for k, v in state.optimizer.state[p].items()}
+           for name, p in state.trainable.items()}
+    return dict(step=state.step, updates=state.updates, params=params, opt=opt)
+
+
+def _assert_state_equal(state, snap: dict, what: str) -> None:
+    import torch
+
+    now = _state_snapshot(state)
+    if (now["step"], now["updates"]) != (snap["step"], snap["updates"]):
+        raise AssertionError(f"{what}: step {now['step']} / {now['updates']} updates, not "
+                             f"{snap['step']} / {snap['updates']}")
+    bad = [k for k, v in snap["params"].items()
+           if v.dtype != now["params"][k].dtype or not torch.equal(v, now["params"][k])]
+    bad += [f"adamw {n}.{k}" for n, st in snap["opt"].items() for k, v in st.items()
+            if not torch.equal(torch.as_tensor(v), torch.as_tensor(now["opt"][n][k]))]
+    if bad or now["params"].keys() != snap["params"].keys():
+        raise AssertionError(f"{what}: {len(bad)} tensors differ, e.g. {bad[:5]}")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_entry(trace: bool = False):
+    """Phase 5: ``python -m mvd_tpu_torch.cli.train`` at the reference
+    training point on a synthetic corpus, through ``main(argv)`` in this
+    process: (a) 3 steps with the reconstruction metrics at step 2, the
+    end-of-run validation (eval loss, 20-step generation, comparison PNGs)
+    and the final checkpoint; (b) ``--resume`` to step 5; (c)
+    ``cli.precompute_latents`` over the corpus, then 2 steps from the
+    cache. Returns (the launches of run (a), metrics, the trace or None)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.checkpoint.io import CheckpointManager
+    from mvd_tpu_torch.cli import precompute_latents
+    from mvd_tpu_torch.cli import train as train_cli
+    from mvd_tpu_torch.data.objaverse import _load_image_from_bytes
+    from mvd_tpu_torch.nn.layers import GroupNorm
+    from mvd_tpu_torch.train import loop
+    from mvd_tpu_torch.train.loop import Trainer, fetch_metrics
+    from mvd_tpu_torch.utils.images import decode_png
+
+    t_phase = time.perf_counter()
+    metrics, traced = {}, None
+    tmp = tempfile.mkdtemp(prefix="mvd_train_entry_")
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        t0 = time.perf_counter()
+        corpus_bytes = write_corpus(corpus)
+        print(f"[train_entry] corpus: {CORPUS_OBJECTS} objects x {CORPUS_VIEWS} views, RGBA "
+              f"{CORPUS_RES}², {corpus_bytes} bytes, written in {time.perf_counter() - t0:.1f} s")
+        import zipfile
+
+        with zipfile.ZipFile(os.path.join(corpus, "renders_final", "obj_000.zip")) as z:
+            pngs = [z.read(f"{v:03d}.png") for v in range(CORPUS_VIEWS)]
+        t0 = time.perf_counter()
+        for data in pngs * 2:
+            _load_image_from_bytes(data, TRAIN_RES)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (2 * len(pngs))
+        t0 = time.perf_counter()
+        for data in pngs * 2:
+            decode_png(data, composite_alpha=True)
+        png_ms = (time.perf_counter() - t0) * 1e3 / (2 * len(pngs))
+        print(f"[train_entry] host ms per decoded {TRAIN_RES}² view (one thread): {decode_ms:.1f} "
+              f"(PNG decode and white composite {png_ms:.1f}, the rest Lanczos {CORPUS_RES}² -> "
+              f"{TRAIN_RES}² and scaling)")
+        base = ["--dataset-path", corpus, "--batch-size", str(TRAIN_BATCH),
+                "--image-size", str(TRAIN_RES)]
+        timed = {"validate": [], "save": [], "restore": []}
+        frozen_changed = []
+
+        def timer(key):
+            def make(fn):
+                def run(*a, **k):
+                    t = time.perf_counter()
+                    out = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    timed[key].append(time.perf_counter() - t)
+                    return out
+                return run
+            return make
+
+        def frozen_guard(fit):
+            def run(self, *a, **k):
+                frozen = {f"{net}.{n}": p.detach().clone() for net, m in self.state.model.items()
+                          for n, p in m.named_parameters() if not p.requires_grad}
+                out = fit(self, *a, **k)
+                params = {f"{net}.{n}": p for net, m in self.state.model.items()
+                          for n, p in m.named_parameters()}
+                frozen_changed.extend(n for n, v in frozen.items() if not torch.equal(v, params[n]))
+                frozen_changed.append(len(frozen))
+                return out
+            return run
+
+        # (a) train and validate
+        out_a = os.path.join(tmp, "out")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with _Hooks() as hooks:
+            hooks.wrap(Trainer, "validate", timer("validate"))
+            hooks.wrap(CheckpointManager, "save", timer("save"))
+            hooks.wrap(Trainer, "fit", frozen_guard)
+            tr = train_cli.main(base + ["--output-dir", out_a, "--max-steps", str(TRAIN_STEPS)],
+                                metrics_log_interval=2)
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        launches, plain = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = expected_train_launches(tr.state.model)
+        n_frozen = frozen_changed.pop()
+        print(f"[train_entry] (a) cli.train.main {' '.join(base[2:])} --max-steps {TRAIN_STEPS}: "
+              f"{run_a_s:.1f} s; launches {launches}; plain calls {plain}")
+        if any(plain.values()):
+            raise AssertionError(f"(a): plain versions ran: {plain}")
+        for key in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            if launches[key] != per_step[key] * TRAIN_STEPS:
+                raise AssertionError(f"(a): {key} launched {launches[key]} times, not "
+                                     f"{per_step[key]} x {TRAIN_STEPS}")
+        if frozen_changed:
+            raise AssertionError(f"(a): frozen parameters changed: {frozen_changed[:5]}")
+        recs = _records(tr.logger.jsonl_path)
+        steps = {r["step"]: r for r in recs if "train/noise_loss" in r}
+        if sorted(steps) != list(range(1, TRAIN_STEPS + 1)):
+            raise AssertionError(f"(a): train records at steps {sorted(steps)}")
+        for s_, r in steps.items():
+            if not math.isfinite(r["train/noise_loss"]) or r["train/lr"] != tr.state.lr_schedule(s_):
+                raise AssertionError(f"(a) step {s_}: noise_loss {r['train/noise_loss']}, lr "
+                                     f"{r['train/lr']} (schedule {tr.state.lr_schedule(s_)})")
+        recon = [r for r in recs if "train/ssim_value" in r]
+        val = [r for r in recs if "val/noise_loss" in r]
+        if [r["step"] for r in recon] != [2] or len(val) != 1:
+            raise AssertionError(f"(a): reconstruction metrics at {[r['step'] for r in recon]}, "
+                                 f"{len(val)} validations")
+        checks = {**{k: recon[0][k] for k in ("train/latent_recon_loss", "train/pixel_recon_loss",
+                                              "train/ssim_value")},
+                  **{k: val[0][k] for k in ("val/noise_loss", "val/gen_psnr", "val/gen_ssim",
+                                            "val/gen_pixel_mse")}}
+        if (not all(math.isfinite(v) for v in checks.values())
+                or not all(-1 <= checks[k] <= 1 for k in ("train/ssim_value", "val/gen_ssim"))):
+            raise AssertionError(f"(a): metrics {checks}")
+        sheets = sorted(os.listdir(tr.dirs["comparisons"]))
+        for name in sheets:
+            with open(os.path.join(tr.dirs["comparisons"], name), "rb") as f:
+                _check_png(f.read(), (TRAIN_RES, 3 * TRAIN_RES + 8, 3), f"(a) {name}")
+        if sheets != ["epoch000_sample0.png", "epoch000_sample1.png"]:
+            raise AssertionError(f"(a): comparison sheets {sheets}")
+        ckpt_dir = os.path.join(tr.dirs["checkpoints"], str(TRAIN_STEPS))
+        if tr.ckpt.all_steps() != [TRAIN_STEPS] or not os.path.isfile(os.path.join(ckpt_dir, "state.pt")):
+            raise AssertionError(f"(a): checkpoints {tr.ckpt.all_steps()}")
+        ckpt_bytes = _dir_bytes(ckpt_dir)
+        times = [t["step_s"] for t in tr.timings]
+        waits = [t["loader_wait_s"] for t in tr.timings]
+        sec = sum(times[1:]) / len(times[1:])
+        print(f"[train_entry] (a) train/noise_loss {[round(steps[s_]['train/noise_loss'], 5) for s_ in sorted(steps)]}, "
+              f"train/lr {[steps[s_]['train/lr'] for s_ in sorted(steps)]} (the schedule's); "
+              f"reconstruction at step 2 {json.dumps({k: round(v, 5) for k, v in checks.items()})}")
+        print(f"[train_entry] (a) s per step {[round(t, 3) for t in times]}; loader wait per step "
+              f"{[round(w, 3) for w in waits]} s; steps 2-{TRAIN_STEPS}: {sec:.3f} s/step = "
+              f"{TRAIN_BATCH / sec:.3f} samples/s; validation {timed['validate'][0]:.2f} s; "
+              f"checkpoint {ckpt_bytes} bytes saved in {timed['save'][0]:.2f} s; peak memory "
+              f"{peak:.2f} GiB; {n_frozen} frozen tensors bitwise unchanged; comparison sheets "
+              f"{sheets} decode to ({TRAIN_RES}, {3 * TRAIN_RES + 8}, 3)")
+        # the loader alone at its steady state: 8 batches after 4 to fill
+        # its prefetch, against the step it has to feed
+        it = iter(tr.train_loader)
+        for _ in range(4):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            next(it)
+        loader_s = (time.perf_counter() - t0) / 8
+        it.close()
+        print(f"[train_entry] (a) the loader alone ({len(tr.train_loader)} batches an epoch, "
+              f"{tr.train_loader.num_workers} threads on {os.cpu_count()} cores): {loader_s:.3f} s "
+              f"per batch of {2 * TRAIN_BATCH} views against {sec:.3f} s per step")
+        metrics["a"] = dict(run_s=run_a_s, sec_per_step=sec, samples_per_s=TRAIN_BATCH / sec,
+                            loader_s_per_batch=loader_s,
+                            step_s=times, loader_wait_s=waits, validation_s=timed["validate"][0],
+                            checkpoint_bytes=ckpt_bytes, save_s=timed["save"][0], peak_gib=peak,
+                            host_ms_per_view=decode_ms, png_decode_ms=png_ms,
+                            corpus_bytes=corpus_bytes, launches=launches, metrics=checks)
+        snap = _state_snapshot(tr.state)
+        if trace:
+            batch = next(iter(tr.train_loader))
+            gen = torch.Generator("cuda").manual_seed(0)
+
+            def one_step():
+                m = tr.step_fn(tr.state, tr._put_batch(batch), generator=gen)
+                tr.logger.log(fetch_metrics({k: v for k, v in m.items() if not k.startswith("hist/")}),
+                              step=tr.state.step)
+
+            one_step()  # warm, then trace one more
+            traced = trace_run(one_step, "train entry step")
+        run_root = tr.dirs["root"]
+        del tr
+        torch.cuda.empty_cache()
+
+        # (b) resume to step 5
+        restored = []
+
+        def resume_guard(resume):
+            def run(self, *a, **k):
+                ok = resume(self, *a, **k)
+                _assert_state_equal(self.state, snap, "(b) the restored state")
+                restored.append(self.state.step)
+                return ok
+            return run
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with _Hooks() as hooks:
+            hooks.wrap(Trainer, "resume", resume_guard)
+            hooks.wrap(CheckpointManager, "restore", timer("restore"))
+            hooks.wrap(CheckpointManager, "save", timer("save"))
+            tr = train_cli.main(base + ["--output-dir", out_a, "--resume", run_root, "--max-steps", "5"],
+                                metrics_log_interval=2, checkpoint_every_steps=2)
+        torch.cuda.synchronize()
+        run_b_s = time.perf_counter() - t0
+        launches_b, plain_b = read_counts()
+        took = [t["step"] for t in tr.timings]
+        if restored != [TRAIN_STEPS] or took != [4, 5] or tr.state.step != 5:
+            raise AssertionError(f"(b): restored {restored}, took steps {took}")
+        for key in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            if launches_b[key] != per_step[key] * 2 or any(plain_b.values()):
+                raise AssertionError(f"(b): {key} launched {launches_b[key]}, plain {plain_b}")
+        if tr.ckpt.all_steps() != [TRAIN_STEPS, 5]:
+            raise AssertionError(f"(b): checkpoints kept {tr.ckpt.all_steps()}, not the latest (5) "
+                                 f"plus the top k ({TRAIN_STEPS}: step 4 had no metric)")
+        print(f"[train_entry] (b) --resume {os.path.basename(run_root)} --max-steps 5: restored step "
+              f"{TRAIN_STEPS} with every parameter and the AdamW state bitwise the saved ones in "
+              f"{timed['restore'][0]:.2f} s, took steps {took} in {run_b_s:.1f} s; checkpoints kept "
+              f"{tr.ckpt.all_steps()} (saves {[round(t, 2) for t in timed['save'][1:]]} s)")
+        metrics["b"] = dict(run_s=run_b_s, restore_s=timed["restore"][0], save_s=timed["save"][1:],
+                            step_s=[t["step_s"] for t in tr.timings],
+                            loader_wait_s=[t["loader_wait_s"] for t in tr.timings])
+        del tr
+        shutil.rmtree(out_a)
+        torch.cuda.empty_cache()
+
+        # (c) the latent cache
+        cache = os.path.join(tmp, "latents")
+        t0 = time.perf_counter()
+        stats = precompute_latents.main(["--dataset-path", corpus, "--image-size", str(TRAIN_RES),
+                                         "--out", cache, "--compute-dtype", "bfloat16"])
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        if stats != {"zips": CORPUS_OBJECTS, "views": CORPUS_OBJECTS * CORPUS_VIEWS, "skipped": 0}:
+            raise AssertionError(f"(c): precompute {stats}")
+        per_call = []
+        make_step = loop.make_train_step
+
+        def counted_steps(schedule, cfg):
+            step = make_step(schedule, cfg)
+
+            def run(state, batch, **k):
+                before, _ = read_counts()
+                out = step(state, batch, **k)
+                after, plain_c = read_counts()
+                per_call.append(({n: after[n] - before[n] for n in after}, plain_c,
+                                 float(out["noise_loss"]), state.model))
+                return out
+            return run
+
+        torch.cuda.empty_cache()
+        reset_counts()
+        with _Hooks() as hooks:
+            hooks.wrap(loop, "make_train_step", lambda _: counted_steps)
+            tr = train_cli.main(base + ["--output-dir", os.path.join(tmp, "out_c"), "--max-steps", "2",
+                                        "--latent-cache-dir", cache], metrics_log_interval=0)
+        # as expected_train_launches, without the VAE encoder's GroupNorms
+        # of the source and the target encode
+        want = expected_train_launches(per_call[0][3])
+        enc_gn = 2 * sum(isinstance(m, GroupNorm) for m in per_call[0][3]["vae"].encoder.modules())
+        want["groupnorm_silu"] -= enc_gn
+        for i, (got, plain_c, loss, _) in enumerate(per_call):
+            if got != want or any(plain_c.values()) or not math.isfinite(loss):
+                raise AssertionError(f"(c) step {i + 1}: launches {got} (expected {want}), plain "
+                                     f"{plain_c}, loss {loss}")
+        times_c = [t["step_s"] for t in tr.timings]
+        print(f"[train_entry] (c) cli.precompute_latents --image-size {TRAIN_RES} --compute-dtype "
+              f"bfloat16: {stats['zips']} zips, {stats['views']} views in {pre_s:.1f} s; 2 steps from "
+              f"the cache: launches per step {want} (the VAE encoder's {enc_gn} GroupNorms gone), "
+              f"losses {[round(c[2], 5) for c in per_call]}; s per step {[round(t, 3) for t in times_c]} "
+              f"(step 2 {times_c[1]:.3f} s from the cache against {sec:.3f} s from pixels); loader "
+              f"wait {[round(t['loader_wait_s'], 3) for t in tr.timings]} s")
+        metrics["c"] = dict(precompute_s=pre_s, step_s=times_c, launches_per_step=want,
+                            loader_wait_s=[t["loader_wait_s"] for t in tr.timings])
+        del tr, per_call
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train_entry] phase 5 in {metrics['phase_s']:.1f} s")
+    return metrics["a"]["launches"], metrics, traced
+
+
 # device-kernel name patterns (regular expressions) of each port kernel in a
 # torch.profiler trace
 TRACE_GROUPS = {
@@ -1413,6 +1808,12 @@ def main(argv=None) -> int:
     if args.trace:
         state, step, batch, gen = train_call
         traces["train_step"] = trace_run(lambda: step(state, batch, generator=gen), "train step")
+        del state, step, batch, gen
+    del train_call
+    torch.cuda.empty_cache()
+    entry_train_launches, entry_train_metrics, entry_trace = phase_train_entry(trace=bool(args.trace))
+    if args.trace:
+        traces["train_entry"] = entry_trace
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         with open(args.trace, "w") as f:
             json.dump(dict(card=card, **traces), f, indent=1)
@@ -1435,12 +1836,14 @@ def main(argv=None) -> int:
             ms=prim["ms"], plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
             bound_by=prim["bound_by"], library_ms=prim["library_ms"],
             shape=meta["primary"], train_launches=train_launches[key],
-            int8_generation_launches=int8_launches[key], cases=cases,
+            int8_generation_launches=int8_launches[key],
+            train_entry_launches=entry_train_launches[key], cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
     print(f"[int8] {json.dumps(int8_metrics)}")
     print(f"[entry] {json.dumps(entry_metrics)}")
     print(f"[train] {json.dumps(train_metrics)}")
+    print(f"[train_entry] {json.dumps(entry_train_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

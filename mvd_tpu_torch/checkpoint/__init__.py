@@ -1,3 +1,10 @@
+from .io import (  # noqa: F401
+    CheckpointManager,
+    load_params,
+    peek_checkpoint_meta,
+    resolve_resume_path,
+    save_params,
+)
 from .from_jax import (  # noqa: F401
     convert_jax_params,
     export_jax_params,

@@ -160,5 +160,5 @@ def load_jax_train_state(model: nn.ModuleDict, jax_state, cfg, total_steps: int)
             "exp_avg": torch.from_numpy(mu[name]).to(p.device, p.dtype),
             "exp_avg_sq": torch.from_numpy(nu[name]).to(p.device, p.dtype),
         }
-    state.step = step
+    state.step = state.updates = step
     return state

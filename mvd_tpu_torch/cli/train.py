@@ -1,0 +1,179 @@
+"""Training CLI of the port.
+
+    python -m mvd_tpu_torch.cli.train --dataset-path /data/objaverse --output-dir outputs
+    python -m mvd_tpu_torch.cli.train --resume outputs/<run> --max-steps 2000
+    python -m mvd_tpu_torch.cli.train --tiny --device cpu --dataset-path D --batch-size 2
+
+The flags of ``mvd_tpu/cli/train.py``, plus ``--device`` (the GPU by
+default; without one the CLI raises; ``--tiny`` runs on the CPU only, as in
+``cli/infer.py``) and ``--wandb`` (log to W&B as well as the JSONL; W&B is
+not imported otherwise). ``--config`` needs PyYAML. ``--init-params`` takes
+a directory written by ``checkpoint.save_params``. ``--num-views`` above 1
+is ROADMAP item 11; a mesh or several processes (``--mesh-data``,
+``--mesh-view``, ``--num-slices`` above 1, ``--coordinator``,
+``--num-processes``, ``--process-id``) are item 16: each raises.
+``main(argv, **overrides)`` returns the ``Trainer`` after ``fit``;
+``overrides`` are ``TrainConfig`` fields that no flag reaches (for example
+``metrics_log_interval``), applied after the flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train the multi-view diffusion model (PyTorch/CUDA)")
+    p.add_argument("--config", type=str, default=None, help="YAML config path (needs PyYAML)")
+    p.add_argument("--dataset-path", type=str, default=None)
+    p.add_argument("--dataset-format", type=str, default=None, choices=("objaverse", "co3d"),
+                   help="corpus layout: rendered-zip shards or CO3D-style sequences")
+    p.add_argument("--resume", type=str, default=None,
+                   help="run dir, its checkpoints/ dir, or one step dir to resume from")
+    p.add_argument("--output-dir", type=str, default="outputs")
+    p.add_argument("--wandb", action="store_true", help="also log to W&B")
+    p.add_argument("--wandb-id", type=str, default=None)
+    p.add_argument("--run-name", type=str, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--num-views", type=int, default=1,
+                   help=">1 is joint multi-view training (ROADMAP item 11, not ported yet)")
+    p.add_argument("--mesh-data", type=int, default=None, help="multi-GPU: ROADMAP item 16")
+    p.add_argument("--mesh-view", type=int, default=1, help="multi-GPU: ROADMAP item 16")
+    p.add_argument("--num-slices", type=int, default=1, help="multi-GPU: ROADMAP item 16")
+    p.add_argument("--coordinator", type=str, default=None, help="multi-host: ROADMAP item 16")
+    p.add_argument("--num-processes", type=int, default=None, help="multi-host: ROADMAP item 16")
+    p.add_argument("--process-id", type=int, default=None, help="multi-host: ROADMAP item 16")
+    p.add_argument("--latent-cache-dir", type=str, default=None,
+                   help="latent-moment cache (cli/precompute_latents.py): train batches skip the "
+                   "per-step VAE encode")
+    p.add_argument("--use-ray-conditioning", action="store_true",
+                   help="concatenate per-pixel Plücker ray maps to the UNet input")
+    p.add_argument("--init-params", type=str, default=None,
+                   help="a checkpoint.save_params dir whose components (vae / text_encoder / "
+                   "mvd) replace the fresh init")
+    p.add_argument("--tiny", action="store_true", help="tiny model (smoke test; CPU only)")
+    p.add_argument("--debug-nans", action="store_true")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.num_views > 1:
+        raise SystemExit("--num-views > 1 is joint multi-view training, ROADMAP item 11: not "
+                         "ported yet")
+    if ((args.mesh_data or 1) > 1 or args.mesh_view > 1 or args.num_slices > 1
+            or args.coordinator or (args.num_processes or 1) > 1 or args.process_id):
+        raise SystemExit("a mesh or several processes is multi-GPU training, ROADMAP item 16: "
+                         "not ported yet")
+
+
+def _load_init_params(pipe, path: str) -> None:
+    from ..checkpoint import load_params
+
+    for comp, sd in load_params(path).items():
+        if comp not in pipe.model:
+            raise SystemExit(f"--init-params component {comp!r} not in the pipeline "
+                             f"(have {sorted(pipe.model)})")
+        want = {k: (tuple(v.shape), v.dtype) for k, v in pipe.model[comp].state_dict().items()}
+        got = {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
+        if want != got:
+            raise SystemExit(f"--init-params component {comp!r} does not match the configured "
+                             "architecture (names, shapes or dtypes)")
+        pipe.model[comp].load_state_dict(sd)
+        logging.getLogger(__name__).info("initialized %r from %s", comp, path)
+
+
+def _check_cache_dtype(latent_cache_dir: str, dtype: str) -> None:
+    """The cache must have been encoded at the model's compute dtype."""
+    from ..data.latent_cache import read_meta
+
+    meta = read_meta(latent_cache_dir) or {}
+    cache_cd = meta.get("compute_dtype")
+    if cache_cd and cache_cd != dtype:
+        raise SystemExit(
+            f"latent cache at {latent_cache_dir!r} was encoded at compute_dtype={cache_cd} but "
+            f"the model config computes in {dtype}; rebuild the cache "
+            f"(precompute_latents --compute-dtype {dtype}) or change the model dtype")
+    if meta and not cache_cd:
+        logging.getLogger(__name__).warning(
+            "latent cache at %s predates compute_dtype tracking; cannot verify that its "
+            "encoder numerics match model dtype %s", latent_cache_dir, dtype)
+
+
+def main(argv=None, **overrides):
+    args = build_argparser().parse_args(argv)
+    _refuse_unported(args)
+
+    from ..checkpoint import peek_checkpoint_meta
+    from ..config import TINY_MODEL, DataConfig, TrainConfig, data_config_from_yaml, train_config_from_yaml
+    from ..data.objaverse import ObjaverseDataModule
+    from ..pipeline import MVDPipeline
+    from ..pipeline.pipeline import resolve_device
+    from ..train.loop import Trainer
+    from ..utils.logging import MetricLogger, enable_nan_debugging
+
+    device = resolve_device(args.device)
+    if args.tiny and device.type != "cpu":
+        raise ValueError("--tiny runs on the CPU only (f32, 16-wide heads; the GPU kernels take "
+                         "bf16 and 64-wide heads): add --device cpu")
+    if args.debug_nans:
+        enable_nan_debugging()
+
+    cfg = train_config_from_yaml(args.config) if args.config else TrainConfig()
+    if args.tiny:
+        cfg = dataclasses.replace(cfg, model=TINY_MODEL, image_size=TINY_MODEL.unet.sample_size * 8)
+    if args.batch_size:
+        cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
+    if args.image_size:
+        cfg = dataclasses.replace(cfg, image_size=args.image_size)
+    if args.max_steps:
+        cfg = dataclasses.replace(cfg, max_steps=args.max_steps)
+    cfg = dataclasses.replace(cfg, num_views=args.num_views, **overrides)
+    model_cfg = cfg.model
+    if args.use_ray_conditioning:
+        model_cfg = dataclasses.replace(model_cfg, use_ray_conditioning=True)
+    # the latent size follows the training resolution
+    model_cfg = dataclasses.replace(
+        model_cfg, unet=dataclasses.replace(model_cfg.unet, sample_size=cfg.image_size // 8))
+    cfg = dataclasses.replace(cfg, model=model_cfg)
+
+    dataset_path = args.dataset_path or os.environ.get("MVD_DATASET_PATH", "")
+    data_cfg = data_config_from_yaml(args.config) if args.config else DataConfig()
+    latent_cache_dir = args.latent_cache_dir or data_cfg.latent_cache_dir
+    if latent_cache_dir:
+        _check_cache_dtype(latent_cache_dir, cfg.model.dtype)
+
+    pipe = MVDPipeline.create(model_cfg, seed=cfg.seed, device=device)
+    if args.init_params:
+        _load_init_params(pipe, args.init_params)
+    dm = ObjaverseDataModule(
+        dataset_path, pipe.tokenizer, image_size=cfg.image_size, batch_size=cfg.batch_size,
+        max_views_per_object=data_cfg.max_views_per_object,
+        dataset_samples=data_cfg.dataset_samples, num_workers=data_cfg.num_workers,
+        views_per_sample=max(1, args.num_views), seed=cfg.seed,
+        dataset_format=args.dataset_format or data_cfg.dataset_format,
+        latent_cache_dir=latent_cache_dir,
+    )
+    dm.setup()
+
+    # the W&B run id rides in the checkpoint meta, so a resumed run
+    # continues the same W&B run
+    wandb_id = args.wandb_id
+    if args.resume and not wandb_id:
+        wandb_id = peek_checkpoint_meta(args.resume).get("wandb_run_id")
+    metric_logger = MetricLogger(os.path.join(args.output_dir, "logs"), run_name=args.run_name,
+                                 run_id=wandb_id, config={"config": str(cfg)},
+                                 use_wandb=args.wandb)
+    trainer = Trainer(cfg, pipe, dm, output_dir=args.output_dir, logger=metric_logger,
+                      resume_from=args.resume)
+    trainer.fit(resume=bool(args.resume))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

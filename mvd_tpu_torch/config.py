@@ -1,22 +1,23 @@
 """Model configuration dataclasses of the PyTorch port.
 
-A copy of the model and train-step half of ``mvd_tpu/config.py`` (the port
-imports nothing of the JAX package): the SD2.1 UNet, VAE, CLIP text tower,
-camera encoder and noise-schedule settings, the ``TINY_*`` variants the
-tests use, and the loss, optimizer and train settings that the train step
-reads. Field names and defaults are the JAX package's, so a config built
-for one side describes the same model on the other. Fields of paths the
-port does not run yet (remat, joint multi-view attention, the separate
-image-encoder UNet, gradient accumulation, checkpointing, validation and
-logging intervals, the mesh) are left out until they are ported; so are the
-loop's batch, image size, view count and seed (the step takes them from its
-batch), the data configs and the YAML loader.
+A copy of ``mvd_tpu/config.py`` (the port imports nothing of the JAX
+package): the SD2.1 UNet, VAE, CLIP text tower, camera encoder and
+noise-schedule settings, the ``TINY_*`` variants the tests use, the loss,
+optimizer, train-loop and data settings, and the YAML loaders. Field names
+and defaults are the JAX package's, so a config built for one side
+describes the same model on the other. Fields of paths the port does not
+run yet are left out until they are ported: remat (``UNetConfig.remat``,
+read from ``enable_gradient_checkpointing``, which the loader ignores),
+joint multi-view attention (``num_views`` / ``view_axis`` of the UNet,
+ROADMAP item 11), the separate image-encoder UNet and the mesh (item 16).
+PyYAML is imported by the two loaders only, never at import.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from .kernels.flash_attention import check_impl
 
@@ -194,7 +195,164 @@ class TrainConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    batch_size: int = 6
+    grad_accum_steps: int = 1
+    max_epochs: int = 25
+    max_steps: Optional[int] = None
+    image_size: int = 768
+    num_views: int = 2
+    seed: int = 42
     train_denoising_unet: bool = False
+    checkpoint_every_steps: int = 1000
+    max_checkpoints: int = 3
+    val_check_interval: float = 1.0
+    metrics_log_interval: int = 50
     # encode only the unique source view of each (B, V) group and tile the
     # posterior moments to the V rows
     unique_source_encode: bool = True
+    log_every_steps: int = 1
+    output_dir: str = "outputs"
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    dataset_path: str = ""
+    # "objaverse" (rendered-zip shards) or "co3d" (CO3D-style sequences)
+    dataset_format: str = "objaverse"
+    image_size: int = 768
+    max_views_per_object: int = 8
+    dataset_samples: Optional[int] = None
+    num_workers: int = 8
+    val_split: float = 0.1
+    test_split: float = 0.1
+    seed: int = 42
+    # precomputed VAE latent-moment cache (cli/precompute_latents.py)
+    latent_cache_dir: Optional[str] = None
+
+
+# ---------------------------------------------------------------------------
+# YAML loading: the keys of the reference's config/train_config.yaml mapped
+# onto the dataclasses, as mvd_tpu/config.py maps them
+# ---------------------------------------------------------------------------
+
+
+def _get(cfg: Dict[str, Any], *keys, default=None):
+    for k in keys:
+        if k in cfg:
+            return cfg[k]
+    return default
+
+
+def _apply_overrides(cfg, overrides: Optional[Dict[str, Any]]):
+    """Replace dataclass fields from a YAML mapping; lists become tuples.
+    Unknown keys raise, so a typo'd architecture knob cannot silently train
+    the default width."""
+    if not overrides:
+        return cfg
+    valid = {f.name for f in dataclasses.fields(cfg)}
+    unknown = set(overrides) - valid
+    if unknown:
+        raise ValueError(f"unknown {type(cfg).__name__} override keys: {sorted(unknown)}")
+    fixed = {k: tuple(v) if isinstance(v, list) else v for k, v in overrides.items()}
+    return dataclasses.replace(cfg, **fixed)
+
+
+def _read_yaml(path: str) -> Dict[str, Any]:
+    try:
+        import yaml
+    except ImportError as e:
+        raise SystemExit(
+            f"reading {path!r} needs PyYAML, which is not installed; pass the "
+            "settings as flags instead"
+        ) from e
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def train_config_from_yaml(path: str) -> TrainConfig:
+    """A reference-style YAML (config/train_config.yaml keys) as a
+    TrainConfig: unknown top-level keys are ignored, missing keys keep the
+    defaults, ``unet_config`` / ``vae_config`` / ``text_encoder_config``
+    override the architecture field by field."""
+    raw = _read_yaml(path)
+    unet = UNetConfig(
+        img_ref_scale=float(_get(raw, "img_ref_scale", default=0.3)),
+        with_adapters=bool(_get(raw, "use_image_conditioning", default=True)),
+        attention_impl=_get(raw, "attention_impl", default="auto"),
+    )
+    unet = _apply_overrides(unet, raw.get("unet_config"))
+    vae = _apply_overrides(VAEConfig(), raw.get("vae_config"))
+    text = _apply_overrides(CLIPTextConfig(), raw.get("text_encoder_config"))
+    cam = CameraEncoderConfig(
+        output_dim=int(_get(raw, "camera_embedding_dim", "cam_output_dim", default=1024)),
+        hidden_dim=int(_get(raw, "camera_hidden_dim", "cam_hidden_dim", default=512)),
+        modulation_strength=float(_get(raw, "cam_modulation_strength", default=0.2)),
+        simple_encoder=bool(_get(raw, "simple_cam_encoder", default=False)),
+    )
+    sch_raw = raw.get("scheduler_config", {}) or {}
+    sched = SchedulerConfig(
+        shift_mode=sch_raw.get("shift_mode", "interpolated"),
+        shift_scale=float(sch_raw.get("shift_scale", 6.0)),
+        prediction_type=sch_raw.get("prediction_type", "v_prediction"),
+        sampler=sch_raw.get("sampler", "ddpm"),
+    )
+    loss_raw = raw.get("loss_config", {}) or {}
+    loss = LossConfig(
+        use_snr_loss=bool(loss_raw.get("use_snr_loss", True)),
+        snr_gamma=float(loss_raw.get("snr_gamma", 5.0)),
+        weighting=loss_raw.get("weighting", "per_sample"),
+        feature_matching_weight=float(loss_raw.get("feature_matching_weight", 0.0)),
+    )
+    opt = OptimizerConfig(
+        learning_rate=float(_get(raw, "learning_rate", "lr", default=1e-5)),
+        max_grad_norm=float(_get(raw, "max_grad_norm", default=1.0)),
+    )
+    if text.hidden_size != unet.cross_attention_dim:
+        raise ValueError(
+            f"text_encoder_config.hidden_size ({text.hidden_size}) must equal "
+            f"unet_config.cross_attention_dim ({unet.cross_attention_dim}): the text "
+            "context feeds the UNet cross-attention directly"
+        )
+    model = ModelConfig(
+        unet=unet,
+        vae=vae,
+        text_encoder=text,
+        camera_encoder=cam,
+        scheduler=sched,
+        use_camera_conditioning=bool(_get(raw, "use_camera_conditioning", default=True)),
+        use_image_conditioning=bool(_get(raw, "use_image_conditioning", default=True)),
+        use_ray_conditioning=bool(_get(raw, "use_ray_conditioning", default=False)),
+        ray_fov_deg=float(_get(raw, "ray_fov_deg", default=54.43)),
+        dtype="float32" if str(_get(raw, "precision", default="16")) == "32" else "bfloat16",
+    )
+    return TrainConfig(
+        model=model,
+        loss=loss,
+        optimizer=opt,
+        batch_size=int(_get(raw, "batch_size", default=6)),
+        grad_accum_steps=int(_get(raw, "accumulate_grad_batches", default=1)),
+        max_epochs=int(_get(raw, "max_epochs", "num_epochs", default=25)),
+        image_size=int(_get(raw, "image_size", default=768)),
+        seed=int(_get(raw, "seed", default=42)),
+        train_denoising_unet=bool(_get(raw, "train_denoising_unet", default=False)),
+        checkpoint_every_steps=int(_get(raw, "checkpoint_every_steps", default=1000)),
+        max_checkpoints=int(_get(raw, "max_checkpoints", default=3)),
+        val_check_interval=float(_get(raw, "val_check_interval", default=1.0)),
+        metrics_log_interval=int(_get(raw, "metrics_log_interval", default=50)),
+    )
+
+
+def data_config_from_yaml(path: str) -> DataConfig:
+    """The dataset settings of the same YAML."""
+    raw = _read_yaml(path)
+    samples = _get(raw, "dataset_samples", default=None)
+    return DataConfig(
+        dataset_path=str(_get(raw, "dataset_path", default="") or ""),
+        dataset_format=str(_get(raw, "dataset_format", default="objaverse")),
+        image_size=int(_get(raw, "image_size", default=768)),
+        max_views_per_object=int(_get(raw, "max_views_per_object", default=8)),
+        dataset_samples=None if samples is None else int(samples),
+        num_workers=int(_get(raw, "num_workers", default=8)),
+        seed=int(_get(raw, "seed", default=42)),
+        latent_cache_dir=_get(raw, "latent_cache_dir", default=None),
+    )

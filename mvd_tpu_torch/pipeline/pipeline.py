@@ -194,6 +194,13 @@ class MVDPipeline:
             self._compute_model = cast_for_compute(self.model, dtype)
         return self._compute_model
 
+    def drop_compute_model(self) -> None:
+        """Forget the cached compute-dtype copy of the networks: the next
+        use of ``compute_model`` casts anew from the masters. A trainer
+        calls it around each validation, so that generation sees the
+        latest update and the copy is not held between validations."""
+        self._compute_model = None
+
     def _ids(self, prompts: Sequence[str], repeat: int) -> torch.Tensor:
         ids = np.repeat(np.asarray(self.tokenizer(list(prompts))), repeat, axis=0)
         return torch.as_tensor(ids, device=self.device)

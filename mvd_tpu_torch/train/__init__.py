@@ -1,6 +1,6 @@
 """The train step of the port: losses, train state and the step itself."""
 
-from .losses import feature_matching_loss, noise_loss  # noqa: F401
+from .losses import feature_matching_loss, noise_loss, reconstruction_metrics  # noqa: F401
 from .state import (  # noqa: F401
     TRAINABLE_MARKERS,
     TrainState,

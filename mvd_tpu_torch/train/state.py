@@ -20,6 +20,13 @@ eps=1e-8, weight_decay))``:
   ``lr_schedule(0)``, which is 0 after warmup from 0: the first step moves
   nothing.
 
+With ``grad_accum_steps`` k > 1 the optimizer is optax's
+``MultiSteps(chain(clip, adamw), every_k_schedule=k)`` inside the trainable
+branch: every call folds its gradients into a running mean
+(``acc += (g - acc) / (n + 1)``), and every k-th call clips that mean by its
+own global norm and takes one AdamW step on it, at
+``lr_schedule(updates)``, the count of real updates; ``step`` counts calls.
+
 The state updates the model and the optimizer in place.
 """
 
@@ -88,7 +95,11 @@ class TrainState:
     optimizer: torch.optim.AdamW
     lr_schedule: Callable[[int], float]
     max_grad_norm: float
-    step: int = 0
+    grad_accum_steps: int = 1
+    step: int = 0  # calls of apply_gradients
+    updates: int = 0  # optimizer steps taken (step // grad_accum_steps)
+    mini_step: int = 0  # calls folded into ``acc`` since the last update
+    acc: Optional[Dict[str, torch.Tensor]] = None  # running mean of the gradients (k > 1)
 
     @classmethod
     def create(cls, model: nn.ModuleDict, cfg: TrainConfig, total_steps: int) -> "TrainState":
@@ -117,7 +128,8 @@ class TrainState:
             list(trainable.values()), lr=0.0, betas=tuple(o.betas), eps=1e-8,
             weight_decay=o.weight_decay,
         )
-        return cls(model, trainable, optimizer, make_lr_schedule(o, total_steps), o.max_grad_norm)
+        return cls(model, trainable, optimizer, make_lr_schedule(o, total_steps), o.max_grad_norm,
+                   cfg.grad_accum_steps)
 
     def zero_grad(self) -> None:
         for p in self.trainable.values():
@@ -131,15 +143,40 @@ class TrainState:
                 p.grad = torch.zeros_like(p)
         return {name: p.grad for name, p in self.trainable.items()}
 
-    def apply_gradients(self, grad_norm: torch.Tensor) -> None:
+    def _update(self, grad_norm: torch.Tensor) -> None:
         """Clip the gradients by their global norm ``grad_norm`` and take
-        one AdamW step at ``lr_schedule(step)``."""
+        one AdamW step at ``lr_schedule(updates)``."""
         coef = torch.where(
             grad_norm < self.max_grad_norm, torch.ones_like(grad_norm),
             self.max_grad_norm / grad_norm,
         )
         torch._foreach_mul_(list(self.grads().values()), coef)
         for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.step)
+            group["lr"] = self.lr_schedule(self.updates)
         self.optimizer.step()
+        self.updates += 1
+
+    def apply_gradients(self, grad_norm: torch.Tensor) -> None:
+        """One call: with k = 1 clip by ``grad_norm`` (the global norm of
+        the gradients) and step; with k > 1 fold the gradients into the
+        running mean and, on every k-th call, clip the mean by its own norm
+        and step on it."""
+        k = self.grad_accum_steps
+        if k == 1:
+            self._update(grad_norm)
+        else:
+            grads = self.grads()
+            if self.acc is None:
+                self.acc = {n: torch.zeros_like(g) for n, g in grads.items()}
+            n = self.mini_step
+            for name, g in grads.items():
+                self.acc[name] += (g - self.acc[name]) / (n + 1)
+            self.mini_step = (n + 1) % k
+            if self.mini_step == 0:
+                for name, p in self.trainable.items():
+                    p.grad = self.acc[name].clone()
+                norm = torch.sqrt(sum(a.float().square().sum() for a in self.acc.values()))
+                self._update(norm)
+                for a in self.acc.values():
+                    a.zero_()
         self.step += 1

@@ -19,19 +19,23 @@ Random numbers come from a ``torch.Generator``, or from the caller:
 ``draws`` may hold ``noise`` (N, h, w, 4), ``timesteps`` (N,) and the VAE
 sample noises ``source_vae_noise`` / ``target_vae_noise`` (N, h, w, 4).
 ``torch.Generator`` cannot reproduce ``jax.random``, so the tests hand the
-JAX step's draws in. Not ported yet: the view-sharded step, gradient
-accumulation and ``reconstruction_metrics``.
+JAX step's draws in. ``make_loss_fn(with_recon_metrics=True)`` adds the
+no-grad reconstruction metrics (the VAE decode of x0-hat and of the target,
+``train/losses.py:reconstruction_metrics``), which the Trainer runs every
+``metrics_log_interval`` steps; gradient accumulation lives in
+``TrainState.apply_gradients``. Not ported yet: the view-sharded step
+(ROADMAP item 16).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from ..config import TrainConfig
 from ..diffusion.schedules import NoiseSchedule, add_noise, pred_original_sample
-from .losses import feature_matching_loss, noise_loss
+from .losses import feature_matching_loss, noise_loss, reconstruction_metrics
 from .state import TrainState
 
 Tensors = Dict[str, torch.Tensor]
@@ -119,7 +123,9 @@ def _draws(batch: Tensors, latent_shape, schedule: NoiseSchedule,
     return {k: torch.as_tensor(v, device=dev) for k, v in draws.items()}
 
 
-def make_loss_fn(schedule: NoiseSchedule, cfg: TrainConfig, source_repeat: int = 1):
+def make_loss_fn(schedule: NoiseSchedule, cfg: TrainConfig, source_repeat: int = 1,
+                 with_recon_metrics: bool = False,
+                 image_metric_fns: Optional[Dict[str, Any]] = None):
     """``loss_fn(model, batch, generator=None, draws=None) -> (loss,
     metrics)`` over flat-row batches (N, ...).
 
@@ -128,7 +134,10 @@ def make_loss_fn(schedule: NoiseSchedule, cfg: TrainConfig, source_repeat: int =
     posterior moments (``source_moments``/``target_moments``,
     (N, 2, h, w, 4)). With ``source_repeat`` > 1, runs of that many rows
     share a source view: the source encoder runs over the unique rows and
-    the moments are tiled back."""
+    the moments are tiled back. ``with_recon_metrics`` adds the
+    reconstruction metrics of the same forward pass (``image_metric_fns``
+    maps names to ``fn(img_hat, img_tgt) -> scalar`` on the decoded
+    images)."""
     mcfg = cfg.model
     sf = mcfg.vae.scaling_factor
 
@@ -189,15 +198,24 @@ def make_loss_fn(schedule: NoiseSchedule, cfg: TrainConfig, source_repeat: int =
             fm = feature_matching_loss(feats_pred, feats_tgt)
             ld = {**ld, "feature_matching_loss": fm,
                   "total_loss": ld["noise_loss"] + cfg.loss.feature_matching_weight * fm}
+        if with_recon_metrics:
+            vae = model["vae"]
+            metrics = {**metrics, **reconstruction_metrics(
+                schedule, pred, noisy, tgt_lat, t, vae_decode=lambda z: vae.decode(z / sf),
+                image_metric_fns=image_metric_fns,
+            )}
         return ld.get("total_loss", ld["noise_loss"]), {**ld, **metrics}
 
     return loss_fn
 
 
-def make_eval_fn(schedule: NoiseSchedule, cfg: TrainConfig):
+def make_eval_fn(schedule: NoiseSchedule, cfg: TrainConfig, with_recon_metrics: bool = False,
+                 image_metric_fns: Optional[Dict[str, Any]] = None):
     """``eval_fn(model, batch, generator=None, draws=None) -> (loss,
-    metrics)`` on (B, V, ...) batches, without gradient."""
-    loss_fn = make_loss_fn(schedule, cfg)
+    metrics)`` on (B, V, ...) batches, without gradient; with the
+    reconstruction metrics where ``with_recon_metrics``."""
+    loss_fn = make_loss_fn(schedule, cfg, with_recon_metrics=with_recon_metrics,
+                           image_metric_fns=image_metric_fns)
 
     @torch.no_grad()
     def eval_fn(model, batch: Tensors, generator=None, draws=None):

@@ -3,7 +3,8 @@
 Counterpart of ``mvd_tpu/utils/images.py`` without PIL: the machine that
 holds the GPU may not have it. PNG is written and read by a small codec on
 ``zlib`` (8-bit RGB out; 8-bit gray, gray+alpha, RGB, RGBA and palette
-images in, non-interlaced, all five scanline filters), and ``resize``
+images in, non-interlaced, all five scanline filters; RGBA optionally
+composited over white as PIL's ``Image.alpha_composite`` does), and ``resize``
 stands in for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable
 Lanczos-3 whose support widens with the downscale factor, with PIL's 8-bit
 fixed-point coefficients and its uint8 rounding between the horizontal and
@@ -45,13 +46,14 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, filter 0 on every row)."""
+    """(H, W, 3) or (H, W, 4) uint8 -> PNG bytes (8-bit RGB or RGBA, filter 0
+    on every row)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {img.shape} {img.dtype}")
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"encode_png takes (H, W, 3 or 4) uint8, got {img.shape} {img.dtype}")
+    h, w, ch = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if ch == 3 else 6, 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
@@ -94,9 +96,25 @@ def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def over_white(rgba: np.ndarray) -> np.ndarray:
+    """(H, W, 4) uint8 -> (H, W, 3) uint8: the image composited over opaque
+    white in the integer arithmetic of PIL's ``Image.alpha_composite`` (7
+    fraction bits, division by 255 as two shifts), alpha then dropped."""
+    a = rgba[..., 3:].astype(np.int64)
+    dst_a = 255
+    outa255 = a * 255 + dst_a * (255 - a)
+    coef1 = a * 255 * 255 * (1 << 7) // outa255
+    coef2 = 255 * (1 << 7) - coef1
+    tmp = rgba[..., :3].astype(np.int64) * coef1 + 255 * coef2 + (0x80 << 7)
+    out = (((tmp >> 8) + tmp) >> 8) >> 7
+    return np.where(a == 0, 255, out).astype(np.uint8)
+
+
+def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
-    it: gray replicated, alpha dropped, palette indices looked up. Takes
+    it: gray replicated, alpha dropped, palette indices looked up. With
+    ``composite_alpha`` an RGBA image is first composited over white
+    (``over_white``), as the data loaders do before the conversion. Takes
     non-interlaced 8-bit gray, gray+alpha, RGB, RGBA and palette images;
     raises ``ValueError`` on anything else (16-bit or sub-byte depths,
     interlacing) and on a damaged file."""
@@ -141,6 +159,8 @@ def decode_png(data: bytes) -> np.ndarray:
         return palette[pixels[..., 0]]
     if ch <= 2:  # gray (+ alpha)
         return np.repeat(pixels[..., :1], 3, axis=-1)
+    if ch == 4 and composite_alpha:
+        return over_white(pixels)
     return np.ascontiguousarray(pixels[..., :3])
 
 

@@ -535,3 +535,23 @@ def test_every_launch_runs_on_the_tensors_device(cuda, monkeypatch):
     groupnorm_silu(x, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"), 32)  # K2
     torch.cuda.synchronize()
     assert seen == [q.device] * 7
+
+
+def test_ssim_stays_f32_under_global_tf32(cuda):
+    """With TF32 on for the whole process, SSIM on the card still equals the
+    CPU's f32 value: its filter turns TF32 off for its own convolution. The
+    images sit near 0.8 with a spread of 0.01, where E[x²] - μ² cancels to
+    1e-4 and a TF32 convolution's error (about 5e-4 of 0.64) would swamp it."""
+    from mvd_tpu_torch.metrics.image import ssim
+
+    a = 0.8 + 0.01 * torch.randn((2, 64, 64, 3), generator=cuda, device="cuda")
+    b = a + 0.003 * torch.randn((2, 64, 64, 3), generator=cuda, device="cuda")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ssim(a, b, data_range=1.0, per_image=True)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    want = ssim(a.cpu(), b.cpu(), data_range=1.0, per_image=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
