@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero:
+Eight phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -17,9 +17,9 @@ Seven phases; any failure exits non-zero:
    plain core on the operands its quantizer K6q writes, and with K6q to the
    plain version and to exact attention (>= 30 dB); K6q to the plain
    quantizers; both timed by CUDA-graph replay beside the eager quantizers
-   and K1 at the same shape; through ``Int8FlashAttention``, forward and
-   straight-through backward at the 768² train shape; K5 ((B, H, S, D))
-   forward and backward. K2 runs at the
+   and K1 at the same shape; through the differentiable custom operator
+   ``flash_fwd_op``, forward and straight-through backward at the 768²
+   train shape; K5 ((B, H, S, D)) forward and backward. K2 runs at the
    GroupNorm shapes of generation and of the train step, on both of its
    paths, timed through the wrapper and through its C entry alone (device
    time by CUDA-graph replay), and is checked for bitwise repeatability and
@@ -59,11 +59,17 @@ Seven phases; any failure exits non-zero:
    independence under NaN and for bitwise repeatability, then
    builds the adapter + camera-encoder train step at full SD2.1 width from
    seed 0 (bf16 compute, f32 masters, batch 6, one view, Min-SNR
-   v-prediction, AdamW) and takes 3 steps on a seeded random pixel batch.
-   Checks a finite loss and gradients, frozen parameters bitwise unchanged,
-   trainable ones unchanged by step 1 (lr 0) and moved by step 2, the
-   launches of every kernel in each step against the model structure, and
-   no plain call; prints s/step, samples/s and the peak memory;
+   v-prediction, AdamW) and takes 3 steps on a seeded random pixel batch
+   with remat on (the config's default) and 3 with it off from the same
+   state, then one more step of each traced (``phase_train``).
+   Checks for each a finite loss and gradients, trainable parameters
+   unchanged by step 1 (lr 0) and moved by step 2, the launches of every
+   kernel in each step against the model structure, and no plain call;
+   then frozen parameters bitwise unchanged, step 1's loss bitwise equal
+   with and without remat and K1/K3a/K3b per step equal; prints s/step
+   and samples/s (the median of 4 steps of each setting taken in turns),
+   the peak memory, the traced step's device ms and idle share and what
+   remat costs a step, split into device and host time;
 5. the train entry point: a seeded synthetic corpus (16 objects x 4 views
    of smooth 512² RGBA PNGs with real alpha, ``orbit_cameras`` ``.npy``
    cameras, ``prompt.txt``) in a temporary directory, then (a)
@@ -81,15 +87,31 @@ Seven phases; any failure exits non-zero:
    launches less the VAE encoder's GroupNorms. Prints the host ms per
    decoded view, s/step and loader wait per step, samples/s, validation,
    checkpoint bytes and save/restore seconds, peak memory and the phase's
-   seconds.
+   seconds;
+6. joint multi-view attention (``UNetConfig.num_views``): (a) K1 at the
+   joint self lengths (``JOINT_ATTN_CASES``: one 4-view 512² group of
+   16,384 tokens; batch 6 of 2-view 768² groups, 18,432 tokens) held to its
+   plain version on row 0, K3a/K3b at the 2-view length held to the plain
+   backward head by head on row 0, each timed beside SDPA and its bound;
+   (b) after phase 3c, on phase 3's weights, the main path's call with
+   joint attention over its 4 views: exactly the pairwise launches (K1
+   1312, K2 1333), no plain call, the loop under the sync check, images
+   that differ from phase 3's (PSNR printed), later calls timed in turns
+   with phase 3's and one of each traced for device ms; (c) one joint call
+   with ``attention_impl="int8"``, K6 at the sites the JAX package's
+   routing gives at the merged lengths; (d) the joint train step at the
+   reference point (batch 6 of 2 views, 12 UNet rows, 768²): phase 4 with
+   two views, the same checks and prints; (e) ``cli.train.main
+   --num-views 2`` on phase 5's corpus, 2 steps and one validation.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
-generation, one call of each sampler configuration of phase 3c, one more
-train step and one more step of phase 5's Trainer (its pinned batch copy,
+generation, one call of each sampler configuration of phase 3c and one
+more step of phase 5's Trainer (its pinned batch copy,
 the step, the metric fetch and the log line) with ``torch.profiler`` and
 prints, and writes to OUT.json (the int8 generation under
-``"int8_generation"``, phase 3c's under ``"entry_points"``, the train step
-under ``"train_step"``, the Trainer's under ``"train_entry"``), the wall time,
+``"int8_generation"``, phase 3c's under ``"entry_points"``, phase 4's
+traced step with remat under ``"train_step"``, the Trainer's under
+``"train_entry"``), the wall time,
 the summed device-kernel time, the device's idle share, the share of each
 port kernel and the kernels that take the most device time.
 
@@ -107,11 +129,15 @@ import json
 import math
 import os
 import re
+import shutil
+import statistics
 import sys
+import tempfile
 import time
 
 STEPS, VIEWS, RES = 20, 4, 512
 TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TOTAL = 6, 768, 3, 100
+REMAT_TURNS = 4
 
 
 def phase_build() -> float:
@@ -329,7 +355,7 @@ def phase_kernels():
 
 
 # the largest int8 site of the 768² train step, where K6 runs through
-# Int8FlashAttention with its straight-through backward; the int8 sites of
+# the int8 flash_fwd_op with its straight-through backward; the int8 sites of
 # 512² generation (INT8_CASES) and K6's and K6q's checks (INT8_TOL,
 # INT8_REL_RMS, INT8_MIN_DB, check_quantize) are in
 # mvd_tpu_torch/kernels/measure.py
@@ -348,7 +374,7 @@ def phase_int8_kernels():
     K6q, against the plain version; K6q against the plain quantizers; both
     timed by CUDA-graph replay beside the eager quantizers, K1 at the same
     shape and their bounds, at the int8 sites of the main path; and
-    Int8FlashAttention forward and backward at the 768² train shape."""
+    the int8 flash_fwd_op forward and backward at the 768² train shape."""
     import torch
 
     from mvd_tpu_torch.kernels import (
@@ -448,15 +474,15 @@ def phase_int8_kernels():
     rows = [attention_packed_int8_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], H) for b in range(B)]
     ref_out, ref_lse = (torch.cat(parts) for parts in zip(*rows))
     lse = flash_attention_packed_int8_fwd(q, k, v, H)[1]
-    err, rel_rms = check_attention(out.detach(), lse, ref_out, ref_lse, f"Int8FlashAttention {label}",
+    err, rel_rms = check_attention(out.detach(), lse, ref_out, ref_lse, f"int8 flash_fwd_op {label}",
                               INT8_TOL, INT8_REL_RMS)
     want = plain_bwd_by_row(q, k, v, ref_out, ref_lse, do, H)
-    checks = {n: check_grad(g, w, f"Int8FlashAttention {label} {n}")
+    checks = {n: check_grad(g, w, f"int8 flash_fwd_op {label} {n}")
               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
     del got, want, rows
     ms = time_ms(lambda: flash_attention_packed_int8_fwd(q, k, v, H), 3)
     step_ms = time_ms(lambda: torch.autograd.grad(flash_attention_packed_int8(*leaves, H), leaves, do), 3)
-    print(f"[kernels] Int8FlashAttention {label}: out err {err:.3g} rel RMS err {rel_rms:.3g}; "
+    print(f"[kernels] int8 flash_fwd_op {label}: out err {err:.3g} rel RMS err {rel_rms:.3g}; "
           + ", ".join(f"{n} rel RMS err {r:.3g}" for n, (_, _, r) in checks.items())
           + f"; K6q + K6 {ms:.4f} ms, forward + backward {step_ms:.4f} ms")
     del q, k, v, do, leaves, out, lse, ref_out, ref_lse
@@ -570,6 +596,7 @@ def expected_int8_launches(pipe, steps: int):
     from mvd_tpu_torch.nn.layers import BasicTransformerBlock
 
     unet = pipe.model["mvd"].unet
+    views = pipe.config.unet.num_views
     last = len(pipe.config.unet.block_out_channels) - 1
     n_int8 = n_exact = 0
     for name, m in unet.named_modules():
@@ -578,7 +605,8 @@ def expected_int8_launches(pipe, steps: int):
         kind, index = name.split("_")[:2]  # down_<i>_attn_<j>, mid_attn_0, up_<i>_attn_<j>
         level = int(index) if kind == "down" else last - int(index) if kind == "up" else last
         S = (RES // 8 >> level) ** 2
-        sites = [(S, S), (S, 77)] + steps * [(S, S), (S, 77), (S, S), (S, S)]
+        J = views * S if views > 1 else S
+        sites = [(J, J), (S, 77)] + steps * [(J, J), (S, 77), (S, S), (S, S)]
         quantized = sum(int8_site(sq, sk) for sq, sk in sites)
         n_int8 += quantized
         n_exact += len(sites) - quantized
@@ -1165,35 +1193,47 @@ def phase_train_kernels():
 
 
 def expected_train_launches(model):
-    """Launches per train step that the model structure implies (one view,
-    image and camera conditioning, feature matching off): K1 at attn1 and
-    attn2 of every transformer block in the no-grad feature pass and at
-    attn1, attn2 and both adapters in the denoise pass; in the backward, K3a
-    at those four denoise sites and K3b at the three whose K/V carry
-    gradient (attn1 and the adapters; attn2's K/V come from the frozen
+    """Launches per train step that the model structure implies (image and
+    camera conditioning, feature matching off; the same with joint
+    attention, which merges the views of a site into one launch): K1 at
+    attn1 and attn2 of every transformer block in the no-grad feature pass
+    and at attn1, attn2 and both adapters in the denoise pass; in the
+    backward, K3a at those four denoise sites and K3b at the three whose K/V
+    carry gradient (attn1 and the adapters; attn2's K/V come from the frozen
     text); K2 at every UNet GroupNorm in both UNet passes and at every VAE
-    encoder GroupNorm in the source and the target encode. The GroupNorm
-    backward recomputes in PyTorch and launches no kernel."""
-    from mvd_tpu_torch.nn.layers import BasicTransformerBlock, GroupNorm
+    encoder GroupNorm in the source and the target encode. With remat (the
+    config default, as in the JAX package) the backward runs every
+    ResnetBlock and Transformer2D again, K2 with them, but not K1, whose
+    (out, lse) the policy saves (under ``MVD_REMAT_POLICY=none`` K1 runs
+    again at the four denoise sites). The GroupNorm backward recomputes in
+    PyTorch and launches no kernel."""
+    from mvd_tpu_torch.nn.layers import BasicTransformerBlock, GroupNorm, ResnetBlock, Transformer2D
 
     unet = model["mvd"].unet
     blocks = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
     unet_gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
     enc_gn = sum(isinstance(m, GroupNorm) for m in model["vae"].encoder.modules())
+    remat = unet.cfg.remat
+    again_gn = sum(isinstance(g, GroupNorm) for b in unet.modules()
+                   if isinstance(b, (ResnetBlock, Transformer2D)) for g in b.modules()) if remat else 0
+    again_k1 = blocks * 4 if remat and os.environ.get("MVD_REMAT_POLICY") == "none" else 0
     return {
-        "flash_attn_fwd": blocks * 2 + blocks * 4,
+        "flash_attn_fwd": blocks * 2 + blocks * 4 + again_k1,
         "flash_attn_fwd_bhsd": 0,
         "flash_attn_bwd_dq": blocks * 4,
         "flash_attn_bwd_dkv": blocks * 3,
         "flash_attn_int8": 0,
         "quantize_int8": 0,
-        "groupnorm_silu": unet_gn * 2 + enc_gn * 2,
+        "groupnorm_silu": unet_gn * 2 + enc_gn * 2 + again_gn,
     }
 
 
-def train_setup():
+def train_setup(views: int = 1):
     """The train step's operating point on the GPU from seed 0: the model,
-    its train state, the step and one seeded random pixel batch."""
+    its train state, the step and one seeded random pixel batch of
+    TRAIN_BATCH samples of ``views`` views (one source view a sample, as the
+    group loader gives it; joint attention over the views when ``views`` >
+    1)."""
     import numpy as np
     import torch
 
@@ -1201,10 +1241,13 @@ def train_setup():
     from mvd_tpu_torch.config import ModelConfig, TrainConfig, UNetConfig
     from mvd_tpu_torch.data.tokenizer import load_tokenizer
     from mvd_tpu_torch.nn.adapter_init import init_adapters_from_frozen
+    from mvd_tpu_torch.parallel import for_view_sharding
     from mvd_tpu_torch.pipeline.pipeline import build_model, build_schedule, init_weights
     from mvd_tpu_torch.train import TrainState, make_train_step
 
     mcfg = ModelConfig(unet=UNetConfig(sample_size=TRAIN_RES // 8), dtype="bfloat16")
+    if views > 1:
+        mcfg = for_view_sharding(mcfg, views, 1)
     cfg = TrainConfig(model=mcfg)
     with torch.device("cuda"):
         model = build_model(mcfg)
@@ -1214,76 +1257,163 @@ def train_setup():
     step = make_train_step(build_schedule(mcfg).to("cuda"), cfg)
 
     gen = torch.Generator("cuda").manual_seed(0)
-    B, R = TRAIN_BATCH, TRAIN_RES
-    img = lambda: torch.rand((B, 1, R, R, 3), generator=gen, device="cuda") * 2 - 1
-    cams = torch.as_tensor(orbit_cameras(B), device="cuda")
+    B, V, R = TRAIN_BATCH, views, TRAIN_RES
+    img = lambda n: torch.rand((B, n, R, R, 3), generator=gen, device="cuda") * 2 - 1
+    if V == 1:
+        cams = torch.as_tensor(orbit_cameras(B), device="cuda")
+        src_cam, tgt_cam = cams[:1].expand(B, 4, 4).reshape(B, 1, 4, 4).contiguous(), cams.reshape(B, 1, 4, 4)
+    else:
+        cams = torch.as_tensor(orbit_cameras(V), device="cuda")
+        src_cam = cams[:1].expand(B, V, 4, 4).contiguous()
+        tgt_cam = cams[None].expand(B, V, 4, 4).contiguous()
     tok = load_tokenizer(vocab_size=mcfg.text_encoder.vocab_size)
+    ids = torch.as_tensor(np.asarray(tok(["a 3d object"] * B)), device="cuda")
     batch = {
-        "source_image": img(), "target_image": img(),
-        "source_camera": cams[:1].expand(B, 4, 4).reshape(B, 1, 4, 4).contiguous(),
-        "target_camera": cams.reshape(B, 1, 4, 4),
-        "input_ids": torch.as_tensor(np.asarray(tok(["a 3d object"] * B)), device="cuda")[:, None],
+        "source_image": img(1).expand(B, V, R, R, 3).contiguous(), "target_image": img(V),
+        "source_camera": src_cam, "target_camera": tgt_cam,
+        "input_ids": ids[:, None].expand(B, V, ids.shape[-1]).contiguous(),
     }
     return state, step, batch, gen
 
 
-def phase_train():
+def phase_train(views: int = 1, tag: str = "train"):
+    """The train step at the reference point (phase 4 with one view, 6d with
+    JOINT_TRAIN_VIEWS): TRAIN_STEPS steps with remat on (the config's
+    default) and TRAIN_STEPS with it off from the same state, batch and
+    draws, then one more step of each traced for its device time, then
+    REMAT_TURNS steps of each in turns for s/step. Checks
+    for each: a finite loss and gradient norm, the structure's launches in
+    every step and no plain call, trainable parameters unchanged by step 1
+    (lr 0) and moved by step 2; then frozen parameters bitwise unchanged,
+    step 1's loss bitwise equal with and without remat and K1/K3a/K3b per
+    step equal. Prints each setting's s/step, peak memory, device ms and
+    idle share of the traced step, what remat costs split into device and
+    host time, and the RMS of the difference of step 1's gradients. The
+    snapshots live on the host, so the peak memory is the step's own.
+    Returns (the remat run's launches, counted from 0 over its steps;
+    metrics)."""
     import torch
 
     t0 = time.perf_counter()
-    state, step, batch, gen = train_setup()
-    torch.cuda.synchronize()
+    state, step, batch, _ = train_setup(views=views)
     model = state.model
+    unet = model["mvd"].unet
+    torch.cuda.synchronize()
     n_train = sum(p.numel() for p in state.trainable.values())
     n_all = sum(p.numel() for p in model.parameters())
-    print(f"[train] built the train state ({n_all / 1e6:.1f} M params, {n_train / 1e6:.2f} M "
-          f"trainable, f32 masters; frozen in bf16) in {time.perf_counter() - t0:.1f} s")
-    frozen = {f"{net}.{n}": p.detach().to("cpu", copy=True)
-              for net, m in model.items() for n, p in m.named_parameters() if not p.requires_grad}
-    snap = lambda: {n: p.detach().to("cpu", copy=True) for n, p in state.trainable.items()}
-    trained = [snap()]
-    want = expected_train_launches(model)
-    reset_counts()
-    times = []
-    for i in range(TRAIN_STEPS):
-        if i == 1:
-            torch.cuda.reset_peak_memory_stats()
-        before, _ = read_counts()
-        t0 = time.perf_counter()
-        metrics = step(state, batch, generator=gen)
-        loss, gnorm = metrics["noise_loss"].item(), metrics["grad_norm/total"].item()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        after, plain = read_counts()
-        per_step = {k: after[k] - before[k] for k in after}
-        print(f"[train] step {i + 1}: {times[-1]:.3f} s, noise_loss {loss:.5f}, "
-              f"grad_norm/total {gnorm:.5g}, launches {per_step}")
-        if per_step != want or any(plain.values()):
-            raise AssertionError(f"step {i + 1}: launches {per_step} != expected {want}, "
-                                 f"or plain calls {plain}")
-        if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise AssertionError(f"step {i + 1}: loss {loss} or gradient norm {gnorm} not finite")
-        if i < 2:
-            trained.append(snap())
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    launches, _ = read_counts()
+    print(f"[{tag}] built the train state ({n_all / 1e6:.1f} M params, {n_train / 1e6:.2f} M trainable, "
+          f"f32 masters; frozen in bf16; batch {TRAIN_BATCH} of {views} view(s): {TRAIN_BATCH * views} "
+          f"UNet rows at {TRAIN_RES}²) in {time.perf_counter() - t0:.1f} s")
+    host = lambda t: t.detach().to("cpu", copy=True)
+    frozen = {f"{net}.{n}": host(p) for net, m in model.items()
+              for n, p in m.named_parameters() if not p.requires_grad}
+    start = {n: host(p) for n, p in state.trainable.items()}
+    opt0 = {k: ({i: {n: host(t) if torch.is_tensor(t) else t for n, t in st.items()}
+                 for i, st in v.items()} if k == "state" else v)
+            for k, v in state.optimizer.state_dict().items()}
+    runs = {}
+    for remat in (True, False):
+        unet.cfg = dataclasses.replace(unet.cfg, remat=remat)
+        with torch.no_grad():
+            for n, p in state.trainable.items():
+                p.copy_(start[n])
+        state.optimizer.load_state_dict(opt0)
+        state.step = state.updates = 0
+        want = expected_train_launches(model)
+        gen = torch.Generator("cuda").manual_seed(1)
+        torch.cuda.empty_cache()
+        if remat:
+            reset_counts()
+        times, losses, snaps = [], [], [start]
+        for i in range(TRAIN_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            before, _ = read_counts()
+            t1 = time.perf_counter()
+            m = step(state, batch, generator=gen)
+            loss, gnorm = m["noise_loss"].clone(), m["grad_norm/total"].item()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            after, plain = read_counts()
+            per_step = {k: after[k] - before[k] for k in after}
+            losses.append(loss)
+            print(f"[{tag}] remat {'on' if remat else 'off'}, step {i + 1}: {times[-1]:.3f} s, "
+                  f"noise_loss {loss.item():.5f}, grad_norm/total {gnorm:.5g}, launches {per_step}")
+            if per_step != want or any(plain.values()):
+                raise AssertionError(f"{tag} step {i + 1} (remat {remat}): launches {per_step} != "
+                                     f"expected {want}, or plain calls {plain}")
+            if not (math.isfinite(loss.item()) and math.isfinite(gnorm)):
+                raise AssertionError(f"{tag} step {i + 1} (remat {remat}): loss {loss.item()} or "
+                                     f"gradient norm {gnorm} not finite")
+            if i == 0:
+                grads1 = {n: host(p.grad) for n, p in state.trainable.items()}
+            if i < 2:
+                snaps.append({n: host(p) for n, p in state.trainable.items()})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if remat:
+            launches, _ = read_counts()
+        if any(not torch.equal(snaps[1][n], snaps[0][n]) for n in start):
+            raise AssertionError(f"{tag} (remat {remat}): a trainable parameter moved in step 1, at lr 0")
+        moved = sum(not torch.equal(snaps[2][n], snaps[1][n]) for n in start)
+        if moved == 0:
+            raise AssertionError(f"{tag} (remat {remat}): no trainable parameter moved in step 2")
+        trace = trace_run(lambda: step(state, batch, generator=gen),
+                          f"{tag} step, remat {'on' if remat else 'off'}", top=8)
+        runs[remat] = dict(peak_gib=peak, step_s=times, losses=[x.item() for x in losses],
+                           launches_per_step=want, moved=moved, trace=trace, grads1=grads1,
+                           loss1=losses[0])
+        print(f"[{tag}] remat {'on' if remat else 'off'}: peak memory {peak:.2f} GiB; step 2 moved {moved} "
+              f"of {len(start)} trainable tensors; traced step: wall {trace['wall_ms']:.1f} ms, device "
+              f"{trace['device_busy_ms']:.1f} ms, idle share {trace['idle_share']:.3f}")
+    # s/step from steps taken in turns (on, off, off, on, ...): the host is
+    # shared, and its load drifts across one setting's run
+    turns = {True: [], False: []}
+    for i in range(REMAT_TURNS):
+        for remat in (True, False) if i % 2 == 0 else (False, True):
+            unet.cfg = dataclasses.replace(unet.cfg, remat=remat)
+            t1 = time.perf_counter()
+            step(state, batch, generator=gen)["noise_loss"].item()
+            torch.cuda.synchronize()
+            turns[remat].append(time.perf_counter() - t1)
+    for remat, r in runs.items():
+        sec = statistics.median(turns[remat])
+        r.update(sec_per_step=sec, samples_per_s=TRAIN_BATCH / sec, turns_s=turns[remat])
+        print(f"[{tag}] remat {'on' if remat else 'off'}: {sec:.3f} s/step = {TRAIN_BATCH / sec:.3f} "
+              f"samples/s (median of {REMAT_TURNS} steps in turns: {[round(t, 3) for t in turns[remat]]})")
     if any(not torch.equal(p.detach().cpu(), frozen[f"{net}.{n}"])
            for net, m in model.items() for n, p in m.named_parameters() if not p.requires_grad):
-        raise AssertionError("a frozen parameter changed")
-    if any(not torch.equal(trained[1][n], trained[0][n]) for n in trained[0]):
-        raise AssertionError("a trainable parameter moved in step 1, which runs at lr 0")
-    moved = sum(not torch.equal(trained[2][n], trained[1][n]) for n in trained[0])
-    if moved == 0:
-        raise AssertionError("no trainable parameter moved in step 2")
-    sec = sum(times[1:]) / len(times[1:])
-    print(f"[train] frozen params unchanged ({len(frozen)} tensors); step 1 moved nothing; "
-          f"step 2 moved {moved} of {len(trained[0])} trainable tensors; expected launches "
-          f"per step {want}, 0 plain calls")
-    print(f"[train] steps 2-{TRAIN_STEPS}: {sec:.3f} s/step = {TRAIN_BATCH / sec:.3f} samples/s "
-          f"(batch {TRAIN_BATCH}, {TRAIN_RES}², one view), peak memory {peak:.2f} GiB")
-    metrics = dict(sec_per_step=sec, samples_per_s=TRAIN_BATCH / sec, peak_gib=peak,
-                   first_step_s=times[0], launches_per_step=want)
-    return launches, metrics, (state, step, batch, gen)
+        raise AssertionError(f"{tag}: a frozen parameter changed")
+    on, off = runs[True], runs[False]
+    if not torch.equal(on["loss1"], off["loss1"]):
+        raise AssertionError(f"{tag}: step 1's loss with remat {on['loss1'].item()!r} != without "
+                             f"{off['loss1'].item()!r}")
+    # the policy keeps the flash forward's (out, lse) unless it is "none"
+    same = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv") + (
+        () if os.environ.get("MVD_REMAT_POLICY") == "none" else ("flash_attn_fwd",))
+    for key in same:
+        if on["launches_per_step"][key] != off["launches_per_step"][key]:
+            raise AssertionError(f"{tag} {key}: {on['launches_per_step'][key]} a step with remat, "
+                                 f"{off['launches_per_step'][key]} without")
+    diffs = [(on["grads1"][n].float() - off["grads1"][n].float()).pow(2).mean().sqrt().item() for n in start]
+    worst, n_differ = max(diffs), sum(d > 0 for d in diffs)
+    d_wall = (on["sec_per_step"] - off["sec_per_step"]) * 1e3
+    d_dev = on["trace"]["device_busy_ms"] - off["trace"]["device_busy_ms"]
+    print(f"[{tag}] frozen params unchanged ({len(frozen)} tensors); step 1's loss bitwise equal with "
+          f"and without remat ({on['loss1'].item():.6f}); K1/K3a/K3b per step equal; K2 "
+          f"{on['launches_per_step']['groupnorm_silu']} with remat, {off['launches_per_step']['groupnorm_silu']} "
+          f"without; step 1's gradients: {n_differ} of {len(diffs)} tensors differ, largest RMS "
+          f"difference {worst:.3g}")
+    print(f"[{tag}] remat costs {d_wall:+.1f} ms a step ({on['sec_per_step'] / off['sec_per_step'] - 1:+.1%}): "
+          f"device {d_dev:+.1f} ms (traced: {off['trace']['device_busy_ms']:.1f} -> "
+          f"{on['trace']['device_busy_ms']:.1f}), the rest {d_wall - d_dev:+.1f} ms host or idle; peak "
+          f"memory {on['peak_gib']:.2f} GiB with remat, {off['peak_gib']:.2f} GiB without")
+    for r in runs.values():
+        del r["grads1"], r["loss1"]
+    metrics = dict(remat_on=on, remat_off=off, grad_rms_diff_max=worst, grad_tensors_differing=n_differ,
+                   remat_cost_ms=d_wall, remat_device_cost_ms=d_dev, phase_s=time.perf_counter() - t0)
+    del state, step, batch, model, unet, frozen, start
+    torch.cuda.empty_cache()
+    return launches, metrics
 
 
 CORPUS_OBJECTS, CORPUS_VIEWS, CORPUS_RES = 16, 4, 512
@@ -1383,14 +1513,15 @@ def _records(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_train_entry(trace: bool = False):
+def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
     """Phase 5: ``python -m mvd_tpu_torch.cli.train`` at the reference
-    training point on a synthetic corpus, through ``main(argv)`` in this
-    process: (a) 3 steps with the reconstruction metrics at step 2, the
-    end-of-run validation (eval loss, 20-step generation, comparison PNGs)
-    and the final checkpoint; (b) ``--resume`` to step 5; (c)
-    ``cli.precompute_latents`` over the corpus, then 2 steps from the
-    cache. Returns (the launches of run (a), metrics, the trace or None)."""
+    training point on the synthetic corpus ``corpus`` (``write_corpus``),
+    through ``main(argv)`` in this process: (a) 3 steps with the
+    reconstruction metrics at step 2, the end-of-run validation (eval loss,
+    20-step generation, comparison PNGs) and the final checkpoint; (b)
+    ``--resume`` to step 5; (c) ``cli.precompute_latents`` over the corpus,
+    then 2 steps from the cache. Returns (the launches of run (a), metrics,
+    the trace or None)."""
     import shutil
     import tempfile
 
@@ -1410,11 +1541,6 @@ def phase_train_entry(trace: bool = False):
     metrics, traced = {}, None
     tmp = tempfile.mkdtemp(prefix="mvd_train_entry_")
     try:
-        corpus = os.path.join(tmp, "corpus")
-        t0 = time.perf_counter()
-        corpus_bytes = write_corpus(corpus)
-        print(f"[train_entry] corpus: {CORPUS_OBJECTS} objects x {CORPUS_VIEWS} views, RGBA "
-              f"{CORPUS_RES}², {corpus_bytes} bytes, written in {time.perf_counter() - t0:.1f} s")
         import zipfile
 
         with zipfile.ZipFile(os.path.join(corpus, "renders_final", "obj_000.zip")) as z:
@@ -1661,6 +1787,234 @@ def phase_train_entry(trace: bool = False):
     return metrics["a"]["launches"], metrics, traced
 
 
+# phase 6: joint multi-view attention (UNetConfig.num_views), views per
+# sample of the joint train step and the joint train CLI; the CLI's batch
+# (samples of 2 views), the largest whose validation split of the 16-object
+# corpus holds a whole batch
+JOINT_TRAIN_VIEWS, JOINT_ENTRY_BATCH = 2, 2
+
+
+def phase_joint_kernels():
+    """6a: the hand kernels at the joint self lengths (``JOINT_ATTN_CASES``):
+    K1 at each, held to its plain version on batch row 0 (the plain
+    version's f32 scores take 5.4 GB a row at S 16384), and K3a/K3b at the
+    2-view 768² train length, held to the plain backward head by head on
+    row 0; each timed at the full batch beside SDPA (forward, and backward
+    for dq and for dk/dv) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.kernels import (
+        attention_packed_plain,
+        flash_attention_packed_bwd,
+        flash_attention_packed_bwd_dkv,
+        flash_attention_packed_bwd_dq,
+        flash_attention_packed_fwd,
+    )
+    from mvd_tpu_torch.kernels.flash_attention import _delta
+    from mvd_tpu_torch.kernels.measure import (
+        JOINT_ATTN_CASES,
+        attn_bounds,
+        bwd_bounds,
+        check_attention,
+        check_grad,
+        plain_bwd_by_row,
+        sm_clock_hz,
+        time_ms,
+    )
+
+    clock = sm_clock_hz()
+    gen = torch.Generator("cuda").manual_seed(8)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    results = {"flash_attn_fwd": [], "flash_attn_bwd_dq": [], "flash_attn_bwd_dkv": []}
+    D = 64
+    for label, B, Sq, Sk, H in JOINT_ATTN_CASES:
+        q, k, v, do = randn(B, Sq, H * D), randn(B, Sk, H * D), randn(B, Sk, H * D), randn(B, Sq, H * D)
+        out, lse = flash_attention_packed_fwd(q, k, v, H)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_out, ref_lse = attention_packed_plain(q[:1], k[:1], v[:1], H)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, rel_rms = check_attention(out[:1], lse[:1], ref_out, ref_lse, f"K1 {label} (row 0)")
+        del ref_out, ref_lse
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: flash_attention_packed_fwd(q, k, v, H), 5)
+        split = lambda t, n: t.detach().view(B, n, H, D).transpose(1, 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(split(q, Sq), split(k, Sk), split(v, Sk)), 5)
+        results["flash_attn_fwd"].append(dict(
+            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_rows=1, library_ms=lib_ms,
+            rel_rms=rel_rms, **_attn_bound_fields(attn_bounds(B, Sq, Sk, H, clock), ms)))
+        print(f"[joint-kernels] K1 {label} (B {B}): row 0 within tolerance of the plain version (err "
+              f"{err:.3g}, rel RMS err {rel_rms:.3g}, plain {plain_ms:.1f} ms for the row); kernel "
+              f"{ms:.4f} ms, sdpa {lib_ms:.4f} ms, " + _bound_text(results["flash_attn_fwd"][-1], clock))
+        if label.startswith("joint self 2x"):  # the train length: the backward too
+            got = flash_attention_packed_bwd(q, k, v, out, lse, do, H)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain_bwd_by_row(q[:1], k[:1], v[:1], out[:1], lse[:1], do[:1], H, by_head=True)
+            torch.cuda.synchronize()
+            plain_bwd_ms = (time.perf_counter() - t0) * 1e3
+            checks = {n: check_grad(g[:1], w, f"K3 {label} {n} (row 0)")
+                      for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            del got, want
+            torch.cuda.empty_cache()
+            delta = _delta(out, do, H)
+            ms_dq = time_ms(lambda: flash_attention_packed_bwd_dq(q, k, v, do, lse, delta, H), 5)
+            ms_dkv = time_ms(lambda: flash_attention_packed_bwd_dkv(q, k, v, do, lse, delta, H), 5)
+
+            def sdpa_bwd_ms(grad_q: bool):
+                leaf = lambda t: t.detach().requires_grad_()
+                qh, kh, vh = split(q, Sq), split(k, Sk), split(v, Sk)
+                qh, kh, vh = (leaf(qh), kh, vh) if grad_q else (qh, leaf(kh), leaf(vh))
+                oh = F.scaled_dot_product_attention(qh, kh, vh)
+                inputs = (qh,) if grad_q else (kh, vh)
+                return time_ms(lambda: torch.autograd.grad(oh, inputs, split(do, Sq), retain_graph=True), 5)
+
+            lib_dq, lib_dkv = sdpa_bwd_ms(True), sdpa_bwd_ms(False)
+            bounds = bwd_bounds(B, Sq, Sk, H)
+            for key, part, kms, lib in (("flash_attn_bwd_dq", "dq", ms_dq, lib_dq),
+                                        ("flash_attn_bwd_dkv", "dkv", ms_dkv, lib_dkv)):
+                e = max(checks[n][0] for n in (("dq",) if part == "dq" else ("dk", "dv")))
+                results[key].append(dict(
+                    case=label, max_abs_err=e, ms=kms, plain_ms=plain_bwd_ms, plain_rows=1,
+                    library_ms=lib, bound_ms=bounds[part]["bound_ms"], bound_by=bounds[part]["bound_by"],
+                    bound_share=bounds[part]["bound_ms"] / kms))
+            print(f"[joint-kernels] K3 {label} (B {B}): row 0 within tolerance of the plain backward "
+                  f"(head by head, {plain_bwd_ms:.1f} ms; " + ", ".join(
+                      f"{n} rel RMS err {r:.3g}" for n, (_, _, r) in checks.items())
+                  + f"); K3a {ms_dq:.4f} ms (sdpa bwd dq {lib_dq:.4f} ms, bound "
+                  f"{bounds['dq']['bound_ms']:.4f}), K3b {ms_dkv:.4f} ms (sdpa bwd dk,dv {lib_dkv:.4f} "
+                  f"ms, bound {bounds['dkv']['bound_ms']:.4f}), shares of bound "
+                  f"{bounds['dq']['bound_ms'] / ms_dq:.3f} / {bounds['dkv']['bound_ms'] / ms_dkv:.3f}")
+            del delta
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_joint_generation(call, bf16_images):
+    """6b and 6c, on phase 3's pipeline and weights (joint attention adds no
+    parameter): the main path's call with ``num_views=4``, the 4 views
+    attending to each other at every self site, with exactly the launches
+    of the pairwise call (the views of a site merge into one launch), no
+    plain call, the denoise loop under the sync check and images that
+    differ from phase 3's; later calls of both timed in turns and one of
+    each traced for device ms; then one joint call with
+    ``attention_impl="int8"``, K6 and K6q at the sites the JAX package's
+    routing gives at the merged lengths. Returns (the joint launches, the
+    joint int8 launches, metrics)."""
+    import torch
+
+    from mvd_tpu_torch.parallel import for_view_sharding
+    from mvd_tpu_torch.pipeline import MVDPipeline
+    from mvd_tpu_torch.pipeline.pipeline import build_model
+
+    pipe, prompts, kwargs = call
+    t_phase = time.perf_counter()
+
+    def pipeline(cfg):
+        with torch.device("cuda"):
+            model = build_model(cfg)
+        model.load_state_dict(pipe.model.state_dict())
+        out = MVDPipeline(cfg, model, "cuda", pipe.tokenizer)
+        out.compute_model  # cast once, outside the counted run
+        return out
+
+    jcfg = for_view_sharding(pipe.config, VIEWS, 1)
+    jpipe = pipeline(jcfg)
+    want = expected_launches(jpipe, STEPS)
+    if want != expected_launches(pipe, STEPS):
+        raise AssertionError(f"joint launches {want} differ from the pairwise call's")
+    out, first_s, launches = _counted_call(lambda: jpipe(prompts, seed=0, **kwargs), want,
+                                           f"[joint] {VIEWS}-view joint generation:", ("denoise_loop",), jpipe)
+    images = out["images"]
+    _check_images(images, "joint")
+    if torch.equal(images, bf16_images):
+        raise AssertionError("joint images equal phase 3's: joint attention changed nothing")
+    psnr = _psnr(images, bf16_images)
+    turns = {"pairwise": [], "joint": []}
+    for which in ("pairwise", "joint", "joint", "pairwise"):
+        turns[which].append(_timed(lambda: (pipe if which == "pairwise" else jpipe)(prompts, seed=1, **kwargs)))
+    traced = {which: trace_run(lambda: p(prompts, seed=2, **kwargs), f"{which} generation", top=3)
+              for which, p in (("pairwise", pipe), ("joint", jpipe))}
+    print(f"[joint] images {tuple(images.shape)} in [{images.min().item():.4f}, {images.max().item():.4f}]; "
+          f"PSNR against phase 3's pairwise images (same weights and noise) {psnr:.2f} dB; later calls in "
+          f"turns: pairwise {turns['pairwise'][0]:.3f} / {turns['pairwise'][1]:.3f} s, joint "
+          f"{turns['joint'][0]:.3f} / {turns['joint'][1]:.3f} s per call; device ms pairwise "
+          f"{traced['pairwise']['device_busy_ms']:.1f}, joint {traced['joint']['device_busy_ms']:.1f}")
+    metrics = dict(first_call_s=first_s, psnr_vs_pairwise_db=psnr, turns_s=turns, launches=launches,
+                   device_ms={w: t["device_busy_ms"] for w, t in traced.items()},
+                   idle_share={w: t["idle_share"] for w, t in traced.items()},
+                   k1_device_ms={w: t["port_kernels_ms"]["K1 flash_fwd (packed)"] for w, t in traced.items()})
+    del jpipe, out
+    torch.cuda.empty_cache()
+
+    icfg = dataclasses.replace(jcfg, unet=dataclasses.replace(jcfg.unet, attention_impl="int8"))
+    pipe8 = pipeline(icfg)
+    out8, int8_s, launches8 = _counted_call(lambda: pipe8(prompts, seed=0, **kwargs),
+                                            expected_int8_launches(pipe8, STEPS), "[joint] int8 joint generation:")
+    _check_images(out8["images"], "joint int8")
+    psnr8 = _psnr(out8["images"], images)
+    print(f"[joint] int8: K6 at {launches8['flash_attn_int8']} sites (the merged 16² self sites among "
+          f"them), images against the bf16 joint call's {psnr8:.2f} dB")
+    metrics.update(int8_first_call_s=int8_s, int8_psnr_vs_bf16_joint_db=psnr8, int8_launches=launches8,
+                   phase_s=time.perf_counter() - t_phase)
+    del pipe8, out8
+    torch.cuda.empty_cache()
+    return launches, launches8, metrics
+
+
+def phase_joint_train_entry(corpus: str):
+    """6e: ``cli.train.main --num-views 2`` on phase 5's corpus at 768²,
+    batch JOINT_ENTRY_BATCH: 2 steps and the end-of-run validation (eval
+    loss, the 20-step generation of one joint group); finite metrics,
+    K3a/K3b exactly their per-step count twice, no plain call."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mvd_tpu_torch.cli import train as train_cli
+
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="mvd_joint_entry_")
+    try:
+        reset_counts()
+        tr = train_cli.main(["--dataset-path", corpus, "--batch-size", str(JOINT_ENTRY_BATCH), "--image-size",
+                             str(TRAIN_RES), "--num-views", str(JOINT_TRAIN_VIEWS), "--output-dir", out,
+                             "--max-steps", "2"], metrics_log_interval=0)
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        per_step = expected_train_launches(tr.state.model)
+        if tr.cfg.model.unet.num_views != JOINT_TRAIN_VIEWS or any(plain.values()):
+            raise AssertionError(f"joint CLI: num_views {tr.cfg.model.unet.num_views}, plain calls {plain}")
+        for key in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            if launches[key] != per_step[key] * 2:
+                raise AssertionError(f"joint CLI: {key} launched {launches[key]}, not {per_step[key]} x 2")
+        recs = _records(tr.logger.jsonl_path)
+        steps = {r["step"]: r["train/noise_loss"] for r in recs if "train/noise_loss" in r}
+        val = [r for r in recs if "val/noise_loss" in r]
+        keys = ("val/noise_loss", "val/gen_psnr", "val/gen_ssim", "val/gen_pixel_mse")
+        if sorted(steps) != [1, 2] or len(val) != 1 or not all(
+                math.isfinite(x) for x in list(steps.values()) + [val[0][k] for k in keys]):
+            raise AssertionError(f"joint CLI: train losses {steps}, validations {val}")
+        secs = time.perf_counter() - t0
+        print(f"[joint-entry] cli.train.main --num-views {JOINT_TRAIN_VIEWS} --batch-size {JOINT_ENTRY_BATCH} "
+              f"--max-steps 2: train/noise_loss {steps}, validation "
+              f"{json.dumps({k: round(val[0][k], 5) for k in keys})}; K3a {launches['flash_attn_bwd_dq']} "
+              f"and K3b {launches['flash_attn_bwd_dkv']} (2 x {per_step['flash_attn_bwd_dq']} / "
+              f"{per_step['flash_attn_bwd_dkv']}), 0 plain calls; s per step "
+              f"{[round(t['step_s'], 3) for t in tr.timings]}; {secs:.1f} s")
+        metrics = dict(run_s=secs, step_s=[t["step_s"] for t in tr.timings], train_losses=steps,
+                       validation={k: val[0][k] for k in keys}, launches=launches)
+        del tr
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
 # device-kernel name patterns (regular expressions) of each port kernel in a
 # torch.profiler trace
 TRACE_GROUPS = {
@@ -1675,8 +2029,9 @@ TRACE_GROUPS = {
 TRACE_TOP = 25
 
 
-def trace_run(fn, label: str) -> dict:
-    """Trace one call of ``fn`` and report where the device time goes."""
+def trace_run(fn, label: str, top: int = TRACE_TOP) -> dict:
+    """Trace one call of ``fn`` and report where the device time goes (the
+    ``top`` kernels by device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1695,9 +2050,8 @@ def trace_run(fn, label: str) -> dict:
             for g, frags in TRACE_GROUPS.items()}
     shares = {g: sum(e.self_device_time_total for e in es) / 1e3 for g, es in ours.items()}
     counts = {g: sum(e.count for e in es) for g, es in ours.items()}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
     rows = [dict(kernel=e.key[:120], calls=e.count, device_ms=e.self_device_time_total / 1e3)
-            for e in top]
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]
     n_launch = sum(e.count for e in kernels)
     print(f"[trace] {label}: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, kernel launches {n_launch}")
@@ -1801,22 +2155,39 @@ def main(argv=None) -> int:
     entry_metrics = phase_entry_points(call, images, trace=bool(args.trace))
     if args.trace:
         traces["entry_points"] = entry_metrics.pop("traces")
+    joint_launches, joint_int8_launches, joint_metrics = phase_joint_generation(call, images)
     del call, images  # free the generation pipelines before the train phase
     torch.cuda.empty_cache()
     results.update(phase_train_kernels())
-    train_launches, train_metrics, train_call = phase_train()
+    train_launches, train_metrics = phase_train()
     if args.trace:
-        state, step, batch, gen = train_call
-        traces["train_step"] = trace_run(lambda: step(state, batch, generator=gen), "train step")
-        del state, step, batch, gen
-    del train_call
-    torch.cuda.empty_cache()
-    entry_train_launches, entry_train_metrics, entry_trace = phase_train_entry(trace=bool(args.trace))
-    if args.trace:
-        traces["train_entry"] = entry_trace
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        with open(args.trace, "w") as f:
-            json.dump(dict(card=card, **traces), f, indent=1)
+        traces["train_step"] = train_metrics["remat_on"]["trace"]
+    corpus_dir = tempfile.mkdtemp(prefix="mvd_corpus_")
+    try:
+        corpus = os.path.join(corpus_dir, "corpus")
+        t0 = time.perf_counter()
+        corpus_bytes = write_corpus(corpus)
+        print(f"[train_entry] corpus: {CORPUS_OBJECTS} objects x {CORPUS_VIEWS} views, RGBA "
+              f"{CORPUS_RES}², {corpus_bytes} bytes, written in {time.perf_counter() - t0:.1f} s")
+        entry_train_launches, entry_train_metrics, entry_trace = phase_train_entry(
+            corpus, corpus_bytes, trace=bool(args.trace))
+        if args.trace:
+            traces["train_entry"] = entry_trace
+            os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+            with open(args.trace, "w") as f:
+                json.dump(dict(card=card, **traces), f, indent=1)
+        t_joint = time.perf_counter()
+        for key, rows in phase_joint_kernels().items():
+            results[key].extend(rows)
+        _, joint_train_metrics = phase_train(views=JOINT_TRAIN_VIEWS, tag="joint-train")
+        joint_train_launches = joint_train_metrics["remat_on"]["launches_per_step"]
+        joint_entry_launches, joint_entry_metrics = phase_joint_train_entry(corpus)
+    finally:
+        shutil.rmtree(corpus_dir, ignore_errors=True)
+    joint_metrics.update(train=joint_train_metrics, train_entry=joint_entry_metrics,
+                         train_phase_s=time.perf_counter() - t_joint)
+    print(f"[joint] phase 6: generation parts {joint_metrics['phase_s']:.1f} s, kernels and train parts "
+          f"{joint_metrics['train_phase_s']:.1f} s")
 
     kernels = []
     for key, meta in KERNEL_META.items():
@@ -1837,13 +2208,18 @@ def main(argv=None) -> int:
             bound_by=prim["bound_by"], library_ms=prim["library_ms"],
             shape=meta["primary"], train_launches=train_launches[key],
             int8_generation_launches=int8_launches[key],
-            train_entry_launches=entry_train_launches[key], cases=cases,
+            train_entry_launches=entry_train_launches[key],
+            joint_generation_launches=joint_launches[key],
+            joint_int8_generation_launches=joint_int8_launches[key],
+            joint_train_launches=joint_train_launches[key],
+            joint_train_entry_launches=joint_entry_launches[key], cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
     print(f"[int8] {json.dumps(int8_metrics)}")
     print(f"[entry] {json.dumps(entry_metrics)}")
     print(f"[train] {json.dumps(train_metrics)}")
     print(f"[train_entry] {json.dumps(entry_train_metrics)}")
+    print(f"[joint] {json.dumps(joint_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

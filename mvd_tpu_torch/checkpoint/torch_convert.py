@@ -308,6 +308,11 @@ def export_lightning_state_dict(mvd_params: Dict, simple_encoder: bool = False) 
 def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
     """Load a reference Lightning ``.ckpt`` into ``pipe``'s multi-view UNet
     (the UNet and the camera encoder; the VAE and CLIP keep their weights).
+    Where the model holds a separate feature-pass UNet
+    (``image_encoder_unet``, built with ``share_image_encoder=False``), the
+    checkpoint's ``image_encoder`` group goes into it, and a checkpoint
+    without that group raises; a model that shares its UNet does not read
+    the group, as in the JAX converter.
 
     The converted tree is merged over the pipeline's masters: a parameter
     the checkpoint lacks (the camera encoder's translation projection, which
@@ -322,12 +327,18 @@ def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
             f"{path}: the port loads reference Lightning .ckpt files only; orbax "
             "checkpoint directories wait for the port's own checkpoint IO "
             "(ROADMAP Queue 1 item 14)")
+    separate = hasattr(pipe.model["mvd"], "image_encoder_unet")
     cfg = pipe.config
-    tree, skipped = convert_lightning_checkpoint(path, cfg.camera_encoder.simple_encoder)
+    tree, skipped = convert_lightning_checkpoint(path, cfg.camera_encoder.simple_encoder,
+                                                 share_image_encoder=not separate)
     params = dict(tree["params"])
-    conv_in = params.get("unet", {}).get("conv_in", {}).get("kernel")
-    if cfg.use_ray_conditioning and conv_in is not None and conv_in.shape[2] == cfg.unet.in_channels:
-        params["unet"] = zero_pad_conv_in(params["unet"])
+    if separate and "image_encoder_unet" not in params:
+        raise ValueError(f"{path} has no image_encoder group for the model's separate "
+                         "image-encoder UNet")
+    for unet in ("unet", "image_encoder_unet"):
+        conv_in = params.get(unet, {}).get("conv_in", {}).get("kernel")
+        if cfg.use_ray_conditioning and conv_in is not None and conv_in.shape[2] == cfg.unet.in_channels:
+            params[unet] = zero_pad_conv_in(params[unet])
     kept = pipe.load_jax_params({"mvd": params}, keep_missing=True)
     for name in kept:
         print(f"checkpoint has no {name}: it keeps its initial value")

@@ -8,10 +8,12 @@ The flags of ``mvd_tpu/cli/train.py``, plus ``--device`` (the GPU by
 default; without one the CLI raises; ``--tiny`` runs on the CPU only, as in
 ``cli/infer.py``) and ``--wandb`` (log to W&B as well as the JSONL; W&B is
 not imported otherwise). ``--config`` needs PyYAML. ``--init-params`` takes
-a directory written by ``checkpoint.save_params``. ``--num-views`` above 1
-is ROADMAP item 11; a mesh or several processes (``--mesh-data``,
-``--mesh-view``, ``--num-slices`` above 1, ``--coordinator``,
-``--num-processes``, ``--process-id``) are item 16: each raises.
+a directory written by ``checkpoint.save_params``. ``--num-views`` V above 1
+trains joint multi-view attention over the V views of each sample on one
+device (``parallel.for_view_sharding(cfg, V, 1)``; the loader yields V views
+a sample). A mesh or several processes (``--mesh-data``, ``--mesh-view``,
+``--num-slices`` above 1, ``--coordinator``, ``--num-processes``,
+``--process-id``) are ROADMAP item 16: each raises.
 ``main(argv, **overrides)`` returns the ``Trainer`` after ``fit``;
 ``overrides`` are ``TrainConfig`` fields that no flag reaches (for example
 ``metrics_log_interval``), applied after the flags.
@@ -41,7 +43,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--num-views", type=int, default=1,
-                   help=">1 is joint multi-view training (ROADMAP item 11, not ported yet)")
+                   help="views per sample; >1 trains joint multi-view attention over them")
     p.add_argument("--mesh-data", type=int, default=None, help="multi-GPU: ROADMAP item 16")
     p.add_argument("--mesh-view", type=int, default=1, help="multi-GPU: ROADMAP item 16")
     p.add_argument("--num-slices", type=int, default=1, help="multi-GPU: ROADMAP item 16")
@@ -63,9 +65,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.num_views > 1:
-        raise SystemExit("--num-views > 1 is joint multi-view training, ROADMAP item 11: not "
-                         "ported yet")
     if ((args.mesh_data or 1) > 1 or args.mesh_view > 1 or args.num_slices > 1
             or args.coordinator or (args.num_processes or 1) > 1 or args.process_id):
         raise SystemExit("a mesh or several processes is multi-GPU training, ROADMAP item 16: "
@@ -112,6 +111,7 @@ def main(argv=None, **overrides):
     from ..checkpoint import peek_checkpoint_meta
     from ..config import TINY_MODEL, DataConfig, TrainConfig, data_config_from_yaml, train_config_from_yaml
     from ..data.objaverse import ObjaverseDataModule
+    from ..parallel import for_view_sharding
     from ..pipeline import MVDPipeline
     from ..pipeline.pipeline import resolve_device
     from ..train.loop import Trainer
@@ -135,6 +135,8 @@ def main(argv=None, **overrides):
         cfg = dataclasses.replace(cfg, max_steps=args.max_steps)
     cfg = dataclasses.replace(cfg, num_views=args.num_views, **overrides)
     model_cfg = cfg.model
+    if args.num_views > 1:
+        model_cfg = for_view_sharding(model_cfg, args.num_views, args.mesh_view)
     if args.use_ray_conditioning:
         model_cfg = dataclasses.replace(model_cfg, use_ray_conditioning=True)
     # the latent size follows the training resolution

@@ -5,12 +5,12 @@ package): the SD2.1 UNet, VAE, CLIP text tower, camera encoder and
 noise-schedule settings, the ``TINY_*`` variants the tests use, the loss,
 optimizer, train-loop and data settings, and the YAML loaders. Field names
 and defaults are the JAX package's, so a config built for one side
-describes the same model on the other. Fields of paths the port does not
-run yet are left out until they are ported: remat (``UNetConfig.remat``,
-read from ``enable_gradient_checkpointing``, which the loader ignores),
-joint multi-view attention (``num_views`` / ``view_axis`` of the UNet,
-ROADMAP item 11), the separate image-encoder UNet and the mesh (item 16).
-PyYAML is imported by the two loaders only, never at import.
+describes the same model on the other. ``UNetConfig.remat`` (read from
+``enable_gradient_checkpointing``) checkpoints the UNet's heavy blocks in
+training (``nn/unet.py``); ``UNetConfig.num_views`` > 1 is joint multi-view
+self-attention on one device. ``view_axis``, the view axis of a mesh, is
+carried but raises: the mesh is ROADMAP item 16. PyYAML is imported by the
+two loaders only, never at import.
 """
 
 from __future__ import annotations
@@ -54,8 +54,17 @@ class UNetConfig:
     # (kernels/flash_attention.py:int8_site), the others K1. The JAX
     # package's CPU-interpret choices raise here.
     attention_impl: str = "auto"
+    # torch.utils.checkpoint around every ResnetBlock and Transformer2D while
+    # grad is on; MVD_REMAT_POLICY picks what is saved (nn/unet.py)
+    remat: bool = True
     with_adapters: bool = True  # image cross-attention adapters in every attn
     img_ref_scale: float = 0.3  # adapter output scale
+    # joint multi-view attention: with num_views > 1 the flat (B*V, S, D)
+    # rows (row b*V + v) self-attend over the (V*S) tokens of their group.
+    # view_axis names the mesh axis the views would be sharded over (ring
+    # attention, ROADMAP item 16); a config may carry it, a model raises.
+    num_views: int = 1
+    view_axis: Optional[str] = None
 
     def __post_init__(self):
         check_impl(self.attention_impl)
@@ -67,6 +76,7 @@ TINY_UNET = UNetConfig(
     num_attention_heads=(2, 4, 4, 4),
     cross_attention_dim=64,
     norm_num_groups=8,
+    remat=False,
 )
 
 
@@ -278,6 +288,7 @@ def train_config_from_yaml(path: str) -> TrainConfig:
     unet = UNetConfig(
         img_ref_scale=float(_get(raw, "img_ref_scale", default=0.3)),
         with_adapters=bool(_get(raw, "use_image_conditioning", default=True)),
+        remat=bool(_get(raw, "enable_gradient_checkpointing", default=True)),
         attention_impl=_get(raw, "attention_impl", default="auto"),
     )
     unet = _apply_overrides(unet, raw.get("unet_config"))

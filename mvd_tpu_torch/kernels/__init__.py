@@ -7,8 +7,7 @@ The attention entry points mirror the JAX kernels package
 
 from .flash_attention import (  # noqa: F401
     ATTENTION_IMPLS,
-    FlashAttention,
-    Int8FlashAttention,
+    FLASH_KINDS,
     attention,
     attention_int8_core_plain,
     attention_packed,
@@ -25,6 +24,7 @@ from .flash_attention import (  # noqa: F401
     flash_attention_packed_fwd,
     flash_attention_packed_int8,
     flash_attention_packed_int8_fwd,
+    flash_fwd_op,
     int8_site,
     int8_tiles,
     quantize_channels,

@@ -27,11 +27,12 @@ with.
 
 K3a (dq) and K3b (dk, dv) replace ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
 (through ``_flash_bwd``), in either layout. ``attention_packed`` and
-``flash_attention`` are differentiable through ``FlashAttention``, an
-``autograd.Function`` that saves the forward's (q, k, v, out, lse) as the
-JAX custom VJP does, so the backward never re-runs the forward, and that
-launches K3b only when k or v needs a gradient. delta = rowsum(dO * O) is a
-PyTorch reduction, as it is XLA outside the kernel in the JAX package. Both
+``flash_attention`` are differentiable through the custom operator
+``mvd_tpu_torch::flash_fwd`` (``flash_fwd_op``), which saves the forward's
+(q, k, v, out, lse) as the JAX custom VJP does, so the backward never re-runs
+the forward, and which launches K3b only when k or v needs a gradient; a
+remat policy keeps its (out, lse) across a checkpoint boundary. delta = rowsum(dO * O) is a PyTorch reduction, as it is XLA
+outside the kernel in the JAX package. Both
 kernels are built like K1 (TMA ring, warp-specialised ``wgmma``, the second
 product's P or dS from registers) and take lse and delta as f32 (B, H,
 Sq_pad), padded to whole 128-row tiles (``bwd_stats``): TMA cannot cut one
@@ -44,7 +45,7 @@ operands, and with no per-score conversion on the pipe its exponentials use.
 K smoothing and the Q, K and V quantizers, XLA ops outside the Pallas kernel
 in the JAX package, are K6q on the card: one fused pass in two launches
 (``quantize_int8``) that writes K6's operands, V8 transposed in K6's key
-order (``K6_KEY_ORDER``). ``Int8FlashAttention`` gives K6 the JAX package's
+order (``K6_KEY_ORDER``). The same operator gives K6 the JAX package's
 straight-through gradient: the exact K3a/K3b backward at K6's (out, lse).
 """
 
@@ -58,6 +59,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import remat
 from . import _build
 
 _P = ctypes.c_void_p
@@ -447,31 +449,71 @@ def flash_attention_packed_bwd(
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """K1 forward (packed; ``heads`` given) or K5 forward ((B, H, S, D);
-    ``heads`` None), K3a/K3b backward in the same layout. Saves (q, k, v,
-    out, lse)."""
+# The differentiable forward is one custom operator, ``mvd_tpu_torch::flash_fwd``,
+# returning (out, lse): K1 (kind "packed"), K5 ("bhsd") or K6 ("int8"). A
+# remat policy keeps its (out, lse), as the JAX package names them
+# "flash_out" / "flash_lse" in its custom-VJP forward rules, so that the
+# recompute never launches it again (``nn/unet.py``): through the block's
+# tape (``mvd_tpu_torch/remat.py``), consulted below autograd, so that the
+# recompute still builds the operator's autograd node; and, as an operator
+# rather than a Python autograd.Function, through PyTorch's selective
+# checkpointing under ``flash_conv_dots``. Its backward is the exact K3a/K3b
+# at the saved (out, lse) in the forward's layout; for K6 that is the JAX
+# package's straight-through gradient.
+FLASH_KINDS = (PACKED, BHSD, "int8")
 
-    @staticmethod
-    def forward(ctx, q, k, v, heads, scale):
-        if heads is None:
-            out, lse = flash_attention_fwd(q, k, v, scale)
-        else:
-            out, lse = flash_attention_packed_fwd(q, k, v, heads, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.heads, ctx.scale = heads, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        heads, layout = (q.shape[1], BHSD) if ctx.heads is None else (ctx.heads, PACKED)
-        need_q, need_k, need_v = ctx.needs_input_grad[:3]
-        dq, dk, dv = flash_attention_packed_bwd(
-            q, k, v, out, lse, do.contiguous(), heads, ctx.scale,
-            need_dq=need_q, need_dkv=need_k or need_v, layout=layout,
-        )
-        return dq, dk if need_k else None, dv if need_v else None, None, None
+@torch.library.custom_op("mvd_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: Optional[float],
+    kind: str,
+    block_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of K1, K5 or K6 through their counted wrappers; inside a
+    remat'd block, the forward's (out, lse) kept on its tape
+    (``mvd_tpu_torch/remat.py``), which the recompute takes back."""
+    tape = remat.active()
+    if tape is not None and tape.replaying:
+        return tuple(t.detach() for t in tape.take())
+    if kind == "int8":
+        out = flash_attention_packed_int8_fwd(q, k, v, heads, scale, block_k)
+    elif kind == BHSD:
+        out = flash_attention_fwd(q, k, v, scale)
+    else:
+        out = flash_attention_packed_fwd(q, k, v, heads, scale)
+    if tape is not None:
+        tape.keep(tuple(t.detach() for t in out))
+    return out
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, heads, scale, kind, _ = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.heads, ctx.scale, ctx.kind = heads, scale, kind
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    heads, layout = (q.shape[1], BHSD) if ctx.kind == BHSD else (ctx.heads, PACKED)
+    need_q, need_k, need_v = ctx.needs_input_grad[:3]
+    dq, dk, dv = flash_attention_packed_bwd(
+        q, k, v, out, lse, do.contiguous(), heads, ctx.scale,
+        need_dq=need_q, need_dkv=need_k or need_v, layout=layout,
+    )
+    return dq, dk if need_k else None, dv if need_v else None, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
+
+
+def _flash_diff(q, k, v, heads, scale, kind, block_k=0):
+    return torch.ops.mvd_tpu_torch.flash_fwd(q, k, v, heads, scale, kind, block_k)[0]
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -487,7 +529,7 @@ def flash_attention(
     """Flash attention on (B, H, S, D), any lengths, non-causal;
     differentiable in q, k, v (K5 forward, K3a/K3b backward)."""
     if _wants_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, None, scale)
+        return _flash_diff(q, k, v, q.shape[1], scale, BHSD)
     return flash_attention_fwd(q, k, v, scale)[0]
 
 
@@ -799,28 +841,6 @@ flash_attention_packed_int8_fwd.launches = 0
 flash_attention_packed_int8_fwd.plain_calls = 0
 
 
-class Int8FlashAttention(torch.autograd.Function):
-    """K6 forward; the JAX package's straight-through backward: the exact
-    K3a/K3b at K6's (out, lse), from the unquantized (q, k, v)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, heads, scale, block_k):
-        out, lse = flash_attention_packed_int8_fwd(q, k, v, heads, scale, block_k)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.heads, ctx.scale = heads, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        need_q, need_k, need_v = ctx.needs_input_grad[:3]
-        dq, dk, dv = flash_attention_packed_bwd(
-            q, k, v, out, lse, do.contiguous(), ctx.heads, ctx.scale,
-            need_dq=need_q, need_dkv=need_k or need_v,
-        )
-        return dq, dk if need_k else None, dv if need_v else None, None, None, None
-
-
 def flash_attention_packed_int8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -835,7 +855,7 @@ def flash_attention_packed_int8(
     if not int8_tiles(q.shape[1], k.shape[1], block_k):
         return _attention_exact(q, k, v, heads, scale)
     if _wants_grad(q, k, v):
-        return Int8FlashAttention.apply(q, k, v, heads, scale, block_k)
+        return _flash_diff(q, k, v, heads, scale, "int8", block_k)
     return flash_attention_packed_int8_fwd(q, k, v, heads, scale, block_k)[0]
 
 
@@ -860,7 +880,7 @@ def check_impl(impl: str) -> str:
 
 def _attention_exact(q, k, v, heads, scale):
     if _wants_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, heads, scale)
+        return _flash_diff(q, k, v, heads, scale, PACKED)
     return flash_attention_packed_fwd(q, k, v, heads, scale)[0]
 
 

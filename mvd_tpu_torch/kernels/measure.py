@@ -52,6 +52,16 @@ TRAIN_ATTN_CASES = [
     ("self 12x12 (mid)", 6, 144, 144, 20),
     ("text 12x12 (mid)", 6, 144, 77, 20),
 ]
+# (label, B, Sq, Sk, heads): the self sites of joint multi-view attention at
+# the largest latent level, where the views merge into one sequence: 4-view
+# 512² generation (guidance 1.0: one group) and 2-view 768² training
+# (batch 6); their plain versions run at B 1 (the forward's f32 scores take
+# 5.4 GB there, the backward's 6.8 GB per tensor and per row, so it runs
+# head by head)
+JOINT_ATTN_CASES = [
+    ("joint self 4x64x64", 1, 16384, 16384, 5),
+    ("joint self 2x96x96", 6, 18432, 18432, 5),
+]
 # K3a/K3b round P and dS to bf16 before their products, where the plain
 # version keeps f32, and round dq/dk/dv to bf16: each term carries a relative
 # error of about 2^-9, and the sums over Sk (or Sq) terms average it, so the
@@ -310,15 +320,28 @@ def check_grad(got, want, what, rms=None):
     return err.max().item(), rms, rel_rms
 
 
-def plain_bwd_by_row(q, k, v, out, lse, do, heads, layout="packed"):
+def plain_bwd_by_row(q, k, v, out, lse, do, heads, layout="packed", by_head=False):
     """The plain backward (``attention_packed_bwd_plain``) one batch row at a
     time: the f32 score matrices of a whole 96² batch would not fit beside
-    the model."""
+    the model. ``by_head`` (packed layout): one head of one row at a time,
+    for the joint lengths, where one row's (H, Sq, Sk) f32 scores take
+    several GB (6.8 GB at H 5, S 18432)."""
     import torch
 
     from mvd_tpu_torch.kernels import attention_packed_bwd_plain
 
-    rows = [attention_packed_bwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
-                                       lse[b:b + 1], do[b:b + 1], heads, layout=layout)
-            for b in range(q.shape[0])]
+    if by_head and layout != "packed":
+        raise ValueError(f"by_head takes the packed layout, not {layout!r}")
+    if by_head:
+        D = q.shape[-1] // heads
+        cols = lambda t, h: t[..., h * D:(h + 1) * D]
+        rows = [[attention_packed_bwd_plain(cols(q[b:b + 1], h), cols(k[b:b + 1], h), cols(v[b:b + 1], h),
+                                            cols(out[b:b + 1], h), lse[b:b + 1, :, h:h + 1].contiguous(),
+                                            cols(do[b:b + 1], h), 1)
+                 for h in range(heads)] for b in range(q.shape[0])]
+        rows = [tuple(torch.cat(parts, dim=-1) for parts in zip(*row)) for row in rows]
+    else:
+        rows = [attention_packed_bwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
+                                           lse[b:b + 1], do[b:b + 1], heads, layout=layout)
+                for b in range(q.shape[0])]
     return tuple(torch.cat(parts) for parts in zip(*rows))

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import remat
 from ..kernels.flash_attention import attention_packed
 from ..kernels.groupnorm_silu import groupnorm_silu_diff
 
@@ -197,13 +198,24 @@ class CrossViewAdapter(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention, self (context=None) or cross, on the packed
-    layout. Only ``num_views == 1`` is ported."""
+    layout.
+
+    Joint multi-view self-attention: with ``num_views`` V > 1 the flat
+    (B*V, S, H*D) rows (row b*V + v) are regrouped into (B, V*S, H*D) by a
+    free reshape, so every view attends to every other view's tokens of its
+    group. Cross-attention stays per row. ``view_axis`` (the views sharded
+    over devices, ring attention) is ROADMAP item 16 and raises."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", num_views: int = 1, view_axis: Optional[str] = None):
         super().__init__()
+        if view_axis is not None:
+            raise NotImplementedError(
+                f"view_axis={view_axis!r}: views sharded over devices (ring attention) is "
+                "ROADMAP item 16, not ported yet")
         self.heads = heads
         self.attention_impl = attention_impl
+        self.num_views = num_views
         inner = heads * head_dim
         ctx = dim if context_dim is None else context_dim
         self.to_q = Linear(dim, inner, bias=False)
@@ -214,7 +226,18 @@ class Attention(nn.Module):
     def forward(self, hidden: torch.Tensor, context: Optional[torch.Tensor] = None):
         ctx = hidden if context is None else context.to(hidden.dtype)
         q, k, v = self.to_q(hidden), self.to_k(ctx), self.to_v(ctx)
-        return self.to_out(attention_packed(q, k, v, self.heads, impl=self.attention_impl))
+        V = self.num_views
+        if context is None and V > 1:
+            B, S, inner = q.shape
+            if B % V:
+                raise ValueError(f"joint attention over {V} views needs a batch that {V} "
+                                 f"divides, got {B} rows")
+            merge = lambda t: t.reshape(B // V, V * S, inner)
+            out = attention_packed(merge(q), merge(k), merge(v), self.heads,
+                                   impl=self.attention_impl).reshape(B, S, inner)
+        else:
+            out = attention_packed(q, k, v, self.heads, impl=self.attention_impl)
+        return self.to_out(out)
 
 
 class FeedForward(nn.Module):
@@ -238,12 +261,13 @@ class BasicTransformerBlock(nn.Module):
     output before the residual add."""
 
     def __init__(self, dim, heads, head_dim, context_dim, with_adapters=False, ref_scale=0.3,
-                 attention_impl="auto"):
+                 attention_impl="auto", num_views=1, view_axis=None):
         super().__init__()
         self.with_adapters = with_adapters
         self.ref_scale = ref_scale
         self.norm1 = StreamingLayerNorm(dim)
-        self.attn1 = Attention(dim, heads, head_dim, attention_impl=attention_impl)
+        self.attn1 = Attention(dim, heads, head_dim, attention_impl=attention_impl,
+                               num_views=num_views, view_axis=view_axis)
         self.norm2 = StreamingLayerNorm(dim)
         self.attn2 = Attention(dim, heads, head_dim, context_dim, attention_impl)
         if with_adapters:
@@ -281,7 +305,8 @@ class Transformer2D(nn.Module):
     GroupNorm (eps 1e-6) -> linear proj_in -> blocks -> proj_out -> residual."""
 
     def __init__(self, channels, heads, head_dim, context_dim, num_layers=1,
-                 norm_num_groups=32, with_adapters=False, ref_scale=0.3, attention_impl="auto"):
+                 norm_num_groups=32, with_adapters=False, ref_scale=0.3, attention_impl="auto",
+                 num_views=1, view_axis=None):
         super().__init__()
         inner = heads * head_dim
         self.num_layers = num_layers
@@ -289,7 +314,8 @@ class Transformer2D(nn.Module):
         self.proj_in = Linear(channels, inner)
         for i in range(num_layers):
             setattr(self, f"transformer_blocks_{i}", BasicTransformerBlock(
-                inner, heads, head_dim, context_dim, with_adapters, ref_scale, attention_impl
+                inner, heads, head_dim, context_dim, with_adapters, ref_scale, attention_impl,
+                num_views, view_axis,
             ))
         self.proj_out = Linear(inner, channels)
 
@@ -308,6 +334,43 @@ def conv3x3(in_ch: int, out_ch: int) -> Conv2d:
     return Conv2d(in_ch, out_ch, 3, padding=1)
 
 
+class _KeptConv(torch.autograd.Function):
+    """A conv whose output the forward kept (``mvd_tpu_torch/remat.py``):
+    its value from the tape, its backward the conv's own
+    (``convolution_backward``, called as autograd calls it), saving the
+    tensors the conv saves, input then weight."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, kept, conv):
+        ctx.save_for_backward(x, w)
+        ctx.conv, ctx.has_bias = conv, b is not None
+        return kept.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        c = ctx.conv
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            grad, x, w, [w.shape[0]] if ctx.has_bias else None, c.stride, c.padding, c.dilation,
+            False, [0, 0], c.groups, list(ctx.needs_input_grad[:3]))
+        return dx, dw, db, None, None
+
+
+def kept_conv(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; inside a remat'd block whose tape keeps conv outputs the
+    forward keeps the output and the recompute takes it back instead of
+    running the conv again, as the JAX package's ``conv_out`` is saved."""
+    tape = remat.active()
+    if tape is None or not tape.convs:
+        return conv(x)
+    if not tape.replaying:
+        out = conv(x)
+        tape.keep(out.detach())
+        return out
+    w, b = conv._weights()
+    return _KeptConv.apply(x.to(w.dtype), w, b, tape.take(), conv)
+
+
 class ResnetBlock(nn.Module):
     """SD ResnetBlock2D: GroupNorm+SiLU, 3x3 convs, additive time embedding,
     1x1 shortcut on channel change."""
@@ -324,11 +387,11 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x, temb=None):
-        h = self.conv1(self.norm1(x))
+        h = kept_conv(self.conv1, self.norm1(x))
         if temb is not None and hasattr(self, "time_emb_proj"):
             t = self.time_emb_proj(F.silu(temb))
             h = h + t[:, :, None, None].to(h.dtype)
-        h = self.conv2(self.norm2(h))
+        h = kept_conv(self.conv2, self.norm2(h))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h

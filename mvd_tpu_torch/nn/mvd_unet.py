@@ -18,8 +18,14 @@ Conditioning tensors are tiled across the classifier-free-guidance batch
 (unconditional half first). Under ray-map conditioning the Plücker ray map
 of the target view rides the FiLM dict under "ray_map" (tiled like the FiLM
 params), and ``denoise`` hands it to the UNet; the feature pass feeds the
-source view's canonical rays. Not ported yet: the separate image-encoder
-UNet (``share_image_encoder=False``).
+source view's canonical rays.
+
+With ``share_image_encoder=False`` the feature pass runs a second,
+separate UNet of the same config (``image_encoder_unet``, frozen), as when
+the denoising UNet itself is fine-tuned; by default it is the denoising
+UNet. The feature pass keeps the config's ``num_views``: under joint
+attention the source features are themselves computed jointly over the
+flat B*V source rows.
 """
 
 from __future__ import annotations
@@ -46,10 +52,14 @@ def _adapter_module_name(feature_name: str) -> str:
 
 
 class MultiViewUNet(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, share_image_encoder: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.unet = UNet2DCondition(cfg.unet, extra_in_channels=6 if cfg.use_ray_conditioning else 0)
+        self.share_image_encoder = share_image_encoder
+        extra = 6 if cfg.use_ray_conditioning else 0
+        self.unet = UNet2DCondition(cfg.unet, extra_in_channels=extra)
+        if cfg.use_image_conditioning and not share_image_encoder:
+            self.image_encoder_unet = UNet2DCondition(cfg.unet, extra_in_channels=extra)
         if cfg.use_camera_conditioning:
             dims = modulation_dims(
                 cfg.unet.block_out_channels,
@@ -68,7 +78,8 @@ class MultiViewUNet(nn.Module):
             d = ray_grid(h, w, self.cfg.ray_fov_deg, source_latents.device)
             rays = torch.cat([d, torch.zeros_like(d)], dim=-1).expand(B, h, w, 6)
         t0 = torch.zeros((B,), dtype=torch.int32, device=source_latents.device)
-        return self.unet(source_latents, t0, encoder_hidden_states, ray_map=rays)[1]
+        enc = self.unet if self.share_image_encoder else self.image_encoder_unet
+        return enc(source_latents, t0, encoder_hidden_states, ray_map=rays)[1]
 
     def _precompute_adapter_kv(self, name: str, feat: torch.Tensor):
         """Project normalized features (b, S, C) through the adapter K/V

@@ -11,16 +11,34 @@ FiLM params arrive as ``name -> (scale, shift)`` of shape (B, C) and apply as
 input latents before conv_in, and a Plücker ray map, where given, joins them
 as 6 more input channels after it. For encoder-reuse sampling the forward
 returns, or consumes, the down path's state (skip residuals and the
-bottleneck input). Not ported yet: remat.
+bottleneck input).
+
+Remat (``UNetConfig.remat``, the JAX package's ``nn.remat`` of the heavy
+blocks): while grad is on, every ResnetBlock and Transformer2D runs under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes it
+from its inputs. ``MVD_REMAT_POLICY`` says what the recompute may keep, as
+in the JAX package (``mvd_tpu/nn/unet.py:_remat_policy``): ``flash_conv``
+(default) saves each flash forward's (out, lse) and the two 3x3 conv outputs
+(bias included) of every ResnetBlock, ``flash`` only the former,
+``flash_conv_dots`` also every matmul output, ``none`` nothing. The flash
+forward (its custom operator, ``kernels/flash_attention.py:flash_fwd_op``)
+and the convs (``layers.kept_conv``) keep their outputs on the block's tape
+(``mvd_tpu_torch/remat.py``), so K1 never runs again in a backward;
+everything else, K2's GroupNorms included, runs again. Without grad
+(generation, the frozen feature pass) no checkpoint is entered.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from .. import remat
 from ..config import UNetConfig
 from .layers import (
     Downsample,
@@ -37,6 +55,45 @@ Features = Dict[str, torch.Tensor]
 Film = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 # (skip residuals of the down path, NCHW; the bottleneck input)
 EncoderCache = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
+
+
+REMAT_POLICIES = ("flash_conv", "flash", "flash_conv_dots", "none")
+_MATMULS = ("mm", "addmm", "bmm", "baddbmm")
+
+
+def remat_context(mode: Optional[str] = None):
+    """The checkpoint ``context_fn`` of ``mode`` (default: the
+    ``MVD_REMAT_POLICY`` environment variable, else ``flash_conv``), or None
+    for ``none``: recompute everything. ``flash`` and ``flash_conv`` keep
+    their outputs on the block's tape (``mvd_tpu_torch/remat.py``);
+    ``flash_conv_dots``, which also keeps every matmul output, is PyTorch's
+    selective checkpointing."""
+    mode = mode or os.environ.get("MVD_REMAT_POLICY", "flash_conv")
+    if mode not in REMAT_POLICIES:
+        raise ValueError(f"MVD_REMAT_POLICY={mode!r}: expected one of {REMAT_POLICIES}")
+    if mode == "none":
+        return None
+    if mode != "flash_conv_dots":
+        return functools.partial(remat.tape_contexts, convs=mode == "flash_conv")
+    aten = torch.ops.aten
+    save = {torch.ops.mvd_tpu_torch.flash_fwd.default} | {getattr(aten, n).default for n in _MATMULS}
+
+    def policy(ctx, op, *args, **kwargs):
+        # inside a remat'd block the only 3x3 convolutions are a
+        # ResnetBlock's conv1 and conv2 (the shortcut is 1x1)
+        if op in save or (op is aten.convolution.default and args[1].shape[-2:] == (3, 3)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _remat(block: nn.Module, context_fn, *args):
+    """``block(*args)`` under a non-reentrant checkpoint with ``context_fn``
+    (None: recompute everything). The blocks draw no random numbers, so the
+    RNG state is not saved."""
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def apply_film(x: torch.Tensor, film: Optional[Film], name: str) -> torch.Tensor:
@@ -63,7 +120,7 @@ class UNet2DCondition(nn.Module):
             return Transformer2D(
                 channels, heads, ch[i_block] // heads, cfg.cross_attention_dim,
                 cfg.transformer_layers_per_block, G, cfg.with_adapters, cfg.img_ref_scale,
-                cfg.attention_impl,
+                cfg.attention_impl, cfg.num_views, cfg.view_axis,
             )
 
         self.time_embedding = TimestepEmbedMLP(ch[0], temb_dim)
@@ -131,6 +188,12 @@ class UNet2DCondition(nn.Module):
         def get_ref(name):
             return None if ref_features is None else ref_features.get(name)
 
+        if cfg.remat and torch.is_grad_enabled():
+            context_fn = remat_context()
+            run = lambda block, *args: _remat(block, context_fn, *args)
+        else:
+            run = lambda block, *args: block(*args)
+
         features: Features = {}
         nhwc = lambda t: t.permute(0, 2, 3, 1)
 
@@ -147,10 +210,10 @@ class UNet2DCondition(nn.Module):
 
             for i, block_type in enumerate(cfg.down_block_types):
                 for j in range(cfg.layers_per_block):
-                    h = getattr(self, f"down_{i}_resnet_{j}")(h, temb)
+                    h = run(getattr(self, f"down_{i}_resnet_{j}"), h, temb)
                     if block_type == "CrossAttnDownBlock2D":
                         fname = f"down_block_{i}_attn_{j}"
-                        h = getattr(self, f"down_{i}_attn_{j}")(h, ctx, get_ref(fname), ref_scale)
+                        h = run(getattr(self, f"down_{i}_attn_{j}"), h, ctx, get_ref(fname), ref_scale)
                         features[fname] = nhwc(h)
                     residuals.append(h)
                 if i < len(cfg.down_block_types) - 1:
@@ -159,19 +222,19 @@ class UNet2DCondition(nn.Module):
                 h = apply_film(h, film, f"down_{i}")
         cache = (tuple(residuals), h)
 
-        h = self.mid_resnet_0(h, temb)
-        h = self.mid_attn_0(h, ctx, get_ref("mid_block_attn_0"), ref_scale)
+        h = run(self.mid_resnet_0, h, temb)
+        h = run(self.mid_attn_0, h, ctx, get_ref("mid_block_attn_0"), ref_scale)
         features["mid_block_attn_0"] = nhwc(h)
-        h = self.mid_resnet_1(h, temb)
+        h = run(self.mid_resnet_1, h, temb)
         h = apply_film(h, film, "mid")
 
         for i, block_type in enumerate(cfg.up_block_types):
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, residuals.pop().to(h.dtype)], dim=1)
-                h = getattr(self, f"up_{i}_resnet_{j}")(h, temb)
+                h = run(getattr(self, f"up_{i}_resnet_{j}"), h, temb)
                 if block_type == "CrossAttnUpBlock2D":
                     fname = f"up_block_{i}_attn_{j}"
-                    h = getattr(self, f"up_{i}_attn_{j}")(h, ctx, get_ref(fname), ref_scale)
+                    h = run(getattr(self, f"up_{i}_attn_{j}"), h, ctx, get_ref(fname), ref_scale)
                     features[fname] = nhwc(h)
             if i < len(cfg.up_block_types) - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)

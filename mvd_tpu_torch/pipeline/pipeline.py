@@ -13,7 +13,10 @@ Counterpart of ``mvd_tpu/pipeline/pipeline.py`` (guidance on or off):
   * VAE decode, then (x/2 + 0.5) clamped to [0, 1].
 
 ``invert`` maps clean images up the schedule by DDIM inversion, for a
-DDIM resample from them. Runs on the GPU unless the caller passes
+DDIM resample from them. With joint multi-view attention
+(``UNetConfig.num_views`` V > 1) the batch is V-view groups (row b*V + v),
+so V must divide it; under CFG the unconditional half comes first and each
+half is whole groups, so joint attention never mixes the two. Runs on the GPU unless the caller passes
 ``device="cpu"``; without a GPU the default raises rather than falling back.
 Random numbers come from a ``torch.Generator`` seeded with ``seed``, unless
 the caller hands in the initial latents, the VAE sample noise and the
@@ -80,10 +83,12 @@ def build_schedule(cfg: ModelConfig) -> NoiseSchedule:
     return base
 
 
-def build_model(cfg: ModelConfig) -> nn.ModuleDict:
-    """The three networks, named as the JAX pipeline's param tree."""
+def build_model(cfg: ModelConfig, share_image_encoder: bool = True) -> nn.ModuleDict:
+    """The three networks, named as the JAX pipeline's param tree; with
+    ``share_image_encoder=False`` the multi-view UNet holds a separate
+    feature-pass UNet (``image_encoder_unet``)."""
     return nn.ModuleDict({
-        "mvd": MultiViewUNet(cfg),
+        "mvd": MultiViewUNet(cfg, share_image_encoder),
         "vae": AutoencoderKL(cfg.vae),
         "text_encoder": CLIPTextEncoder(cfg.text_encoder),
     })
@@ -200,6 +205,12 @@ class MVDPipeline:
         calls it around each validation, so that generation sees the
         latest update and the copy is not held between validations."""
         self._compute_model = None
+
+    def _check_views(self, B: int) -> None:
+        V = self.config.unet.num_views
+        if B % V:
+            raise ValueError(f"joint attention over {V} views needs a batch that {V} divides, "
+                             f"got {B} images")
 
     def _ids(self, prompts: Sequence[str], repeat: int) -> torch.Tensor:
         ids = np.repeat(np.asarray(self.tokenizer(list(prompts))), repeat, axis=0)
@@ -363,6 +374,7 @@ class MVDPipeline:
             prompts = prompts * B
         if len(prompts) != B:
             raise ValueError(f"{len(prompts)} prompts for {B} images")
+        self._check_views(B)
         model = self.compute_model
         embeds = model["text_encoder"](self._ids(prompts, 1))
         lat = model["vae"].encode_moments(_signed_range(images))[0] * cfg.vae.scaling_factor
@@ -429,6 +441,7 @@ class MVDPipeline:
         prompt = "" if prompt is None else prompt
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         B = len(prompts) * num_images_per_prompt
+        self._check_views(B)
         height = height or cfg.unet.sample_size * 8
         width = width or cfg.unet.sample_size * 8
         lat_h, lat_w = height // 8, width // 8

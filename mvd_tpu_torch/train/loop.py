@@ -13,8 +13,9 @@ Counterpart of ``mvd_tpu/train/loop.py:Trainer``:
   * validation (fractional ``val_check_interval`` validates mid-epoch, and
     every epoch ends with one): the eval loss over the val split, then
     20-step DDPM generation (guidance 1.0, ref_scale 0.1, empty prompts,
-    seed ``epoch * 1000 + batch``, ``min(2, B * V)`` images per batch) with
-    PSNR, SSIM, pixel MSE and comparison PNGs;
+    seed ``epoch * 1000 + batch``, ``min(2, B * V)`` images per batch,
+    rounded up to whole groups of the model's joint views) with PSNR, SSIM,
+    pixel MSE and comparison PNGs;
   * checkpoints (``checkpoint/io.py``: top k by ``val/noise_loss`` plus the
     latest), validation before the save, the final save skipped when the
     loop saved that step; ``--resume`` continues a run in its own run dir;
@@ -266,7 +267,10 @@ class Trainer:
         per_batch, panels = [], {}
         for bi, batch in enumerate(batches):
             B, V = batch["source_image"].shape[:2]
-            n = min(2, B * V)
+            # two images, or the smallest whole group of joint views above
+            # them (the JAX loop takes two, which only V <= 2 divides)
+            views = self.pipe.config.unet.num_views
+            n = min(B * V, -(-min(2, B * V) // views) * views)
             flat = {k: np.asarray(v).reshape((-1,) + v.shape[2:])[:n] for k, v in batch.items()}
             src = (flat["source_image"] + 1) / 2
             res = src.shape[1]

@@ -23,7 +23,9 @@ JAX step's draws in. ``make_loss_fn(with_recon_metrics=True)`` adds the
 no-grad reconstruction metrics (the VAE decode of x0-hat and of the target,
 ``train/losses.py:reconstruction_metrics``), which the Trainer runs every
 ``metrics_log_interval`` steps; gradient accumulation lives in
-``TrainState.apply_gradients``. Not ported yet: the view-sharded step
+``TrainState.apply_gradients``. (B, V, ...) batches flatten to rows
+b * V + v, so a model with joint attention over ``num_views`` = V attends
+across the V views of each sample. Not ported yet: the view-sharded step
 (ROADMAP item 16).
 """
 

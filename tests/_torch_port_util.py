@@ -56,3 +56,105 @@ def random_params(init_fn, *args, seed=0, **kwargs):
         return (0.1 * rng.normal(size=shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def joint_train_inputs(cfg, B=1, V=2, seed=0):
+    """A (B, V) train batch at ``cfg``'s latent size, as the latent cache
+    gives it (posterior moments, so no VAE encode is compiled): one source
+    view per group, V targets on an orbit."""
+    from mvd_tpu.camera import orbit_cameras
+
+    lat = cfg.unet.sample_size
+    rng = np.random.default_rng(seed)
+    cams = orbit_cameras(V).astype(np.float32)
+
+    def moments(n):  # mean, logvar
+        m = rng.normal(size=(B, n, 1, lat, lat, 4)).astype(np.float32)
+        return np.concatenate([m, -2.0 + 0.1 * m], axis=2)
+
+    return {
+        "source_moments": np.repeat(moments(1), V, axis=1),
+        "target_moments": moments(V),
+        "source_camera": np.tile(cams[:1], (B, V, 1, 1)),
+        "target_camera": np.tile(cams[None], (B, 1, 1, 1)),
+        "input_ids": rng.integers(0, cfg.text_encoder.vocab_size, (B, V, 77)).astype(np.int32),
+    }
+
+
+def jax_train_draws(key, schedule, n, lat):
+    """The JAX train step's draws (mvd_tpu/train/step.py: r_noise, r_t,
+    r_vs, r_vt) as numpy, for ``n`` flat rows of ``lat``² latents."""
+    import jax.numpy as jnp
+
+    shape = (n, lat, lat, 4)
+    r_noise, r_t, r_vs, r_vt = jax.random.split(key, 4)
+    return {
+        "noise": np.array(jax.random.normal(r_noise, shape, jnp.float32)),
+        "timesteps": np.array(jax.random.randint(r_t, (n,), 0, schedule.num_train_timesteps)),
+        "source_vae_noise": np.array(jax.random.normal(r_vs, shape, jnp.float32)),
+        "target_vae_noise": np.array(jax.random.normal(r_vt, shape, jnp.float32)),
+    }
+
+
+_JOINT_RUN = {}
+
+
+def jax_joint_train_run():
+    """The loss and gradient norms of one JAX train step on the depth-cut
+    TINY_MODEL with joint attention over 2 views and remat on (its
+    default), from random params: (params, batch, draws, metrics as numpy).
+    The step's own loss function and gradient (``mvd_tpu/train/step.py``:
+    ``make_loss_fn`` with the source rows deduplicated, ``value_and_grad``
+    over the trainable split, ``grad_group_norms``) under one ``jax.jit``;
+    the optimizer update, which the metrics do not read, is left out, as is
+    the step's ahead-of-time compile with its layout search, which cost
+    more than the rest. Computed once per process: the joint and the remat
+    tests share it."""
+    if _JOINT_RUN:
+        return _JOINT_RUN
+    import jax.numpy as jnp
+
+    from mvd_tpu.config import TINY_MODEL, TrainConfig
+    from mvd_tpu.nn import AutoencoderKL, CLIPTextEncoder, MultiViewUNet
+    from mvd_tpu.parallel import for_view_sharding
+    from mvd_tpu.pipeline import MVDPipeline
+    from mvd_tpu.train import step as jstep
+    from mvd_tpu.train import trainable_mask
+
+    V = 2
+    cfg = cut_config(TINY_MODEL)
+    cfg = for_view_sharding(cfg, V, 1)
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, remat=True))
+    lat = cfg.unet.sample_size
+    z = jnp.zeros((V, lat, lat, 4))
+    cam = jnp.tile(jnp.eye(4)[None], (V, 1, 1))
+    params = {
+        "mvd": random_params(MultiViewUNet(cfg).init, z, jnp.zeros((), jnp.int32),
+                             jnp.zeros((V, 77, cfg.unet.cross_attention_dim)),
+                             source_camera=cam, target_camera=cam, source_image_latents=z, seed=21),
+        "vae": random_params(AutoencoderKL(cfg.vae).init, jnp.zeros((1, 16, 16, 3)), seed=22),
+        "text_encoder": random_params(CLIPTextEncoder(cfg.text_encoder).init,
+                                      jnp.zeros((1, 77), jnp.int32), seed=23),
+    }
+    tcfg = TrainConfig(model=cfg, batch_size=1, image_size=lat * 8, num_views=V)
+    pipe = MVDPipeline(cfg, jax.tree.map(jnp.asarray, params))
+    loss_fn = jstep.make_loss_fn(pipe, pipe.schedule, tcfg,
+                                 source_repeat=V if tcfg.unique_source_encode else 1)
+    mvd = jax.tree.map(jnp.asarray, params["mvd"])
+    t_params, f_params = jstep.split_params(mvd, trainable_mask(mvd, tcfg.train_denoising_unet))
+
+    def metrics_of(t_params, frozen, batch, rng):
+        def loss_t(tp):
+            return loss_fn(jstep.merge_params(tp, f_params), frozen, batch, rng)
+
+        (_, metrics), grads = jax.value_and_grad(loss_t, has_aux=True)(t_params)
+        return {**metrics, **jstep.grad_group_norms(grads)}
+
+    frozen = {"vae": pipe.params["vae"], "text_encoder": pipe.params["text_encoder"]}
+    batch = joint_train_inputs(cfg, V=V)
+    flat = {k: jstep._flat(jnp.asarray(v)) for k, v in batch.items()}
+    key = jax.random.PRNGKey(31)
+    m = jax.jit(metrics_of)(t_params, frozen, flat, key)
+    _JOINT_RUN.update(params=params, batch=batch, metrics={k: np.asarray(v) for k, v in m.items()},
+                      draws=jax_train_draws(key, pipe.schedule, V, lat))
+    return _JOINT_RUN

@@ -555,3 +555,106 @@ def test_ssim_stays_f32_under_global_tf32(cuda):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     want = ssim(a.cpu(), b.cpu(), data_range=1.0, per_image=True)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+
+
+# ------------------------------------------------- joint multi-view lengths
+
+JOINT_GEN, JOINT_TRAIN = 4 * 64 * 64, 2 * 96 * 96  # merged self-attention lengths
+
+
+def test_flash_kernel_at_the_joint_generation_length(cuda):
+    """K1 at the 4-view 512² self site (one group of 16,384 tokens, 5
+    heads) against its plain version; batch 0 bitwise unchanged when batch
+    1's K/V turn to NaN at that length."""
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v = (randn((1, JOINT_GEN, 320)) for _ in range(3))
+    out, lse = flash_attention_packed_fwd(q, k, v, 5)
+    torch.cuda.synchronize()
+    want, want_lse = attention_packed_plain(q, k, v, 5)
+    _assert_out_close(out, want, lse, want_lse, f"K1 at S {JOINT_GEN}")
+    del want, want_lse
+    q2, k2, v2 = (torch.cat([t, randn(t.shape)]) for t in (q, k, v))
+    out2, lse2 = flash_attention_packed_fwd(q2, k2, v2, 5)
+    k2[1], v2[1] = float("nan"), float("nan")
+    out3, lse3 = flash_attention_packed_fwd(q2, k2, v2, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(out2[0], out3[0]) and torch.equal(lse2[0], lse3[0])
+    assert torch.equal(out2[0], out[0]) and torch.equal(lse2[0], lse[0])
+
+
+def test_flash_bwd_kernels_at_the_joint_train_length(cuda):
+    """K3a/K3b at the 2-view 768² self length (18,432 tokens, 2 heads, one
+    row) against the plain backward, head by head."""
+    from mvd_tpu_torch.kernels.measure import plain_bwd_by_row
+
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v, do = (randn((1, JOINT_TRAIN, 128)) for _ in range(4))
+    out, lse = flash_attention_packed_fwd(q, k, v, 2)
+    got = flash_attention_packed_bwd(q, k, v, out, lse, do, 2)
+    torch.cuda.synchronize()
+    want = plain_bwd_by_row(q, k, v, out, lse, do, 2, by_head=True)
+    for name, g, w in zip("dq dk dv".split(), got, want):
+        _assert_grad_close(g, w, f"{name} at S {JOINT_TRAIN}")
+
+
+def test_remat_train_step_launches_the_flash_kernels_as_without(cuda):
+    """A full-width joint train step (2 views, 256²) with remat launches K1,
+    K3a and K3b exactly as often as without it, and K2 once more for every
+    GroupNorm of a remat'd block; its loss is bitwise the same."""
+    import dataclasses
+
+    import numpy as np
+
+    from mvd_tpu_torch.camera import orbit_cameras
+    from mvd_tpu_torch.config import ModelConfig, TrainConfig, UNetConfig
+    from mvd_tpu_torch.kernels import KERNELS
+    from mvd_tpu_torch.nn.layers import GroupNorm, ResnetBlock, Transformer2D
+    from mvd_tpu_torch.pipeline.pipeline import build_model, build_schedule, init_weights
+    from mvd_tpu_torch.train import TrainState, make_train_step
+
+    mcfg = ModelConfig(unet=UNetConfig(sample_size=32, num_views=2), dtype="bfloat16")
+    with torch.device("cuda"):
+        model = build_model(mcfg)
+    init_weights(model, torch.Generator("cuda").manual_seed(0))
+    cfg = TrainConfig(model=mcfg)
+    state = TrainState.create(model, cfg, 10)
+    step = make_train_step(build_schedule(mcfg).to("cuda"), cfg)
+    img = lambda: torch.rand((1, 2, 256, 256, 3), generator=cuda, device="cuda") * 2 - 1
+    cams = torch.as_tensor(orbit_cameras(2), device="cuda")
+    batch = {"source_image": img(), "target_image": img(),
+             "source_camera": cams[:1].expand(2, 4, 4).reshape(1, 2, 4, 4).contiguous(),
+             "target_camera": cams.reshape(1, 2, 4, 4),
+             "input_ids": torch.as_tensor(np.zeros((1, 2, 77), np.int64), device="cuda")}
+    unet = model["mvd"].unet
+    runs = []
+    for remat in (True, False):
+        unet.cfg = dataclasses.replace(unet.cfg, remat=remat)
+        before = {k: f.launches for k, f in KERNELS.items()}
+        m = step(state, batch, generator=torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        runs.append(({k: f.launches - before[k] for k, f in KERNELS.items()}, m["noise_loss"]))
+    (on, loss_on), (off, loss_off) = runs
+    gn = sum(isinstance(g, GroupNorm) for b in unet.modules()
+             if isinstance(b, (ResnetBlock, Transformer2D)) for g in b.modules())
+    assert on == {**off, "groupnorm_silu": off["groupnorm_silu"] + gn} and off["flash_attn_fwd"] > 0
+    assert torch.equal(loss_on, loss_off)
+
+
+def test_kept_conv_gradients_are_the_convs_on_the_card(cuda):
+    """A ResnetBlock computing in bf16 on the card (f32 parameters, every
+    one trained), under a checkpoint whose tape keeps its conv outputs:
+    input and parameter gradients bitwise those without the checkpoint (the
+    kept conv's backward is cuDNN's as autograd calls it)."""
+    from mvd_tpu_torch.nn import unet as tunet
+    from mvd_tpu_torch.nn.layers import ResnetBlock, set_compute_dtype
+
+    torch.manual_seed(0)
+    block = set_compute_dtype(ResnetBlock(64, 128, norm_num_groups=32, temb_dim=32).cuda(), torch.bfloat16)
+    x = torch.randn((2, 64, 24, 24), generator=cuda, device="cuda").bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    temb = torch.randn((2, 32), generator=cuda, device="cuda").bfloat16()
+    g = torch.randn((2, 128, 24, 24), generator=cuda, device="cuda").bfloat16()
+    wrt = [x, *block.parameters()]
+    plain = torch.autograd.grad(block(x, temb), wrt, g)
+    kept = torch.autograd.grad(tunet._remat(block, tunet.remat_context("flash_conv"), x, temb), wrt, g)
+    assert all(torch.equal(a, b) for a, b in zip(plain, kept))

@@ -131,10 +131,9 @@ def _fields_equal(t_obj, j_obj, path="cfg"):
     return skipped | {f"{path}.{n}" for n in j_fields - {f.name for f in dataclasses.fields(t_obj)}}
 
 
-# JAX fields of paths the port does not run yet (remat, joint multi-view
-# attention, the mesh); the port's UNet is always SD2.1's linear projection
-NOT_PORTED = {"cfg.model.unet.use_linear_projection", "cfg.model.unet.remat",
-              "cfg.model.unet.num_views", "cfg.model.unet.view_axis", "cfg.mesh_shape"}
+# JAX fields of paths the port does not run yet (the mesh); the port's UNet
+# is always SD2.1's linear projection
+NOT_PORTED = {"cfg.model.unet.use_linear_projection", "cfg.mesh_shape"}
 
 
 @pytest.mark.parametrize("name", ["train_config.yaml", "train_config_all.yaml", "evidence_256.yaml",

@@ -399,7 +399,7 @@ def test_train_and_precompute_clis_on_the_cpu(small_corpus, tmp_path):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--tiny"], RuntimeError, "CUDA is not available"),  # no CPU fallback without --device cpu
-    (["--num-views", "2"], SystemExit, "item 11"),
+    (["--num-views", "2", "--mesh-view", "2"], SystemExit, "item 16"),  # views over a mesh
     (["--mesh-view", "2"], SystemExit, "item 16"),
     (["--num-processes", "2"], SystemExit, "item 16"),
 ])
