@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases; any failure exits non-zero:
+Nine phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -102,7 +102,20 @@ Eight phases; any failure exits non-zero:
    routing gives at the merged lengths; (d) the joint train step at the
    reference point (batch 6 of 2 views, 12 UNet rows, 768²): phase 4 with
    two views, the same checks and prints; (e) ``cli.train.main
-   --num-views 2`` on phase 5's corpus, 2 steps and one validation.
+   --num-views 2`` on phase 5's corpus, 2 steps and one validation;
+7. the multi-device path on one card: (a) K4m (``csrc/ring_merge.cu``)
+   against ``ring_merge_plain`` at a rank's shape of each ``RING_CASES``
+   case (f32, within ``MERGE_ULPS`` ulp, bitwise repeatable, batch 0
+   unchanged by NaN in batch 1), timed beside its bytes bound; then ring
+   attention (K4) as n virtual ranks in one process (``RING_CASES``: 4
+   ranks of S 4096 at B 1, the 4-view 512² joint length; 2 ranks of S 9216
+   at B 6, the 2-view 768² train length), forward and backward, with
+   exactly K1 n², K4m n(n - 1), K3a and K3b n² launches each and no plain
+   call, held on every row to the unsharded K1 and K3a/K3b at the whole
+   length and timed in turns with them beside SDPA; (b) NCCL at world size
+   1: ``distributed.initialize`` from torchrun's variables, ``make_mesh``,
+   and phase 4's train step through the data-parallel branch, one
+   all-reduce a step, bitwise equal to the step without a mesh.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
 generation, one call of each sampler configuration of phase 3c and one
@@ -583,6 +596,7 @@ def expected_launches(pipe, steps: int, cached_steps: int = 0, inversion: bool =
         "flash_attn_int8": 0,
         "quantize_int8": 0,
         "groupnorm_silu": unet_gn * (full + 1) + dec_gn * cached_steps + vae_gn,
+        "ring_merge": 0,
     }
 
 
@@ -1225,6 +1239,7 @@ def expected_train_launches(model):
         "flash_attn_int8": 0,
         "quantize_int8": 0,
         "groupnorm_silu": unet_gn * 2 + enc_gn * 2 + again_gn,
+        "ring_merge": 0,
     }
 
 
@@ -1742,8 +1757,8 @@ def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
         per_call = []
         make_step = loop.make_train_step
 
-        def counted_steps(schedule, cfg):
-            step = make_step(schedule, cfg)
+        def counted_steps(schedule, cfg, **kw):
+            step = make_step(schedule, cfg, **kw)
 
             def run(state, batch, **k):
                 before, _ = read_counts()
@@ -2017,6 +2032,296 @@ def phase_joint_train_entry(corpus: str):
 
 # device-kernel name patterns (regular expressions) of each port kernel in a
 # torch.profiler trace
+def _ring_counts_want(n: int, backward: bool) -> dict:
+    """The launches of one virtual ring call over n ranks: forward K1 n²
+    and K4m n(n - 1); backward K3a and K3b n² each; nothing else."""
+    from mvd_tpu_torch.kernels import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    if backward:
+        want.update(flash_attn_bwd_dq=n * n, flash_attn_bwd_dkv=n * n)
+    else:
+        want.update(flash_attn_fwd=n * n, ring_merge=n * (n - 1))
+    return want
+
+
+def check_merge(B: int, S: int, H: int, gen) -> dict:
+    """K4m against ``ring_merge_plain`` at (B, S, H), D 64, f32: every
+    element within MERGE_ULPS ulp of the terms' magnitude (o: (|o| w +
+    |o_i| w_i) / (w + w_i); lse: |m| + |log(w + w_i)|), the largest error
+    relative to the plain result printed; two launches bitwise equal; with
+    B > 1, batch 0 bitwise unchanged by NaN in all of batch 1. Timed by
+    CUDA-graph replay beside the plain version and the bytes bound."""
+    import torch
+
+    from mvd_tpu_torch.kernels import ring_merge, ring_merge_plain
+    from mvd_tpu_torch.kernels.measure import D, MERGE_ULPS, merge_bounds, time_graph_ms, time_ms
+
+    HD = H * D
+    o = torch.randn(B, S, HD, generator=gen, device="cuda")
+    o_i = torch.randn(B, S, HD, generator=gen, device="cuda").bfloat16()
+    lse, lse_i = (torch.randn(B, S, H, generator=gen, device="cuda") * 2 + 6 for _ in range(2))
+    got_o, got_l = o.clone(), lse.clone()
+    ring_merge(got_o, got_l, o_i, lse_i, H)
+    want_o, want_l = o.clone(), lse.clone()
+    ring_merge_plain(want_o, want_l, o_i, lse_i, H)
+    torch.cuda.synchronize()
+    m = torch.maximum(lse, lse_i)
+    w, w_i = torch.exp(lse - m), torch.exp(lse_i - m)
+    heads = lambda t: t.view(B, S, H, D)
+    scale = ((heads(o).abs() * w[..., None] + heads(o_i.float()).abs() * w_i[..., None])
+             / (w + w_i)[..., None]).view(B, S, HD)
+    ulp = 2.0 ** -24
+    o_ulps = ((got_o - want_o).abs() / (scale * ulp)).max().item()
+    l_ulps = ((got_l - want_l).abs() / ((m.abs() + torch.log(w + w_i).abs()) * ulp)).max().item()
+    rel = ((got_o - want_o).abs() / want_o.abs().clamp_min(1e-6)).max().item()
+    label = f"merge B{B} S{S} H{H}"
+    if not (torch.isfinite(got_o).all() and torch.isfinite(got_l).all()
+            and o_ulps <= MERGE_ULPS and l_ulps <= MERGE_ULPS):
+        raise AssertionError(f"K4m {label}: o off by {o_ulps:.2f} ulp, lse by {l_ulps:.2f} ulp "
+                             f"(at most {MERGE_ULPS})")
+    again_o, again_l = o.clone(), lse.clone()
+    ring_merge(again_o, again_l, o_i, lse_i, H)
+    if not (torch.equal(again_o, got_o) and torch.equal(again_l, got_l)):
+        raise AssertionError(f"K4m {label}: two launches differ")
+    if B > 1:
+        nan_o, nan_l = o.clone(), lse.clone()
+        nan_o[1], nan_l[1] = float("nan"), float("nan")
+        ring_merge(nan_o, nan_l, o_i, lse_i, H)
+        if not (torch.equal(nan_o[0], got_o[0]) and torch.equal(nan_l[0], got_l[0])):
+            raise AssertionError(f"K4m {label}: NaN in batch 1 changed batch 0")
+    err = (got_o - want_o).abs().max().item()
+    ms = time_graph_ms(lambda: ring_merge(got_o, got_l, o_i, lse_i, H))
+    plain_ms = time_ms(lambda: ring_merge_plain(want_o, want_l, o_i, lse_i, H), 5)
+    bound = merge_bounds(B, S, H)
+    print(f"[ring] K4m {label}: within {MERGE_ULPS} ulp of the plain version (o {o_ulps:.2f} ulp, lse "
+          f"{l_ulps:.2f} ulp, max relative error {rel:.3g}, max abs err {err:.3g}); bitwise repeatable"
+          + ("; batch 0 unchanged by NaN in batch 1" if B > 1 else "")
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bytes'] / 1e6:.1f} MB, bytes): share {bound['bound_ms'] / ms:.3f}")
+    return dict(case=label, max_abs_err=err, max_rel_err=rel, ulps=max(o_ulps, l_ulps), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bound_share=bound["bound_ms"] / ms, library_ms=None)
+
+
+def _plain_ring_fwd(qs, ks, vs, H):
+    """The virtual ring's schedule with the plain version of every call."""
+    from mvd_tpu_torch.kernels import attention_packed_plain, ring_merge_plain
+
+    n = len(qs)
+    for r in range(n):
+        o, lse = attention_packed_plain(qs[r], ks[r], vs[r], H)
+        o = o.float()
+        for hop in range(1, n):
+            o_i, lse_i = attention_packed_plain(qs[r], ks[(r - hop) % n], vs[(r - hop) % n], H)
+            ring_merge_plain(o, lse, o_i, lse_i, H)
+
+
+def _plain_ring_bwd(qs, ks, vs, outs, lses, dos, H):
+    from mvd_tpu_torch.kernels import attention_packed_bwd_plain
+
+    n = len(qs)
+    for hop in range(n):
+        for r in range(n):
+            attention_packed_bwd_plain(qs[r], ks[(r - hop) % n], vs[(r - hop) % n], outs[r], lses[r],
+                                       dos[r], H)
+
+
+def check_ring(label: str, B: int, S: int, H: int, n: int, clock: float, gen) -> tuple:
+    """K4, the ring of n virtual ranks (S query rows and keys each),
+    forward and backward, with the counts set to 0 before each and read
+    after: exactly ``_ring_counts_want``'s launches and no plain call. Held
+    on every row to the unsharded K1 and K3a/K3b at the whole length n*S
+    (``check_attention`` / ``check_grad``: kernel against kernel, since the
+    plain versions do not fit at these lengths). Then timed in turns with
+    the unsharded kernels, beside SDPA and the bounds; the plain schedule
+    timed once (forward and, at B 1, backward; at B > 1 on batch row 0).
+    Returns (the case, the forward's and the backward's launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.kernels import (
+        flash_attention_packed_bwd,
+        flash_attention_packed_fwd,
+        ring_attention_virtual_bwd,
+        ring_attention_virtual_fwd,
+    )
+    from mvd_tpu_torch.kernels.measure import (
+        D,
+        attn_bounds,
+        bwd_bounds,
+        check_attention,
+        check_grad,
+        merge_bounds,
+        time_ms,
+        turns,
+    )
+
+    L = n * S
+    q, k, v, do = (torch.randn(B, L, H * D, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    split = lambda t: [c.contiguous() for c in t.split(S, dim=1)]
+    qs, ks, vs, dos = map(split, (q, k, v, do))
+    counted = {}
+    for part, fn in (("fwd", lambda: ring_attention_virtual_fwd(qs, ks, vs, H)),
+                     ("bwd", lambda: ring_attention_virtual_bwd(qs, ks, vs, outs, lses, dos, H))):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        want = _ring_counts_want(n, part == "bwd")
+        if launches != want or any(plain.values()):
+            raise AssertionError(f"K4 {label} {part}: launches {launches} != {want}, or plain calls {plain}")
+        counted[part] = launches
+        if part == "fwd":
+            outs, lses = res
+        else:
+            grads = res
+    ref_out, ref_lse = flash_attention_packed_fwd(q, k, v, H)
+    err, rel = check_attention(torch.cat(outs, 1), torch.cat(lses, 1), ref_out, ref_lse, f"K4 {label}")
+    ref_grads = flash_attention_packed_bwd(q, k, v, ref_out, ref_lse, do, H)
+    checks = {name: check_grad(torch.cat(g, 1), r, f"K4 {label} {name}")
+              for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    del ref_grads, grads
+    fns = {"ring fwd": lambda: ring_attention_virtual_fwd(qs, ks, vs, H),
+           "K1": lambda: flash_attention_packed_fwd(q, k, v, H),
+           "ring bwd": lambda: ring_attention_virtual_bwd(qs, ks, vs, outs, lses, dos, H),
+           "K3": lambda: flash_attention_packed_bwd(q, k, v, ref_out, ref_lse, do, H)}
+    times = {key: [] for key in fns}
+    for key in turns(fns, 2):
+        times[key].append(time_ms(fns[key], 3, warmup=1))
+    ms = {key: statistics.median(t) for key, t in times.items()}
+    heads = lambda t: t.view(B, L, H, D).transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 3, warmup=1)
+    pick = lambda ts: [t[:1] for t in ts]
+    plain = {}
+    for part, fn, args in (("fwd", _plain_ring_fwd, (qs, ks, vs, H)),
+                           ("bwd", _plain_ring_bwd, (qs, ks, vs, outs, lses, dos, H))):
+        if part == "bwd" and B > 1:
+            continue  # (B 1, S 9216)² f32 scores per hop, several at once: not measured
+        args = args if B == 1 else tuple(pick(a) if isinstance(a, list) else a for a in args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        plain[part] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    fb, bb = attn_bounds(B, L, L, H, clock), bwd_bounds(B, L, L, H)
+    fwd_bound = max(fb["ops_ms"], fb["bytes_ms"]) + (n - 1) * n * merge_bounds(B, S, H)["bound_ms"]
+    bwd_bound = bb["dq"]["bound_ms"] + bb["dkv"]["bound_ms"]
+    case = dict(case=label, B=B, S=S, H=H, ranks=n, max_abs_err=err, rel_rms=rel,
+                grad_rel_rms={k_: c[2] for k_, c in checks.items()},
+                fwd_ms=ms["ring fwd"], unsharded_k1_ms=ms["K1"], sdpa_fwd_ms=lib_ms,
+                bwd_ms=ms["ring bwd"], unsharded_k3_ms=ms["K3"], fwd_bound_ms=fwd_bound,
+                bwd_bound_ms=bwd_bound, plain_fwd_ms=plain["fwd"], plain_bwd_ms=plain.get("bwd"),
+                plain_rows=1, launches_fwd=counted["fwd"], launches_bwd=counted["bwd"])
+    print(f"[ring] K4 {label} (B {B}, {n} ranks x S {S}, H {H}): forward within K1's tolerance of the "
+          f"unsharded K1 at {L} (err {err:.3g}, rel RMS {rel:.3g}), gradients within K3's ("
+          + ", ".join(f"{k_} rel RMS {c[2]:.3g}" for k_, c in checks.items())
+          + f"); launches forward {counted['fwd']}, backward {counted['bwd']}; forward {ms['ring fwd']:.3f} "
+          f"ms (unsharded K1 {ms['K1']:.3f}, sdpa {lib_ms:.3f}, bound {fwd_bound:.3f}), backward "
+          f"{ms['ring bwd']:.3f} ms (unsharded K3a+K3b {ms['K3']:.3f}, bound {bwd_bound:.3f}); plain "
+          f"schedule forward {plain['fwd']:.1f} ms" + (f", backward {plain['bwd']:.1f} ms" if "bwd" in plain
+                                                       else " on batch row 0, backward not measured"))
+    del q, k, v, do, qs, ks, vs, dos, outs, lses, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return case, counted
+
+
+def phase_ring():
+    """7a: K4m at each RING_CASES rank shape, then the virtual ring (K4) at
+    each RING_CASES case. Returns (K4m's cases, K4's cases, the launches of
+    the counted ring calls summed)."""
+    import torch
+
+    from mvd_tpu_torch.kernels.measure import RING_CASES, sm_clock_hz
+
+    clock = sm_clock_hz()
+    gen = torch.Generator("cuda").manual_seed(11)
+    merges = [check_merge(B, S, H, gen) for _, B, S, H, _ in RING_CASES]
+    rings, launches = [], {}
+    for label, B, S, H, n in RING_CASES:
+        case, counted = check_ring(label, B, S, H, n, clock, gen)
+        rings.append(case)
+        for part in counted.values():
+            for key, c in part.items():
+                launches[key] = launches.get(key, 0) + c
+    return merges, rings, launches
+
+
+def phase_nccl():
+    """7b: ``distributed.initialize`` from torchrun's variables (127.0.0.1,
+    a free port, world 1) and ``make_mesh(data=1)``; then phase 4's train
+    step (batch 6 at 768², remat on) from two equal states, 2 steps each:
+    without a mesh, and through the data-parallel branch and its NCCL
+    all-reduce, counted (one a step). The losses and the updated
+    parameters and AdamW state must be bitwise equal. The group is
+    destroyed after."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mvd_tpu_torch import distributed
+    from mvd_tpu_torch.config import ModelConfig, TrainConfig, UNetConfig
+    from mvd_tpu_torch.mesh import make_mesh
+    from mvd_tpu_torch.pipeline.pipeline import build_schedule
+    from mvd_tpu_torch.train import make_train_step
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        if not distributed.initialize() or dist.get_backend() != "nccl":
+            raise AssertionError("distributed.initialize did not start an NCCL group from torchrun's variables")
+        mesh = make_mesh(data=1)
+        plain_state, plain_step, batch, _ = train_setup()
+        mesh_state, _, _, _ = train_setup()
+        mcfg = ModelConfig(unet=UNetConfig(sample_size=TRAIN_RES // 8), dtype="bfloat16")
+        mesh_step = make_train_step(build_schedule(mcfg).to("cuda"), TrainConfig(model=mcfg), mesh=mesh)
+        reduces = []
+        all_reduce = dist.all_reduce
+
+        def counted(*args, **kwargs):
+            reduces.append(args[0].numel())
+            return all_reduce(*args, **kwargs)
+
+        losses = {"plain": [], "mesh": []}
+        for name, state, step in (("plain", plain_state, plain_step), ("mesh", mesh_state, mesh_step)):
+            gen = torch.Generator("cuda").manual_seed(5)
+            dist.all_reduce = counted
+            try:
+                for _ in range(2):
+                    losses[name].append(step(state, batch, generator=gen)["noise_loss"])
+            finally:
+                dist.all_reduce = all_reduce
+            torch.cuda.synchronize()
+        if len(reduces) != 2:
+            raise AssertionError(f"7b: {len(reduces)} all-reduces in 2 steps, not one a step")
+        if not all(torch.equal(a, b) for a, b in zip(losses["plain"], losses["mesh"])):
+            raise AssertionError(f"7b: losses differ: {losses}")
+        _assert_state_equal(mesh_state, _state_snapshot(plain_state), "7b: the mesh step's state")
+        secs = time.perf_counter() - t0
+        print(f"[nccl] world 1 over NCCL ({dist.get_backend()}, process group from MASTER_ADDR/PORT, "
+              f"WORLD_SIZE, RANK, LOCAL_RANK): 2 train steps through the data-parallel branch, one "
+              f"all-reduce a step of {reduces[0]} f32 values (the trainable gradients and the loss "
+              f"metrics), bitwise equal to 2 steps without a mesh (losses "
+              f"{[float(x) for x in losses['mesh']]}, parameters and AdamW state); {secs:.1f} s")
+        del plain_state, mesh_state, batch
+        torch.cuda.empty_cache()
+        return dict(all_reduce_values=reduces[0], losses=[float(x) for x in losses["mesh"]], secs=secs)
+    finally:
+        distributed.shutdown()
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
 TRACE_GROUPS = {
     "K1 flash_fwd (packed)": (r"flash_fwd_wgmma<\d+, false>",),
     "K5 flash_fwd (B, H, S, D)": (r"flash_fwd_wgmma<\d+, true>",),
@@ -2099,6 +2404,11 @@ KERNEL_META = {
         name="K5 (B, H, S, D) flash-attention forward", route="cuda",
         source="mvd_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="mvd_tpu/kernels/flash_attention.py:69", primary="self 64x64",
+    ),
+    "ring_merge": dict(
+        name="K4m ring attention's merge of a hop (ring_merge_kernel)", route="cuda",
+        source="mvd_tpu_torch/csrc/ring_merge.cu",
+        replaces="mvd_tpu/kernels/ring_attention.py:104", primary="merge B1 S4096 H5",
     ),
 }
 
@@ -2188,6 +2498,12 @@ def main(argv=None) -> int:
                          train_phase_s=time.perf_counter() - t_joint)
     print(f"[joint] phase 6: generation parts {joint_metrics['phase_s']:.1f} s, kernels and train parts "
           f"{joint_metrics['train_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t_multi = time.perf_counter()
+    merges, rings, ring_launches = phase_ring()
+    results["ring_merge"] = merges
+    multi_metrics = dict(rings=rings, nccl=phase_nccl(), phase_s=time.perf_counter() - t_multi)
+    print(f"[multi] phase 7: {multi_metrics['phase_s']:.1f} s ({card})")
 
     kernels = []
     for key, meta in KERNEL_META.items():
@@ -2196,9 +2512,12 @@ def main(argv=None) -> int:
         # each kernel's launches are those of the path it serves: generation
         # for K1/K2 (their int8-generation and train-step launches beside
         # them), the int8 generation for K6 and K6q, the train steps for
-        # K3a/K3b; K5 is an entry point no model path calls
+        # K3a/K3b; K5 is an entry point no model path calls; K4m those of
+        # phase 7a's counted ring calls
         on_train = key.startswith("flash_attn_bwd")
         path_launches = int8_launches if key in ("flash_attn_int8", "quantize_int8") else launches
+        if key == "ring_merge":
+            path_launches = ring_launches
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
@@ -2220,6 +2539,7 @@ def main(argv=None) -> int:
     print(f"[train] {json.dumps(train_metrics)}")
     print(f"[train_entry] {json.dumps(entry_train_metrics)}")
     print(f"[joint] {json.dumps(joint_metrics)}")
+    print(f"[multi] {json.dumps(multi_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

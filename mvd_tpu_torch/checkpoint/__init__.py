@@ -1,6 +1,7 @@
 from .io import (  # noqa: F401
     CheckpointManager,
     load_params,
+    load_params_into,
     peek_checkpoint_meta,
     resolve_resume_path,
     save_params,

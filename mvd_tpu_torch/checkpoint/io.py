@@ -214,14 +214,17 @@ def peek_checkpoint_meta(path: str, step: Optional[int] = None) -> Dict[str, Any
         return {}
 
 
+PARAMS_FILE = "params.pt"
+
+
 def save_params(path: str, params: Dict[str, Dict[str, torch.Tensor]],
                 config_json: Optional[str] = None):
     """Component state dicts ({"vae": ..., "text_encoder": ..., "mvd": ...})
     to ``<path>/params.pt`` (for ``--init-params`` and exports)."""
     os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, "params.pt.tmp")
+    tmp = os.path.join(path, PARAMS_FILE + ".tmp")
     torch.save({"format": FORMAT, "params": params}, tmp)
-    os.replace(tmp, os.path.join(path, "params.pt"))
+    os.replace(tmp, os.path.join(path, PARAMS_FILE))
     if config_json:
         with open(os.path.join(path, "mvd_config.json"), "w") as f:
             f.write(config_json)
@@ -229,7 +232,28 @@ def save_params(path: str, params: Dict[str, Dict[str, torch.Tensor]],
 
 def load_params(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     """What ``save_params`` wrote."""
-    blob = torch.load(os.path.join(path, "params.pt"), map_location="cpu", weights_only=True)
+    blob = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", weights_only=True)
     if blob.get("format") != FORMAT:
         raise ValueError(f"{path} was not written by save_params of this port")
     return blob["params"]
+
+
+def load_params_into(pipe, path: str) -> List[str]:
+    """Load a ``save_params`` directory into ``pipe``'s networks, component
+    by component (``vae`` / ``text_encoder`` / ``mvd``); a component the
+    directory lacks keeps its weights. A component the pipeline lacks, or
+    whose names, shapes or dtypes differ from the configured architecture,
+    raises. Returns the components loaded."""
+    loaded = []
+    for comp, sd in load_params(path).items():
+        if comp not in pipe.model:
+            raise ValueError(f"{path}: component {comp!r} not in the pipeline (have {sorted(pipe.model)})")
+        want = {k: (tuple(v.shape), v.dtype) for k, v in pipe.model[comp].state_dict().items()}
+        got = {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
+        if want != got:
+            raise ValueError(f"{path}: component {comp!r} does not match the configured architecture "
+                             "(names, shapes or dtypes)")
+        pipe.model[comp].load_state_dict(sd)
+        loaded.append(comp)
+    pipe.drop_compute_model()
+    return loaded

@@ -24,6 +24,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from .io import PARAMS_FILE, load_params_into
+
 Flat = Dict[Tuple[str, ...], np.ndarray]
 
 
@@ -306,7 +308,9 @@ def export_lightning_state_dict(mvd_params: Dict, simple_encoder: bool = False) 
 
 
 def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
-    """Load a reference Lightning ``.ckpt`` into ``pipe``'s multi-view UNet
+    """Load a directory written by ``checkpoint.save_params`` into ``pipe``,
+    component by component (``io.load_params_into``; returns ([], [])), or
+    a reference Lightning ``.ckpt`` into ``pipe``'s multi-view UNet
     (the UNet and the camera encoder; the VAE and CLIP keep their weights).
     Where the model holds a separate feature-pass UNet
     (``image_encoder_unet``, built with ``share_image_encoder=False``), the
@@ -322,11 +326,14 @@ def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
     padded to the 10 channels the ray model takes (output-preserving).
     Returns (names kept from init, [(key, reason)] skipped by the converter).
     """
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, PARAMS_FILE)):
+        print(f"loaded {', '.join(load_params_into(pipe, path))} from {path}")
+        return [], []
     if not path.endswith(".ckpt") or os.path.isdir(path):
         raise ValueError(
-            f"{path}: the port loads reference Lightning .ckpt files only; orbax "
-            "checkpoint directories wait for the port's own checkpoint IO "
-            "(ROADMAP Queue 1 item 14)")
+            f"{path}: the port loads a reference Lightning .ckpt or a directory written by "
+            f"its checkpoint.save_params (holding {PARAMS_FILE}); an orbax directory of the "
+            "JAX package is neither")
     separate = hasattr(pipe.model["mvd"], "image_encoder_unet")
     cfg = pipe.config
     tree, skipped = convert_lightning_checkpoint(path, cfg.camera_encoder.simple_encoder,

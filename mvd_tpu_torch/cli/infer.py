@@ -4,10 +4,12 @@ cameras, N generations, and source / generated / side-by-side PNGs in
 ``--output-dir``.
 
 Same flags as ``mvd_tpu/cli/infer.py``; ``--device`` picks the device (the
-GPU by default; without one the CLI raises). ``--checkpoint`` takes a
-``.ckpt`` (an orbax directory raises: the port's own checkpoint IO is not
-written yet). ``--tiny`` runs on the CPU only: its f32, 16-wide attention
-heads are not what the GPU kernels take (bf16, 64 wide).
+GPU by default; without one the CLI raises). ``--checkpoint`` takes the
+JAX CLI's two forms: a reference Lightning ``.ckpt``, or a directory written
+by the port's ``checkpoint.save_params``, loaded component by component (a
+JAX package's orbax directory raises, naming both). ``--tiny`` runs on the
+CPU only: its f32, 16-wide attention heads are not what the GPU kernels take
+(bf16, 64 wide).
 
     python -m mvd_tpu_torch.cli.infer --image-size 512 --num-images 2
     python -m mvd_tpu_torch.cli.infer --checkpoint last.ckpt --sampler dpmpp_2m --num-steps 10
@@ -37,7 +39,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--reference-rescale-quirk", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="a reference Lightning .ckpt (the multi-view UNet and camera encoder)")
+                   help="a reference Lightning .ckpt (the multi-view UNet and camera encoder) "
+                   "or a checkpoint.save_params directory")
     p.add_argument("--encoder-reuse", type=int, default=1,
                    help="k > 1: run the UNet's down path at one of every k steps and reuse its "
                    "state at the others (approximate; arXiv 2312.09608)")
@@ -54,6 +57,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Run the CLI; returns the pipeline it sampled."""
     args = build_argparser().parse_args(argv)
 
     from ..camera import look_at_camera, to_homogeneous
@@ -122,6 +126,7 @@ def main(argv=None):
         sheet = side_by_side([(src_img[0] + 1) / 2, img])
         save_image(sheet, os.path.join(args.output_dir, f"comparison_{i:02d}.png"))
     print(f"wrote {args.num_images} generations to {args.output_dir}")
+    return pipe
 
 
 if __name__ == "__main__":

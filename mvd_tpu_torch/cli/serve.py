@@ -138,9 +138,10 @@ def make_handler(pipe, size: int, lock: threading.Lock, request_timeout: float =
     return Handler
 
 
-def main(argv=None):
+def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Multi-view inference server (PyTorch/CUDA)")
-    p.add_argument("--checkpoint", default=None, help="a reference Lightning .ckpt")
+    p.add_argument("--checkpoint", default=None,
+                   help="a reference Lightning .ckpt or a checkpoint.save_params directory")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--image-size", type=int, default=512)
@@ -150,8 +151,12 @@ def main(argv=None):
     p.add_argument("--request-timeout", type=float, default=300.0,
                    help="max seconds a request may wait for the device before it is "
                         "answered 503")
-    args = p.parse_args(argv)
+    return p
 
+
+def build_pipeline(args):
+    """The server's pipeline and image size from its flags: random weights
+    from seed 0, then ``--checkpoint`` where given."""
     import dataclasses
 
     from ..checkpoint import load_checkpoint
@@ -171,6 +176,12 @@ def main(argv=None):
     pipe = MVDPipeline.create(cfg, seed=0, device=args.device)
     if args.checkpoint:
         load_checkpoint(pipe, args.checkpoint)
+    return pipe, size
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    pipe, size = build_pipeline(args)
     if args.warmup:
         pipe("warmup", num_inference_steps=2, guidance_scale=1.0, height=size, width=size, seed=0)
 

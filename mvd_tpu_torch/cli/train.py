@@ -3,17 +3,27 @@
     python -m mvd_tpu_torch.cli.train --dataset-path /data/objaverse --output-dir outputs
     python -m mvd_tpu_torch.cli.train --resume outputs/<run> --max-steps 2000
     python -m mvd_tpu_torch.cli.train --tiny --device cpu --dataset-path D --batch-size 2
+    torchrun --nproc-per-node 4 -m mvd_tpu_torch.cli.train --mesh-data 2 --mesh-view 2 \
+        --num-views 2 --dataset-path D
 
 The flags of ``mvd_tpu/cli/train.py``, plus ``--device`` (the GPU by
 default; without one the CLI raises; ``--tiny`` runs on the CPU only, as in
 ``cli/infer.py``) and ``--wandb`` (log to W&B as well as the JSONL; W&B is
 not imported otherwise). ``--config`` needs PyYAML. ``--init-params`` takes
 a directory written by ``checkpoint.save_params``. ``--num-views`` V above 1
-trains joint multi-view attention over the V views of each sample on one
-device (``parallel.for_view_sharding(cfg, V, 1)``; the loader yields V views
-a sample). A mesh or several processes (``--mesh-data``, ``--mesh-view``,
-``--num-slices`` above 1, ``--coordinator``, ``--num-processes``,
-``--process-id``) are ROADMAP item 16: each raises.
+trains joint multi-view attention over the V views of each sample (the
+loader yields V views a sample).
+
+Several processes, one per GPU (``distributed.initialize``): under torchrun
+or SLURM, or with ``--coordinator``, ``--num-processes`` and
+``--process-id``; ``--device cpu`` runs them on the CPU over gloo. The mesh
+is ``--mesh-view`` processes on the view axis (ring attention over the V
+views, ``parallel.for_view_sharding(cfg, V, mesh_view)``; V must divide
+over them) times ``--mesh-data`` (default: the rest) on the data axis;
+``--batch-size`` is per data index, as in the JAX CLI (the reference's
+per-rank batch), so the global batch is ``batch_size * mesh_data``. Each
+process loads its data index's rows. ``--num-slices`` above 1 raises
+(ROADMAP item 16).
 ``main(argv, **overrides)`` returns the ``Trainer`` after ``fit``;
 ``overrides`` are ``TrainConfig`` fields that no flag reaches (for example
 ``metrics_log_interval``), applied after the flags.
@@ -44,12 +54,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--num-views", type=int, default=1,
                    help="views per sample; >1 trains joint multi-view attention over them")
-    p.add_argument("--mesh-data", type=int, default=None, help="multi-GPU: ROADMAP item 16")
-    p.add_argument("--mesh-view", type=int, default=1, help="multi-GPU: ROADMAP item 16")
-    p.add_argument("--num-slices", type=int, default=1, help="multi-GPU: ROADMAP item 16")
-    p.add_argument("--coordinator", type=str, default=None, help="multi-host: ROADMAP item 16")
-    p.add_argument("--num-processes", type=int, default=None, help="multi-host: ROADMAP item 16")
-    p.add_argument("--process-id", type=int, default=None, help="multi-host: ROADMAP item 16")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel processes (default: all processes / --mesh-view)")
+    p.add_argument("--mesh-view", type=int, default=1,
+                   help="view-parallel processes (ring attention over the views)")
+    p.add_argument("--num-slices", type=int, default=1, help="multi-slice mesh: ROADMAP item 16")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0 (or MVD_COORDINATOR; torchrun's MASTER_ADDR/PORT)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count (MVD_NUM_PROCESSES; torchrun's WORLD_SIZE)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (MVD_PROCESS_ID; torchrun's RANK)")
     p.add_argument("--latent-cache-dir", type=str, default=None,
                    help="latent-moment cache (cli/precompute_latents.py): train batches skip the "
                    "per-step VAE encode")
@@ -65,26 +80,21 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if ((args.mesh_data or 1) > 1 or args.mesh_view > 1 or args.num_slices > 1
-            or args.coordinator or (args.num_processes or 1) > 1 or args.process_id):
-        raise SystemExit("a mesh or several processes is multi-GPU training, ROADMAP item 16: "
-                         "not ported yet")
+    if args.num_slices > 1:
+        raise SystemExit("a mesh over several slices is ROADMAP item 16: not ported yet")
+    if args.mesh_view > 1 and args.num_views % args.mesh_view:
+        raise SystemExit(f"--mesh-view {args.mesh_view} shards the views of a sample: "
+                         f"--num-views ({args.num_views}) must divide over it")
 
 
 def _load_init_params(pipe, path: str) -> None:
-    from ..checkpoint import load_params
+    from ..checkpoint import load_params_into
 
-    for comp, sd in load_params(path).items():
-        if comp not in pipe.model:
-            raise SystemExit(f"--init-params component {comp!r} not in the pipeline "
-                             f"(have {sorted(pipe.model)})")
-        want = {k: (tuple(v.shape), v.dtype) for k, v in pipe.model[comp].state_dict().items()}
-        got = {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
-        if want != got:
-            raise SystemExit(f"--init-params component {comp!r} does not match the configured "
-                             "architecture (names, shapes or dtypes)")
-        pipe.model[comp].load_state_dict(sd)
-        logging.getLogger(__name__).info("initialized %r from %s", comp, path)
+    try:
+        loaded = load_params_into(pipe, path)
+    except ValueError as e:
+        raise SystemExit(f"--init-params: {e}") from e
+    logging.getLogger(__name__).info("initialized %s from %s", ", ".join(loaded), path)
 
 
 def _check_cache_dtype(latent_cache_dir: str, dtype: str) -> None:
@@ -108,9 +118,29 @@ def main(argv=None, **overrides):
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
 
+    import torch.distributed as dist
+
+    from .. import distributed
+
+    cpu = args.device == "cpu"
+    started = not dist.is_initialized() and distributed.initialize(
+        args.coordinator, args.num_processes, args.process_id,
+        backend="gloo" if cpu else "nccl", device=args.device)
+    try:
+        return _main(args, overrides)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _main(args, overrides):
+    import torch
+
+    from .. import distributed
     from ..checkpoint import peek_checkpoint_meta
     from ..config import TINY_MODEL, DataConfig, TrainConfig, data_config_from_yaml, train_config_from_yaml
     from ..data.objaverse import ObjaverseDataModule
+    from ..mesh import make_mesh
     from ..parallel import for_view_sharding
     from ..pipeline import MVDPipeline
     from ..pipeline.pipeline import resolve_device
@@ -118,6 +148,18 @@ def main(argv=None, **overrides):
     from ..utils.logging import MetricLogger, enable_nan_debugging
 
     device = resolve_device(args.device)
+    world = distributed.process_count()
+    mesh_view = args.mesh_view
+    mesh_data = args.mesh_data or max(1, world // mesh_view)
+    if mesh_data * mesh_view > world:
+        raise SystemExit(f"a mesh of {mesh_data} x {mesh_view} processes needs as many, have "
+                         f"{world}: launch under torchrun or SLURM, or pass --coordinator, "
+                         "--num-processes and --process-id")
+    mesh = None
+    if torch.distributed.is_initialized():  # a process group, even of one under torchrun
+        mesh = make_mesh(data=mesh_data, view=mesh_view)
+        if device.type == "cuda":
+            device = distributed.device()
     if args.tiny and device.type != "cpu":
         raise ValueError("--tiny runs on the CPU only (f32, 16-wide heads; the GPU kernels take "
                          "bf16 and 64-wide heads): add --device cpu")
@@ -136,7 +178,7 @@ def main(argv=None, **overrides):
     cfg = dataclasses.replace(cfg, num_views=args.num_views, **overrides)
     model_cfg = cfg.model
     if args.num_views > 1:
-        model_cfg = for_view_sharding(model_cfg, args.num_views, args.mesh_view)
+        model_cfg = for_view_sharding(model_cfg, args.num_views, mesh_view)
     if args.use_ray_conditioning:
         model_cfg = dataclasses.replace(model_cfg, use_ray_conditioning=True)
     # the latent size follows the training resolution
@@ -153,13 +195,17 @@ def main(argv=None, **overrides):
     pipe = MVDPipeline.create(model_cfg, seed=cfg.seed, device=device)
     if args.init_params:
         _load_init_params(pipe, args.init_params)
+    # batch_size is per data index (the reference's per-rank batch); each
+    # process loads its data index's rows of the global batch
     dm = ObjaverseDataModule(
-        dataset_path, pipe.tokenizer, image_size=cfg.image_size, batch_size=cfg.batch_size,
+        dataset_path, pipe.tokenizer, image_size=cfg.image_size,
+        batch_size=cfg.batch_size * mesh_data,
         max_views_per_object=data_cfg.max_views_per_object,
         dataset_samples=data_cfg.dataset_samples, num_workers=data_cfg.num_workers,
         views_per_sample=max(1, args.num_views), seed=cfg.seed,
         dataset_format=args.dataset_format or data_cfg.dataset_format,
         latent_cache_dir=latent_cache_dir,
+        process_count=mesh_data, process_index=mesh.axis("data").index if mesh is not None else 0,
     )
     dm.setup()
 
@@ -170,9 +216,9 @@ def main(argv=None, **overrides):
         wandb_id = peek_checkpoint_meta(args.resume).get("wandb_run_id")
     metric_logger = MetricLogger(os.path.join(args.output_dir, "logs"), run_name=args.run_name,
                                  run_id=wandb_id, config={"config": str(cfg)},
-                                 use_wandb=args.wandb)
-    trainer = Trainer(cfg, pipe, dm, output_dir=args.output_dir, logger=metric_logger,
-                      resume_from=args.resume)
+                                 use_wandb=args.wandb, enabled=distributed.is_primary())
+    trainer = Trainer(cfg, pipe, dm, mesh=mesh, view_sharded=mesh_view > 1,
+                      output_dir=args.output_dir, logger=metric_logger, resume_from=args.resume)
     trainer.fit(resume=bool(args.resume))
     return trainer
 

@@ -8,9 +8,9 @@ and defaults are the JAX package's, so a config built for one side
 describes the same model on the other. ``UNetConfig.remat`` (read from
 ``enable_gradient_checkpointing``) checkpoints the UNet's heavy blocks in
 training (``nn/unet.py``); ``UNetConfig.num_views`` > 1 is joint multi-view
-self-attention on one device. ``view_axis``, the view axis of a mesh, is
-carried but raises: the mesh is ROADMAP item 16. PyYAML is imported by the
-two loaders only, never at import.
+self-attention; with ``view_axis`` naming the mesh's view axis, a sharded
+call (``parallel.py``) runs it as ring attention over the view processes.
+PyYAML is imported by the two loaders only, never at import.
 """
 
 from __future__ import annotations
@@ -61,8 +61,9 @@ class UNetConfig:
     img_ref_scale: float = 0.3  # adapter output scale
     # joint multi-view attention: with num_views > 1 the flat (B*V, S, D)
     # rows (row b*V + v) self-attend over the (V*S) tokens of their group.
-    # view_axis names the mesh axis the views would be sharded over (ring
-    # attention, ROADMAP item 16); a config may carry it, a model raises.
+    # view_axis names the mesh axis the views are sharded over: inside a
+    # sharded call the self-attention of each group runs as ring attention
+    # over that axis (nn/layers.py:Attention, kernels/ring_attention.py)
     num_views: int = 1
     view_axis: Optional[str] = None
 

@@ -19,9 +19,10 @@ both packages read a corpus into the same batches:
 
 The loader returns (B, V, ...) numpy batches. Unlike the JAX package's,
 whose worker threads hand batches over in the order they finish, it yields
-them in batch order whatever ``num_workers`` is. Not ported yet: the
-``use_native`` C++ reader (``data/native_loader.py``) and a loader of one
-process's share of each batch (multi-GPU, ROADMAP item 16).
+them in batch order whatever ``num_workers`` is; over several processes
+each loads its contiguous rows of every global batch (``process_count``,
+``process_index``). Not ported yet: the ``use_native`` C++ reader
+(``data/native_loader.py``).
 """
 
 from __future__ import annotations
@@ -345,7 +346,14 @@ class DataLoader:
     """Thread-pool loader of (B, V, ...) numpy batches: ``num_workers``
     threads (at least one) load up to ``prefetch`` batches ahead, and the
     batches come out in batch order. A batch whose load fails is skipped
-    with a warning (the dataset heals itself underneath)."""
+    with a warning (the dataset heals itself underneath).
+
+    Over ``process_count`` processes every process computes the same global
+    batch order (the seeded shuffle) and loads only its contiguous
+    ``batch_size / process_count`` rows of each batch, in process order (the
+    DistributedSampler's role); ``batch_size`` stays the global batch and
+    ``len`` the global step count. A batch that the process count does not
+    divide raises."""
 
     def __init__(
         self,
@@ -358,6 +366,8 @@ class DataLoader:
         num_workers: int = 4,
         prefetch: int = 4,
         drop_last: bool = True,
+        process_count: int = 1,
+        process_index: int = 0,
     ):
         self.ds = dataset
         self.tokenizer = tokenizer
@@ -369,6 +379,11 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
         self.epoch = 0
+        self.process_count = max(1, process_count)
+        self.process_index = process_index
+        if batch_size % self.process_count:
+            raise ValueError(f"global batch_size ({batch_size}) must be divisible by the process "
+                             f"count ({self.process_count})")
 
     def __len__(self):
         if self.V > 1:
@@ -413,8 +428,11 @@ class DataLoader:
             random.Random(self.seed + self.epoch).shuffle(order)
         self.epoch += 1
         per_batch = self.batch_size if groups is not None else self.batch_size * self.V
-        batches = iter([order[i:i + per_batch]
-                        for i in range(0, len(order) - per_batch + 1, per_batch)])
+        batches = [order[i:i + per_batch] for i in range(0, len(order) - per_batch + 1, per_batch)]
+        if self.process_count > 1:  # this process's contiguous rows of every global batch
+            k = per_batch // self.process_count
+            batches = [bi[self.process_index * k:(self.process_index + 1) * k] for bi in batches]
+        batches = iter(batches)
         pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix="mvd-loader")
         pending = deque()
         try:
@@ -437,12 +455,14 @@ class ObjaverseDataModule:
     """train/val/test datasets, their loaders and the checkpointable state.
     ``dataset_format`` is "objaverse" (rendered-zip shards) or "co3d"
     (``data/co3d.py``); only objaverse takes a latent cache (train split
-    only: validation generates from and compares against pixels)."""
+    only: validation generates from and compares against pixels).
+    ``process_count`` / ``process_index`` go to every loader."""
 
     def __init__(self, data_root: str, tokenizer, image_size=768, batch_size=6,
                  max_views_per_object=8, dataset_samples=None, views_per_sample=1,
                  num_workers=4, seed=42, dataset_format: str = "objaverse",
-                 latent_cache_dir: Optional[str] = None):
+                 latent_cache_dir: Optional[str] = None, process_count: int = 1,
+                 process_index: int = 0):
         self.kwargs = dict(data_root=data_root, image_size=image_size,
                            max_views_per_object=max_views_per_object,
                            dataset_samples=dataset_samples, seed=seed,
@@ -453,6 +473,8 @@ class ObjaverseDataModule:
         self.num_workers = num_workers
         self.dataset_format = dataset_format
         self.latent_cache_dir = latent_cache_dir
+        self.process_count = process_count
+        self.process_index = process_index
         self.datasets: Dict[str, ObjaverseDataset] = {}
 
     def _dataset_cls(self):
@@ -483,7 +505,8 @@ class ObjaverseDataModule:
             self.datasets[split], self.tokenizer, batch_size=self.batch_size,
             views_per_sample=self.views_per_sample,
             shuffle=shuffle if shuffle is not None else split == "train",
-            num_workers=self.num_workers,
+            num_workers=self.num_workers, process_count=self.process_count,
+            process_index=self.process_index,
         )
 
     def state_dict(self):

@@ -35,6 +35,13 @@ from .flash_attention import (  # noqa: F401
     smooth_k,
     xla_attention,
 )
+from .ring_attention import (  # noqa: F401
+    ring_attention_packed,
+    ring_attention_virtual_bwd,
+    ring_attention_virtual_fwd,
+    ring_merge,
+    ring_merge_plain,
+)
 from .groupnorm_silu import (  # noqa: F401
     GroupNormSiLU,
     groupnorm_silu,
@@ -52,6 +59,7 @@ KERNELS = {
     "flash_attn_int8": flash_attention_packed_int8_fwd,  # K6
     "quantize_int8": quantize_int8,  # K6q
     "groupnorm_silu": groupnorm_silu,  # K2
+    "ring_merge": ring_merge,  # K4m, the merge of ring attention (K4)
 }
 # source name under csrc/ -> the kernels it holds
 KERNEL_SOURCES = {
@@ -60,4 +68,5 @@ KERNEL_SOURCES = {
     "flash_attn_int8": ("flash_attn_int8",),
     "quantize_int8": ("quantize_int8",),
     "groupnorm_silu": ("groupnorm_silu",),
+    "ring_merge": ("ring_merge",),
 }

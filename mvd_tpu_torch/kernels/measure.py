@@ -62,6 +62,31 @@ JOINT_ATTN_CASES = [
     ("joint self 4x64x64", 1, 16384, 16384, 5),
     ("joint self 2x96x96", 6, 18432, 18432, 5),
 ]
+# (label, B, S per rank, heads, ranks n): ring attention (K4) at the joint
+# self lengths of JOINT_ATTN_CASES split over n view ranks (4 ranks of one
+# 512² view each; 2 ranks of one 768² view each, the JAX north-star local
+# sequence of tests/test_ring_attention.py), and its merge K4m at a rank's
+# shape
+RING_CASES = [
+    ("ring 4x4096", 1, 4096, 5, 4),
+    ("ring 2x9216", 6, 9216, 5, 2),
+]
+# K4m computes the formula of its plain version, each product, sum and
+# quotient rounded alike; only expf and logf may differ from torch's by an
+# ulp or two, which the merge carries on: held to MERGE_ULPS units in the
+# last place of f32 (2^-24 relative) of the terms' magnitude
+MERGE_ULPS = 8
+
+
+def merge_bounds(B: int, S: int, H: int) -> dict:
+    """Least time (ms) of one K4m call at head width D: the running o read
+    and written (f32) and the hop's o_i read (bf16), the running lse read
+    and written and the hop's lse_i read (f32), at HBM_BYTES_PER_S; its few
+    operations per element are far below their bound."""
+    nbytes = B * S * H * D * (4 + 4 + 2) + B * S * H * (4 + 4 + 4)
+    return dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
 # K3a/K3b round P and dS to bf16 before their products, where the plain
 # version keeps f32, and round dq/dk/dv to bf16: each term carries a relative
 # error of about 2^-9, and the sums over Sk (or Sq) terms average it, so the

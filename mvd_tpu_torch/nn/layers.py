@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from .. import remat
 from ..kernels.flash_attention import attention_packed
 from ..kernels.groupnorm_silu import groupnorm_silu_diff
+from ..kernels.ring_attention import ring_attention_packed
+from ..mesh import bound_axis, bound_mesh
 
 
 class _ComputeDtype:
@@ -160,11 +162,27 @@ class GroupNorm(nn.Module):
 
 def normalize_ref_feature(feat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Adapter K/V pre-normalization on an NHWC feature: unbiased std over
-    (batch, channel), clamped at ``eps``, times 0.5; f32, no gradient."""
+    (batch, channel), clamped at ``eps``, times 0.5; f32, no gradient.
+
+    Inside a sharded train step (a mesh bound by ``Mesh.bind``) the batch is
+    the mesh's global batch: the sums over this rank's rows are summed over
+    the mesh (two all-reduces), so each rank normalizes as the unsharded
+    step does. The JAX package's data-parallel step gets the same from
+    GSPMD; its view-sharded step, inside ``shard_map``, takes each shard's
+    own statistics."""
     feat = feat.detach().float()
-    mean = feat.mean(dim=(0, 3), keepdim=True)
-    n = feat.shape[0] * feat.shape[3]
-    var = ((feat - mean) ** 2).sum(dim=(0, 3), keepdim=True) / max(n - 1, 1)
+    mesh = bound_mesh()
+    spread = mesh is not None and mesh.group_size > 1
+    n = feat.shape[0] * feat.shape[3] * (mesh.group_size if spread else 1)
+
+    def summed(x):
+        x = x.sum(dim=(0, 3), keepdim=True)
+        if spread:
+            torch.distributed.all_reduce(x, group=mesh.group)
+        return x
+
+    mean = summed(feat) / n
+    var = summed((feat - mean) ** 2) / max(n - 1, 1)
     std = torch.clamp(torch.sqrt(var), min=eps)
     return (feat - mean) / std * 0.5
 
@@ -203,19 +221,22 @@ class Attention(nn.Module):
     Joint multi-view self-attention: with ``num_views`` V > 1 the flat
     (B*V, S, H*D) rows (row b*V + v) are regrouped into (B, V*S, H*D) by a
     free reshape, so every view attends to every other view's tokens of its
-    group. Cross-attention stays per row. ``view_axis`` (the views sharded
-    over devices, ring attention) is ROADMAP item 16 and raises."""
+    group. Cross-attention stays per row. With ``view_axis`` named and bound
+    by a sharded call (``mesh.Mesh.bind``, ``parallel.py``), the rows are
+    this rank's V_local = V / (view processes) views of each group, and the
+    packed (B, V_local*S, H*D) shards go straight into ring attention
+    (``kernels/ring_attention.py``), exact at every hop whatever
+    ``attention_impl`` says, as in JAX. Outside a sharded call the same
+    module attends over whole groups on one device, as the JAX package's
+    unsharded twin of a view-sharded model does."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None,
                  attention_impl: str = "auto", num_views: int = 1, view_axis: Optional[str] = None):
         super().__init__()
-        if view_axis is not None:
-            raise NotImplementedError(
-                f"view_axis={view_axis!r}: views sharded over devices (ring attention) is "
-                "ROADMAP item 16, not ported yet")
         self.heads = heads
         self.attention_impl = attention_impl
         self.num_views = num_views
+        self.view_axis = view_axis
         inner = heads * head_dim
         ctx = dim if context_dim is None else context_dim
         self.to_q = Linear(dim, inner, bias=False)
@@ -229,12 +250,22 @@ class Attention(nn.Module):
         V = self.num_views
         if context is None and V > 1:
             B, S, inner = q.shape
+            axis = bound_axis(self.view_axis) if self.view_axis is not None else None
+            if axis is not None:
+                if V % axis.size:
+                    raise ValueError(f"{V} views do not divide over the {axis.size} processes of "
+                                     f"mesh axis {self.view_axis!r}")
+                V //= axis.size  # local views per shard
             if B % V:
                 raise ValueError(f"joint attention over {V} views needs a batch that {V} "
                                  f"divides, got {B} rows")
             merge = lambda t: t.reshape(B // V, V * S, inner)
-            out = attention_packed(merge(q), merge(k), merge(v), self.heads,
-                                   impl=self.attention_impl).reshape(B, S, inner)
+            if axis is not None:
+                out = ring_attention_packed(merge(q), merge(k), merge(v), self.heads, self.view_axis)
+            else:
+                out = attention_packed(merge(q), merge(k), merge(v), self.heads,
+                                       impl=self.attention_impl)
+            out = out.reshape(B, S, inner)
         else:
             out = attention_packed(q, k, v, self.heads, impl=self.attention_impl)
         return self.to_out(out)

@@ -16,7 +16,16 @@ Counterpart of ``mvd_tpu/pipeline/pipeline.py`` (guidance on or off):
 DDIM resample from them. With joint multi-view attention
 (``UNetConfig.num_views`` V > 1) the batch is V-view groups (row b*V + v),
 so V must divide it; under CFG the unconditional half comes first and each
-half is whole groups, so joint attention never mixes the two. Runs on the GPU unless the caller passes
+half is whole groups, so joint attention never mixes the two. Given a
+``mesh`` and a model whose ``view_axis`` is the mesh's view axis of more
+than one process, generation is view-sharded, as the JAX pipeline's
+``_build_sharded_generate``: every rank computes the conditioning of the
+whole batch (the unsharded twin of JAX), each denoise runs on the rank's
+block of view groups and views with ring attention between the view
+processes (``parallel.py``), the blocks of the prediction are gathered over
+the mesh, and every rank takes the sampler's step on the whole batch with
+the same noise, so the draws are those of the unsharded pipeline. Runs on
+the GPU unless the caller passes
 ``device="cpu"``; without a GPU the default raises rather than falling back.
 Random numbers come from a ``torch.Generator`` seeded with ``seed``, unless
 the caller hands in the initial latents, the VAE sample noise and the
@@ -151,8 +160,9 @@ class MVDPipeline:
     """Holds the networks, the schedule and the tokenizer; callable like the
     JAX pipeline (same argument names)."""
 
-    def __init__(self, config: ModelConfig, model: nn.ModuleDict, device, tokenizer=None):
+    def __init__(self, config: ModelConfig, model: nn.ModuleDict, device, tokenizer=None, mesh=None):
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer or load_tokenizer(
@@ -162,18 +172,24 @@ class MVDPipeline:
         self.schedule = build_schedule(config).to(self.device)
         self._compute_model: Optional[nn.Module] = None
 
+    @property
+    def view_sharded(self) -> bool:
+        """Whether generation runs view-sharded over ``mesh``."""
+        axis = self.config.unet.view_axis
+        return self.mesh is not None and axis is not None and self.mesh.shape.get(axis, 1) > 1
+
     @classmethod
-    def create(cls, config: ModelConfig, seed: int = 0, device="cuda", tokenizer=None):
+    def create(cls, config: ModelConfig, seed: int = 0, device="cuda", tokenizer=None, mesh=None):
         """Random-init all params from ``seed`` on ``device`` (the GPU by
         default); adapters start from the frozen attention when the config
-        says so."""
+        says so. Every rank of a ``mesh`` draws the same weights."""
         device = resolve_device(device)
         with torch.device(device):
             model = build_model(config)
         init_weights(model, torch.Generator(device).manual_seed(seed))
         if config.use_image_conditioning and config.adapter_init_from_frozen:
             init_adapters_from_frozen(model["mvd"])
-        return cls(config, model, device, tokenizer)
+        return cls(config, model, device, tokenizer, mesh)
 
     def load_jax_params(self, tree: Mapping, keep_missing: bool = False) -> List[str]:
         """Load the JAX pipeline's params (numpy leaves) into the masters.
@@ -211,6 +227,36 @@ class MVDPipeline:
         if B % V:
             raise ValueError(f"joint attention over {V} views needs a batch that {V} divides, "
                              f"got {B} images")
+
+    def _denoiser(self, mvd):
+        """``mvd.denoise``, or its view-sharded form over the mesh: the same
+        arguments on the whole flat batch (rows b * V + v) and the same
+        result on every rank; the encoder cache holds the rank's rows."""
+        if not self.view_sharded:
+            return mvd.denoise
+        from ..parallel import sharded_denoise_cache_fns, tree_map
+
+        mesh, V = self.mesh, self.config.unet.num_views
+        with_cache, cached = sharded_denoise_cache_fns(mvd, mesh)
+        bv = lambda tree: tree_map(lambda x: x.reshape((x.shape[0] // V, V) + tuple(x.shape[1:])), tree)
+        flat = lambda x: mesh.gather_blocks(x).flatten(0, 1)
+
+        def denoise(sample, t, text, film=None, ref_features=None, ref_scale=None,
+                    cached_encoder=None, return_encoder_cache=False):
+            groups = text.shape[0] // V
+            if groups % mesh.shape["data"]:
+                raise ValueError(f"view-sharded generation needs its {groups} view groups (CFG "
+                                 f"halves included) to divide over the mesh's {mesh.shape['data']} "
+                                 "data processes")
+            args = (bv(text), bv(film), bv(ref_features), ref_scale)
+            if cached_encoder is not None:
+                return flat(cached(cached_encoder, None, t, *args))
+            if return_encoder_cache:
+                pred, cache = with_cache(bv(sample), t, *args)
+                return flat(pred), cache
+            return flat(with_cache(bv(sample), t, *args)[0])
+
+        return denoise
 
     def _ids(self, prompts: Sequence[str], repeat: int) -> torch.Tensor:
         ids = np.repeat(np.asarray(self.tokenizer(list(prompts))), repeat, axis=0)
@@ -295,6 +341,7 @@ class MVDPipeline:
         the last whole group run the whole UNet. Nothing here waits for the
         device."""
         do_cfg = guidance_scale > 1.0
+        denoise = self._denoiser(model["mvd"])
         state = dpmpp_2m_init(lat) if sampler == "dpmpp_2m" else None
         grouped = (len(timesteps) // encoder_reuse) * encoder_reuse if encoder_reuse > 1 else 0
         cache = None
@@ -302,11 +349,11 @@ class MVDPipeline:
             inp = torch.cat([lat, lat], dim=0) if do_cfg else lat
             args = (inp, t_dev, embeds, film, ref_feats, ref_scale)
             if i < grouped and i % encoder_reuse:
-                pred = model["mvd"].denoise(*args, cached_encoder=cache)
+                pred = denoise(*args, cached_encoder=cache)
             elif i < grouped:
-                pred, cache = model["mvd"].denoise(*args, return_encoder_cache=True)
+                pred, cache = denoise(*args, return_encoder_cache=True)
             else:
-                pred = model["mvd"].denoise(*args)
+                pred = denoise(*args)
             if do_cfg:
                 un, co = pred.chunk(2, dim=0)
                 pred = un + guidance_scale * (co - un)

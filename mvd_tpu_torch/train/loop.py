@@ -1,4 +1,4 @@
-"""The training loop, single process.
+"""The training loop, in one process or over a mesh of processes.
 
 Counterpart of ``mvd_tpu/train/loop.py:Trainer``:
 
@@ -29,9 +29,17 @@ numbers come from a ``torch.Generator`` on the model's device, seeded with
 ``cfg.seed`` at every ``fit``, as the JAX loop restarts its key; the
 checkpoint does not hold it, so a resumed run is not bitwise an
 uninterrupted one (in either package). ``timings`` holds, per step, the
-seconds the loop waited on the loader and the seconds of the step. The
-multi-process branches of the JAX loop (global batches, a broadcast run
-dir, replicated state, a local pipeline) are ROADMAP item 16.
+seconds the loop waited on the loader and the seconds of the step.
+
+Over a ``mesh`` of processes (one per GPU, ``distributed.py``), as the JAX
+loop's multi-process branches: each process's loader gives the rows of its
+data index and ``distributed.global_batch`` cuts its views; the step and
+the evaluation run over the mesh (``make_train_step(mesh=...)``); every
+rank starts from the first rank's weights (``replicate_to_mesh``); the
+primary mints the run dir and broadcasts it (``broadcast_str``), writes
+every checkpoint and log line alone, and alone generates the validation
+images, on an unsharded pipeline over the same modules, while the others
+wait at their next collective.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch
 
 from ..checkpoint.io import CheckpointManager, resolve_resume_path
 from ..config import TrainConfig
+from ..distributed import broadcast_str, global_batch, is_primary, process_count, replicate_to_mesh
 from ..metrics.image import psnr, ssim
 from ..utils.images import save_image, side_by_side
 from ..utils.logging import MetricLogger, create_output_dirs, reuse_output_dirs
@@ -77,22 +86,29 @@ class Trainer:
         image_metric_fns: Optional[Dict[str, Any]] = None,
         resume_from: Optional[str] = None,
     ):
-        if mesh is not None or view_sharded:
-            raise NotImplementedError(
-                "training over a mesh (data- or view-parallel, several processes) is "
-                "multi-GPU work, ROADMAP item 16; the port's Trainer runs one process on one device")
         self.cfg = cfg
         self.pipe = pipe
         self.dm = datamodule
         self.device = pipe.device
+        self.mesh = mesh
+        self.view_sharded = view_sharded
+        self._multiprocess = process_count() > 1
+        if self._multiprocess and mesh is None:
+            raise ValueError("multi-process training needs a mesh")
+        self._primary = is_primary()
         self.resume_from = resume_from
         self._resume_step: Optional[int] = None
         if resume_from:
             ckpt_dir, self._resume_step = resolve_resume_path(resume_from)
             self.dirs = reuse_output_dirs(os.path.dirname(ckpt_dir))
+        elif self._multiprocess:
+            # the primary mints the timestamped run dir; every rank enters it
+            root = create_output_dirs(output_dir or cfg.output_dir)["root"] if self._primary else None
+            self.dirs = reuse_output_dirs(broadcast_str(root, group=mesh.group))
         else:
             self.dirs = create_output_dirs(output_dir or cfg.output_dir)
-        self.logger = logger or MetricLogger(self.dirs["logs"], config={"cfg": str(cfg)})
+        self.logger = logger or MetricLogger(self.dirs["logs"], config={"cfg": str(cfg)},
+                                             enabled=self._primary)
         self.max_duration_s = max_duration_hours * 3600
 
         self.train_loader = datamodule.loader("train")
@@ -106,6 +122,7 @@ class Trainer:
         steps_per_epoch = max(1, len(self.train_loader))
         self.total_steps = cfg.max_steps or steps_per_epoch * cfg.max_epochs
 
+        replicate_to_mesh(mesh, pipe.model)
         self.state = TrainState.create(pipe.model, cfg, self.total_steps)
         pipe.drop_compute_model()
         mvd = pipe.model["mvd"]
@@ -114,21 +131,25 @@ class Trainer:
                          "params/total": count_params(mvd)}, step=0)
 
         self._lr_schedule = self.state.lr_schedule
-        self.step_fn = make_train_step(pipe.schedule, cfg)
-        self.loss_fn = make_eval_fn(pipe.schedule, cfg)
+        par = dict(mesh=mesh, view_sharded=view_sharded)
+        self.step_fn = make_train_step(pipe.schedule, cfg, **par)
+        self.loss_fn = make_eval_fn(pipe.schedule, cfg, **par)
         self.image_metric_fns = image_metric_fns
         self.recon_metrics_fn = make_eval_fn(pipe.schedule, cfg, with_recon_metrics=True,
-                                             image_metric_fns=image_metric_fns)
+                                             image_metric_fns=image_metric_fns, **par)
+        self._local_pipe = None
         self.ckpt = CheckpointManager(self.dirs["checkpoints"], max_to_keep=cfg.max_checkpoints,
                                       save_interval_steps=cfg.checkpoint_every_steps)
         self.timings: List[Dict[str, float]] = []
 
     def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A host batch on the model's device: from pinned memory without
-        waiting where that is a GPU."""
+        """A host batch on the model's device (over a mesh, this rank's
+        block of it): from pinned memory without waiting where that is a
+        GPU."""
+        batch = global_batch(self.mesh, {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()})
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-        return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(self.device, non_blocking=True)
+            return {k: v.contiguous() for k, v in batch.items()}
+        return {k: v.contiguous().pin_memory().to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
     # ------------------------------------------------------------------
@@ -145,6 +166,10 @@ class Trainer:
         return True
 
     def _save(self, step: int, last_val: Dict[str, float], force: bool = False) -> bool:
+        """Save ``step`` (the primary writes; the others return whether it
+        does)."""
+        if not self._primary:
+            return force or not (self.ckpt.save_interval_steps and step % self.ckpt.save_interval_steps)
         return self.ckpt.save(step, self.state, dataset_state=self.dm.state_dict(),
                               extra={"wandb_run_id": self.logger.run_id},
                               metrics=last_val or None, force=force)
@@ -231,6 +256,8 @@ class Trainer:
             logger.info("no training steps taken (resumed at step %d, already complete); "
                         "keeping the existing checkpoint", step)
         self.ckpt.wait()
+        if self._multiprocess:  # the final checkpoint is on disk before any rank returns
+            torch.distributed.barrier(group=self.mesh.group)
         return self.state
 
     # ------------------------------------------------------------------
@@ -247,7 +274,9 @@ class Trainer:
         out: Dict[str, float] = {}
         if losses:
             out["val/noise_loss"] = float(np.mean(torch.stack(losses).cpu().numpy()))
-        if generate and gen_pool:
+        if generate and gen_pool and self._primary:
+            # over several processes the primary generates alone, on an
+            # unsharded pipeline; the others go on to their next collective
             out.update(self._generation_metrics(gen_pool, epoch))
         if out:
             self.logger.log(out, step=self.state.step)
@@ -257,24 +286,36 @@ class Trainer:
         """20-step generation over the validation batches, their metrics
         averaged over the batches, and comparison sheets (source | target |
         generated) of the first batch."""
-        self.pipe.drop_compute_model()  # cast from this step's masters
+        pipe = self._local_pipeline()
+        pipe.drop_compute_model()  # cast from this step's masters
         try:
-            return self._generate_batches(batches, epoch)
+            return self._generate_batches(pipe, batches, epoch)
         finally:
-            self.pipe.drop_compute_model()
+            pipe.drop_compute_model()
 
-    def _generate_batches(self, batches, epoch: int) -> Dict[str, float]:
+    def _local_pipeline(self):
+        """The pipeline validation generates with: ``self.pipe``, or, where
+        it holds a mesh, its unsharded single-process twin on the same
+        modules (no collective, so that the primary runs it alone)."""
+        if self.pipe.mesh is None:
+            return self.pipe
+        if self._local_pipe is None:
+            p = self.pipe
+            self._local_pipe = type(p)(p.config, p.model, p.device, p.tokenizer)
+        return self._local_pipe
+
+    def _generate_batches(self, pipe, batches, epoch: int) -> Dict[str, float]:
         per_batch, panels = [], {}
         for bi, batch in enumerate(batches):
             B, V = batch["source_image"].shape[:2]
             # two images, or the smallest whole group of joint views above
             # them (the JAX loop takes two, which only V <= 2 divides)
-            views = self.pipe.config.unet.num_views
+            views = pipe.config.unet.num_views
             n = min(B * V, -(-min(2, B * V) // views) * views)
             flat = {k: np.asarray(v).reshape((-1,) + v.shape[2:])[:n] for k, v in batch.items()}
             src = (flat["source_image"] + 1) / 2
             res = src.shape[1]
-            images = self.pipe(
+            images = pipe(
                 [""] * n, num_inference_steps=20, guidance_scale=1.0, height=res, width=res,
                 source_camera=flat["source_camera"], target_camera=flat["target_camera"],
                 source_images=src, ref_scale=0.1, seed=epoch * 1000 + bi, output_type="pt",

@@ -25,15 +25,37 @@ no-grad reconstruction metrics (the VAE decode of x0-hat and of the target,
 ``metrics_log_interval`` steps; gradient accumulation lives in
 ``TrainState.apply_gradients``. (B, V, ...) batches flatten to rows
 b * V + v, so a model with joint attention over ``num_views`` = V attends
-across the V views of each sample. Not ported yet: the view-sharded step
-(ROADMAP item 16).
+across the V views of each sample.
+
+Over a mesh of processes (``mesh.py``) each rank runs its block of the
+global batch and the step keeps both of the JAX package's semantics:
+
+  * data-parallel (``view_sharded=False``, a whole view axis): the rank's
+    rows are its data index's (B_l, V, ...); the draws are those of the
+    global batch from the one generator (JAX: one key over rows that GSPMD
+    shards), of which it takes its rows;
+  * view-sharded (``view_sharded=True``, the model's ``view_axis`` "view"):
+    the rank's (B_l, V_l, ...) block runs with ring attention between the
+    view processes, forward and backward inside ``Mesh.bind``, from draws
+    of its own generator, seeded from the caller's and folded with its
+    data and view indices (JAX: ``fold_in`` of both axis indices).
+
+Either way the loss, its metrics and the trainable gradients are averaged
+over the mesh by one all-reduce of one flat f32 buffer, divided by the
+number of processes, before the global-norm clip (optax clips the summed
+gradient of the global mean loss, so this is the same). No
+``DistributedDataParallel``: its hooks would fire inside remat's recompute,
+and the step orders its own work. Given ``draws``, a sharded step takes
+the global batch's (N = B*V rows), from which it takes its rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..diffusion.schedules import NoiseSchedule, add_noise, pred_original_sample
@@ -211,36 +233,119 @@ def make_loss_fn(schedule: NoiseSchedule, cfg: TrainConfig, source_repeat: int =
     return loss_fn
 
 
+class _Sharding:
+    """Where a rank's rows sit in the global batch of a mesh, and how it
+    draws and reduces: the two branches of the JAX step."""
+
+    def __init__(self, mesh, view_sharded: bool, cfg: TrainConfig):
+        if not mesh.member:
+            raise RuntimeError(f"rank {mesh.rank} is not in {mesh!r}")
+        if view_sharded and cfg.model.unet.view_axis != "view":
+            raise ValueError("a view-sharded step needs a model whose view_axis is 'view' "
+                             f"(parallel.for_view_sharding), got {cfg.model.unet.view_axis!r}")
+        if not view_sharded and mesh.shape["view"] > 1:
+            raise ValueError("a data-parallel step over a mesh with a view axis of "
+                             f"{mesh.shape['view']} needs view_sharded=True (ring attention)")
+        self.mesh, self.view_sharded = mesh, view_sharded
+
+    def global_rows(self, batch: Tensors) -> tuple:
+        """(B, V) of the global batch that this rank's (B_l, V_l) block is
+        part of."""
+        B, V = batch["input_ids"].shape[:2]
+        return B * self.mesh.shape["data"], V * self.mesh.shape["view"]
+
+    def draws(self, batch: Tensors, lat: int, channels: int, schedule, generator, draws):
+        B, V = self.global_rows(batch)
+        if draws is None and self.view_sharded:
+            # JAX folds the data and view indices into the shard's key
+            c = self.mesh.coords
+            seed = int(torch.randint(0, 2**62, (), generator=generator,
+                                     device=generator.device if generator is not None else "cpu"))
+            dev = batch["input_ids"].device
+            gen = torch.Generator(dev).manual_seed(hash((seed, c["data"], c["view"])) & (2**63 - 1))
+            n = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
+            return _draws(batch, (n, lat, lat, channels), schedule, gen, None)
+        full = _draws(batch, (B * V, lat, lat, channels), schedule, generator, draws)
+        block = lambda x: self.mesh.block(x.reshape((B, V) + tuple(x.shape[1:]))).flatten(0, 1)
+        return {k: block(v) for k, v in full.items()}
+
+    def bind(self):
+        return self.mesh.bind()
+
+    def mean(self, tensors) -> None:
+        """Replace each tensor of ``tensors`` by its mean over the mesh, in
+        place: one all-reduce of one flat f32 buffer."""
+        if not dist.is_initialized():
+            return
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        dist.all_reduce(flat, group=self.mesh.group)
+        flat /= self.mesh.group_size
+        i = 0
+        for t in tensors:
+            t.copy_(flat[i:i + t.numel()].view(t.shape))
+            i += t.numel()
+
+
+def _latent_size(batch: Tensors, mcfg) -> int:
+    if "target_image" in batch:
+        return batch["target_image"].shape[-3] // 8
+    if "target_moments" in batch:
+        return batch["target_moments"].shape[-2]
+    return mcfg.unet.sample_size
+
+
 def make_eval_fn(schedule: NoiseSchedule, cfg: TrainConfig, with_recon_metrics: bool = False,
-                 image_metric_fns: Optional[Dict[str, Any]] = None):
+                 image_metric_fns: Optional[Dict[str, Any]] = None, mesh=None,
+                 view_sharded: bool = False):
     """``eval_fn(model, batch, generator=None, draws=None) -> (loss,
     metrics)`` on (B, V, ...) batches, without gradient; with the
-    reconstruction metrics where ``with_recon_metrics``."""
+    reconstruction metrics where ``with_recon_metrics``. Over a ``mesh``,
+    ``batch`` is this rank's block and the loss and its 0-d metrics are
+    means over the mesh."""
     loss_fn = make_loss_fn(schedule, cfg, with_recon_metrics=with_recon_metrics,
                            image_metric_fns=image_metric_fns)
+    shard = _Sharding(mesh, view_sharded, cfg) if mesh is not None else None
 
     @torch.no_grad()
     def eval_fn(model, batch: Tensors, generator=None, draws=None):
-        return loss_fn(model, {k: _flat(v) for k, v in batch.items()}, generator, draws)
+        flat = {k: _flat(v) for k, v in batch.items()}
+        if shard is None:
+            return loss_fn(model, flat, generator, draws)
+        d = shard.draws(batch, _latent_size(batch, cfg.model), cfg.model.unet.in_channels,
+                        schedule, generator, draws)
+        with shard.bind():
+            loss, metrics = loss_fn(model, flat, None, d)
+        scalars = [loss] + [v for v in metrics.values() if v.dim() == 0]
+        shard.mean(scalars)
+        return loss, metrics
 
     return eval_fn
 
 
-def make_train_step(schedule: NoiseSchedule, cfg: TrainConfig):
+def make_train_step(schedule: NoiseSchedule, cfg: TrainConfig, mesh=None, view_sharded: bool = False):
     """``step(state, batch, generator=None, draws=None) -> metrics`` on
-    (B, V, ...) batches; updates ``state`` in place."""
+    (B, V, ...) batches; updates ``state`` in place. Over a ``mesh``
+    (``view_sharded`` as in the JAX step), ``batch`` is this rank's block
+    and the step's metrics are the mesh's."""
+    shard = _Sharding(mesh, view_sharded, cfg) if mesh is not None else None
 
     def step(state: TrainState, batch: Tensors, generator=None, draws=None) -> Tensors:
-        V = batch["input_ids"].shape[1]
+        V = batch["input_ids"].shape[1]  # the rank's views under view sharding
         rep = V if (V > 1 and cfg.unique_source_encode) else 1
         loss_fn = make_loss_fn(schedule, cfg, source_repeat=rep)
         state.zero_grad()
-        loss, metrics = loss_fn(
-            state.model, {k: _flat(v) for k, v in batch.items()}, generator, draws
-        )
-        loss.backward()
+        flat = {k: _flat(v) for k, v in batch.items()}
+        if shard is not None:
+            draws = shard.draws(batch, _latent_size(batch, cfg.model), cfg.model.unet.in_channels,
+                                schedule, generator, draws)
+            generator = None
+        with shard.bind() if shard is not None else contextlib.nullcontext():
+            loss, metrics = loss_fn(state.model, flat, generator, draws)
+            loss.backward()
         grads = state.grads()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if shard is not None:
+            shard.mean([v for v in metrics.values() if v.dim() == 0] + list(grads.values()))
         metrics.update(grad_group_norms(grads))
         metrics.update(grad_group_samples(grads))
         state.apply_gradients(metrics["grad_norm/total"])

@@ -658,3 +658,73 @@ def test_kept_conv_gradients_are_the_convs_on_the_card(cuda):
     plain = torch.autograd.grad(block(x, temb), wrt, g)
     kept = torch.autograd.grad(tunet._remat(block, tunet.remat_context("flash_conv"), x, temb), wrt, g)
     assert all(torch.equal(a, b) for a, b in zip(plain, kept))
+
+
+# ------------------------------------------------------- ring attention (K4)
+
+
+@pytest.mark.parametrize("B,S,heads,D", [(2, 300, 3, 64), (1, 1, 1, 64), (3, 17, 2, 128), (1, 5, 4, 4)])
+def test_ring_merge_kernel_matches_plain(cuda, B, S, heads, D):
+    """K4m against ``ring_merge_plain`` within MERGE_ULPS ulp of the terms'
+    magnitude, at ragged sizes and the head widths it takes; batch 0
+    bitwise unchanged by NaN in batch 1; two launches bitwise equal."""
+    from mvd_tpu_torch.kernels import ring_merge, ring_merge_plain
+    from mvd_tpu_torch.kernels.measure import MERGE_ULPS
+
+    o = torch.randn(B, S, heads * D, generator=cuda, device="cuda")
+    o_i = torch.randn(B, S, heads * D, generator=cuda, device="cuda").bfloat16()
+    lse, lse_i = (torch.randn(B, S, heads, generator=cuda, device="cuda") * 3 for _ in range(2))
+    got_o, got_l = o.clone(), lse.clone()
+    ring_merge(got_o, got_l, o_i, lse_i, heads)
+    want_o, want_l = o.clone(), lse.clone()
+    ring_merge_plain(want_o, want_l, o_i, lse_i, heads)
+    m = torch.maximum(lse, lse_i)
+    w, w_i = torch.exp(lse - m), torch.exp(lse_i - m)
+    split = lambda t: t.view(B, S, heads, D)
+    scale = (split(o).abs() * w[..., None] + split(o_i.float()).abs() * w_i[..., None]) / (w + w_i)[..., None]
+    ulp = MERGE_ULPS * 2.0 ** -24
+    assert ((split(got_o) - split(want_o)).abs() <= ulp * scale).all()
+    assert ((got_l - want_l).abs() <= ulp * (m.abs() + torch.log(w + w_i).abs())).all()
+    again_o, again_l = o.clone(), lse.clone()
+    ring_merge(again_o, again_l, o_i, lse_i, heads)
+    assert torch.equal(again_o, got_o) and torch.equal(again_l, got_l)
+    if B > 1:
+        o[1], lse[1] = float("nan"), float("nan")
+        ring_merge(o, lse, o_i, lse_i, heads)
+        assert torch.equal(o[0], got_o[0]) and torch.equal(lse[0], got_l[0])
+
+
+def test_ring_merge_rejects_what_it_does_not_take(cuda):
+    from mvd_tpu_torch.kernels import ring_merge
+
+    o, lse = torch.zeros(1, 4, 128, device="cuda"), torch.zeros(1, 4, 2, device="cuda")
+    o_i = torch.zeros(1, 4, 128, device="cuda", dtype=torch.bfloat16)
+    for bad in (dict(o_i=o_i.float()), dict(o=o.bfloat16()), dict(lse=lse[:, :3]),
+                dict(o=o[:, :, :96].contiguous(), o_i=o_i[:, :, :96].contiguous(), heads=2)):
+        args = {**dict(o=o, lse=lse, o_i=o_i, lse_i=lse, heads=2), **bad}
+        with pytest.raises(ValueError):
+            ring_merge(args["o"], args["lse"], args["o_i"], args["lse_i"], args["heads"])
+
+
+@pytest.mark.parametrize("n,B,S,heads", [(2, 2, 256, 2), (4, 1, 200, 3), (8, 1, 129, 1)])
+def test_virtual_ring_matches_the_unsharded_kernels(cuda, n, B, S, heads):
+    """The ring of n virtual ranks (K1 and K4m forward, K3a/K3b backward)
+    against the unsharded K1 and K3a/K3b at the whole length n*S, with the
+    launches of a ring: K1 n², K4m n(n - 1), K3a and K3b n² each."""
+    from mvd_tpu_torch.kernels import ring_attention_virtual_bwd, ring_attention_virtual_fwd, ring_merge
+
+    randn = lambda s: torch.randn(s, generator=cuda, device="cuda").bfloat16()
+    q, k, v, do = (randn((B, n * S, heads * 64)) for _ in range(4))
+    split = lambda t: [c.contiguous() for c in t.split(S, dim=1)]
+    counts = lambda: (flash_attention_packed_fwd.launches, ring_merge.launches,
+                      flash_attention_packed_bwd_dq.launches, flash_attention_packed_bwd_dkv.launches)
+    before = counts()
+    outs, lses = ring_attention_virtual_fwd(*map(split, (q, k, v)), heads)
+    grads = ring_attention_virtual_bwd(*map(split, (q, k, v)), outs, lses, split(do), heads)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [n * n, n * (n - 1), n * n, n * n]
+    out, lse = flash_attention_packed_fwd(q, k, v, heads)
+    check_attention(torch.cat(outs, 1), torch.cat(lses, 1), out, lse, f"ring of {n}")
+    want = flash_attention_packed_bwd(q, k, v, out, lse, do, heads)
+    for name, g, w in zip("dq dk dv".split(), grads, want):
+        _assert_grad_close(torch.cat(g, 1), w, f"ring of {n} {name}")

@@ -303,6 +303,10 @@ def test_signed_range():
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "mvd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    # the multi-process modules, and the helper whose processes run them
+    for name in ("distributed.py", "mesh.py", "kernels/ring_attention.py"):
+        assert REPO / "mvd_tpu_torch" / name in files, name
+    files.append(REPO / "tests" / "_torch_port_world.py")
     banned = ("jax", "flax", "mvd_tpu")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -168,6 +168,30 @@ def test_infer_cli_takes_every_flag(tmp_path, capsys):
         assert np.asarray(Image.open(out / name)).shape[:2] in ((SIZE, SIZE), (SIZE, 2 * SIZE + 4))
 
 
+def test_cli_checkpoint_takes_a_save_params_dir(tmp_path):
+    """``--checkpoint`` of ``cli.infer`` and ``cli.serve`` takes a directory
+    written by ``checkpoint.save_params`` (the JAX CLIs' second form), every
+    component loaded bitwise; a directory without one (an orbax directory
+    of the JAX package) raises, naming the forms the port takes."""
+    import torch
+
+    from mvd_tpu_torch.checkpoint import save_params
+    from mvd_tpu_torch.cli import infer, serve
+
+    src = MVDPipeline.create(TINY_MODEL, seed=7, device="cpu")
+    path = str(tmp_path / "params")
+    save_params(path, {net: m.state_dict() for net, m in src.model.items()})
+    common = ["--tiny", "--device", "cpu", "--checkpoint", path]
+    pipe = infer.main(common + ["--num-images", "1", "--num-steps", "1", "--output-dir", str(tmp_path / "out")])
+    served, _ = serve.build_pipeline(serve.build_argparser().parse_args(common))
+    want = src.model.state_dict()
+    for got in (pipe.model.state_dict(), served.model.state_dict()):
+        assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(ValueError, match="Lightning .ckpt or a directory written by"):
+        infer.main(["--tiny", "--device", "cpu", "--checkpoint", str(tmp_path / "orbax")])
+
+
 # ---------------------------------------------------------------------------
 # the HTTP server
 # ---------------------------------------------------------------------------

@@ -350,9 +350,15 @@ def test_trainer_fit_validate_and_resume(corpus, tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_a_mesh_and_an_empty_loader(corpus, tmp_path):
+    """A view-sharded Trainer needs a model sharded over the view axis (a
+    mesh itself now runs: ``test_torch_port_sharded.py``); an empty train
+    loader raises."""
+    from mvd_tpu_torch.mesh import make_mesh
+
     pipe = MVDPipeline.create(MODEL, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Trainer(_train_cfg(1), pipe, _datamodule(corpus, pipe), mesh=object())
+    with pytest.raises(ValueError, match="view_axis"):
+        Trainer(_train_cfg(1), pipe, _datamodule(corpus, pipe), mesh=make_mesh(), view_sharded=True,
+                output_dir=str(tmp_path / "v"))
     dm = ObjaverseDataModule(corpus, pipe.tokenizer, image_size=IMG, batch_size=64)
     with pytest.raises(ValueError, match="empty"):
         Trainer(_train_cfg(1), pipe, dm, output_dir=str(tmp_path / "o"))
@@ -399,9 +405,11 @@ def test_train_and_precompute_clis_on_the_cpu(small_corpus, tmp_path):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--tiny"], RuntimeError, "CUDA is not available"),  # no CPU fallback without --device cpu
-    (["--num-views", "2", "--mesh-view", "2"], SystemExit, "item 16"),  # views over a mesh
-    (["--mesh-view", "2"], SystemExit, "item 16"),
-    (["--num-processes", "2"], SystemExit, "item 16"),
+    # views over a mesh of 2 in a single process
+    (["--num-views", "2", "--mesh-view", "2", "--device", "cpu"], SystemExit, "needs as many"),
+    (["--mesh-view", "2"], SystemExit, "must divide"),  # 1 view does not shard over 2
+    (["--num-processes", "2"], ValueError, "coordinator"),  # nowhere to meet
+    (["--num-slices", "2"], SystemExit, "item 16"),
 ])
 def test_train_cli_refusals(argv, error, match):
     from mvd_tpu_torch.cli import train
