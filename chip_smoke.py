@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases; any failure exits non-zero:
+Ten phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
@@ -74,7 +74,7 @@ Nine phases; any failure exits non-zero:
    of smooth 512² RGBA PNGs with real alpha, ``orbit_cameras`` ``.npy``
    cameras, ``prompt.txt``) in a temporary directory, then (a)
    ``mvd_tpu_torch.cli.train.main`` in this process at phase 4's training
-   point for 3 steps (``metrics_log_interval`` 2): finite
+   point (``--config config/train_config.yaml``) for 3 steps (``metrics_log_interval`` 2): finite
    ``train/noise_loss`` at steps 1-3 with ``train/lr`` the schedule's, the
    reconstruction metrics at step 2 and the end-of-run validation finite
    (SSIM in [-1, 1]), the comparison PNGs decoding to 768 x 2312 x 3, K3a
@@ -116,6 +116,21 @@ Nine phases; any failure exits non-zero:
    1: ``distributed.initialize`` from torchrun's variables, ``make_mesh``,
    and phase 4's train step through the data-parallel branch, one
    all-reduce a step, bitwise equal to the step without a mesh.
+8. the validation CLI, after phase 6e on phase 5's corpus (objects added
+   until its test split holds two whole batches) and run dir:
+   ``mvd_tpu_torch.cli.val.main`` in this process with the YAML phase 5
+   trained with, ``--checkpoint`` phase 5's run dir, 8 samples in batches of
+   4 at 768², 20 DDPM steps, and random full-width weight files of the four
+   metric towers in their public layouts (torchvision VGG16, lpips-alex,
+   transformers CLIP ViT-L/14, pytorch-fid InceptionV3). Checks the
+   restored step (phase 5's latest) and the multi-view UNet bitwise that
+   checkpoint's, K1 and K2 exactly ``expected_launches(pipe, 20)`` per
+   batch with no plain call and no launch inside a tower, both CSVs with
+   the JAX harness's columns and order, finite values and SSIM, LPIPS and
+   CLIP in range, and each tower on two pairs of the last batch on the card
+   against the CPU (relative 1e-4; FID printed from both). Prints the
+   second batch's seconds and img/s, each tower's device ms per batch,
+   the peak memory and the phase's seconds.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
 generation, one call of each sampler configuration of phase 3c and one
@@ -1432,14 +1447,18 @@ def phase_train(views: int = 1, tag: str = "train"):
 
 
 CORPUS_OBJECTS, CORPUS_VIEWS, CORPUS_RES = 16, 4, 512
+# the YAML phase 5 trains with and phase 8 builds its model from: the
+# reference's config, whose settings are TrainConfig's defaults
+TRAIN_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "train_config.yaml")
 
 
-def write_corpus(root: str, seed: int = 0) -> int:
+def write_corpus(root: str, seed: int = 0, first: int = 0, count: int = CORPUS_OBJECTS) -> int:
     """A seeded synthetic Objaverse corpus in the rendered-zip layout under
     ``root/renders_final``: smooth RGBA renders (a soft-edged disk of real
     alpha over transparent black) at CORPUS_RES², so the loader composites
     over white and resizes; a 4x4 ``.npy`` camera per view from
-    ``orbit_cameras``; ``prompt.txt``. Returns the corpus's bytes."""
+    ``orbit_cameras``; ``prompt.txt``. Writes objects ``first`` to
+    ``first + count - 1``; returns their bytes."""
     import io
     import zipfile
 
@@ -1454,7 +1473,7 @@ def write_corpus(root: str, seed: int = 0) -> int:
     r = np.hypot(yy - 0.5, xx - 0.5)
     alpha = (np.clip((0.42 - r) / 0.04, 0.0, 1.0) * 255).round().astype(np.uint8)
     total = 0
-    for i in range(CORPUS_OBJECTS):
+    for i in range(first, first + count):
         path = os.path.join(root, "renders_final", f"obj_{i:03d}.zip")
         cams = orbit_cameras(CORPUS_VIEWS, start_azimuth_deg=float(rng.uniform(0, 360)))
         with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
@@ -1528,15 +1547,16 @@ def _records(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
-    """Phase 5: ``python -m mvd_tpu_torch.cli.train`` at the reference
-    training point on the synthetic corpus ``corpus`` (``write_corpus``),
-    through ``main(argv)`` in this process: (a) 3 steps with the
+def phase_train_entry(corpus: str, corpus_bytes: int, run_home: str, trace: bool = False):
+    """Phase 5: ``python -m mvd_tpu_torch.cli.train --config
+    config/train_config.yaml`` (the reference training point) on the
+    synthetic corpus ``corpus`` (``write_corpus``), through ``main(argv)``
+    in this process, its run dir under ``run_home``: (a) 3 steps with the
     reconstruction metrics at step 2, the end-of-run validation (eval loss,
     20-step generation, comparison PNGs) and the final checkpoint; (b)
     ``--resume`` to step 5; (c) ``cli.precompute_latents`` over the corpus,
     then 2 steps from the cache. Returns (the launches of run (a), metrics,
-    the trace or None)."""
+    the trace or None, the run dir of (a) and (b), which phase 8 reads)."""
     import shutil
     import tempfile
 
@@ -1571,7 +1591,7 @@ def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
         print(f"[train_entry] host ms per decoded {TRAIN_RES}² view (one thread): {decode_ms:.1f} "
               f"(PNG decode and white composite {png_ms:.1f}, the rest Lanczos {CORPUS_RES}² -> "
               f"{TRAIN_RES}² and scaling)")
-        base = ["--dataset-path", corpus, "--batch-size", str(TRAIN_BATCH),
+        base = ["--config", TRAIN_YAML, "--dataset-path", corpus, "--batch-size", str(TRAIN_BATCH),
                 "--image-size", str(TRAIN_RES)]
         timed = {"validate": [], "save": [], "restore": []}
         frozen_changed = []
@@ -1600,7 +1620,7 @@ def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
             return run
 
         # (a) train and validate
-        out_a = os.path.join(tmp, "out")
+        out_a = os.path.join(run_home, "out")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
@@ -1616,7 +1636,8 @@ def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
         peak = torch.cuda.max_memory_allocated() / 2**30
         per_step = expected_train_launches(tr.state.model)
         n_frozen = frozen_changed.pop()
-        print(f"[train_entry] (a) cli.train.main {' '.join(base[2:])} --max-steps {TRAIN_STEPS}: "
+        print(f"[train_entry] (a) cli.train.main --config config/train_config.yaml {' '.join(base[4:])} "
+              f"--max-steps {TRAIN_STEPS}: "
               f"{run_a_s:.1f} s; launches {launches}; plain calls {plain}")
         if any(plain.values()):
             raise AssertionError(f"(a): plain versions ran: {plain}")
@@ -1742,7 +1763,6 @@ def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
                             step_s=[t["step_s"] for t in tr.timings],
                             loader_wait_s=[t["loader_wait_s"] for t in tr.timings])
         del tr
-        shutil.rmtree(out_a)
         torch.cuda.empty_cache()
 
         # (c) the latent cache
@@ -1799,7 +1819,7 @@ def phase_train_entry(corpus: str, corpus_bytes: int, trace: bool = False):
     torch.cuda.empty_cache()
     metrics["phase_s"] = time.perf_counter() - t_phase
     print(f"[train_entry] phase 5 in {metrics['phase_s']:.1f} s")
-    return metrics["a"]["launches"], metrics, traced
+    return metrics["a"]["launches"], metrics, traced, run_root
 
 
 # phase 6: joint multi-view attention (UNetConfig.num_views), views per
@@ -2028,6 +2048,317 @@ def phase_joint_train_entry(corpus: str):
         shutil.rmtree(out, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches, metrics
+
+
+# phase 8: the validation CLI (cli/val.py) at its defaults (768², batch 4,
+# 20 DDPM steps, guidance 1.0, ref_scale 0.1) on phase 5's run dir and
+# corpus, two whole batches, with all four metric towers
+VAL_SAMPLES, VAL_BATCH, VAL_STEPS = 8, 4, 20
+# the JAX harness's CSV columns, in its order
+VAL_RESULT_COLUMNS = ["batch", "sample", "psnr", "ssim", "mse", "inference_time_s", "perceptual",
+                      "lpips", "clip_score"]
+VAL_OVERALL_ROWS = (["num_samples", "fid", "perceptual_mean", "lpips_mean", "clip_score_mean"]
+                    + [f"{k}_{s}" for k in ("psnr", "ssim", "mse") for s in ("mean", "std", "min", "max")]
+                    + ["batch_time_mean_s", "batch_time_std_s", "batch_time_min_s", "batch_time_max_s",
+                       "total_inference_s", "img_per_sec"])
+# a tower on the card against the same tower on the CPU, both f32: the
+# perceptual, LPIPS and CLIP scores within this relative error, the
+# Inception pool3 features within this relative RMS error
+TOWER_RTOL = 1e-4
+# the public layouts: torchvision vgg16 (config "D") and alexnet features
+# (index, in, out, kernel), CLIP ViT-L/14 at 224 (torchmetrics' CLIPScore
+# default)
+TV_VGG16 = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"]
+TV_ALEX = [(0, 3, 64, 11), (3, 64, 192, 5), (6, 192, 384, 3), (8, 384, 256, 3), (10, 256, 256, 3)]
+CLIP_L14 = dict(hidden=1024, layers=24, inter=4096, proj=768, patch=14, image=224)
+
+
+def write_tower_weights(directory: str) -> dict:
+    """Random full-width weights of the four metric towers in their public
+    state-dict layouts, written to ``directory``: torchvision ``vgg16``
+    (``features.N`` and the ``classifier``, which the loader ignores), an
+    lpips-alex file (the AlexNet trunk under ``net.``, ``lin0``-``lin4``),
+    a transformers ``CLIPVisionModelWithProjection`` of CLIP ViT-L/14 and a
+    pytorch-fid InceptionV3 (with its ``fc`` head and
+    ``num_batches_tracked``). He-normal convolutions, 1/sqrt(fan_in) linear
+    layers, unit norms and running variance 1, so activations stay finite.
+    Returns {the val CLI's flag: path}."""
+    import torch
+
+    from mvd_tpu_torch.metrics.inception import InceptionV3Features
+
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).cpu()
+
+    def he(shape):
+        return normal(shape, math.sqrt(2.0 / math.prod(shape[1:])))
+
+    def linear(sd, name, n_out, n_in, bias=True):
+        sd[f"{name}.weight"] = normal((n_out, n_in), n_in**-0.5)
+        if bias:
+            sd[f"{name}.bias"] = torch.zeros(n_out)
+
+    def norm(sd, name, n):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = torch.ones(n), torch.zeros(n)
+
+    vgg, in_ch, tv = {}, 3, 0
+    for c in TV_VGG16:
+        if c == "M":
+            tv += 1
+            continue
+        vgg[f"features.{tv}.weight"], vgg[f"features.{tv}.bias"] = he((c, in_ch, 3, 3)), torch.zeros(c)
+        in_ch, tv = c, tv + 2
+    for i, (n_out, n_in) in zip((0, 3, 6), ((4096, 512 * 7 * 7), (4096, 4096), (1000, 4096))):
+        linear(vgg, f"classifier.{i}", n_out, n_in)
+
+    alex = {}
+    for i, (idx, n_in, n_out, k) in enumerate(TV_ALEX):
+        alex[f"net.features.{idx}.weight"], alex[f"net.features.{idx}.bias"] = he((n_out, n_in, k, k)), torch.zeros(n_out)
+        alex[f"lin{i}.model.1.weight"] = (0.1 * torch.rand((1, n_out, 1, 1), generator=gen, device="cuda")).cpu()
+
+    D, P, inter = CLIP_L14["hidden"], CLIP_L14["patch"], CLIP_L14["inter"]
+    e = "vision_model.embeddings."
+    clip = {e + "class_embedding": normal((D,), 1.0), e + "patch_embedding.weight": normal((D, 3, P, P), (3 * P * P) ** -0.5),
+            e + "position_embedding.weight": normal((1 + (CLIP_L14["image"] // P) ** 2, D), 0.02)}
+    norm(clip, "vision_model.pre_layrnorm", D)
+    norm(clip, "vision_model.post_layernorm", D)
+    for i in range(CLIP_L14["layers"]):
+        pre = f"vision_model.encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(clip, pre + "self_attn." + n, D, D)
+        norm(clip, pre + "layer_norm1", D)
+        norm(clip, pre + "layer_norm2", D)
+        linear(clip, pre + "mlp.fc1", inter, D)
+        linear(clip, pre + "mlp.fc2", D, inter)
+    linear(clip, "visual_projection", CLIP_L14["proj"], D, bias=False)
+
+    inception = {}
+    for name, t in InceptionV3Features().state_dict().items():
+        if name.endswith("conv.weight"):
+            inception[name] = he(tuple(t.shape))
+        elif name.endswith(("bn.weight", "running_var")):
+            inception[name] = torch.ones(t.shape)
+        else:
+            inception[name] = torch.zeros(t.shape)
+        if name.endswith("running_var"):
+            inception[name.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    linear(inception, "fc", 1008, 2048)
+
+    files = {}
+    for flag, name, sd in (("--vgg-weights", "vgg16.pth", vgg), ("--lpips-weights", "lpips_alex.pth", alex),
+                           ("--clip-vision-weights", "clip_vit_l14.bin", clip),
+                           ("--inception-weights", "pt_inception.pth", inception)):
+        files[flag] = os.path.join(directory, name)
+        torch.save(sd, files[flag])
+    return files
+
+
+def _read_csv(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def phase_val(corpus: str, run_root: str, card: str):
+    """Phase 8: ``python -m mvd_tpu_torch.cli.val`` through ``main(argv)`` in
+    this process, at the CLI's defaults (768², batch 4, 20 DDPM steps) on
+    phase 5's corpus (objects added until its test split holds two whole
+    batches) and run dir, with the YAML phase 5 trained with and random
+    full-width weight files of all four towers. Checks: the restored step
+    is phase 5's latest and the multi-view UNet bitwise that checkpoint's;
+    per batch K1 and K2 exactly ``expected_launches(pipe, 20)`` and no
+    plain call; the towers launch no hand kernel; both CSVs have the JAX
+    harness's columns in its order, finite values, SSIM in [-1, 1], LPIPS
+    >= 0, |clip_score| <= 100; two image pairs of the last batch scored by
+    each tower on the card and on the CPU agree within TOWER_RTOL (FID from
+    both printed, without a bar). Returns (the launches of one batch,
+    metrics)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.checkpoint import CheckpointManager
+    from mvd_tpu_torch.cli import val as val_cli
+    from mvd_tpu_torch.data.objaverse import ObjaverseDataset
+    from mvd_tpu_torch.metrics import fid as fid_mod
+    from mvd_tpu_torch.metrics import load_towers as towers_mod
+    from mvd_tpu_torch.metrics import towers as tw
+    from mvd_tpu_torch.pipeline import MVDPipeline
+
+    t_phase = time.perf_counter()
+    added = 0
+    while len(ObjaverseDataset(corpus, "test", image_size=TRAIN_RES)) < VAL_SAMPLES:
+        write_corpus(corpus, seed=1 + added, first=CORPUS_OBJECTS + added, count=4)
+        added += 4
+    tmp = tempfile.mkdtemp(prefix="mvd_val_")
+    try:
+        t0 = time.perf_counter()
+        weights = write_tower_weights(tmp)
+        weights_s = time.perf_counter() - t0
+        weight_bytes = {flag: os.path.getsize(p) for flag, p in weights.items()}
+        latest = CheckpointManager(os.path.join(run_root, "checkpoints")).latest_step()
+        out = os.path.join(tmp, "out")
+        restored, per_batch, tower_ms, captured, last_pair = [], [], {}, {}, {}
+
+        def on_restore(fn):
+            def run(*a, **k):
+                restored.append(fn(*a, **k))
+                return restored[-1]
+            return run
+
+        def counted(call):
+            def run(self, *a, **k):
+                reset_counts()
+                images = call(self, *a, **k)
+                torch.cuda.synchronize()
+                per_batch.append((*read_counts(), expected_launches(self, VAL_STEPS)))
+                return images
+            return run
+
+        def capture(load):
+            def run(*a, **k):
+                captured["towers"] = load(*a, **k)
+                return captured["towers"]
+            return run
+
+        def timed(name, keep=False):
+            def make(fn):
+                def run(*a, **k):
+                    if keep:
+                        last_pair["a"], last_pair["b"] = a[1], a[2]
+                    before = read_counts()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    result = fn(*a, **k)
+                    end.record()
+                    torch.cuda.synchronize()
+                    if read_counts() != before:
+                        raise AssertionError(f"the {name} tower launched a hand kernel or a plain version")
+                    tower_ms.setdefault(name, []).append(start.elapsed_time(end))
+                    return result
+                return run
+            return make
+
+        argv = ["--config", TRAIN_YAML, "--checkpoint", run_root, "--dataset-path", corpus,
+                "--num-samples", str(VAL_SAMPLES), "--batch-size", str(VAL_BATCH),
+                "--num-steps", str(VAL_STEPS), "--output-dir", out]
+        argv += [x for flag_path in weights.items() for x in flag_path]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _Hooks() as hooks:
+            hooks.wrap(val_cli, "_restore_run_dir", on_restore)
+            hooks.wrap(MVDPipeline, "__call__", counted)
+            hooks.wrap(towers_mod, "load_towers", capture)
+            hooks.wrap(tw.PerceptualLoss, "__call__", timed("perceptual", keep=True))
+            hooks.wrap(tw.LPIPS, "__call__", timed("lpips"))
+            hooks.wrap(tw.CLIPImageScore, "__call__", timed("clip"))
+            hooks.wrap(fid_mod.FID, "update", timed("fid"))
+            pipe, overall = val_cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # the run dir's latest step, bitwise
+        if latest != 5 or restored != [latest]:
+            raise AssertionError(f"restored steps {restored}, phase 5's latest is {latest}")
+        saved = torch.load(os.path.join(run_root, "checkpoints", str(latest), "state.pt"),
+                           map_location="cuda", weights_only=True)["params"]
+        now = pipe.model["mvd"].state_dict()
+        bad = [k for k, v in saved.items()
+               if k not in now or now[k].dtype != v.dtype or not torch.equal(now[k], v)]
+        if bad or now.keys() != saved.keys():
+            raise AssertionError(f"the restored multi-view UNet differs from step {latest}: {bad[:5]}")
+        n_params = len(saved)
+        del saved, now
+
+        # K1 and K2 per batch, nothing else
+        n_batches = VAL_SAMPLES // VAL_BATCH
+        if len(per_batch) != n_batches:
+            raise AssertionError(f"{len(per_batch)} generations, expected {n_batches}")
+        for i, (launches, plain, want) in enumerate(per_batch):
+            if launches != want or any(plain.values()):
+                raise AssertionError(f"batch {i}: launches {launches} (expected {want}), plain {plain}")
+        if sorted(tower_ms) != ["clip", "fid", "lpips", "perceptual"] or any(
+                len(v) != n_batches * (2 if k == "fid" else 1) for k, v in tower_ms.items()):
+            raise AssertionError(f"tower calls {({k: len(v) for k, v in tower_ms.items()})}")
+
+        # both CSVs: the JAX harness's columns, in range
+        rows = _read_csv(os.path.join(out, "validation_results.csv"))
+        table = _read_csv(os.path.join(out, "overall_metrics.csv"))
+        if rows[0] != VAL_RESULT_COLUMNS or len(rows) != 1 + VAL_SAMPLES:
+            raise AssertionError(f"validation_results.csv: columns {rows[0]}, {len(rows) - 1} rows")
+        if table[0] != ["metric", "value"] or [r[0] for r in table[1:]] != VAL_OVERALL_ROWS:
+            raise AssertionError(f"overall_metrics.csv rows {[r[0] for r in table]}")
+        per_sample = {name: [float(r[i]) for r in rows[1:]] for i, name in enumerate(rows[0])}
+        values = [v for vs in per_sample.values() for v in vs] + [float(r[1]) for r in table[1:]]
+        if (not all(math.isfinite(v) for v in values)
+                or not all(-1 <= v <= 1 for v in per_sample["ssim"])
+                or min(per_sample["lpips"]) < 0 or max(abs(v) for v in per_sample["clip_score"]) > 100):
+            raise AssertionError(f"CSV values out of range: {per_sample}")
+
+        # two pairs of the last batch, each tower on the card and on the CPU
+        towers = captured["towers"]
+        a, b = last_pair["a"][:2], last_pair["b"][:2]  # generations, targets in [-1, 1]
+        a01, b01 = (a + 1) / 2, (b + 1) / 2
+
+        def score(dev):
+            to = lambda t: t.to(dev)
+            feats = towers["fid"].extractor(torch.cat([to(b01), to(a01)]))
+            return dict(perceptual=float(towers["perceptual"](to(a), to(b))),
+                        lpips=float(towers["lpips"](to(a), to(b))),
+                        clip_score=float(towers["clip"](to(a01), to(b01))), feats=feats)
+
+        t0 = time.perf_counter()
+        on_card = score("cuda")
+        on_cpu = score("cpu")
+        cpu_s = time.perf_counter() - t0
+        agree = {k: abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k]) for k in ("perceptual", "lpips", "clip_score")}
+        fc, fp = on_card.pop("feats").astype(np.float64), on_cpu.pop("feats").astype(np.float64)
+        agree["inception_rel_rms"] = float(np.linalg.norm(fc - fp) / np.linalg.norm(fp))
+        if not all(v <= TOWER_RTOL for v in agree.values()):
+            raise AssertionError(f"the towers on the card and on the CPU differ: {agree} > {TOWER_RTOL}")
+
+        def fid_of(feats):
+            real, fake = fid_mod.RunningMoments(feats.shape[1]), fid_mod.RunningMoments(feats.shape[1])
+            real.update(feats[:2])
+            fake.update(feats[2:])
+            return fid_mod.frechet_distance(real.mean, real.cov, fake.mean, fake.cov)
+
+        fid_card, fid_cpu = fid_of(fc), fid_of(fp)
+        del pipe, towers, captured, last_pair
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ms = {k: (sum(v[-2:]) if k == "fid" else v[-1]) for k, v in tower_ms.items()}
+    metrics = dict(
+        run_s=run_s, sec_per_batch=overall["batch_time_mean_s"], img_per_s=overall["img_per_sec"],
+        tower_ms_per_batch=ms, tower_ms_calls=tower_ms, peak_gib=peak, restored_step=latest,
+        mvd_tensors_bitwise=n_params, launches_per_batch=per_batch[0][0], objects_added=added,
+        overall={k: v for k, v in overall.items()}, card_vs_cpu=agree, fid_card=fid_card,
+        fid_cpu=fid_cpu, card_cpu_s=cpu_s, weights_s=weights_s, weight_bytes=weight_bytes)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"[val] cli.val.main --config config/train_config.yaml --checkpoint <phase 5's run dir> "
+          f"--num-samples {VAL_SAMPLES} --batch-size {VAL_BATCH} --num-steps {VAL_STEPS} (768²) with "
+          f"all four towers: {run_s:.1f} s ({card}); restored step {latest}, {n_params} tensors of the "
+          f"multi-view UNet bitwise the checkpoint's; per batch launches {per_batch[0][0]} (expected "
+          f"{per_batch[0][2]}), no plain call, no launch in a tower; {added} objects added to the "
+          f"corpus for two test batches")
+    print(f"[val] overall_metrics.csv {json.dumps({r[0]: r[1] for r in table[1:]})}")
+    print(f"[val] second batch {overall['batch_time_mean_s']:.3f} s = {overall['img_per_sec']:.3f} img/s "
+          f"at 768²; tower device ms per batch of {VAL_BATCH} (CUDA events, last batch) "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}; peak memory {peak:.2f} GiB; "
+          f"tower files {weight_bytes} bytes written in {weights_s:.1f} s ({card})")
+    print(f"[val] card against CPU on two pairs of the last batch (f32): {json.dumps(agree)} (bar "
+          f"{TOWER_RTOL}); FID of those 2 + 2 images from the card {fid_card:.6g}, from the CPU "
+          f"{fid_cpu:.6g} (no bar: 2048-wide covariances of 2 samples); {cpu_s:.1f} s ({card})")
+    print(f"[val] phase 8 in {metrics['phase_s']:.1f} s ({card})")
+    return per_batch[0][0], metrics
 
 
 # device-kernel name patterns (regular expressions) of each port kernel in a
@@ -2479,8 +2810,8 @@ def main(argv=None) -> int:
         corpus_bytes = write_corpus(corpus)
         print(f"[train_entry] corpus: {CORPUS_OBJECTS} objects x {CORPUS_VIEWS} views, RGBA "
               f"{CORPUS_RES}², {corpus_bytes} bytes, written in {time.perf_counter() - t0:.1f} s")
-        entry_train_launches, entry_train_metrics, entry_trace = phase_train_entry(
-            corpus, corpus_bytes, trace=bool(args.trace))
+        entry_train_launches, entry_train_metrics, entry_trace, run_root = phase_train_entry(
+            corpus, corpus_bytes, corpus_dir, trace=bool(args.trace))
         if args.trace:
             traces["train_entry"] = entry_trace
             os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
@@ -2492,6 +2823,8 @@ def main(argv=None) -> int:
         _, joint_train_metrics = phase_train(views=JOINT_TRAIN_VIEWS, tag="joint-train")
         joint_train_launches = joint_train_metrics["remat_on"]["launches_per_step"]
         joint_entry_launches, joint_entry_metrics = phase_joint_train_entry(corpus)
+        torch.cuda.empty_cache()
+        val_launches, val_metrics = phase_val(corpus, run_root, card)
     finally:
         shutil.rmtree(corpus_dir, ignore_errors=True)
     joint_metrics.update(train=joint_train_metrics, train_entry=joint_entry_metrics,
@@ -2531,7 +2864,8 @@ def main(argv=None) -> int:
             joint_generation_launches=joint_launches[key],
             joint_int8_generation_launches=joint_int8_launches[key],
             joint_train_launches=joint_train_launches[key],
-            joint_train_entry_launches=joint_entry_launches[key], cases=cases,
+            joint_train_entry_launches=joint_entry_launches[key],
+            val_launches_per_batch=val_launches[key], cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
     print(f"[int8] {json.dumps(int8_metrics)}")
@@ -2540,6 +2874,7 @@ def main(argv=None) -> int:
     print(f"[train_entry] {json.dumps(entry_train_metrics)}")
     print(f"[joint] {json.dumps(joint_metrics)}")
     print(f"[multi] {json.dumps(multi_metrics)}")
+    print(f"[val] {json.dumps(val_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

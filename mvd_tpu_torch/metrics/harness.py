@@ -1,13 +1,17 @@
 """Validation harness: generation over a loader with per-sample PSNR and
-SSIM, comparison PNGs, timing, and the two CSV outputs.
+SSIM, the tower metrics, comparison PNGs, timing, and the two CSV outputs.
 
 Counterpart of ``mvd_tpu/metrics/harness.py:run_validation``:
-``validation_results.csv`` (one row per sample) and
-``overall_metrics.csv`` (mean/std/min/max of each metric, and from the
-second batch on, which excludes first-call costs, the batch times and
-images per second). Each generation is timed to the end of its device work.
-The tower metrics (perceptual, LPIPS, CLIP, FID) are ROADMAP item 13b; a
-``towers`` argument raises until then.
+``validation_results.csv`` (one row per sample, with ``perceptual``,
+``lpips`` and ``clip_score`` per batch where those towers are available)
+and ``overall_metrics.csv`` (``fid`` where its tower is available, the
+towers' means, mean/std/min/max of PSNR, SSIM and MSE, and from the second
+batch on, which excludes first-call costs, the batch times and images per
+second), with the JAX package's columns in its order. Each generation is
+timed to the end of its device work. ``towers`` is what
+``metrics.load_towers.load_towers`` returns; each tower runs on the device
+of the generated images: perceptual and LPIPS on [-1, 1], CLIP on [0, 1],
+FID with the targets as real and the generations as fake, on [0, 1].
 """
 
 from __future__ import annotations
@@ -38,8 +42,8 @@ def run_validation(
     sampler: Optional[str] = None,
     encoder_reuse: int = 1,
 ) -> Dict[str, float]:
-    if towers:
-        raise NotImplementedError("tower metrics are ROADMAP item 13b, not ported yet")
+    towers = towers or {}
+    fid = towers.get("fid")
     os.makedirs(output_dir, exist_ok=True)
     rows: List[Dict] = []
     batch_times: List[tuple] = []
@@ -69,9 +73,22 @@ def run_validation(
         p = psnr_per_image(gen, tgt, data_range=1.0).cpu().numpy()
         s = ssim(gen, tgt, data_range=1.0, per_image=True).cpu().numpy()
         mse = ((gen - tgt) ** 2).mean(dim=(1, 2, 3)).cpu().numpy()
+
+        extra: Dict[str, float] = {}
+        gen_m11, tgt_m11 = gen * 2 - 1, tgt * 2 - 1
+        for key, name, a, b in (("perceptual", "perceptual", gen_m11, tgt_m11),
+                                ("lpips", "lpips", gen_m11, tgt_m11),
+                                ("clip", "clip_score", gen, tgt)):
+            tower = towers.get(key)
+            if tower is not None and tower.available:
+                extra[name] = float(tower(a, b))
+        if fid is not None and fid.available:
+            fid.update(tgt, real=True)
+            fid.update(gen, real=False)
         for i in range(n):
             rows.append({"batch": bi, "sample": n_samples + i, "psnr": float(p[i]),
-                         "ssim": float(s[i]), "mse": float(mse[i]), "inference_time_s": dt / n})
+                         "ssim": float(s[i]), "mse": float(mse[i]), "inference_time_s": dt / n,
+                         **extra})
         if save_images and bi < 4:
             gen_np = gen.cpu().numpy()
             for i in range(min(n, 2)):
@@ -85,6 +102,12 @@ def run_validation(
             w.writeheader()
             w.writerows(rows)
     overall: Dict[str, float] = {"num_samples": n_samples}
+    if fid is not None and fid.available and n_samples:
+        overall["fid"] = fid.compute()
+    for extra_key in ("perceptual", "lpips", "clip_score"):
+        vals = [r[extra_key] for r in rows if extra_key in r]
+        if vals:
+            overall[f"{extra_key}_mean"] = float(np.mean(vals))
     for key in ("psnr", "ssim", "mse"):
         vals = np.array([r[key] for r in rows]) if rows else np.array([0.0])
         overall[f"{key}_mean"] = float(vals.mean())

@@ -9,7 +9,8 @@ SSIM's variance terms E[x²] − μ² cancel catastrophically in reduced
 precision (the JAX package measured a true 0.78 read as 0.06 under bf16
 passes on a TPU). On the GPU cuDNN may run an f32 convolution in TF32, so
 ``_filter2d`` turns TF32 off for its own convolution and restores the
-setting after it; no other product of the process is touched.
+setting after it (``no_tf32``, which the metric towers share); no other
+product of the process is touched.
 """
 
 from __future__ import annotations
@@ -40,21 +41,22 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions in full f32 inside the block only."""
-    old = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def no_tf32():
+    """cuDNN convolutions and cuBLAS matmuls in full f32 inside the block
+    only; both switches are restored after it."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = old
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def _filter2d(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     """Depthwise 2D filter, VALID padding, in full f32. x: (B, H, W, C)."""
     C = x.shape[-1]
     kernel = win[None, None].expand(C, 1, *win.shape)
-    with _no_tf32():
+    with no_tf32():
         out = F.conv2d(x.permute(0, 3, 1, 2), kernel, groups=C)
     return out.permute(0, 2, 3, 1)
 

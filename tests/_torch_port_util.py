@@ -1,12 +1,16 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: random flax params from a numpy seed (no jitted init), the
-signal-to-noise ratio the parity bars are stated in, and the depth cut of
-TINY_MODEL that keeps the JAX compiles short."""
+signal-to-noise ratio the parity bars are stated in, the depth cut of
+TINY_MODEL that keeps the JAX compiles short, and random metric-tower
+weight files in their public layouts."""
 
 import dataclasses
+import math
+import os
 
 import jax
 import numpy as np
+import torch
 
 
 def cut_config(cfg):
@@ -158,3 +162,110 @@ def jax_joint_train_run():
     _JOINT_RUN.update(params=params, batch=batch, metrics={k: np.asarray(v) for k, v in m.items()},
                       draws=jax_train_draws(key, pipe.schedule, V, lat))
     return _JOINT_RUN
+
+
+# ---------------------------------------------------------------- tower files
+# random weights of the metric towers in their public state-dict layouts
+# (torchvision vgg16, an lpips file with its AlexNet trunk under net.,
+# transformers CLIPVisionModelWithProjection, pytorch-fid InceptionV3),
+# He-normal convolutions and running variance 1 so activations stay finite
+
+VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
+ALEX = [(3, 64, 11), (64, 192, 5), (192, 384, 3), (384, 256, 3), (256, 256, 3)]
+CLIP_ARCHS = {  # the two families at small widths, 2 layers, 224² input
+    "l": dict(hidden=128, heads=2, inter=256, proj=96, patch=14, image=224),
+    "h": dict(hidden=160, heads=2, inter=320, proj=128, patch=14, image=224),
+}
+
+
+def _he(gen, shape):
+    fan_in = int(np.prod(shape[1:]))
+    return torch.randn(shape, generator=gen) * math.sqrt(2.0 / fan_in)
+
+
+def _vgg_sd(seed=0):
+    """torchvision vgg16 layout: features.N.{weight,bias} and a classifier
+    key that both loaders ignore."""
+    gen = torch.Generator().manual_seed(seed)
+    sd, in_ch, tv = {}, 3, 0
+    for c in VGG16_CFG:
+        if c == "M":
+            tv += 1
+            continue
+        sd[f"features.{tv}.weight"] = _he(gen, (c, in_ch, 3, 3))
+        sd[f"features.{tv}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        in_ch, tv = c, tv + 2
+    sd["classifier.6.bias"] = torch.zeros(1000)
+    return sd
+
+
+def _lins(gen, chans):
+    return {f"lin{i}.model.1.weight": 0.1 * torch.rand((1, c, 1, 1), generator=gen)
+            for i, c in enumerate(chans)}
+
+
+def _lpips_alex_sd(seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for idx, (ic, oc, k) in zip((0, 3, 6, 8, 10), ALEX):
+        sd[f"net.features.{idx}.weight"] = _he(gen, (oc, ic, k, k))
+        sd[f"net.features.{idx}.bias"] = 0.1 * torch.randn(oc, generator=gen)
+    sd.update(_lins(gen, [c[1] for c in ALEX]))
+    return sd
+
+
+def _clip_sd(arch, layers=2, seed=2):
+    """transformers CLIPVisionModelWithProjection key layout."""
+    gen = torch.Generator().manual_seed(seed)
+    D, inter, P = arch["hidden"], arch["inter"], arch["patch"]
+    n_pos = 1 + (arch["image"] // P) ** 2
+    rn = lambda *s, std: std * torch.randn(s, generator=gen)
+    e = "vision_model.embeddings."
+    sd = {e + "class_embedding": rn(D, std=1.0), e + "patch_embedding.weight": rn(D, 3, P, P, std=(3 * P * P) ** -0.5),
+          e + "position_embedding.weight": rn(n_pos, D, std=0.1),
+          "vision_model.pre_layrnorm.weight": 1 + rn(D, std=0.1), "vision_model.pre_layrnorm.bias": rn(D, std=0.1),
+          "vision_model.post_layernorm.weight": 1 + rn(D, std=0.1), "vision_model.post_layernorm.bias": rn(D, std=0.1),
+          "visual_projection.weight": rn(arch["proj"], D, std=D**-0.5)}
+    for i in range(layers):
+        pre = f"vision_model.encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[pre + f"self_attn.{n}.weight"] = rn(D, D, std=D**-0.5)
+            sd[pre + f"self_attn.{n}.bias"] = rn(D, std=0.1)
+        for n in ("layer_norm1", "layer_norm2"):
+            sd[pre + f"{n}.weight"] = 1 + rn(D, std=0.1)
+            sd[pre + f"{n}.bias"] = rn(D, std=0.1)
+        sd[pre + "mlp.fc1.weight"], sd[pre + "mlp.fc1.bias"] = rn(inter, D, std=D**-0.5), rn(inter, std=0.1)
+        sd[pre + "mlp.fc2.weight"], sd[pre + "mlp.fc2.bias"] = rn(D, inter, std=inter**-0.5), rn(D, std=0.1)
+    return sd
+
+
+def _inception_sd(seed=3):
+    """pytorch-fid key layout (built from the port's module names, plus the
+    ``fc.`` head and ``num_batches_tracked`` that the converters drop)."""
+    from mvd_tpu_torch.metrics.inception import InceptionV3Features
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, t in InceptionV3Features().state_dict().items():
+        if name.endswith("conv.weight"):
+            sd[name] = _he(gen, t.shape)
+        elif name.endswith("running_var"):
+            sd[name] = torch.ones(t.shape)
+            sd[name.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+        else:
+            sd[name] = 0.1 * torch.randn(t.shape, generator=gen)
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1008, 2048), torch.zeros(1008)
+    return {"inception." + k: v for k, v in sd.items()}
+
+
+def write_tower_files(directory) -> dict:
+    """One random state dict per tower in its public layout, written to
+    ``directory``; returns {name: path}."""
+    out = {}
+    for name, sd in [("vgg", _vgg_sd()), ("lpips_alex", _lpips_alex_sd()),
+                     ("lpips_vgg", _lins(torch.Generator().manual_seed(4), [64, 128, 256, 512, 512])),
+                     ("clip_l", _clip_sd(CLIP_ARCHS["l"])), ("clip_h", _clip_sd(CLIP_ARCHS["h"])),
+                     ("inception", _inception_sd())]:
+        out[name] = os.path.join(str(directory), f"{name}.pth")
+        torch.save(sd, out[name])
+    return out

@@ -557,6 +557,40 @@ def test_ssim_stays_f32_under_global_tf32(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
 
 
+def test_metric_towers_stay_f32_under_global_tf32(cuda):
+    """With TF32 on for the whole process, the VGG16 perceptual loss and the
+    CLIP image score on the card equal their f32 values on the CPU to
+    relative 1e-4: each tower turns TF32 off for its own convolutions and
+    matmuls (a TF32 product's error, about 1e-3 relative, would show)."""
+    from mvd_tpu_torch.metrics.towers import (CLIPImageScore, CLIPVisionEncoder, PerceptualLoss,
+                                              VGG16Features)
+
+    torch.manual_seed(0)
+    vgg = VGG16Features()
+    for m in vgg.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            torch.nn.init.kaiming_normal_(m.weight)
+    clip = CLIPVisionEncoder(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                             projection_dim=96)
+    with torch.no_grad():
+        clip.class_embedding.normal_()
+        clip.position_embedding.normal_(std=0.1)
+    towers = PerceptualLoss(vgg.eval().cuda()), CLIPImageScore(clip.eval().cuda())
+    a, b = (torch.rand((2, 64, 64, 3), generator=cuda, device="cuda") for _ in range(2))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = [towers[0](a * 2 - 1, b * 2 - 1), towers[1](a, b)]
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    a, b = a.cpu(), b.cpu()  # the towers follow their images to the CPU
+    want = [towers[0](a * 2 - 1, b * 2 - 1), towers[1](a, b)]
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=0)
+
+
 # ------------------------------------------------- joint multi-view lengths
 
 JOINT_GEN, JOINT_TRAIN = 4 * 64 * 64, 2 * 96 * 96  # merged self-attention lengths
