@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Ten phases; any failure exits non-zero:
+Eleven phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
-   ``nvcc`` each, in parallel) and prints the seconds and ptxas's report;
+   ``nvcc`` each, in parallel; the host C++ readers with ``c++`` beside
+   them) and prints the seconds and ptxas's report;
 2. kernels: holds each kernel against its plain PyTorch version on the card,
    in bf16, at the main path's shapes, and times the kernel, the plain
    version and one PyTorch library call computing the same function (a
@@ -50,8 +51,10 @@ Ten phases; any failure exits non-zero:
    ray-conditioned pipeline (conv_in zero-padded by
    ``zero_pad_conv_in``) with its PSNR against phase 3's images; and the
    HTTP server of ``cli/serve.py`` on 127.0.0.1, which must answer
-   ``/healthz`` and four ``/generate`` requests (one with a PNG source
-   image, two at once) with 200 and PNGs that decode to 512x512x3;
+   ``/healthz`` and five ``/generate`` requests (one with a PNG source
+   image, two at once, one with a JPEG source image at 20 DDPM steps whose
+   decode in the server must be PIL's pixels by sha256 and whose launches
+   must be phase 3's) with 200 and PNGs that decode to 512x512x3;
 4. train: holds K3a/K3b against the plain backward at every attention shape
    of the 768² train step (timed beside the backward of
    ``scaled_dot_product_attention``, a yardstick the port never calls, and
@@ -131,6 +134,19 @@ Ten phases; any failure exits non-zero:
    against the CPU (relative 1e-4; FID printed from both). Prints the
    second batch's seconds and img/s, each tower's device ms per batch,
    the peak memory and the phase's seconds.
+9. the image readers (host C++ built from the checkout with the host's
+   ``c++`` in phase 1), after phase 8: (a) every JPEG fixture of
+   ``tests/fixtures/torch_port_jpeg`` decoded to PIL's pixels (sha256) or
+   refused as it must be; (b)
+   ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
+   1067x800 JPEG frames (``frame_annotations.jgz``; 9 sequences, so no val
+   split) at phase 5's point for 3 steps: K1, K2, K3a and K3b exactly the
+   train step's launches per step, no plain call, finite losses; (c) the
+   native reader held to ``load_view_plain`` on 4 views, ``cli.train.main
+   --native-loader`` on phase 5's corpus for 2 steps; then the host ms per
+   768² view of the PIL path, the native reader and a JPEG frame, and the
+   loader's seconds a batch of 6 with each reader, in turns, against the
+   step, beside the card's name and power limit.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
 generation, one call of each sampler configuration of phase 3c and one
@@ -152,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import math
@@ -162,6 +179,7 @@ import statistics
 import sys
 import tempfile
 import time
+import zipfile
 
 STEPS, VIEWS, RES = 20, 4, 512
 TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TOTAL = 6, 768, 3, 100
@@ -169,9 +187,10 @@ REMAT_TURNS = 4
 
 
 def phase_build() -> float:
-    from mvd_tpu_torch.kernels import KERNEL_SOURCES, _build
+    from mvd_tpu_torch.kernels import HOST_SOURCES, KERNEL_SOURCES, _build
 
-    secs = _build.build_all(KERNEL_SOURCES)
+    secs = _build.build_all(KERNEL_SOURCES, HOST_SOURCES)
+    print(f"[build] host C++ {list(HOST_SOURCES)} with c++ {' '.join(_build.HOST_FLAGS)}, beside nvcc")
     for name in KERNEL_SOURCES:
         _build.load(name)
         for line in _build.build_logs.get(name, "").splitlines():
@@ -185,7 +204,7 @@ def phase_build() -> float:
           f"{smem(1)} (K3b)")
     print(f"[build] flash_attn_int8: dynamic shared memory per CTA (K6) "
           f"{_build.load('flash_attn_int8').flash_attn_int8_smem_bytes()} bytes")
-    print(f"[build] {len(KERNEL_SOURCES)} sources built in {secs:.1f} s")
+    print(f"[build] {len(KERNEL_SOURCES)} CUDA and {len(HOST_SOURCES)} host sources built in {secs:.1f} s")
     return secs
 
 
@@ -893,6 +912,7 @@ def phase_entry_points(call, bf16_images, trace: bool = False):
         zero_pad_conv_in,
     )
     from mvd_tpu_torch.cli import infer
+    from mvd_tpu_torch.cli import serve as serve_mod
     from mvd_tpu_torch.cli.serve import make_handler
     from mvd_tpu_torch.pipeline import MVDPipeline
     from mvd_tpu_torch.pipeline.pipeline import build_model
@@ -1056,6 +1076,38 @@ def phase_entry_points(call, bf16_images, trace: bool = False):
         if sorted(both_at_once) != [0, 1]:
             raise AssertionError("a concurrent request did not finish")
         replies.update({f"concurrent {i}": both_at_once[i] for i in range(2)})
+        # a JPEG upload (a CO3D-sized 4:2:0 frame) at 20 DDPM steps: the
+        # server's own decode is bitwise PIL's pixels for it (by sha256), and
+        # the call launches K1 and K2 as phase 3's does
+        jpeg_name = "frame_a.jpg"
+        with open(os.path.join(JPEG_FIXTURES, jpeg_name), "rb") as f:
+            jpeg = f.read()
+        decoded = []
+
+        def recorded(decode):
+            def run(data, *a, **k):
+                img = decode(data, *a, **k)
+                decoded.append(img)
+                return img
+            return run
+
+        with _Hooks() as hooks:
+            hooks.wrap(serve_mod, "decode_image", recorded)
+            reset_counts()
+            label = f"JPEG source ({jpeg_name}), DDPM {STEPS}"
+            replies[label] = post({"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS,
+                                   "seed": 4, "source_image_b64": base64.b64encode(jpeg).decode()})
+            jpeg_launches, jpeg_plain = read_counts()
+        want = expected_launches(pipe, STEPS)
+        digest = fixture_digests()[jpeg_name]
+        got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() for img in decoded]
+        if jpeg_launches != want or any(jpeg_plain.values()):
+            raise AssertionError(f"serve {label}: launches {jpeg_launches} != {want}, plain {jpeg_plain}")
+        if got != [digest["sha256"]] or list(decoded[0].shape) != digest["shape"]:
+            raise AssertionError(f"serve {label}: the server decoded {got}, PIL's pixels are "
+                                 f"{digest['sha256']}")
+        print(f"[entry] serve {label}: the server's decode {tuple(decoded[0].shape)} is bitwise PIL's "
+              f"(sha256 {got[0][:16]}...); launches {jpeg_launches}; no plain call")
         for label, reply in replies.items():
             if len(reply["images_b64"]) != VIEWS:
                 raise AssertionError(f"serve {label}: {len(reply['images_b64'])} images")
@@ -1069,7 +1121,8 @@ def phase_entry_points(call, bf16_images, trace: bool = False):
         srv.server_close()
         server.join(timeout=60)
     latency = {label: reply["latency_s"] for label, reply in replies.items()}
-    metrics["serve"] = dict(latency_s=latency, compiled_signatures=health["compiled_signatures"])
+    metrics["serve"] = dict(latency_s=latency, compiled_signatures=health["compiled_signatures"],
+                            jpeg_launches=jpeg_launches)
     print(f"[entry] serve: /healthz {health}; every /generate answered 200 with {VIEWS} PNGs of "
           f"{RES}x{RES}x3; latency_s {latency}")
     return metrics
@@ -2361,6 +2414,262 @@ def phase_val(corpus: str, run_root: str, card: str):
     return per_batch[0][0], metrics
 
 
+# phase 9: the image readers on the host. The JPEG fixtures and PIL's
+# digests of them (tests/fixtures/torch_port_jpeg/make_fixtures.py); the
+# CO3D-layout corpus copies the two CO3D-sized frames into
+# CO3D_SEQUENCES x CO3D_FRAMES frames (under 10 sequences: no val split)
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "torch_port_jpeg")
+CO3D_FRAMES_SRC = ("frame_a.jpg", "frame_b.jpg")
+CO3D_SEQUENCES, CO3D_FRAMES, CO3D_STEPS, NATIVE_STEPS = 9, 4, 3, 2
+NATIVE_TOL = 5e-7  # the C++ reader against its numpy plain version (the tests: bitwise)
+READER_TURNS, LOADER_BATCHES = 3, 4
+
+
+def fixture_digests() -> dict:
+    """name -> {"sha256", "shape"} of PIL's pixels, or {"refused": word}."""
+    with open(os.path.join(JPEG_FIXTURES, "pil_sha256.json")) as f:
+        return json.load(f)
+
+
+def write_co3d_corpus(root: str, seed: int = 0) -> int:
+    """A CO3D-layout corpus (``<root>/teddybear/frame_annotations.jgz``,
+    ``<root>/teddybear/seqNNN/images/frameNNNNNN.jpg``): the fixture frames
+    copied into every sequence in turn, each frame with its own seeded
+    PyTorch3D viewpoint. Returns the bytes of its frames."""
+    import gzip
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cat = os.path.join(root, "teddybear")
+    anns, total = [], 0
+    for s in range(CO3D_SEQUENCES):
+        seq = f"seq{s:03d}"
+        os.makedirs(os.path.join(cat, seq, "images"))
+        for f in range(CO3D_FRAMES):
+            rel = os.path.join("teddybear", seq, "images", f"frame{f + 1:06d}.jpg")
+            shutil.copyfile(os.path.join(JPEG_FIXTURES, CO3D_FRAMES_SRC[(s + f) % 2]),
+                            os.path.join(root, rel))
+            total += os.path.getsize(os.path.join(root, rel))
+            q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+            q[:, 0] *= np.sign(np.linalg.det(q))
+            anns.append({"sequence_name": seq, "frame_number": f,
+                         "image": {"path": rel, "size": [800, 1067]},
+                         "viewpoint": {"R": q.tolist(), "T": rng.standard_normal(3).tolist(),
+                                       "focal_length": [1.5, 1.5], "principal_point": [0.0, 0.0]}})
+    with gzip.open(os.path.join(cat, "frame_annotations.jgz"), "wt") as f:
+        json.dump(anns, f)
+    return total
+
+
+def _train_records(tr, steps: int, what: str) -> list:
+    """The run's train/noise_loss at steps 1..steps, each finite."""
+    recs = {r["step"]: r["train/noise_loss"] for r in _records(tr.logger.jsonl_path)
+            if "train/noise_loss" in r}
+    if sorted(recs) != list(range(1, steps + 1)) or not all(math.isfinite(v) for v in recs.values()):
+        raise AssertionError(f"{what}: train/noise_loss {recs}")
+    return [recs[s] for s in sorted(recs)]
+
+
+def _join_loader_threads(timeout: float = 60.0) -> None:
+    """Wait for the loader threads that a closed loader leaves finishing
+    their batch, so that they read no file that is gone and load no later
+    phase's host."""
+    import threading
+
+    for th in threading.enumerate():
+        if th.name.startswith("mvd-loader"):
+            th.join(timeout)
+
+
+def _loader_s_per_batch(loader, batches: int = LOADER_BATCHES) -> float:
+    """Seconds a batch of ``loader``: its first ``batches`` from the start
+    over their count. The loader keeps ``prefetch`` (4) batches in flight,
+    one a thread, so its first 4 arrive together at its steady rate."""
+    t0 = time.perf_counter()
+    it = iter(loader)
+    try:
+        for _ in range(batches):
+            next(it)
+        return (time.perf_counter() - t0) / batches
+    finally:
+        it.close()
+        _join_loader_threads()
+
+
+def phase_readers(corpus: str, card: str) -> tuple:
+    """Phase 9, the image readers (host C++ built from the checkout with the
+    host's ``c++`` in phase 1): (a) every JPEG fixture decoded to PIL's
+    pixels (sha256; the refused ones raise naming their feature);
+    (b) ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
+    JPEG frames at the YAML's point (batch 6, 768²) for 3 steps: K1, K2,
+    K3a and K3b exactly ``expected_train_launches`` per step (no validation:
+    no val split), no plain call, finite losses; (c) the native reader on
+    phase 5's corpus against ``load_view_plain`` on 4 views, then
+    ``cli.train.main --native-loader`` for 2 steps with K3a/K3b per step;
+    then the host ms per 768² view of each reader and the loader's seconds
+    a batch of 6 with each, in turns, against the step. Returns (the CO3D
+    run's launches per step, metrics)."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.cli import train as train_cli
+    from mvd_tpu_torch.data import native_loader
+    from mvd_tpu_torch.data.co3d import CO3DDataset
+    from mvd_tpu_torch.data.objaverse import DataLoader, ObjaverseDataset, _load_image_from_bytes
+    from mvd_tpu_torch.data.tokenizer import HashTokenizer
+    from mvd_tpu_torch.kernels import HOST_SOURCES, _build
+    from mvd_tpu_torch.utils.images import decode_jpeg
+
+    t_phase = time.perf_counter()
+    base = ["--config", TRAIN_YAML, "--batch-size", str(TRAIN_BATCH), "--image-size", str(TRAIN_RES)]
+    size, batch, metrics = TRAIN_RES, TRAIN_BATCH, {}
+
+    # (a) every fixture against PIL's digest (phase 1 built the libraries)
+    for name in HOST_SOURCES:
+        if _build.build_host(name) != os.path.join(_build.BUILD_DIR, f"lib{name}.so"):
+            raise AssertionError(f"{name}: not built into {_build.BUILD_DIR}")
+    digests, refused = fixture_digests(), []
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        if "refused" in want:
+            try:
+                decode_jpeg(data)
+            except ValueError as e:
+                if want["refused"] not in str(e):
+                    raise AssertionError(f"{name}: refused with {e!r}, not for {want['refused']}")
+                refused.append(name)
+                continue
+            raise AssertionError(f"{name}: decoded, but the port does not read {want['refused']}")
+        img = decode_jpeg(data)
+        if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"] or list(img.shape) != want["shape"]:
+            raise AssertionError(f"{name}: the decode is not PIL's pixels")
+    print(f"[readers] (a) {len(digests) - len(refused)} JPEG fixtures decode bitwise to PIL's pixels "
+          f"(sha256), {refused} refused as they must be")
+
+    tmp = tempfile.mkdtemp(prefix="mvd_readers_")
+    try:
+        # (b) the train CLI on CO3D's JPEG frames
+        co3d = os.path.join(tmp, "co3d")
+        co3d_bytes = write_co3d_corpus(co3d)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(base + ["--dataset-path", co3d, "--dataset-format", "co3d", "--max-steps",
+                                    str(CO3D_STEPS), "--output-dir", os.path.join(tmp, "out_co3d")])
+        torch.cuda.synchronize()
+        run_b_s = time.perf_counter() - t0
+        launches, plain = read_counts()
+        # every kernel, the zeros of K5, K6, K6q and K4m included
+        per_step = expected_train_launches(tr.state.model)
+        bad = {k: launches[k] for k in launches if launches[k] != per_step[k] * CO3D_STEPS}
+        if bad or set(per_step) != set(launches) or any(plain.values()) or tr.state.step != CO3D_STEPS:
+            raise AssertionError(f"(b): launches {launches} != {CO3D_STEPS} x {per_step}, plain {plain}, "
+                                 f"step {tr.state.step}")
+        losses = _train_records(tr, CO3D_STEPS, "(b)")
+        times = [t["step_s"] for t in tr.timings]
+        waits = [t["loader_wait_s"] for t in tr.timings]
+        co3d_step_s = statistics.mean(times[1:])
+        if not isinstance(tr.train_loader.ds, CO3DDataset) or len(tr.val_loader.ds):
+            raise AssertionError("(b): not a CO3D corpus without a val split")
+        co3d_per_step = {k: launches[k] // CO3D_STEPS for k in launches}
+        print(f"[readers] (b) cli.train.main {' '.join(base)} --dataset-format co3d --max-steps "
+              f"{CO3D_STEPS} on {CO3D_SEQUENCES} sequences x {CO3D_FRAMES} JPEG frames 1067x800 "
+              f"({co3d_bytes} bytes): {run_b_s:.1f} s; launches per step "
+              f"{co3d_per_step} (expected {per_step}), no plain "
+              f"call; noise_loss {[round(v, 5) for v in losses]}; s per step {[round(t, 3) for t in times]}; "
+              f"loader wait {[round(w, 3) for w in waits]} s")
+        metrics["co3d"] = dict(run_s=run_b_s, launches_per_step=co3d_per_step,
+                               losses=losses, step_s=times, loader_wait_s=waits, corpus_bytes=co3d_bytes)
+        co3d_loader = tr.train_loader
+        del tr
+        torch.cuda.empty_cache()
+
+        # (c) the native reader: held to its plain version, then the train CLI
+        zp = os.path.join(corpus, "renders_final", "obj_000.zip")
+        err = 0.0
+        for v in range(CORPUS_VIEWS):
+            got = native_loader.load_view(zp, f"{v:03d}.png", size)
+            want = native_loader.load_view_plain(zp, f"{v:03d}.png", size)
+            err = max(err, float(np.abs(got - want).max()))
+        if err > NATIVE_TOL:
+            raise AssertionError(f"(c): the native reader is {err} from load_view_plain")
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(base + ["--dataset-path", corpus, "--native-loader", "--max-steps",
+                                    str(NATIVE_STEPS), "--output-dir", os.path.join(tmp, "out_native")])
+        torch.cuda.synchronize()
+        run_c_s = time.perf_counter() - t0
+        launches_c, plain_c = read_counts()
+        per_step = expected_train_launches(tr.state.model)
+        for key in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            if launches_c[key] != per_step[key] * NATIVE_STEPS or any(plain_c.values()):
+                raise AssertionError(f"(c): {key} launched {launches_c[key]}, plain {plain_c}")
+        if not (tr.train_loader.ds.use_native and tr.val_loader.ds.use_native):
+            raise AssertionError("(c): the datasets do not read natively")
+        native_losses = _train_records(tr, NATIVE_STEPS, "(c)")
+        native_times = [t["step_s"] for t in tr.timings]
+        step_s = native_times[-1]
+        print(f"[readers] (c) native reader on {CORPUS_VIEWS} views of obj_000 at {size}²: max |C++ - "
+              f"load_view_plain| {err:.3g} (bar {NATIVE_TOL}); cli.train.main --native-loader --max-steps "
+              f"{NATIVE_STEPS}: {run_c_s:.1f} s, K3a {launches_c['flash_attn_bwd_dq']} and K3b "
+              f"{launches_c['flash_attn_bwd_dkv']} ({NATIVE_STEPS} x {per_step['flash_attn_bwd_dq']} / "
+              f"{per_step['flash_attn_bwd_dkv']}), noise_loss {[round(v, 5) for v in native_losses]}, "
+              f"s per step {[round(t, 3) for t in native_times]}")
+        native_loader_ = tr.train_loader
+        del tr
+        torch.cuda.empty_cache()
+
+        # host ms per view of each reader, in turns (one thread)
+        with zipfile.ZipFile(zp) as z:
+            png = z.read("000.png")
+        with open(os.path.join(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]), "rb") as f:
+            jpg = f.read()
+        readers = {
+            "numpy PIL path (PNG 512² RGBA, Lanczos)": lambda: _load_image_from_bytes(png, size),
+            "native reader (PNG 512² RGBA, bilinear)": lambda: native_loader.load_view(zp, "000.png", size),
+            "JPEG frame 1067x800 (decode + Lanczos)": lambda: _load_image_from_bytes(jpg, size),
+            "JPEG decode alone": lambda: decode_jpeg(jpg),
+        }
+        ms = {k: [] for k in readers}
+        for _ in range(READER_TURNS):
+            for k, fn in readers.items():
+                t0 = time.perf_counter()
+                fn()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+        view_ms = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"[readers] host ms per {size}² view, median of {READER_TURNS} in turns (one thread; "
+              f"{card}): " + "; ".join(f"{k} {v:.1f}" for k, v in view_ms.items()))
+
+        # the loader alone, a batch of 6, with each reader, in turns
+        pil_loader = DataLoader(ObjaverseDataset(corpus, "train", image_size=size), HashTokenizer(),
+                                batch_size=batch, num_workers=native_loader_.num_workers)
+        loaders = {"numpy PIL path": pil_loader, "native reader": native_loader_,
+                   "CO3D JPEG frames": co3d_loader}
+        loader_s = {k: [] for k in loaders}
+        for _ in range(2):
+            for k, ld in loaders.items():
+                loader_s[k].append(_loader_s_per_batch(ld))
+        loader_s = {k: min(v) for k, v in loader_s.items()}
+        print(f"[readers] the loader alone, s per batch of {batch} ({2 * batch} views; its first "
+              f"{LOADER_BATCHES} batches, {native_loader_.prefetch} in flight on "
+              f"{native_loader_.num_workers} threads, {os.cpu_count()} cores; the faster of 2 turns): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in loader_s.items())
+              + f"; against {step_s:.3f} s per native-loader step and {co3d_step_s:.3f} per CO3D step "
+              f"({card})")
+        metrics["native"] = dict(run_s=run_c_s, max_abs_err=err, losses=native_losses, step_s=native_times,
+                                 launches=launches_c)
+        metrics.update(view_ms=view_ms, loader_s_per_batch=loader_s, step_s=step_s, co3d_step_s=co3d_step_s)
+    finally:
+        _join_loader_threads()
+        shutil.rmtree(tmp, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"[readers] phase 9 in {metrics['phase_s']:.1f} s ({card})")
+    return metrics["co3d"]["launches_per_step"], metrics
+
+
 # device-kernel name patterns (regular expressions) of each port kernel in a
 # torch.profiler trace
 def _ring_counts_want(n: int, backward: bool) -> dict:
@@ -2825,6 +3134,8 @@ def main(argv=None) -> int:
         joint_entry_launches, joint_entry_metrics = phase_joint_train_entry(corpus)
         torch.cuda.empty_cache()
         val_launches, val_metrics = phase_val(corpus, run_root, card)
+        torch.cuda.empty_cache()
+        co3d_launches, reader_metrics = phase_readers(corpus, card)
     finally:
         shutil.rmtree(corpus_dir, ignore_errors=True)
     joint_metrics.update(train=joint_train_metrics, train_entry=joint_entry_metrics,
@@ -2865,7 +3176,8 @@ def main(argv=None) -> int:
             joint_int8_generation_launches=joint_int8_launches[key],
             joint_train_launches=joint_train_launches[key],
             joint_train_entry_launches=joint_entry_launches[key],
-            val_launches_per_batch=val_launches[key], cases=cases,
+            val_launches_per_batch=val_launches[key],
+            co3d_train_launches_per_step=co3d_launches[key], cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
     print(f"[int8] {json.dumps(int8_metrics)}")
@@ -2875,6 +3187,7 @@ def main(argv=None) -> int:
     print(f"[joint] {json.dumps(joint_metrics)}")
     print(f"[multi] {json.dumps(multi_metrics)}")
     print(f"[val] {json.dumps(val_metrics)}")
+    print(f"[readers] {json.dumps(reader_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ and status codes:
 
 POST /generate   {"prompt": str, "num_views": int, "num_steps": int,
                   "guidance_scale": float, "ref_scale": float,
-                  "seed": int, "source_image_b64": png-b64?,
+                  "seed": int, "source_image_b64": png-or-jpeg-b64?,
                   "source_camera": [[...4x4]]?, "target_cameras": [[...]]?,
                   "sampler": "ddpm"|"ddim"|"dpmpp_2m"?, "encoder_reuse": int?}
     -> {"images_b64": [png...], "latency_s": float}
@@ -18,8 +18,8 @@ Generations run one at a time behind a lock. ``queue_depth`` counts the
 requests running or waiting for the device; one that waits longer than
 ``--request-timeout`` is answered 503. The port compiles nothing, so
 ``compiled_signatures`` counts the distinct call signatures served so far
-(what the JAX server would have compiled). PNGs go in and out through
-``utils/images.py``, without PIL.
+(what the JAX server would have compiled). Images go in and out through
+``utils/images.py``, without PIL: a PNG or JPEG source image in, PNGs out.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from ..utils.images import decode_png, encode_png, resize
+from ..utils.images import decode_image, encode_png, resize
 
 
 def _png_b64(img01: np.ndarray) -> str:
@@ -41,7 +41,9 @@ def _png_b64(img01: np.ndarray) -> str:
 
 
 def _b64_png(data: str, size: int) -> np.ndarray:
-    img = decode_png(base64.b64decode(data))
+    """A base64 PNG or JPEG -> (size, size, 3) float32 in [0, 1], alpha
+    dropped (``convert("RGB")``), Lanczos-resized where it differs."""
+    img = decode_image(base64.b64decode(data))
     if img.shape[:2] != (size, size):
         img = resize(img, size, size)
     return img.astype(np.float32) / 255.0

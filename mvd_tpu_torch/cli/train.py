@@ -43,6 +43,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dataset-path", type=str, default=None)
     p.add_argument("--dataset-format", type=str, default=None, choices=("objaverse", "co3d"),
                    help="corpus layout: rendered-zip shards or CO3D-style sequences")
+    p.add_argument("--native-loader", action="store_true",
+                   help="read the objaverse zips with the C++ reader (data/native_loader.py: float "
+                        "composite, bilinear resize), built with the host's c++ on first use; "
+                        "raises where it cannot build or read. The port's explicit form of the "
+                        "JAX package's automatic choice, which takes its C++ reader whenever g++ "
+                        "and libpng build it. Off: the PIL path's function (Lanczos), bitwise")
     p.add_argument("--resume", type=str, default=None,
                    help="run dir, its checkpoints/ dir, or one step dir to resume from")
     p.add_argument("--output-dir", type=str, default="outputs")
@@ -206,6 +212,7 @@ def _main(args, overrides):
         dataset_format=args.dataset_format or data_cfg.dataset_format,
         latent_cache_dir=latent_cache_dir,
         process_count=mesh_data, process_index=mesh.axis("data").index if mesh is not None else 0,
+        use_native=args.native_loader,
     )
     dm.setup()
 

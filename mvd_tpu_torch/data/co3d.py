@@ -14,9 +14,9 @@ camera-to-world matrices, the Objaverse renderer's contract. The dataset
 has ``ObjaverseDataset``'s interface (``pairs``, ``view_groups``,
 ``_read_view``, ``state_dict``), so ``DataLoader`` and the Trainer take it
 unchanged. Prompts are "a photo of a <category>" unless the sequence holds
-a ``prompt.txt``. Frames decode with the port's PNG codec: a JPEG frame
-(what CO3D itself ships) raises ``ValueError``, so such a corpus is
-converted to PNG first (a JPEG decoder without PIL is not written yet).
+a ``prompt.txt``. Frames decode through ``utils/images.py:decode_image``:
+JPEG (what CO3D ships) bitwise PIL's, PNG likewise, then the Lanczos
+resize within one level of PIL's, as in the JAX package.
 """
 
 from __future__ import annotations

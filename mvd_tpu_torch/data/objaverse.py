@@ -14,15 +14,19 @@ both packages read a corpus into the same batches:
   * self-healing reads (3 tries, evicting a broken zip or pair live);
   * RGBA composited over white, Lanczos resize, [-1, 1] (``utils/images.py``,
     without PIL: bitwise PIL's decode, composite and resize on the tested
-    shapes; PNG only, another format raises ``ValueError``);
+    shapes; PNG or JPEG, another format raises ``ValueError``);
+  * ``use_native=True``: the C++ reader (``data/native_loader.py``), the
+    JAX package's other function (float composite, bilinear resize). The
+    JAX dataset takes it whenever ``g++`` and libpng build it
+    (``use_native=None``) and falls back to PIL where a read fails; the port
+    takes it only when asked, and raises where it cannot build or read;
   * ``state_dict`` / ``load_state_dict`` of the sampling RNG.
 
 The loader returns (B, V, ...) numpy batches. Unlike the JAX package's,
 whose worker threads hand batches over in the order they finish, it yields
 them in batch order whatever ``num_workers`` is; over several processes
 each loads its contiguous rows of every global batch (``process_count``,
-``process_index``). Not ported yet: the ``use_native`` C++ reader
-(``data/native_loader.py``).
+``process_index``).
 """
 
 from __future__ import annotations
@@ -43,15 +47,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.images import decode_png, resize
+from ..utils.images import decode_image, resize
 
 logger = logging.getLogger(__name__)
 
 
 def _load_image_from_bytes(data: bytes, image_size: int) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) float32 in [-1, 1], RGBA composited over
-    white, Lanczos-resized to (image_size, image_size)."""
-    img = decode_png(data, composite_alpha=True)
+    """PNG or JPEG bytes -> (H, W, 3) float32 in [-1, 1], RGBA composited
+    over white, Lanczos-resized to (image_size, image_size)."""
+    img = decode_image(data, composite_alpha=True)
     if img.shape[:2] != (image_size, image_size):
         img = resize(img, image_size, image_size)
     arr = img.astype(np.float32) / 255.0
@@ -148,6 +152,7 @@ class ObjaverseDataset:
         test_split: float = 0.1,
         cache_dir: Optional[str] = None,
         views_per_sample: int = 1,
+        use_native: bool = False,
         latent_cache_dir: Optional[str] = None,
     ):
         assert split in ("train", "val", "test")
@@ -161,6 +166,7 @@ class ObjaverseDataset:
         self.test_split = test_split
         self.cache_dir = cache_dir or os.path.join(data_root, ".mvd_cache")
         self.views_per_sample = views_per_sample
+        self.use_native = use_native
         # with a latent cache, samples carry "{source,target}_moments"
         # (2, h, w, 4) instead of pixels and the step skips the VAE encode
         self.latent_cache_dir = latent_cache_dir
@@ -273,6 +279,12 @@ class ObjaverseDataset:
         return _homogeneous(np.load(io.BytesIO(self._entry(zp, view, ".npy"))).astype(np.float32))
 
     def _read_view(self, zp: str, view: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self.use_native:  # no fallback: a failed read raises, naming zip and entry
+            from . import native_loader
+
+            img = native_loader.load_view(zp, f"{view:03d}.png", self.image_size)
+            cam = np.load(io.BytesIO(native_loader.read_entry(zp, f"{view:03d}.npy")))
+            return img, _homogeneous(cam.astype(np.float32))
         img = _load_image_from_bytes(self._entry(zp, view, ".png"), self.image_size)
         return img, self._read_camera(zp, view)
 
@@ -456,13 +468,14 @@ class ObjaverseDataModule:
     ``dataset_format`` is "objaverse" (rendered-zip shards) or "co3d"
     (``data/co3d.py``); only objaverse takes a latent cache (train split
     only: validation generates from and compares against pixels).
-    ``process_count`` / ``process_index`` go to every loader."""
+    ``process_count`` / ``process_index`` go to every loader; ``use_native``
+    to the objaverse datasets (CO3D has no native reader)."""
 
     def __init__(self, data_root: str, tokenizer, image_size=768, batch_size=6,
                  max_views_per_object=8, dataset_samples=None, views_per_sample=1,
                  num_workers=4, seed=42, dataset_format: str = "objaverse",
                  latent_cache_dir: Optional[str] = None, process_count: int = 1,
-                 process_index: int = 0):
+                 process_index: int = 0, use_native: bool = False):
         self.kwargs = dict(data_root=data_root, image_size=image_size,
                            max_views_per_object=max_views_per_object,
                            dataset_samples=dataset_samples, seed=seed,
@@ -475,6 +488,7 @@ class ObjaverseDataModule:
         self.latent_cache_dir = latent_cache_dir
         self.process_count = process_count
         self.process_index = process_index
+        self.use_native = use_native
         self.datasets: Dict[str, ObjaverseDataset] = {}
 
     def _dataset_cls(self):
@@ -492,10 +506,15 @@ class ObjaverseDataModule:
             raise ValueError(
                 f"latent_cache_dir is set but dataset_format={self.dataset_format!r} does not "
                 "support a latent cache (only the objaverse rendered-zip format does); unset one")
+        if self.use_native and cls is not ObjaverseDataset:
+            raise ValueError(f"use_native is set but dataset_format={self.dataset_format!r} has no "
+                             "native reader (only the objaverse rendered-zip format does)")
         for split in ("train", "val", "test"):
             kw = dict(self.kwargs)
             if split == "train" and self.latent_cache_dir:
                 kw["latent_cache_dir"] = self.latent_cache_dir
+            if cls is ObjaverseDataset:
+                kw["use_native"] = self.use_native
             self.datasets[split] = cls(split=split, **kw)
 
     def loader(self, split: str, shuffle: Optional[bool] = None) -> DataLoader:

@@ -5,16 +5,23 @@ on first use by ``nvcc`` into ``mvd_tpu_torch/_build/lib<name>.so`` for
 ``sm_90a`` (Hopper), then loaded with ``ctypes``. Nothing is built when a
 module is imported: the CPU tests import every module and have no ``nvcc``.
 ``build_all`` starts one ``nvcc`` per source, all at once.
+
+The port's host C++ (``csrc/<name>.cpp``: the JPEG decoder and the
+Objaverse reader, standard library only) is built by ``build_host`` with the
+host's ``c++`` into the same directory and loaded by ``load_host``;
+``build_all`` builds those it is given beside the ``nvcc`` jobs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
+import threading
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -25,7 +32,14 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# the host sources' flags: no -march=native and no contraction of a*b+c into
+# an FMA, so that the float arithmetic is the same on every host (the JAX
+# package's reader builds with -march=native and differs by ISA)
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
+HOST_CXX = "c++"
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 build_logs: Dict[str, str] = {}  # ptxas register/shared-memory report per source
 
 
@@ -76,13 +90,21 @@ def compile_all(jobs: Dict[str, Tuple[str, str]]) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 
 
-def build_all(names: Iterable[str]) -> float:
-    """Compile the named sources that are stale (``_stale``), one ``nvcc``
-    each, in parallel. Returns the wall seconds."""
+def build_all(names: Iterable[str], host: Iterable[str] = ()) -> float:
+    """Compile the named CUDA sources that are stale (``_stale``), one
+    ``nvcc`` each, and the named host sources (``build_host``), one thread
+    each, all in parallel. Returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    stale = [name for name in names if _stale(name)]
-    if stale:
-        compile_all({n: (os.path.join(CSRC, f"{n}.cu"), _lib_path(n)) for n in stale})
+    host = list(host)
+    with ThreadPoolExecutor(max(1, len(host))) as pool:
+        built = [pool.submit(build_host, name) for name in host]
+        stale = [name for name in names if _stale(name)]
+        if stale:
+            compile_all({n: (os.path.join(CSRC, f"{n}.cu"), _lib_path(n)) for n in stale})
+        for f in built:
+            f.result()
     return time.perf_counter() - t0
 
 
@@ -128,3 +150,46 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: tensor-map encode failed, CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def build_host(name: str, build_dir: Optional[str] = None) -> str:
+    """Compile ``csrc/<name>.cpp`` into ``<build_dir>/lib<name>.so`` (default
+    ``_build/``) with ``HOST_CXX`` and ``HOST_FLAGS`` when the library is
+    missing or older than its source; returns the library's path. Builds of
+    one library are serialized across processes by a file lock, and the
+    compiler writes a temporary file that is renamed into place. Raises
+    without a compiler or when the build fails, quoting the compiler."""
+    build_dir = build_dir or BUILD_DIR
+    src = os.path.join(CSRC, f"{name}.cpp")
+    lib = os.path.join(build_dir, f"lib{name}.so")
+    os.makedirs(build_dir, exist_ok=True)
+    with open(lib + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+            return lib
+        exe = shutil.which(HOST_CXX)
+        if exe is None:
+            raise RuntimeError(f"no C++ compiler: {HOST_CXX!r} is not on PATH, so {name}.cpp "
+                               "cannot be built")
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.run([exe, *HOST_FLAGS, "-o", tmp, src], capture_output=True, text=True)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"building {name}.cpp failed ({HOST_CXX} exit {proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib
+
+
+def load_host(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cpp``, built first if needed
+    (``build_host``); ``bind`` sets its functions' ctypes signatures once.
+    ``CDLL`` releases the interpreter lock around each call, so the loader's
+    threads decode in parallel."""
+    with _host_lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build_host(name))
+            bind(lib)
+            _libs[name] = lib
+        return _libs[name]

@@ -1,27 +1,37 @@
-"""Image IO helpers (host-side, numpy and the standard library only).
+"""Image IO helpers (host-side: numpy, the standard library and the port's
+host C++).
 
 Counterpart of ``mvd_tpu/utils/images.py`` without PIL: the machine that
 holds the GPU may not have it. PNG is written and read by a small codec on
 ``zlib`` (8-bit RGB out; 8-bit gray, gray+alpha, RGB, RGBA and palette
 images in, non-interlaced, all five scanline filters; RGBA optionally
-composited over white as PIL's ``Image.alpha_composite`` does), and ``resize``
-stands in for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable
-Lanczos-3 whose support widens with the downscale factor, with PIL's 8-bit
-fixed-point coefficients and its uint8 rounding between the horizontal and
-the vertical pass.
+composited over white as PIL's ``Image.alpha_composite`` does). JPEG is
+read by ``csrc/jpeg_decode.cpp`` (``decode_jpeg``: baseline and extended
+sequential Huffman, 8-bit, gray or three components, bitwise PIL's
+``convert("RGB")``), built with the host's ``c++`` on first use.
+``decode_image`` takes either, as ``Image.open`` does. ``resize`` stands in
+for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
+support widens with the downscale factor, with PIL's 8-bit fixed-point
+coefficients and its uint8 rounding between the horizontal and the vertical
+pass.
 """
-
 from __future__ import annotations
 
 import math
 import os
+import ctypes
 import struct
 import zlib
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
+# PIL's Image.open refuses an image of more pixels than twice
+# Image.MAX_IMAGE_PIXELS (a DecompressionBombError); so do the decoders here
+# (csrc/jpeg_decode.cpp holds the same number)
+MAX_PIXELS = 2 * 89478485
 # colour type -> channels of a decoded pixel before conversion to RGB
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -110,6 +120,59 @@ def over_white(rgba: np.ndarray) -> np.ndarray:
     return np.where(a == 0, 255, out).astype(np.uint8)
 
 
+class PngChunks(NamedTuple):
+    """What a PNG decoder reads of the file: IHDR unpacked (width, height,
+    bit depth, colour type, compression, filter method, interlace), the
+    PLTE and tRNS bodies (``b""`` where absent) and the IDAT bodies joined,
+    still deflated."""
+    header: tuple
+    plte: bytes
+    trns: bytes
+    idat: bytes
+
+
+def png_chunks(data: bytes, drop_bad_ancillary: bool = False) -> PngChunks:
+    """Walk a PNG's chunks up to IEND (``decode_png`` and the native reader
+    both read through this). Raises ``ValueError`` on a missing signature,
+    a truncated chunk, a chunk that fails its CRC, no IHDR or no image data,
+    an unknown colour type, compression or filter method. With
+    ``drop_bad_ancillary`` an ancillary chunk (lower-case first letter)
+    that fails its CRC is skipped instead, as libpng does by default; PIL
+    raises."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG file (only PNG images are read)")
+    pos, header, plte, trns, idat = len(PNG_SIGNATURE), None, b"", b"", []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        pos += 12 + length
+        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+            if drop_bad_ancillary and kind[0] & 0x20:
+                continue
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG has no IHDR or no image data")
+    _, _, _, colour, compression, filtering, _ = header
+    if colour not in _CHANNELS:
+        raise ValueError(f"PNG colour type {colour} is not a valid type")
+    if compression != 0 or filtering != 0:
+        raise ValueError(f"PNG compression {compression} / filter method {filtering} unknown")
+    return PngChunks(header, plte, trns, b"".join(idat))
+
+
 def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
     it: gray replicated, alpha dropped, palette indices looked up. With
@@ -117,43 +180,24 @@ def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     (``over_white``), as the data loaders do before the conversion. Takes
     non-interlaced 8-bit gray, gray+alpha, RGB, RGBA and palette images;
     raises ``ValueError`` on anything else (16-bit or sub-byte depths,
-    interlacing) and on a damaged file."""
-    if not data.startswith(PNG_SIGNATURE):
-        raise ValueError("not a PNG file (only PNG images are read)")
-    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        crc = data[pos + 8 + length:pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
-            raise ValueError(f"PNG chunk {kind!r} is truncated")
-        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
-            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None or not idat:
-        raise ValueError("PNG has no IHDR or no image data")
-    w, h, depth, colour, compression, filtering, interlace = header
-    if colour not in _CHANNELS:
-        raise ValueError(f"PNG colour type {colour} is not a valid type")
+    interlacing), on a damaged file and on a header of more than
+    ``MAX_PIXELS`` pixels. Inflates no more than the header's rows need."""
+    chunks = png_chunks(data)
+    w, h, depth, colour, _, _, interlace = chunks.header
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"PNG of {w}x{h} pixels is over the limit of {MAX_PIXELS} pixels (PIL's "
+                         "decompression-bomb limit)")
     if depth != 8:
         raise ValueError(f"PNG bit depth {depth} is not read (8-bit images only)")
     if interlace != 0:
         raise ValueError("interlaced PNG is not read (non-interlaced images only)")
-    if compression != 0 or filtering != 0:
-        raise ValueError(f"PNG compression {compression} / filter method {filtering} unknown")
     ch = _CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    raw = zlib.decompressobj().decompress(chunks.idat, h * (w * ch + 1))
+    pixels = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
     if colour == 3:
-        if palette is None:
+        if not chunks.plte:
             raise ValueError("palette PNG has no PLTE chunk")
+        palette = np.frombuffer(chunks.plte, np.uint8).reshape(-1, 3)
         if pixels.max(initial=0) >= len(palette):
             raise ValueError("palette PNG indexes past its PLTE chunk")
         return palette[pixels[..., 0]]
@@ -162,6 +206,55 @@ def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     if ch == 4 and composite_alpha:
         return over_white(pixels)
     return np.ascontiguousarray(pixels[..., :3])
+
+
+def _bind_jpeg(lib: ctypes.CDLL) -> None:
+    out_int = ctypes.POINTER(ctypes.c_int)
+    lib.mvd_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, out_int, out_int,
+                                  ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_jpeg_info.restype = ctypes.c_int
+    lib.mvd_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_jpeg_decode.restype = ctypes.c_int
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, bitwise what PIL gives for
+    ``Image.open(...).convert("RGB")`` (libjpeg's islow IDCT, fancy
+    upsampling and fixed-point YCbCr tables; gray replicated; EXIF
+    orientation not applied). Takes baseline and extended sequential
+    Huffman JPEGs of 8 bits with 1 or 3 components, any integral sampling,
+    restart intervals; raises ``ValueError`` naming what it does not read
+    (progressive, arithmetic, lossless, hierarchical, 12-bit, CMYK), on a
+    damaged file, and on a header of more pixels than PIL's
+    decompression-bomb limit (twice ``Image.MAX_IMAGE_PIXELS``), before
+    anything is allocated. Raises ``RuntimeError`` when the decoder cannot
+    be built."""
+    from ..kernels._build import load_host
+
+    lib = load_host("jpeg_decode", _bind_jpeg)
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if lib.mvd_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h), err, len(err)):
+        raise ValueError(err.value.decode())
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.mvd_jpeg_decode(data, len(data), out.ctypes.data, w, h, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def decode_image(data: bytes, composite_alpha: bool = False) -> np.ndarray:
+    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB, chosen by the file's
+    signature as ``Image.open`` chooses: ``decode_png`` (``composite_alpha``
+    goes to it) or ``decode_jpeg``. Raises ``ValueError`` on anything else,
+    naming its first bytes."""
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data, composite_alpha=composite_alpha)
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data)
+    raise ValueError(f"not a PNG or JPEG file (it starts {bytes(data[:8])!r}); only PNG and JPEG "
+                     "images are read")
 
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:
@@ -224,10 +317,11 @@ def save_image(img: np.ndarray, path: str):
 
 
 def load_image(path: str, size: Optional[int] = None) -> np.ndarray:
-    """PNG -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48, NHWC),
-    resized to (size, size) where it differs."""
+    """PNG or JPEG -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48,
+    NHWC; alpha dropped as ``convert("RGB")`` drops it), resized to
+    (size, size) where it differs."""
     with open(path, "rb") as f:
-        img = decode_png(f.read())
+        img = decode_image(f.read())
     if size is not None and img.shape[:2] != (size, size):
         img = resize(img, size, size)
     arr = img.astype(np.float32) / 255.0

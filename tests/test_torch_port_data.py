@@ -84,8 +84,9 @@ def test_over_white_matches_pil_for_every_alpha():
 @pytest.mark.parametrize("mode", ["RGBA", "RGB", "L", "LA"])
 @pytest.mark.parametrize("src,dst", [(24, 24), (24, 16), (16, 48), (48, 33)])
 def test_load_image_matches_jax(mode, src, dst):
-    """PNG -> composite -> Lanczos -> [-1, 1] bitwise the JAX package's PIL
-    path, for PIL-written and port-written PNGs."""
+    """PNG or JPEG -> composite -> Lanczos -> [-1, 1] bitwise the JAX
+    package's PIL path, for PIL-written and port-written PNGs and a
+    PIL-written JPEG; a file that is neither raises."""
     rng = np.random.default_rng(src * 100 + dst)
     ch = {"RGBA": 4, "RGB": 3, "L": 1, "LA": 2}[mode]
     arr = rng.integers(0, 256, (src, src, ch), dtype=np.uint8)
@@ -98,8 +99,11 @@ def test_load_image_matches_jax(mode, src, dst):
         assert want.dtype == got.dtype and np.array_equal(want, got)
     buf = io.BytesIO()
     Image.fromarray(arr[..., :1].repeat(3, -1)).save(buf, "JPEG")
-    with pytest.raises(ValueError, match="PNG"):
-        tobj._load_image_from_bytes(buf.getvalue(), dst)
+    want = jobj._load_image_from_bytes(buf.getvalue(), dst)
+    got = tobj._load_image_from_bytes(buf.getvalue(), dst)
+    assert want.dtype == got.dtype and np.array_equal(want, got)
+    with pytest.raises(ValueError, match="PNG or JPEG"):
+        tobj._load_image_from_bytes(b"GIF89a" + bytes(16), dst)
 
 
 # ------------------------------------------------------- objaverse dataset
