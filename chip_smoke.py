@@ -118,7 +118,19 @@ Eleven phases; any failure exits non-zero:
    length and timed in turns with them beside SDPA; (b) NCCL at world size
    1: ``distributed.initialize`` from torchrun's variables, ``make_mesh``,
    and phase 4's train step through the data-parallel branch, one
-   all-reduce a step, bitwise equal to the step without a mesh.
+   all-reduce a step, bitwise equal to the step without a mesh; (c) run
+   right after 6c, on phase 3's pipeline and weights: the ``model`` axis
+   as n virtual ranks in one process (``tensor_parallel.py``): K1 at the
+   shard's heads (H 10 at n = 2, H 5 at n = 4) at the sites the axis cuts
+   (B 4, S 256 and 64, self / adapter and Sk 77) held to its plain version
+   and timed beside SDPA and the unsharded H 20; then phase 3's call with
+   the networks cut by ``shard_params_model_parallel`` at n = 2 and 4: K1
+   and K2 exactly the sharded structure's launches, no plain call, the
+   loop under the sync check, the 16² Transformer2D within relative RMS
+   1e-2 of the unsharded bf16 block, one denoise step within max(1e-2,
+   1.25 x the bf16 floor measured in the run) of the unsharded bf16 step,
+   the images' PSNR against phase 3's, one traced call's device ms and the
+   parameter bytes per rank.
 8. the validation CLI, after phase 6e on phase 5's corpus (objects added
    until its test split holds two whole batches) and run dir:
    ``mvd_tpu_torch.cli.val.main`` in this process with the YAML phase 5
@@ -605,25 +617,36 @@ def expected_launches(pipe, steps: int, cached_steps: int = 0, inversion: bool =
     """Launch counts the model structure implies for one generation with
     guidance 1.0 and image conditioning: attention sites per transformer
     block are attn1 + attn2 in the feature pass, plus both adapters in each
-    denoise; every GroupNorm runs once per UNet pass (feature pass + steps)
+    denoise, each site one K1 launch per shard of its heads that the
+    process holds (several on a virtual model axis); every GroupNorm runs
+    once per UNet pass (feature pass + steps)
     and once per VAE encode (one source image) and decode. ``cached_steps``
     of the steps run from an encoder cache, which runs the mid block and the
     up path only. ``inversion``: a DDIM inversion instead, whose VAE encodes
     the images and the source image and decodes nothing."""
     from mvd_tpu_torch.nn.layers import BasicTransformerBlock, GroupNorm
+    from mvd_tpu_torch.tensor_parallel import ColumnParallelLinear
 
     mvd, vae = pipe.model["mvd"], pipe.model["vae"]
     decoder = ("mid_", "up_", "conv_norm_out")
     count = lambda kind, mods: sum(isinstance(m, kind) for _, m in mods)
     unet_mods = list(mvd.unet.named_modules())
     dec_mods = [(n, m) for n, m in unet_mods if n.startswith(decoder)]
-    blocks, dec_blocks = count(BasicTransformerBlock, unet_mods), count(BasicTransformerBlock, dec_mods)
     unet_gn, dec_gn = count(GroupNorm, unet_mods), count(GroupNorm, dec_mods)
     vae_gn = (2 * count(GroupNorm, vae.encoder.named_modules()) if inversion
               else count(GroupNorm, vae.named_modules()))
     full = steps - cached_steps
+    shards = lambda q: q.weight.shape[0] if isinstance(q, ColumnParallelLinear) else 1
+
+    def sites(mods):  # (feature-pass launches, denoise launches) of the blocks
+        blocks = [m for _, m in mods if isinstance(m, BasicTransformerBlock)]
+        feat = sum(shards(b.attn1.to_q) + shards(b.attn2.to_q) for b in blocks)
+        return feat, feat + sum(shards(b.adapter_self.to_q_ref) + shards(b.adapter_cross.to_q_ref)
+                                for b in blocks)
+
+    (feat, den), (_, dec_den) = sites(unet_mods), sites(dec_mods)
     return {
-        "flash_attn_fwd": blocks * 2 + blocks * 4 * full + dec_blocks * 4 * cached_steps,
+        "flash_attn_fwd": feat + den * full + dec_den * cached_steps,
         "flash_attn_fwd_bhsd": 0,
         "flash_attn_bwd_dq": 0,
         "flash_attn_bwd_dkv": 0,
@@ -2962,6 +2985,208 @@ def phase_nccl():
                 os.environ[key] = val
 
 
+# phase 7c: the model axis as virtual ranks on one card (NCCL refuses two
+# ranks on one card). The model-axis sizes, and the K1 sites whose heads the
+# axis cuts on the main path (the 1280-wide levels, 20 heads: every
+# projection there is at least min_dim 1024 wide): (label, B, Sq, Sk); the
+# adapters' sites at 16² have the self shape
+MODEL_AXIS_RANKS = (2, 4)
+MODEL_AXIS_SITES = [
+    ("self 16x16", VIEWS, 256, 256),
+    ("text 16x16", VIEWS, 256, 77),
+    ("self 8x8 (mid)", VIEWS, 64, 64),
+    ("text 8x8 (mid)", VIEWS, 64, 77),
+]
+MODEL_AXIS_HEADS = 20
+# one 16² Transformer2D of the sharded networks against the unsharded bf16
+# block at the same input: relative RMS error (the error does not compound
+# through one block)
+MODEL_AXIS_BLOCK_REL_RMS = 1e-2
+# one whole denoise step against the unsharded bf16 step, relative RMS: the
+# bf16 step's own floor is measured in the same run (the unsharded step at
+# inputs moved by MODEL_AXIS_FLOOR_EPS relative, which moves the f32 function
+# by about as much, is 1.31% off itself on the H100: a rounding flip anywhere
+# compounds through the random-weight UNet), and the sharded step may be
+# off by 1e-2 or MODEL_AXIS_FLOOR_FACTOR times that floor, whichever is larger
+MODEL_AXIS_STEP_REL_RMS = 1e-2
+MODEL_AXIS_FLOOR_EPS = 1e-6
+MODEL_AXIS_FLOOR_FACTOR = 1.25
+
+
+def phase_model_axis_kernels(card: str) -> list:
+    """7c (a): K1 at the shard's heads (H 10 at n = 2, H 5 at n = 4) at
+    every MODEL_AXIS_SITES shape, held to its plain version within phase 2's
+    tolerances and timed beside SDPA at the same shape and beside the
+    unsharded K1 (H 20) at the site, each by CUDA-graph replay (a launch
+    here takes a few microseconds, under the host's cost of a call);
+    returns the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.kernels import attention_packed_plain, flash_attention_packed_fwd
+    from mvd_tpu_torch.kernels.measure import (
+        D,
+        attn_bounds,
+        check_attention,
+        sm_clock_hz,
+        time_graph_ms,
+        time_ms,
+    )
+
+    clock = sm_clock_hz()
+    gen = torch.Generator("cuda").manual_seed(14)
+    cases = []
+    for label, B, Sq, Sk in MODEL_AXIS_SITES:
+        make = lambda S, H: torch.randn(B, S, H * D, generator=gen, device="cuda").bfloat16()
+        whole = [make(S, MODEL_AXIS_HEADS) for S in (Sq, Sk, Sk)]
+        whole_ms = time_graph_ms(lambda: flash_attention_packed_fwd(*whole, MODEL_AXIS_HEADS))
+        for n in MODEL_AXIS_RANKS:
+            H = MODEL_AXIS_HEADS // n
+            q, k, v = make(Sq, H), make(Sk, H), make(Sk, H)
+            out, lse = flash_attention_packed_fwd(q, k, v, H)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = attention_packed_plain(q, k, v, H)
+            err, rel = check_attention(out, lse, ref_out, ref_lse, f"K1 {label} H{H}")
+            ms = time_graph_ms(lambda: flash_attention_packed_fwd(q, k, v, H))
+            plain_ms = time_ms(lambda: attention_packed_plain(q, k, v, H), 10, 1)
+            split = lambda t, S: t.view(B, S, H, D).transpose(1, 2)
+            lib_ms = time_graph_ms(lambda: F.scaled_dot_product_attention(split(q, Sq), split(k, Sk), split(v, Sk)))
+            case = dict(case=f"model axis {label} H{H} (n {n})", max_abs_err=err, rel_rms=rel, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, unsharded_h20_ms=whole_ms,
+                        **_attn_bound_fields(attn_bounds(B, Sq, Sk, H, clock), ms))
+            cases.append(case)
+            print(f"[model] K1 {label} B{B} at the shard's H {H} (n {n}): err {err:.3g}, relative RMS "
+                  f"{rel:.3g}; kernel {ms:.4f} ms (x{n} shards {n * ms:.4f}) against the unsharded "
+                  f"H {MODEL_AXIS_HEADS} {whole_ms:.4f} ms; plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; "
+                  + _bound_text(case, clock) + f" ({card})")
+    return cases
+
+
+def phase_model_axis(call, bf16_images, card: str):
+    """7c (b): phase 3's call (4 views at 512², DDPM 20, phase 3's weights
+    and noise) with the networks cut over n = 2 and 4 virtual ranks by
+    ``shard_params_model_parallel`` (min_dim 1024, the JAX default): K1 and
+    K2 launches exactly ``expected_launches`` of the sharded networks, no
+    plain call, the denoise loop under the sync check; the 16² Transformer2D
+    ``down_2_attn_0`` (K1 on the shard's heads, the adapters on raw
+    features, GEGLU) within MODEL_AXIS_BLOCK_REL_RMS of the unsharded bf16
+    block at the same input; one denoise step (conditioning included)
+    against the unsharded bf16 step at the same inputs, within the bound of
+    MODEL_AXIS_STEP_REL_RMS and the measured bf16 floor; prints the images'
+    PSNR against phase 3's, one traced call's device ms and idle share, and
+    the parameter bytes per rank. Returns (the launches by n, metrics)."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.camera import orbit_cameras
+    from mvd_tpu_torch.parallel import model_parallel_shardings, shard_params_model_parallel
+    from mvd_tpu_torch.pipeline import MVDPipeline
+    from mvd_tpu_torch.pipeline.pipeline import build_model
+    from mvd_tpu_torch.tensor_parallel import rank_param_bytes, virtual_model_axis
+
+    pipe, prompts, kwargs = call
+    t_phase = time.perf_counter()
+    whole_bytes = {net: rank_param_bytes(pipe.model[net]) for net in pipe.model}
+
+    # one step's inputs: phase 3's text and source latents, a seeded noisy sample
+    gen = torch.Generator("cuda").manual_seed(3)
+    cams = orbit_cameras(VIEWS)
+    src_cam = torch.as_tensor(np.tile(cams[:1], (VIEWS, 1, 1)), dtype=torch.float32, device="cuda")
+    tgt_cam = torch.as_tensor(cams, dtype=torch.float32, device="cuda")
+    lat = torch.randn(VIEWS, RES // 8, RES // 8, 4, generator=gen, device="cuda")
+    src_lat = torch.randn(VIEWS, RES // 8, RES // 8, 4, generator=gen, device="cuda")
+    t = torch.tensor(500, device="cuda")
+    C, S = pipe.config.unet.block_out_channels[2], RES // 8 // 4
+    block_in = (torch.randn(VIEWS, C, S, S, generator=gen, device="cuda").bfloat16()
+                .contiguous(memory_format=torch.channels_last))
+    block_ctx = torch.randn(VIEWS, 77, pipe.config.unet.cross_attention_dim, generator=gen, device="cuda")
+    block_ref = torch.randn(VIEWS, S * S, C, generator=gen, device="cuda")
+    rel_rms = lambda got, want: ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+
+    def step(p, x=lat):
+        model = p.compute_model
+        with torch.inference_mode():
+            text = pipe.compute_model["text_encoder"](pipe._ids(prompts, 1))
+            film, refs = model["mvd"].prepare_conditioning(text, src_cam, tgt_cam, src_lat, cfg_batch=VIEWS,
+                                                           precompute_kv=True)
+            return model["mvd"].denoise(x, t, text, film, refs, 1.0).float()
+
+    def block(p):
+        with torch.inference_mode():
+            return p.compute_model["mvd"].unet.down_2_attn_0(block_in, block_ctx, block_ref, 1.0).float()
+
+    want_step, want_block = step(pipe), block(pipe)
+    moved = lat * (1 + MODEL_AXIS_FLOOR_EPS * torch.randn(lat.shape, generator=gen, device="cuda"))
+    floor = rel_rms(step(pipe, moved), want_step)
+    step_bar = max(MODEL_AXIS_STEP_REL_RMS, MODEL_AXIS_FLOOR_FACTOR * floor)
+    print(f"[model] the unsharded bf16 step at inputs moved by {MODEL_AXIS_FLOOR_EPS} relative is off "
+          f"itself by relative RMS {floor:.4g} (the bf16 floor); a sharded step may be off by "
+          f"max({MODEL_AXIS_STEP_REL_RMS}, {MODEL_AXIS_FLOOR_FACTOR} x floor) = {step_bar:.4g}")
+    launches, metrics = {}, {"rank_bytes_unsharded": whole_bytes, "step_floor_rel_rms": floor,
+                             "step_bar": step_bar}
+    for n in MODEL_AXIS_RANKS:
+        t_n = time.perf_counter()
+        with torch.device("cuda"):
+            model = build_model(pipe.config)
+        model.load_state_dict(pipe.model.state_dict())
+        axis = virtual_model_axis(n)
+        plan = model_parallel_shardings(model["mvd"], axis)
+        mvd_params = dict(model["mvd"].named_parameters())
+        marked_bytes = sum(mvd_params[name].nbytes for name in plan.marked)
+        shard_params_model_parallel(model, axis)
+        tp = MVDPipeline(pipe.config, model, "cuda", pipe.tokenizer)
+        tp.compute_model  # cast once, outside the counted run
+        rank_bytes = {net: rank_param_bytes(model[net]) for net in model}
+        torch.cuda.synchronize()
+        secs = {"build_shard_cast": time.perf_counter() - t_n}
+        want = expected_launches(tp, STEPS)
+        out, first_s, counted = _counted_call(lambda: tp(prompts, seed=0, **kwargs), want,
+                                              f"[model] n {n} virtual ranks:", ("denoise_loop",), tp)
+        images = out["images"]
+        _check_images(images, f"model axis n {n}")
+        psnr = _psnr(images, bf16_images)
+        t0 = time.perf_counter()
+        got_block = block(tp)
+        block_rel = rel_rms(got_block, want_block)
+        if not (torch.isfinite(got_block).all() and block_rel <= MODEL_AXIS_BLOCK_REL_RMS):
+            raise AssertionError(f"model axis n {n}: the 16² Transformer2D off the unsharded bf16 block by "
+                                 f"relative RMS {block_rel:.3g} (at most {MODEL_AXIS_BLOCK_REL_RMS})")
+        got_step = step(tp)
+        rel = rel_rms(got_step, want_step)
+        if not (torch.isfinite(got_step).all() and rel <= step_bar):
+            raise AssertionError(f"model axis n {n}: one step off the unsharded bf16 step by relative RMS "
+                                 f"{rel:.3g} (at most {step_bar:.3g})")
+        secs["checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        traced = trace_run(lambda: tp(prompts, seed=2, **kwargs), f"model axis n {n} generation", top=3,
+                           cpu=False)
+        secs["trace"] = time.perf_counter() - t0
+        mvd_whole, mvd_rank = whole_bytes["mvd"], rank_bytes["mvd"]
+        jax_rank = mvd_whole - marked_bytes * (n - 1) // n
+        print(f"[model] n {n}: images PSNR against phase 3's {psnr:.2f} dB (same weights and noise); the "
+              f"16² Transformer2D relative RMS {block_rel:.3g} of the unsharded bf16 block; one denoise "
+              f"step {rel:.4g} of the unsharded bf16 step (floor {floor:.4g}); first call {first_s:.2f} s, "
+              f"traced call device {traced['device_busy_ms']:.1f} ms, idle share {traced['idle_share']:.3f} "
+              f"(the n ranks run one after another: no speed claimed); multi-view UNet f32 bytes per rank "
+              f"{mvd_rank} of {mvd_whole} (-{1 - mvd_rank / mvd_whole:.4f}; the JAX rule's marked "
+              f"{len(plan.marked)} tensors alone: -{1 - jax_rank / mvd_whole:.4f}), CLIP "
+              f"{rank_bytes['text_encoder']} of {whole_bytes['text_encoder']}, VAE {rank_bytes['vae']} of "
+              f"{whole_bytes['vae']} ({card}); s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        launches[n] = counted
+        metrics[f"n{n}"] = dict(
+            first_call_s=first_s, psnr_vs_phase3_db=psnr, block_rel_rms=block_rel, step_rel_rms=rel,
+            launches=counted,
+            device_ms=traced["device_busy_ms"], idle_share=traced["idle_share"], wall_ms=traced["wall_ms"],
+            k1_device_ms=traced["port_kernels_ms"]["K1 flash_fwd (packed)"], rank_bytes=rank_bytes,
+            mvd_marked_tensors=len(plan.marked), mvd_partner_tensors=len(plan.partners),
+            mvd_rank_share=mvd_rank / mvd_whole, mvd_jax_rule_rank_share=jax_rank / mvd_whole, secs=secs)
+        del tp, model, out, images
+        torch.cuda.empty_cache()
+    metrics["generation_s"] = time.perf_counter() - t_phase
+    print(f"[model] phase 7c (b) in {metrics['generation_s']:.1f} s ({card})")
+    return launches, metrics
+
+
 TRACE_GROUPS = {
     "K1 flash_fwd (packed)": (r"flash_fwd_wgmma<\d+, false>",),
     "K5 flash_fwd (B, H, S, D)": (r"flash_fwd_wgmma<\d+, true>",),
@@ -2974,14 +3199,16 @@ TRACE_GROUPS = {
 TRACE_TOP = 25
 
 
-def trace_run(fn, label: str, top: int = TRACE_TOP) -> dict:
+def trace_run(fn, label: str, top: int = TRACE_TOP, cpu: bool = True) -> dict:
     """Trace one call of ``fn`` and report where the device time goes (the
-    ``top`` kernels by device time)."""
+    ``top`` kernels by device time); ``cpu=False`` records the device's
+    activity only, which the profiler sums in a fraction of the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3106,6 +3333,11 @@ def main(argv=None) -> int:
     if args.trace:
         traces["entry_points"] = entry_metrics.pop("traces")
     joint_launches, joint_int8_launches, joint_metrics = phase_joint_generation(call, images)
+    # 7c, on phase 3's pipeline and weights while they are up
+    t_model = time.perf_counter()
+    results["flash_attn_fwd"].extend(phase_model_axis_kernels(card))
+    model_launches, model_metrics = phase_model_axis(call, images, card)
+    model_metrics["phase_s"] = time.perf_counter() - t_model
     del call, images  # free the generation pipelines before the train phase
     torch.cuda.empty_cache()
     results.update(phase_train_kernels())
@@ -3177,7 +3409,9 @@ def main(argv=None) -> int:
             joint_train_launches=joint_train_launches[key],
             joint_train_entry_launches=joint_entry_launches[key],
             val_launches_per_batch=val_launches[key],
-            co3d_train_launches_per_step=co3d_launches[key], cases=cases,
+            co3d_train_launches_per_step=co3d_launches[key],
+            model_axis_generation_launches={str(n): c[key] for n, c in model_launches.items()},
+            cases=cases,
         ))
     print(f"[main] {json.dumps(main_metrics)}")
     print(f"[int8] {json.dumps(int8_metrics)}")
@@ -3186,6 +3420,7 @@ def main(argv=None) -> int:
     print(f"[train_entry] {json.dumps(entry_train_metrics)}")
     print(f"[joint] {json.dumps(joint_metrics)}")
     print(f"[multi] {json.dumps(multi_metrics)}")
+    print(f"[model] {json.dumps(model_metrics)}")
     print(f"[val] {json.dumps(val_metrics)}")
     print(f"[readers] {json.dumps(reader_metrics)}")
     print(card)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..tensor_parallel import refuse_sharded
 from ..train.state import TrainState
 from .torch_convert import unflatten_tree
 
@@ -94,7 +95,9 @@ def load_jax_params(module: nn.Module, tree: Mapping, keep_missing: bool = False
     """Copy a flax param tree into ``module`` in place. Raises if a JAX leaf
     has no port parameter or a shape differs, and, unless ``keep_missing``,
     if a port parameter has no JAX leaf. Returns the names of the port
-    parameters the tree lacks, which keep their values."""
+    parameters the tree lacks, which keep their values. A model-sharded
+    ``module`` raises: load first, then shard."""
+    refuse_sharded(module, "load_jax_params")
     converted = convert_jax_params(tree)
     params = dict(module.named_parameters())
     only_jax = sorted(set(converted) - set(params))

@@ -32,6 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..tensor_parallel import refuse_sharded
+
 logger = logging.getLogger(__name__)
 
 FORMAT = "mvd_tpu_torch.checkpoint.io/1"
@@ -243,7 +245,8 @@ def load_params_into(pipe, path: str) -> List[str]:
     by component (``vae`` / ``text_encoder`` / ``mvd``); a component the
     directory lacks keeps its weights. A component the pipeline lacks, or
     whose names, shapes or dtypes differ from the configured architecture,
-    raises. Returns the components loaded."""
+    raises, as do model-sharded networks. Returns the components loaded."""
+    refuse_sharded(pipe.model, f"loading {path}")
     loaded = []
     for comp, sd in load_params(path).items():
         if comp not in pipe.model:

@@ -24,6 +24,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..tensor_parallel import refuse_sharded
 from .io import PARAMS_FILE, load_params_into
 
 Flat = Dict[Tuple[str, ...], np.ndarray]
@@ -325,7 +326,9 @@ def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
     shape, raises. Under ray-map conditioning a 4-channel conv_in is zero
     padded to the 10 channels the ray model takes (output-preserving).
     Returns (names kept from init, [(key, reason)] skipped by the converter).
+    Model-sharded networks raise: load first, then shard.
     """
+    refuse_sharded(pipe.model, f"loading {path}")
     if os.path.isdir(path) and os.path.exists(os.path.join(path, PARAMS_FILE)):
         print(f"loaded {', '.join(load_params_into(pipe, path))} from {path}")
         return [], []

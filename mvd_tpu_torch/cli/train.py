@@ -22,8 +22,10 @@ views, ``parallel.for_view_sharding(cfg, V, mesh_view)``; V must divide
 over them) times ``--mesh-data`` (default: the rest) on the data axis;
 ``--batch-size`` is per data index, as in the JAX CLI (the reference's
 per-rank batch), so the global batch is ``batch_size * mesh_data``. Each
-process loads its data index's rows. ``--num-slices`` above 1 raises
-(ROADMAP item 16).
+process loads its data index's rows. ``--num-slices`` k above 1 makes the
+data axis span k slices (``mesh.make_mesh``: the ranks grouped by host,
+contiguously where every rank reports one host), so the view axis's ring
+stays inside a node; the data axis must divide by k.
 ``main(argv, **overrides)`` returns the ``Trainer`` after ``fit``;
 ``overrides`` are ``TrainConfig`` fields that no flag reaches (for example
 ``metrics_log_interval``), applied after the flags.
@@ -64,7 +66,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="data-parallel processes (default: all processes / --mesh-view)")
     p.add_argument("--mesh-view", type=int, default=1,
                    help="view-parallel processes (ring attention over the views)")
-    p.add_argument("--num-slices", type=int, default=1, help="multi-slice mesh: ROADMAP item 16")
+    p.add_argument("--num-slices", type=int, default=1,
+                   help=">1 builds a multi-slice mesh: the data axis spans slices (nodes, the "
+                        "ranks grouped by host), the view axis stays within a slice")
     p.add_argument("--coordinator", type=str, default=None,
                    help="host:port of rank 0 (or MVD_COORDINATOR; torchrun's MASTER_ADDR/PORT)")
     p.add_argument("--num-processes", type=int, default=None,
@@ -86,8 +90,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.num_slices > 1:
-        raise SystemExit("a mesh over several slices is ROADMAP item 16: not ported yet")
     if args.mesh_view > 1 and args.num_views % args.mesh_view:
         raise SystemExit(f"--mesh-view {args.mesh_view} shards the views of a sample: "
                          f"--num-views ({args.num_views}) must divide over it")
@@ -162,8 +164,9 @@ def _main(args, overrides):
                          f"{world}: launch under torchrun or SLURM, or pass --coordinator, "
                          "--num-processes and --process-id")
     mesh = None
-    if torch.distributed.is_initialized():  # a process group, even of one under torchrun
-        mesh = make_mesh(data=mesh_data, view=mesh_view)
+    # a process group, even of one under torchrun; several slices need one
+    if torch.distributed.is_initialized() or args.num_slices > 1:
+        mesh = make_mesh(data=mesh_data, view=mesh_view, num_slices=args.num_slices)
         if device.type == "cuda":
             device = distributed.device()
     if args.tiny and device.type != "cpu":

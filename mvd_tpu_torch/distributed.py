@@ -19,6 +19,8 @@ processes form one default process group:
     so that ``torchrun --nproc-per-node 1`` takes the path that N takes;
   * :func:`is_primary`: rank 0 logs, writes PNGs and mints the run dir;
   * :func:`broadcast_str`: the run dir agreed by every process;
+  * :func:`gather_hosts`: every rank's host name, which groups the ranks
+    of a multi-slice mesh into slices (``mesh.make_mesh``);
   * :func:`replicate_to_mesh`: every process's tensors made the primary's;
   * :func:`global_batch`: a process's loader batch cut to the block of the
     mesh that the process holds.
@@ -33,7 +35,8 @@ from __future__ import annotations
 import datetime
 import logging
 import os
-from typing import Any, Dict, Optional
+import socket
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -162,6 +165,18 @@ def broadcast_str(s: Optional[str], max_len: int = 512, group=None) -> Optional[
     return text or None
 
 
+def gather_hosts() -> List[str]:
+    """Every rank's ``socket.gethostname()``, in rank order, on every rank:
+    one gather over the default group (gloo or NCCL, whichever is up);
+    this process's alone without a group."""
+    host = socket.gethostname()
+    if not dist.is_initialized():
+        return [host]
+    hosts: List[Optional[str]] = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, host)
+    return hosts
+
+
 @torch.no_grad()
 def replicate_to_mesh(mesh, tensors) -> None:
     """Overwrite ``tensors`` (a module's parameters and buffers, or an
@@ -172,6 +187,9 @@ def replicate_to_mesh(mesh, tensors) -> None:
     if mesh is None or mesh.group_size == 1:
         return
     if isinstance(tensors, torch.nn.Module):
+        from .tensor_parallel import refuse_sharded
+
+        refuse_sharded(tensors, "replicate_to_mesh")  # each rank holds its own shards
         tensors = list(tensors.parameters()) + list(tensors.buffers())
     src = mesh.ranks[0]
     for t in tensors:

@@ -5,7 +5,9 @@ flattened relative rotation, a translation branch (positional encoding ->
 fixed Gaussian projection ``translation_projection``, a parameter -> MLP), a
 final projection, and per-block FiLM modulators returning the processed
 ``(scale, shift)``: scale = sigmoid(raw)*2*strength, shift = raw*strength.
-Its LayerNorms are flax's, eps 1e-6, computed in f32.
+Its LayerNorms are flax's, eps 1e-6, computed in f32. Model-sharded
+(``parallel.shard_params_model_parallel``), every cut product and the
+translation projection are gathered before their LayerNorm or FiLM split.
 """
 
 from __future__ import annotations
@@ -79,7 +81,9 @@ class CameraEncoder(nn.Module):
         B = R.shape[0]
         r_emb = self.rotation_encoder(R.reshape(B, 9))
         t_enc = positional_encoding(T, cfg.pos_enc_dim, cfg.max_freq)
-        t_enc = t_enc.to(dtype) @ self.translation_projection.to(dtype)
+        proj = self.translation_projection
+        t_enc = t_enc.to(dtype)
+        t_enc = proj(t_enc) if isinstance(proj, nn.Module) else t_enc @ proj.to(dtype)
         t_emb = self.translation_encoder(t_enc)
 
         h = self.final_dense_0(torch.cat([r_emb, t_emb], dim=-1))

@@ -28,6 +28,7 @@ from ..kernels.flash_attention import attention_packed
 from ..kernels.groupnorm_silu import groupnorm_silu_diff
 from ..kernels.ring_attention import ring_attention_packed
 from ..mesh import bound_axis, bound_mesh
+from ..tensor_parallel import Shards, each
 
 
 class _ComputeDtype:
@@ -136,7 +137,7 @@ class TimestepEmbedMLP(nn.Module):
         self.linear_2 = Linear(dim, dim)
 
     def forward(self, x):
-        return self.linear_2(F.silu(self.linear_1(x)))
+        return self.linear_2(each(F.silu, self.linear_1(x)))
 
 
 class GroupNorm(nn.Module):
@@ -189,11 +190,14 @@ def normalize_ref_feature(feat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 
 class CrossViewAdapter(nn.Module):
     """Image cross-attention adapter: queries from the view's normed hidden
-    states, keys/values from the frozen feature pass (or precomputed K/V)."""
+    states, keys/values from the frozen feature pass (or precomputed K/V).
+    Model-sharded (``parallel.shard_params_model_parallel``), each shard
+    attends over its own heads."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, attention_impl: str = "auto"):
         super().__init__()
         self.heads = heads
+        self.head_dim = head_dim
         self.attention_impl = attention_impl
         inner = heads * head_dim
         self.to_q_ref = Linear(dim, inner, bias=False)
@@ -203,15 +207,19 @@ class CrossViewAdapter(nn.Module):
 
     def forward(self, hidden: torch.Tensor, ref) -> torch.Tensor:
         """``ref``: normalized features (B, Sk, C), or a precomputed (k, v)
-        pair of packed (B, Sk, H*head_dim) projections."""
+        pair of packed (B, Sk, H*head_dim) projections (their shards where
+        the adapter is model-sharded)."""
         q = self.to_q_ref(hidden)
         if isinstance(ref, tuple):
             # the compute dtype (q's), never the f32 the features carry
-            k, v = (t.to(q.dtype) for t in ref)
+            dtype = (q[0] if isinstance(q, Shards) else q).dtype
+            k, v = (each(lambda t: t.to(dtype), t) for t in ref)
         else:
             ref = ref.to(hidden.dtype)
             k, v = self.to_k_ref(ref), self.to_v_ref(ref)
-        return self.to_out_ref(attention_packed(q, k, v, self.heads, impl=self.attention_impl))
+        attend = lambda q, k, v: attention_packed(q, k, v, q.shape[-1] // self.head_dim,
+                                                  impl=self.attention_impl)
+        return self.to_out_ref(each(attend, q, k, v))
 
 
 class Attention(nn.Module):
@@ -228,12 +236,17 @@ class Attention(nn.Module):
     (``kernels/ring_attention.py``), exact at every hop whatever
     ``attention_impl`` says, as in JAX. Outside a sharded call the same
     module attends over whole groups on one device, as the JAX package's
-    unsharded twin of a view-sharded model does."""
+    unsharded twin of a view-sharded model does. Model-sharded
+    (``parallel.shard_params_model_parallel``), the projections give each
+    shard its own heads, attention (K1) runs on them shard by shard, and
+    the output projection sums the shards; a view axis and a model axis
+    together raise."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None,
                  attention_impl: str = "auto", num_views: int = 1, view_axis: Optional[str] = None):
         super().__init__()
         self.heads = heads
+        self.head_dim = head_dim
         self.attention_impl = attention_impl
         self.num_views = num_views
         self.view_axis = view_axis
@@ -247,11 +260,18 @@ class Attention(nn.Module):
     def forward(self, hidden: torch.Tensor, context: Optional[torch.Tensor] = None):
         ctx = hidden if context is None else context.to(hidden.dtype)
         q, k, v = self.to_q(hidden), self.to_k(ctx), self.to_v(ctx)
+        # on q's heads: a shard's, model-sharded
+        attend = lambda q, k, v: attention_packed(q, k, v, q.shape[-1] // self.head_dim,
+                                                  impl=self.attention_impl)
         V = self.num_views
         if context is None and V > 1:
-            B, S, inner = q.shape
+            B, S, _ = hidden.shape
             axis = bound_axis(self.view_axis) if self.view_axis is not None else None
             if axis is not None:
+                if isinstance(q, Shards):
+                    raise NotImplementedError(
+                        "joint attention over a view axis with model-sharded projections: the "
+                        "JAX package does not shard a view axis and a model axis together")
                 if V % axis.size:
                     raise ValueError(f"{V} views do not divide over the {axis.size} processes of "
                                      f"mesh axis {self.view_axis!r}")
@@ -259,21 +279,26 @@ class Attention(nn.Module):
             if B % V:
                 raise ValueError(f"joint attention over {V} views needs a batch that {V} "
                                  f"divides, got {B} rows")
-            merge = lambda t: t.reshape(B // V, V * S, inner)
+            merge = lambda t: t.reshape(B // V, V * S, t.shape[-1])
             if axis is not None:
                 out = ring_attention_packed(merge(q), merge(k), merge(v), self.heads, self.view_axis)
+                out = out.reshape(B, S, -1)
             else:
-                out = attention_packed(merge(q), merge(k), merge(v), self.heads,
-                                       impl=self.attention_impl)
-            out = out.reshape(B, S, inner)
+                out = each(lambda q, k, v: attend(merge(q), merge(k), merge(v)).reshape(B, S, -1), q, k, v)
         else:
-            out = attention_packed(q, k, v, self.heads, impl=self.attention_impl)
+            out = each(attend, q, k, v)
         return self.to_out(out)
+
+
+def _geglu(h: torch.Tensor) -> torch.Tensor:
+    a, gate = h.chunk(2, dim=-1)
+    return a * F.gelu(gate, approximate="tanh")
 
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward (dim -> 4*dim gated -> dim). The gate is flax's
-    default ``nn.gelu``: the tanh approximation."""
+    default ``nn.gelu``: the tanh approximation. Model-sharded, each shard
+    of ``proj_geglu`` holds matching parts of ``a`` and ``gate``."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -282,8 +307,7 @@ class FeedForward(nn.Module):
         self.proj_out = Linear(inner, dim)
 
     def forward(self, x):
-        a, gate = self.proj_geglu(x).chunk(2, dim=-1)
-        return self.proj_out(a * F.gelu(gate, approximate="tanh"))
+        return self.proj_out(each(_geglu, self.proj_geglu(x)))
 
 
 class BasicTransformerBlock(nn.Module):

@@ -25,7 +25,9 @@ separate UNet of the same config (``image_encoder_unet``, frozen), as when
 the denoising UNet itself is fine-tuned; by default it is the denoising
 UNet. The feature pass keeps the config's ``num_views``: under joint
 attention the source features are themselves computed jointly over the
-flat B*V source rows.
+flat B*V source rows. Over a model axis
+(``parallel.shard_params_model_parallel``) the adapter K/V computed ahead
+of the loop are each rank's heads.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 
 from ..camera import plucker_ray_map, ray_grid
 from ..config import ModelConfig
+from ..tensor_parallel import ColumnParallelLinear
 from .camera_encoder import CameraEncoder, modulation_dims
 from .layers import normalize_ref_feature
 from .unet import UNet2DCondition
@@ -83,13 +86,17 @@ class MultiViewUNet(nn.Module):
 
     def _precompute_adapter_kv(self, name: str, feat: torch.Tensor):
         """Project normalized features (b, S, C) through the adapter K/V
-        weights once, in the compute dtype: {"self": (k, v), "cross": (k, v)}."""
+        weights once, in the compute dtype: {"self": (k, v), "cross": (k, v)};
+        model-sharded, k and v are the shards of each rank's heads."""
         block = getattr(self.unet, _adapter_module_name(name)).transformer_blocks_0
         out = {}
         for key, adapter in (("self", block.adapter_self), ("cross", block.adapter_cross)):
-            w_k, w_v = adapter.to_k_ref.weight, adapter.to_v_ref.weight
-            f = feat.to(w_k.dtype)
-            out[key] = (F.linear(f, w_k), F.linear(f, w_v))
+            to_k, to_v = adapter.to_k_ref, adapter.to_v_ref
+            if isinstance(to_k, ColumnParallelLinear):
+                out[key] = (to_k(feat), to_v(feat))
+                continue
+            f = feat.to(to_k.weight.dtype)
+            out[key] = (F.linear(f, to_k.weight), F.linear(f, to_v.weight))
         return out
 
     def prepare_conditioning(

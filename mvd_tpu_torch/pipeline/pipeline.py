@@ -24,7 +24,15 @@ whole batch (the unsharded twin of JAX), each denoise runs on the rank's
 block of view groups and views with ring attention between the view
 processes (``parallel.py``), the blocks of the prediction are gathered over
 the mesh, and every rank takes the sampler's step on the whole batch with
-the same noise, so the draws are those of the unsharded pipeline. Runs on
+the same noise, so the draws are those of the unsharded pipeline. Given a
+``mesh`` whose model axis is more than one process, the networks must be
+cut over it first (``parallel.shard_params_model_parallel(pipe.model,
+mesh)``, after the weights are loaded): every rank then runs the whole
+generation with its part of the widest products, K1 on its heads, each
+sharded layer meeting the others over the model axis it carries, and
+every rank draws the same noise and returns the whole images. A view axis
+and a model axis together raise, as the JAX package shards no such
+combination. Runs on
 the GPU unless the caller passes
 ``device="cpu"``; without a GPU the default raises rather than falling back.
 Random numbers come from a ``torch.Generator`` seeded with ``seed``, unless
@@ -58,6 +66,7 @@ from ..diffusion.schedules import (
 )
 from ..nn.adapter_init import init_adapters_from_frozen
 from ..nn.clip_text import CLIPTextEncoder
+from ..tensor_parallel import is_sharded
 from ..nn.layers import LayerNorm, StreamingLayerNorm, GroupNorm
 from ..nn.mvd_unet import MultiViewUNet
 from ..nn.vae import AutoencoderKL
@@ -161,6 +170,10 @@ class MVDPipeline:
     JAX pipeline (same argument names)."""
 
     def __init__(self, config: ModelConfig, model: nn.ModuleDict, device, tokenizer=None, mesh=None):
+        if mesh is not None and mesh.shape["view"] > 1 and mesh.shape["model"] > 1:
+            raise ValueError(f"a mesh of view {mesh.shape['view']} x model {mesh.shape['model']}: "
+                             "the JAX package takes a view-sharded call's params replicated, so a "
+                             "view axis and a model axis do not shard one generation together")
         self.config = config
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -227,6 +240,14 @@ class MVDPipeline:
         if B % V:
             raise ValueError(f"joint attention over {V} views needs a batch that {V} divides, "
                              f"got {B} images")
+
+    def _check_model_axis(self, model: nn.Module) -> None:
+        """A mesh with a model axis generates only with the networks cut
+        over it: never silently replicated."""
+        if self.mesh is not None and self.mesh.shape["model"] > 1 and not is_sharded(model):
+            raise ValueError(f"the mesh has a model axis of {self.mesh.shape['model']} but the "
+                             "networks are whole: call parallel.shard_params_model_parallel("
+                             "pipe.model, mesh) after loading the weights")
 
     def _denoiser(self, mvd):
         """``mvd.denoise``, or its view-sharded form over the mesh: the same
@@ -341,6 +362,7 @@ class MVDPipeline:
         the last whole group run the whole UNet. Nothing here waits for the
         device."""
         do_cfg = guidance_scale > 1.0
+        self._check_model_axis(model)
         denoise = self._denoiser(model["mvd"])
         state = dpmpp_2m_init(lat) if sampler == "dpmpp_2m" else None
         grouped = (len(timesteps) // encoder_reuse) * encoder_reuse if encoder_reuse > 1 else 0
@@ -441,6 +463,7 @@ class MVDPipeline:
         """``denoise`` + ``ddim_inverse_step`` up ``timesteps`` (pairs from
         ``MVDPipeline.timesteps``, taken in ascending order). Nothing here
         waits for the device."""
+        self._check_model_axis(model)
         for t, t_dev in reversed(timesteps):
             pred = model["mvd"].denoise(lat, t_dev, embeds, film, ref_feats, ref_scale)
             lat = ddim_inverse_step(self.schedule, pred, t, lat, num_inference_steps)

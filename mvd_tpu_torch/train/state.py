@@ -41,6 +41,7 @@ import torch.nn as nn
 
 from ..config import OptimizerConfig, TrainConfig
 from ..nn.layers import set_compute_dtype
+from ..tensor_parallel import is_sharded
 
 TRAINABLE_MARKERS = ("adapter_self", "adapter_cross", "camera_encoder")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,7 +107,11 @@ class TrainState:
         """Freeze, cast and wrap ``model`` in place. Trainable parameters stay
         f32 masters; the frozen ones (outside norms) are cast to the compute
         dtype once, 4-D weights go to channels_last, and every Linear/Conv2d
-        computes in the compute dtype."""
+        computes in the compute dtype. A model-sharded ``model`` raises:
+        the model axis in training is not ported (ROADMAP item 17)."""
+        if is_sharded(model):
+            raise NotImplementedError("a model-sharded network does not train: the model axis in "
+                                      "training (ROADMAP item 17) is not ported")
         dtype = DTYPES[cfg.model.dtype]
         mask = trainable_mask(model["mvd"], cfg.train_denoising_unet)
         trainable = {}

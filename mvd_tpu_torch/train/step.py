@@ -240,6 +240,11 @@ class _Sharding:
     def __init__(self, mesh, view_sharded: bool, cfg: TrainConfig):
         if not mesh.member:
             raise RuntimeError(f"rank {mesh.rank} is not in {mesh!r}")
+        if mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"a train step on a model axis of {mesh.shape['model']}: the model axis in training "
+                "(ROADMAP item 17) is not ported; the JAX package's meshed step keeps its "
+                "parameters replicated")
         if view_sharded and cfg.model.unet.view_axis != "view":
             raise ValueError("a view-sharded step needs a model whose view_axis is 'view' "
                              f"(parallel.for_view_sharding), got {cfg.model.unet.view_axis!r}")

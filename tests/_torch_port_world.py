@@ -202,7 +202,183 @@ def trainer(rank: int, world: int, workdir: str, ports) -> None:
                os.path.join(workdir, f"trainer_out{rank}.pt"))
 
 
-SCENARIOS = {"ring": ring, "sharded": sharded}
+def _raised(fn) -> str:
+    """The message of what ``fn()`` raises ("" where it returns)."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the tests read the type and the message
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def _tp_grads(rank: int, mesh) -> dict:
+    """A column -> row pair and a gathered column layer over the model axis
+    of ``mesh``, forward and backward, against the same layers whole: the
+    largest relative error of the input's gradient and of this rank's part
+    of each weight's gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvd_tpu_torch.nn.layers import Linear
+    from mvd_tpu_torch.tensor_parallel import (
+        ColumnParallelLinear,
+        RowParallelLinear,
+        cut,
+        each,
+        model_axis,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    l1, l2, l3 = Linear(8, 16), Linear(16, 8), Linear(8, 12)
+    for p in (*l1.parameters(), *l2.parameters(), *l3.parameters()):
+        p.data = torch.randn(p.shape, generator=gen)
+    x, c = torch.randn(3, 8, generator=gen), torch.randn(3, 12, generator=gen)
+    axis = model_axis(mesh)
+    s1, s2 = ColumnParallelLinear(l1, axis, gather=False), RowParallelLinear(l2, axis)
+    s3 = ColumnParallelLinear(l3, axis, gather=True)
+    xs, xw = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (s3(s2(each(F.silu, s1(xs)))) * c).sum().backward()
+    (l3(l2(F.silu(l1(xw)))) * c).sum().backward()
+    rel = lambda got, want: ((got - want).abs().max() / want.abs().max()).item()
+    errs = {"input": rel(xs.grad, xw.grad)}
+    for name, s, whole, dim in (("column", s1, l1, 0), ("row", s2, l2, 1), ("gathered", s3, l3, 0)):
+        errs[name] = rel(s.weight.grad[0], cut(whole.weight.grad, dim, axis.size)[rank])
+    return errs
+
+
+def model_parallel(rank: int, world: int, workdir: str) -> None:
+    """Every check of ``test_torch_port_model_parallel.py`` that needs the
+    2 processes: the TINY UNet forward, a multi-view denoise with FiLM and
+    precomputed adapter K/V and a CLIP encode, each over the gloo model
+    axis of ``make_mesh(model=2)`` and, on rank 0, over 2 and 4 virtual
+    ranks; 3 DDPM steps of the model-sharded pipeline; the collectives'
+    gradients; and what must raise. Writes ``mp_out{rank}.pt``."""
+    import copy
+
+    import torch
+
+    from mvd_tpu_torch.checkpoint import load_jax_params
+    from mvd_tpu_torch.config import TrainConfig
+    from mvd_tpu_torch.mesh import make_mesh
+    from mvd_tpu_torch.nn import CLIPTextEncoder, MultiViewUNet, UNet2DCondition
+    from mvd_tpu_torch.parallel import for_view_sharding, shard_params_model_parallel, sharded_denoise_fn
+    from mvd_tpu_torch.pipeline import MVDPipeline, build_schedule
+    from mvd_tpu_torch.pipeline.pipeline import build_model
+    from mvd_tpu_torch.tensor_parallel import virtual_model_axis
+    from mvd_tpu_torch.train import make_train_step
+
+    inp = torch.load(os.path.join(workdir, "mp_in.pt"), weights_only=False)
+    cfg, tree, min_dim = inp["cfg"], inp["tree"], inp["min_dim"]
+    mesh, mesh_view = make_mesh(model=2), make_mesh(view=2)  # every rank makes every group
+    axes = {"gloo 2": mesh}
+    if rank == 0:
+        axes.update({"virtual 2": virtual_model_axis(2), "virtual 4": virtual_model_axis(4)})
+
+    def over_axes(whole, run):
+        with torch.no_grad():
+            return {key: run(shard_params_model_parallel(copy.deepcopy(whole), axis, min_dim))
+                    for key, axis in axes.items()}
+
+    def loaded(module, sub):
+        load_jax_params(module, sub)
+        return module
+
+    u = _tree_to_torch(inp["unet_in"])
+    out = {"unet": over_axes(loaded(UNet2DCondition(cfg.unet), inp["unet_tree"]),
+                             lambda m: m(u["sample"], u["t"], u["ctx"])[0])}
+    d = _tree_to_torch(inp["denoise"])
+    n = d["text"].shape[0]
+
+    def denoise(m):
+        film, refs = m.prepare_conditioning(d["text"], d["src_cam"], d["tgt_cam"], d["src_lat"],
+                                            cfg_batch=n, precompute_kv=True)
+        return m.denoise(d["lat"], torch.tensor(600), d["text"], film, refs, 0.7)
+
+    mvd = loaded(MultiViewUNet(cfg), tree["mvd"])
+    out["denoise"] = over_axes(mvd, denoise)
+    out["clip"] = over_axes(loaded(CLIPTextEncoder(cfg.text_encoder), tree["text_encoder"]),
+                            lambda m: m(d["ids"]))
+
+    pipe = MVDPipeline(cfg, build_model(cfg), "cpu", mesh=mesh)
+    pipe.load_jax_params(tree)
+    out["unsharded_pipeline_raises"] = _raised(lambda: pipe(inp["pipeline"][0], **inp["pipeline"][1]))
+    shard_params_model_parallel(pipe.model, mesh, min_dim)
+    out["images"] = torch.from_numpy(pipe(inp["pipeline"][0], **inp["pipeline"][1])["images"])
+    out["grads"] = _tp_grads(rank, mesh)
+
+    out["train_step_raises"] = _raised(
+        lambda: make_train_step(build_schedule(cfg), TrainConfig(model=cfg), mesh=mesh))
+    # a view-sharded call of a model-sharded network
+    V = 2
+    cfg_v = for_view_sharding(cfg, V, 2)
+    joint = shard_params_model_parallel(loaded(MultiViewUNet(cfg_v), tree["mvd"]),
+                                        virtual_model_axis(2), min_dim)
+    bv = lambda x: x.reshape((n // V, V) + tuple(x.shape[1:]))
+    with torch.no_grad():
+        out["view_x_model_raises"] = _raised(lambda: sharded_denoise_fn(joint, mesh_view)(
+            bv(d["lat"]), torch.tensor(600), bv(d["text"])))
+    torch.save(out, os.path.join(workdir, f"mp_out{rank}.pt"))
+
+
+def multislice(rank: int, world: int, workdir: str) -> None:
+    """Every check of ``test_torch_port_multislice.py``: the rank tables of
+    2-slice meshes grouped by a ``hosts`` list of two hosts and by the
+    gathered hosts (one here, so contiguous), what must raise, the
+    view-sharded denoise on 2-slice meshes of data 2 x view 2 beside the
+    unsharded one, and ``cli.train --num-slices 2`` for one step on the
+    corpus under ``workdir``. Writes ``multislice_out{rank}.pt``."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.cli import train
+    from mvd_tpu_torch.config import TINY_MODEL
+    from mvd_tpu_torch.mesh import make_mesh, mesh_from_shape
+    from mvd_tpu_torch.parallel import for_view_sharding, sharded_denoise_fn, tree_map
+    from mvd_tpu_torch.pipeline import MVDPipeline
+    from mvd_tpu_torch.pipeline.pipeline import build_model
+
+    interleaved = ["h0", "h1", "h0", "h1"]
+    out = {
+        "divisible": _raised(lambda: make_mesh(data=3, view=1, num_slices=2)),
+        "too_few": _raised(lambda: make_mesh(data=4, num_slices=2, hosts=["a", "a", "a", "b"])),
+        "from_shape": mesh_from_shape({"data": 4, "num_slices": 2}).shape,
+    }
+    meshes = {"two hosts": make_mesh(data=2, view=2, num_slices=2, hosts=interleaved),
+              "one host": make_mesh(data=2, view=2, num_slices=2)}
+    out["tables"] = {key: m.table for key, m in meshes.items()}
+    model_mesh = make_mesh(data=2, model=2, num_slices=2, hosts=interleaved)
+    out["model_line"] = model_mesh.axis("model").ranks
+    out["view_x_model"] = _raised(lambda: MVDPipeline(TINY_MODEL, build_model(TINY_MODEL), "cpu",
+                                                      mesh=make_mesh(view=2, model=2)))
+
+    V, groups = 2, 2
+    pipe = MVDPipeline.create(for_view_sharding(TINY_MODEL, V, 2), seed=0, device="cpu")
+    whole = build_model(for_view_sharding(TINY_MODEL, V, 1))["mvd"]
+    whole.load_state_dict(pipe.model["mvd"].state_dict())
+    rng = np.random.default_rng(0)
+    n, lat = groups * V, TINY_MODEL.unet.sample_size
+    f32 = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    text, src_lat, x = f32(n, 77, TINY_MODEL.unet.cross_attention_dim), f32(n, lat, lat, 4), f32(n, lat, lat, 4)
+    cam = torch.eye(4).repeat(n, 1, 1)
+    cam[:, :3, 3] = f32(n, 3)
+    bv = lambda tree: tree_map(lambda t: t.reshape((groups, V) + tuple(t.shape[1:])), tree)
+    with torch.no_grad():
+        film, refs = whole.prepare_conditioning(text, cam[:1].repeat(n, 1, 1), cam, src_lat, cfg_batch=n,
+                                                precompute_kv=True)
+        out["unsharded"] = whole.denoise(x, torch.tensor(500), text, film, refs, 0.7)
+        out["sharded"] = {
+            key: m.gather_blocks(sharded_denoise_fn(pipe.model["mvd"], m)(
+                bv(x), torch.tensor(500), bv(text), bv(film), bv(refs), 0.7)).flatten(0, 1)
+            for key, m in meshes.items()}
+
+    tr = train.main(["--tiny", "--device", "cpu", "--dataset-path", os.path.join(workdir, "corpus"),
+                     "--batch-size", "1", "--num-slices", "2", "--max-steps", "1",
+                     "--output-dir", os.path.join(workdir, "run")])
+    out["train"] = dict(step=tr.state.step, mesh=tr.mesh.shape, table=tr.mesh.table)
+    torch.save(out, os.path.join(workdir, f"multislice_out{rank}.pt"))
+
+
+SCENARIOS = {"ring": ring, "sharded": sharded, "model_parallel": model_parallel, "multislice": multislice}
 SELF_JOINING = {"trainer": trainer}  # scenarios that join (and leave) the group themselves
 
 

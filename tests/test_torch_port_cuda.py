@@ -762,3 +762,31 @@ def test_virtual_ring_matches_the_unsharded_kernels(cuda, n, B, S, heads):
     want = flash_attention_packed_bwd(q, k, v, out, lse, do, heads)
     for name, g, w in zip("dq dk dv".split(), grads, want):
         _assert_grad_close(torch.cat(g, 1), w, f"ring of {n} {name}")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_model_sharded_attention_launches_k1_per_shard(cuda, n):
+    """An ``Attention`` cut over n virtual model ranks
+    (``shard_params_model_parallel``) on CUDA tensors: K1 once per shard on
+    the shard's heads, no plain call, the output within a relative RMS
+    error of 1e-2 of the whole layer's (the row-parallel sum rounds its
+    partial products to bf16)."""
+    import copy
+
+    from mvd_tpu_torch.nn.layers import Attention
+    from mvd_tpu_torch.parallel import shard_params_model_parallel
+    from mvd_tpu_torch.tensor_parallel import virtual_model_axis
+
+    torch.manual_seed(0)
+    attn = Attention(256, 4, 64, context_dim=128).cuda().bfloat16()
+    x = torch.randn((2, 300, 256), generator=cuda, device="cuda").bfloat16()
+    ctx = torch.randn((2, 77, 128), generator=cuda, device="cuda").bfloat16()
+    with torch.no_grad():
+        want = attn(x, ctx).float()
+        sharded = shard_params_model_parallel(copy.deepcopy(attn), virtual_model_axis(n), min_dim=256)
+        launches, plain = flash_attention_packed_fwd.launches, flash_attention_packed_fwd.plain_calls
+        got = sharded(x, ctx).float()
+        torch.cuda.synchronize()
+    assert flash_attention_packed_fwd.launches == launches + n
+    assert flash_attention_packed_fwd.plain_calls == plain
+    assert (got - want).pow(2).mean().sqrt() <= 1e-2 * want.pow(2).mean().sqrt()

@@ -138,8 +138,9 @@ def test_p2p_ring_is_the_virtual_ring(p2p):
 def test_single_process_mesh_matches_jax_policy():
     """Without a process group the mesh is the one process (1 x 1 x 1):
     each block is the whole tensor. ``auto_mesh_shape`` is the JAX
-    package's policy; a model axis and several slices raise (ROADMAP item
-    16), as does a mesh larger than the processes."""
+    package's policy; a mesh larger than the processes raises, a model axis
+    and several slices included, and a data axis that several slices do
+    not divide raises as in JAX."""
     from mvd_tpu.mesh import auto_mesh_shape as j_auto_mesh_shape
     from mvd_tpu_torch.mesh import auto_mesh_shape, make_mesh, mesh_from_shape, shard_batch
 
@@ -150,10 +151,12 @@ def test_single_process_mesh_matches_jax_policy():
     assert mesh.coords == {"data": 0, "view": 0, "model": 0} and mesh.group_size == 1
     assert torch.equal(mesh.block(x), x) and torch.equal(shard_batch(mesh, {"x": x})["x"], x)
     assert torch.equal(mesh.gather_blocks(x), x)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(data=2, num_slices=2)
+    with pytest.raises(ValueError, match="divisible by num_slices"):
+        make_mesh(data=3, num_slices=2)
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(view=2)
 

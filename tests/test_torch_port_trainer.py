@@ -409,7 +409,8 @@ def test_train_and_precompute_clis_on_the_cpu(small_corpus, tmp_path):
     (["--num-views", "2", "--mesh-view", "2", "--device", "cpu"], SystemExit, "needs as many"),
     (["--mesh-view", "2"], SystemExit, "must divide"),  # 1 view does not shard over 2
     (["--num-processes", "2"], ValueError, "coordinator"),  # nowhere to meet
-    (["--num-slices", "2"], SystemExit, "item 16"),
+    # two slices of one process: the data axis of 1 does not divide, as in JAX
+    (["--num-slices", "2", "--device", "cpu"], ValueError, "divisible by num_slices"),
 ])
 def test_train_cli_refusals(argv, error, match):
     from mvd_tpu_torch.cli import train
