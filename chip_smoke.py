@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases; any failure exits non-zero:
+Twelve phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel; the host C++ readers with ``c++`` beside
@@ -159,6 +159,22 @@ Eleven phases; any failure exits non-zero:
    768² view of the PIL path, the native reader and a JPEG frame, and the
    loader's seconds a batch of 6 with each reader, in turns, against the
    step, beside the card's name and power limit.
+10. the JAX package's orbax checkpoints read on the host by the port's own
+   OCDBT, zarr and zstd readers (the zstd decoder built with the host's
+   ``c++`` in phase 1), after phase 9: (a) every fixture of
+   ``tests/fixtures/torch_port_orbax`` (a JAX ``save_params`` and a JAX
+   Trainer step) read to the digests the JAX package's arrays gave; (b)
+   phase 3's pipeline parameters, exported before phase 4 and written in the
+   JAX package's orbax layout by ``tests/_torch_port_orbax_writer.py``,
+   loaded by ``load_checkpoint`` into a fresh pipeline of NaNs: every
+   parameter and the images of phase 3's call bitwise phase 3's, K1 1312
+   and K2 1333, no plain call, then ``cli.infer.main --checkpoint DIR``;
+   (c) phase 5's latest Trainer state written as a JAX Trainer step into a
+   fresh run dir and ``cli.train.main --resume`` on it for 2 steps at phase
+   5's point: the restored step, parameters and AdamW moments bitwise
+   phase 5's, the train step's launches per step, no plain call, finite
+   losses, the JAX step's files unchanged. Prints the checkpoints' bytes
+   and each read's seconds and GB/s beside the card's name and power limit.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
 generation, one call of each sampler configuration of phase 3c and one
@@ -2693,6 +2709,283 @@ def phase_readers(corpus: str, card: str) -> tuple:
     return metrics["co3d"]["launches_per_step"], metrics
 
 
+# phase 10: the JAX package's orbax checkpoints on the H100's host
+ORBAX_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                              "torch_port_orbax")
+ORBAX_RESUME_STEPS = 2
+
+
+def _orbax_writer():
+    """``tests/_torch_port_orbax_writer.py``: the JAX package's orbax layout
+    written with torch, numpy and the port (no JAX, orbax or zstd)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import _torch_port_orbax_writer
+
+    return _torch_port_orbax_writer
+
+
+def orbax_export(call) -> dict:
+    """Phase 10b's source, taken while phase 3's pipeline is up: its
+    networks as the JAX pipeline's ``params`` (numpy f32, in the JAX
+    package's names and layouts; host memory), and phase 3's call."""
+    pipe, prompts, kwargs = call
+    t0 = time.perf_counter()
+    tree = _orbax_writer().jax_pipeline_tree(pipe.model)
+    secs = time.perf_counter() - t0
+    n = sum(p.numel() for p in pipe.model.parameters())
+    print(f"[orbax] phase 3's {n / 1e6:.1f} M parameters exported as the JAX pipeline's tree in {secs:.1f} s "
+          f"(host memory, for phase 10b)")
+    return dict(tree=tree, prompts=prompts, kwargs=kwargs, config=pipe.config)
+
+
+def _leaf_digests(tree, prefix=()) -> dict:
+    """{"a/b/0": {"dtype", "shape", "sha256"}} of a tree ``read_tree`` gave
+    (bf16 as its uint16 bits), as ``make_fixtures.py`` records the JAX
+    package's."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    elif tree is None:
+        return {}
+    else:
+        if torch.is_tensor(tree):
+            data, dtype = tree.contiguous().view(torch.int16).numpy().tobytes(), "bfloat16"
+        else:
+            data, dtype = np.ascontiguousarray(tree).tobytes(), tree.dtype.name
+        return {"/".join(map(str, prefix)): {"dtype": dtype, "shape": list(tree.shape),
+                                             "sha256": hashlib.sha256(data).hexdigest()}}
+    out = {}
+    for k, v in items:
+        out.update(_leaf_digests(v, prefix + (k,)))
+    return out
+
+
+def phase_orbax(export: dict, corpus: str, run_root: str, card: str) -> dict:
+    """Phase 10, the JAX package's orbax checkpoints read on the host by
+    the port's own readers (``checkpoint/ocdbt.py``, ``zarr.py``,
+    ``orbax_read.py`` and the zstd decoder ``csrc/zstd_decode.cpp``, built
+    in phase 1): (a) every committed fixture of
+    ``tests/fixtures/torch_port_orbax`` read to the digests the JAX
+    package's arrays gave; (b) phase 3's pipeline parameters (``export``)
+    written in the JAX package's orbax layout (``save_params`` of the whole
+    pipeline tree) by the tests' layout writer, loaded by
+    ``load_checkpoint`` into a fresh full-width pipeline whose every
+    parameter is NaN before: every parameter bitwise phase 3's, the images
+    of phase 3's call bitwise phase 3's with K1 and K2 exactly its launches
+    and no plain call, then ``cli.infer.main --checkpoint DIR`` in this
+    process; (c) phase 5's latest Trainer state written as a JAX Trainer
+    step into a fresh run dir, and ``cli.train.main --resume`` on it for 2
+    steps at phase 5's point: the restored step, parameters and AdamW
+    moments bitwise phase 5's, each step's launches the train step's, no
+    plain call, finite losses, the JAX step dir's files unchanged (sha256).
+    Prints the checkpoints' bytes and the reads' seconds and GB/s beside
+    the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.checkpoint import export_jax_params, load_checkpoint, read_step, read_tree
+    from mvd_tpu_torch.checkpoint.io import CheckpointManager
+    from mvd_tpu_torch.cli import infer
+    from mvd_tpu_torch.cli import train as train_cli
+    from mvd_tpu_torch.kernels import _build
+    from mvd_tpu_torch.pipeline import MVDPipeline
+    from mvd_tpu_torch.train import loop
+    from mvd_tpu_torch.train.loop import Trainer
+
+    W = _orbax_writer()
+    t_phase = time.perf_counter()
+    metrics = {}
+
+    # (a) the fixtures the JAX package wrote, to its digests
+    if _build.build_host("zstd_decode") != os.path.join(_build.BUILD_DIR, "libzstd_decode.so"):
+        raise AssertionError(f"zstd_decode: not built into {_build.BUILD_DIR}")
+    with open(os.path.join(ORBAX_FIXTURES, "jax_sha256.json")) as f:
+        want = json.load(f)
+    got = _leaf_digests(read_tree(os.path.join(ORBAX_FIXTURES, "params")))
+    state_tree, meta, step_metrics = read_step(os.path.join(ORBAX_FIXTURES, "run", "checkpoints", "2"))
+    step_want = want["run/checkpoints/2"]
+    if got != want["params"] or _leaf_digests(state_tree) != step_want["state"]:
+        raise AssertionError("(a): a fixture array does not read to the JAX package's digest")
+    if meta != step_want["meta"] or step_metrics != step_want["metrics"]:
+        raise AssertionError(f"(a): the fixture step's meta {meta} / metrics {step_metrics}")
+    print(f"[orbax] (a) {len(got)} arrays of the JAX save_params fixture and {len(step_want['state'])} "
+          f"of its Trainer step read bitwise to the JAX package's digests (sha256; bf16, int32, 0-d, "
+          f"inline and indirect values, optax's masked AdamW state); meta and metrics equal")
+
+    tmp = tempfile.mkdtemp(prefix="mvd_orbax_")
+    try:
+        # (b) phase 3's pipeline as a JAX save_params dir
+        path = os.path.join(tmp, "params")
+        t0 = time.perf_counter()
+        nbytes = W.write_pytree(path, export["tree"])
+        write_s = time.perf_counter() - t0
+        fresh = MVDPipeline.create(export["config"], seed=1, device="cuda")
+        with torch.no_grad():
+            for p in fresh.model.parameters():
+                p.fill_(float("nan"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(fresh, path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        differ = []
+        for net, module in fresh.model.items():
+            mine = export_jax_params(module)
+            ref = export["tree"][net]["params"]
+            stack = [((), mine, ref)]
+            while stack:
+                pre, a, b = stack.pop()
+                if a.keys() != b.keys():
+                    differ.append(f"{net}/{'/'.join(pre)}: keys")
+                    continue
+                for k in a:
+                    if isinstance(a[k], dict):
+                        stack.append((pre + (k,), a[k], b[k]))
+                    elif not np.array_equal(a[k], b[k]):
+                        differ.append(f"{net}/{'/'.join(pre + (k,))}")
+            del mine
+        if differ:
+            raise AssertionError(f"(b): {len(differ)} parameters differ from phase 3's: {differ[:5]}")
+        export.pop("tree")
+        n_params = sum(p.numel() for p in fresh.model.parameters())
+        print(f"[orbax] (b) phase 3's pipeline ({n_params / 1e6:.1f} M f32 parameters) written in the JAX "
+              f"package's orbax layout ({nbytes} bytes) in {write_s:.1f} s; load_checkpoint read it into a "
+              f"fresh pipeline of NaNs in {read_s:.2f} s = {nbytes / read_s / 1e9:.2f} GB/s (decode, layout "
+              f"and the copy to the card; the file read warm from the page cache); every parameter "
+              f"bitwise phase 3's ({card})")
+        prompts, kwargs = export["prompts"], export["kwargs"]
+        out, first_s, launches = _counted_call(lambda: fresh(prompts, seed=0, **kwargs),
+                                               expected_launches(fresh, STEPS), "[orbax] (b)",
+                                               ("denoise_loop",), fresh)
+        if not torch.equal(out["images"], export["images"]):
+            raise AssertionError("(b): the images of the loaded pipeline differ from phase 3's")
+        print(f"[orbax] (b) phase 3's call on the loaded pipeline: images bitwise phase 3's at the same "
+              f"noise; K1 {launches['flash_attn_fwd']}, K2 {launches['groupnorm_silu']}, no plain call")
+        del fresh, out
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(tmp, "infer")
+        t0 = time.perf_counter()
+        infer.main(["--checkpoint", path, "--num-steps", "10", "--image-size", str(RES),
+                    "--num-images", "1", "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        names = sorted(os.listdir(out_dir))
+        if names != ["comparison_00.png", "generated_00.png", "source.png"]:
+            raise AssertionError(f"(b): the infer CLI wrote {names}")
+        for name in names[1:]:
+            with open(os.path.join(out_dir, name), "rb") as f:
+                _check_png(f.read(), (RES, RES, 3), f"(b) infer CLI {name}")
+        print(f"[orbax] (b) python -m mvd_tpu_torch.cli.infer --checkpoint <the orbax dir> --num-steps 10 "
+              f"--image-size {RES} --num-images 1: {names}, each decoded, in {cli_s:.1f} s")
+        metrics["b"] = dict(bytes=nbytes, write_s=write_s, read_s=read_s, gb_per_s=nbytes / read_s / 1e9,
+                            first_call_s=first_s, launches=launches, infer_cli_s=cli_s)
+        shutil.rmtree(path)
+        torch.cuda.empty_cache()
+
+        # (c) phase 5's latest state as a JAX Trainer step, resumed for 2 steps
+        base = ["--config", TRAIN_YAML, "--dataset-path", corpus, "--batch-size", str(TRAIN_BATCH),
+                "--image-size", str(TRAIN_RES)]
+        no_val = lambda _: (lambda self, *a, **k: {})  # noqa: E731
+        with _Hooks() as hooks:
+            hooks.wrap(Trainer, "validate", no_val)
+            tr = train_cli.main(base + ["--output-dir", os.path.join(tmp, "peek"), "--resume", run_root,
+                                        "--max-steps", "5"], metrics_log_interval=0)
+        if tr.state.step != 5 or tr.timings:
+            raise AssertionError(f"(c): phase 5's run resumed at {tr.state.step}, took {len(tr.timings)} steps")
+        snap = _state_snapshot(tr.state)
+        run = os.path.join(tmp, "jax_run")
+        t0 = time.perf_counter()
+        step_dir = W.write_train_step(os.path.join(run, "checkpoints"), tr.state.step,
+                                      W.jax_train_state_tree(tr.state),
+                                      {"dataset_state": tr.dm.state_dict(), "wandb_run_id": "jax-run"},
+                                      {"val/noise_loss": 0.5})
+        state_write_s = time.perf_counter() - t0
+        state_bytes = _dir_bytes(step_dir)
+        before = {os.path.relpath(os.path.join(d, n), step_dir): hashlib.sha256(
+            open(os.path.join(d, n), "rb").read()).hexdigest() for d, _, fs in os.walk(step_dir) for n in fs}
+        del tr
+        torch.cuda.empty_cache()
+        restored, timed, per_call = [], [], []
+
+        def resume_guard(resume):
+            def run_(self, *a, **k):
+                ok = resume(self, *a, **k)
+                _assert_state_equal(self.state, snap, "(c) the state restored from the JAX step")
+                restored.append(self.state.step)
+                return ok
+            return run_
+
+        def timer(restore):
+            def run_(*a, **k):
+                t = time.perf_counter()
+                out_ = restore(*a, **k)
+                torch.cuda.synchronize()
+                timed.append(time.perf_counter() - t)
+                return out_
+            return run_
+
+        make_step = loop.make_train_step
+
+        def counted_steps(schedule, cfg, **kw):
+            step = make_step(schedule, cfg, **kw)
+
+            def run_(state, batch, **k):
+                before_, _ = read_counts()
+                out_ = step(state, batch, **k)
+                after, plain = read_counts()
+                per_call.append(({n: after[n] - before_[n] for n in after}, plain,
+                                 float(out_["noise_loss"]), state.model))
+                return out_
+            return run_
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with _Hooks() as hooks:
+            hooks.wrap(Trainer, "validate", no_val)
+            hooks.wrap(Trainer, "resume", resume_guard)
+            hooks.wrap(CheckpointManager, "restore", timer)
+            hooks.wrap(loop, "make_train_step", lambda _: counted_steps)
+            tr = train_cli.main(base + ["--output-dir", os.path.join(tmp, "out"), "--resume", run,
+                                        "--max-steps", str(5 + ORBAX_RESUME_STEPS)], metrics_log_interval=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        took = [t["step"] for t in tr.timings]
+        if restored != [5] or took != [6, 7] or tr.state.step != 7 or tr.logger.run_id != "jax-run":
+            raise AssertionError(f"(c): restored {restored}, took steps {took}, run id {tr.logger.run_id}")
+        want_launches = expected_train_launches(per_call[0][3])
+        for i, (got_, plain, loss, _) in enumerate(per_call):
+            if got_ != want_launches or any(plain.values()) or not math.isfinite(loss):
+                raise AssertionError(f"(c) step {i + 1}: launches {got_} (expected {want_launches}), plain "
+                                     f"{plain}, loss {loss}")
+        after = {os.path.relpath(os.path.join(d, n), step_dir): hashlib.sha256(
+            open(os.path.join(d, n), "rb").read()).hexdigest() for d, _, fs in os.walk(step_dir) for n in fs}
+        if after != before or tr.ckpt.all_steps() != [5, 7]:
+            raise AssertionError(f"(c): the JAX step dir changed, or steps {tr.ckpt.all_steps()} on disk")
+        losses = [round(c[2], 5) for c in per_call]
+        print(f"[orbax] (c) phase 5's step-5 state written as a JAX Trainer step ({state_bytes} bytes) in "
+              f"{state_write_s:.1f} s; cli.train.main --resume <that run> --max-steps 7: restored step 5 "
+              f"with every parameter and the AdamW moments bitwise phase 5's in {timed[0]:.2f} s = "
+              f"{state_bytes / timed[0] / 1e9:.2f} GB/s (warm page cache), steps {took} with launches per "
+              f"step {want_launches}, no plain call, losses {losses}; the JAX step's {len(before)} files "
+              f"unchanged (sha256), the port's step 7 saved beside it; {run_s:.1f} s ({card})")
+        metrics["c"] = dict(bytes=state_bytes, write_s=state_write_s, restore_s=timed[0],
+                            gb_per_s=state_bytes / timed[0] / 1e9, run_s=run_s, losses=losses,
+                            launches_per_step=want_launches)
+        del tr, per_call
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"[orbax] phase 10 in {metrics['phase_s']:.1f} s ({card})")
+    return metrics
+
+
 # device-kernel name patterns (regular expressions) of each port kernel in a
 # torch.profiler trace
 def _ring_counts_want(n: int, backward: bool) -> dict:
@@ -3338,6 +3631,8 @@ def main(argv=None) -> int:
     results["flash_attn_fwd"].extend(phase_model_axis_kernels(card))
     model_launches, model_metrics = phase_model_axis(call, images, card)
     model_metrics["phase_s"] = time.perf_counter() - t_model
+    orbax_src = orbax_export(call)  # phase 10b's source: phase 3's weights in host memory
+    orbax_src["images"] = images
     del call, images  # free the generation pipelines before the train phase
     torch.cuda.empty_cache()
     results.update(phase_train_kernels())
@@ -3368,6 +3663,9 @@ def main(argv=None) -> int:
         val_launches, val_metrics = phase_val(corpus, run_root, card)
         torch.cuda.empty_cache()
         co3d_launches, reader_metrics = phase_readers(corpus, card)
+        torch.cuda.empty_cache()
+        orbax_metrics = phase_orbax(orbax_src, corpus, run_root, card)
+        del orbax_src
     finally:
         shutil.rmtree(corpus_dir, ignore_errors=True)
     joint_metrics.update(train=joint_train_metrics, train_entry=joint_entry_metrics,
@@ -3423,6 +3721,7 @@ def main(argv=None) -> int:
     print(f"[model] {json.dumps(model_metrics)}")
     print(f"[val] {json.dumps(val_metrics)}")
     print(f"[readers] {json.dumps(reader_metrics)}")
+    print(f"[orbax] {json.dumps(orbax_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,23 @@ A save is written under a temporary name and renamed into place, so a
 killed job never leaves a half checkpoint that ``latest_step`` would pick.
 Retention is Lightning's ``save_top_k`` + ``save_last``: the
 ``max_to_keep`` best by ``monitor`` (a save without that metric never takes
-a top-k slot) plus always the latest step. A save of a step that exists
-replaces it. A restore into a ``TrainState`` built the same way is
+a top-k slot) plus always the latest step. A save of a step the port
+already wrote replaces it. A restore into a ``TrainState`` built the same way is
 bitwise.
+
+The manager also reads the step dirs the JAX package's ``CheckpointManager``
+writes with orbax into the same layout (``<directory>/<step>/`` holding
+``state/``, ``meta/metadata`` and ``metrics/metrics``;
+``orbax_read.read_step``): ``all_steps``, ``latest_step`` and ``best_step``
+count them beside the port's own, and ``restore`` of one goes through
+``from_jax.carry_jax_train_state``, so ``--resume`` continues a JAX run. It
+writes only its own format, and never removes or replaces a step dir it
+did not write: a save that collides with one raises, and retention leaves
+such dirs alone.
+
+``save_params`` writes ``<path>/params.pt``; ``load_params_into`` and
+``load_component`` read that or a directory the JAX package's
+``save_params`` wrote with orbax.
 """
 
 from __future__ import annotations
@@ -74,15 +88,43 @@ def _load_payload(state, payload: Dict[str, Any]) -> None:
 
 
 def _step_dirs(directory: str) -> List[int]:
+    """The port's own steps under ``directory``."""
     if not os.path.isdir(directory):
         return []
     return sorted(int(e) for e in os.listdir(directory)
                   if e.isdigit() and os.path.isfile(os.path.join(directory, e, META_FILE)))
 
 
+def _all_steps(directory: str) -> List[int]:
+    """The port's steps and the JAX package's orbax steps under ``directory``."""
+    from .orbax_read import orbax_steps
+
+    return sorted(set(_step_dirs(directory)) | set(orbax_steps(directory)))
+
+
+def _writer(step_dir: str) -> Optional[str]:
+    """Who wrote an existing step dir: None for the port, else a name."""
+    from .orbax_read import is_orbax_step
+
+    if os.path.isfile(os.path.join(step_dir, META_FILE)):
+        return None
+    if is_orbax_step(step_dir):
+        return "the JAX package's CheckpointManager (orbax)"
+    return "an unknown writer (it holds no meta.json of this port)"
+
+
 def _read_meta(step_dir: str) -> Dict[str, Any]:
-    with open(os.path.join(step_dir, META_FILE)) as f:
-        return json.load(f)
+    """The meta of a step of either format: the port's ``meta.json``, or
+    the JAX step's ``meta/metadata`` with its ``metrics/metrics``."""
+    from .orbax_read import read_json_item
+
+    if _writer(step_dir) is None:
+        with open(os.path.join(step_dir, META_FILE)) as f:
+            return json.load(f)
+    meta = dict(read_json_item(step_dir, "meta") or {})
+    meta.update(format="orbax", step=int(os.path.basename(step_dir)),
+                metrics=read_json_item(step_dir, "metrics") or {})
+    return meta
 
 
 class CheckpointManager:
@@ -113,6 +155,10 @@ class CheckpointManager:
         if not force and self.save_interval_steps and step % self.save_interval_steps:
             return False
         final = os.path.join(self.directory, str(step))
+        if os.path.exists(final) and _writer(final) is not None:
+            raise FileExistsError(f"checkpoint step dir {final} was written by {_writer(final)}; the "
+                                  "port does not replace it (resume from it, or train into another "
+                                  "output dir)")
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -132,6 +178,8 @@ class CheckpointManager:
         return True
 
     def _collect(self) -> None:
+        """Drop the port's steps that retention no longer keeps; step dirs
+        of other writers are neither counted nor touched."""
         steps = _step_dirs(self.directory)
         if not steps:
             return
@@ -143,25 +191,42 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.directory, str(s)))
 
     def latest_step(self) -> Optional[int]:
-        steps = _step_dirs(self.directory)
+        steps = _all_steps(self.directory)
         return steps[-1] if steps else None
 
     def all_steps(self) -> List[int]:
-        return _step_dirs(self.directory)
+        """The port's steps and the JAX package's, ascending."""
+        return _all_steps(self.directory)
 
     def best_step(self) -> Optional[int]:
-        """The kept step with the best monitored metric, if any has it."""
-        ranked = [(self._rank(self._metrics(s)), s) for s in _step_dirs(self.directory)]
+        """The kept step (of either format) with the best monitored metric,
+        if any has it."""
+        ranked = [(self._rank(self._metrics(s)), s) for s in _all_steps(self.directory)]
         ranked = [r for r in ranked if r[0] > float("-inf")]
         return max(ranked)[1] if ranked else None
 
     def restore(self, state, step: Optional[int] = None) -> Tuple[Any, Optional[Dict]]:
-        """Load ``step`` (the latest by default) into ``state`` in place;
-        returns (state, meta), or (None, None) when there is no checkpoint."""
+        """Load ``step`` (the latest by default, of either format) into
+        ``state`` in place; returns (state, meta), or (None, None) when
+        there is no checkpoint. A JAX step's meta is its ``meta/metadata``
+        (``dataset_state``, ``wandb_run_id``) with ``metrics``, ``step``
+        and ``format`` "orbax"."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         step_dir = os.path.join(self.directory, str(step))
+        if not os.path.isdir(step_dir):
+            raise FileNotFoundError(f"no checkpoint step {step} under {self.directory}")
+        writer = _writer(step_dir)
+        if writer is not None:
+            from .from_jax import carry_jax_train_state
+            from .orbax_read import is_orbax_step, read_step
+
+            if not is_orbax_step(step_dir):
+                raise ValueError(f"{step_dir} was written by {writer}; it does not restore")
+            tree, _, _ = read_step(step_dir, lazy=True)
+            carry_jax_train_state(state, tree)
+            return state, _read_meta(step_dir)
         meta = _read_meta(step_dir)
         if meta.get("format") != FORMAT:
             raise ValueError(f"{step_dir} is not a checkpoint of this port (format "
@@ -201,11 +266,12 @@ def resolve_resume_path(path: str) -> Tuple[str, Optional[int]]:
 
 def peek_checkpoint_meta(path: str, step: Optional[int] = None) -> Dict[str, Any]:
     """The meta of the latest (or the given, or the pinned) step under a
-    resume path, without loading the state; {} when there is none."""
+    resume path, of either format, without loading the state; {} when there
+    is none."""
     ckpt_dir, pinned = resolve_resume_path(path)
     step = step if step is not None else pinned
     if step is None:
-        steps = _step_dirs(ckpt_dir)
+        steps = _all_steps(ckpt_dir)
         if not steps:
             return {}
         step = steps[-1]
@@ -240,14 +306,55 @@ def load_params(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     return blob["params"]
 
 
+_ZARR_DTYPES = {torch.float32: "<f4", torch.bfloat16: "bfloat16", torch.float16: "<f2"}
+
+
+def load_jax_component(module: torch.nn.Module, tree, where: str) -> None:
+    """One component's flax tree read from an orbax dir (lazy leaves) into
+    ``module``, 1:1 (``from_jax.load_jax_params``), each leaf's dtype the
+    parameter's, as the JAX package's ``load_params`` with its template
+    requires. A mismatch raises ``ValueError`` naming it."""
+    from .from_jax import _plan, load_jax_params
+
+    params = dict(module.named_parameters())
+    for name, (leaf, _) in _plan(tree).items():
+        want = _ZARR_DTYPES.get(params[name].dtype) if name in params else None
+        if want is not None and getattr(leaf, "dtype", want) != want:
+            raise ValueError(f"{where}: {name} is {leaf.dtype} in the checkpoint, {want} in the model")
+    try:
+        load_jax_params(module, tree)
+    except KeyError as e:
+        raise ValueError(f"{where} does not match the configured architecture: {e}") from None
+
+
+def _orbax_components(path: str) -> Dict:
+    from .orbax_read import read_tree
+
+    tree = read_tree(path, lazy=True)
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: an orbax tree of components (vae / text_encoder / mvd) expected")
+    return tree
+
+
 def load_params_into(pipe, path: str) -> List[str]:
-    """Load a ``save_params`` directory into ``pipe``'s networks, component
-    by component (``vae`` / ``text_encoder`` / ``mvd``); a component the
+    """Load a ``save_params`` directory (the port's ``params.pt``, or the
+    JAX package's orbax directory) into ``pipe``'s networks, component by
+    component (``vae`` / ``text_encoder`` / ``mvd``); a component the
     directory lacks keeps its weights. A component the pipeline lacks, or
     whose names, shapes or dtypes differ from the configured architecture,
     raises, as do model-sharded networks. Returns the components loaded."""
+    from .orbax_read import is_orbax_dir
+
     refuse_sharded(pipe.model, f"loading {path}")
     loaded = []
+    if is_orbax_dir(path):
+        for comp, tree in _orbax_components(path).items():
+            if comp not in pipe.model:
+                raise ValueError(f"{path}: component {comp!r} not in the pipeline (have {sorted(pipe.model)})")
+            load_jax_component(pipe.model[comp], tree, f"{path}: component {comp!r}")
+            loaded.append(comp)
+        pipe.drop_compute_model()
+        return loaded
     for comp, sd in load_params(path).items():
         if comp not in pipe.model:
             raise ValueError(f"{path}: component {comp!r} not in the pipeline (have {sorted(pipe.model)})")
@@ -260,3 +367,19 @@ def load_params_into(pipe, path: str) -> List[str]:
         loaded.append(comp)
     pipe.drop_compute_model()
     return loaded
+
+
+def load_component(module: torch.nn.Module, path: str, comp: str) -> None:
+    """Load component ``comp`` of a ``save_params`` directory (the port's,
+    or the JAX package's orbax one) into ``module``; a directory without it
+    raises ``ValueError``."""
+    from .orbax_read import is_orbax_dir
+
+    refuse_sharded(module, f"loading {path}")
+    comps = _orbax_components(path) if is_orbax_dir(path) else load_params(path)
+    if comp not in comps:
+        raise ValueError(f"{path}: no {comp!r} component (have {sorted(comps)})")
+    if is_orbax_dir(path):
+        load_jax_component(module, comps[comp], f"{path}: component {comp!r}")
+    else:
+        module.load_state_dict(comps[comp])

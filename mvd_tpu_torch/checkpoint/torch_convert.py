@@ -309,9 +309,13 @@ def export_lightning_state_dict(mvd_params: Dict, simple_encoder: bool = False) 
 
 
 def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
-    """Load a directory written by ``checkpoint.save_params`` into ``pipe``,
-    component by component (``io.load_params_into``; returns ([], [])), or
-    a reference Lightning ``.ckpt`` into ``pipe``'s multi-view UNet
+    """Load a directory written by the port's ``checkpoint.save_params``
+    into ``pipe``, component by component (``io.load_params_into``; returns
+    ([], [])), a directory the JAX package's ``save_params`` wrote with
+    orbax of the whole pipeline tree (``mvd``, ``vae``, ``text_encoder``;
+    every component loaded 1:1, a missing or extra component or leaf
+    raises, as the JAX ``load_params(path, pipe.params)`` does; returns
+    ([], [])), or a reference Lightning ``.ckpt`` into ``pipe``'s multi-view UNet
     (the UNet and the camera encoder; the VAE and CLIP keep their weights).
     Where the model holds a separate feature-pass UNet
     (``image_encoder_unet``, built with ``share_image_encoder=False``), the
@@ -328,15 +332,25 @@ def load_checkpoint(pipe, path: str) -> Tuple[List[str], list]:
     Returns (names kept from init, [(key, reason)] skipped by the converter).
     Model-sharded networks raise: load first, then shard.
     """
+    from .orbax_read import is_orbax_dir, read_metadata
+
     refuse_sharded(pipe.model, f"loading {path}")
     if os.path.isdir(path) and os.path.exists(os.path.join(path, PARAMS_FILE)):
         print(f"loaded {', '.join(load_params_into(pipe, path))} from {path}")
         return [], []
+    if is_orbax_dir(path):
+        comps = {str(m["key_metadata"][0]["key"]) for m in read_metadata(path)["tree_metadata"].values()}
+        if comps != set(pipe.model):
+            raise ValueError(f"{path}: the JAX package's save_params of components {sorted(comps)}; the "
+                             f"pipeline's tree is {sorted(pipe.model)} (load a partial export with "
+                             "--init-params)")
+        print(f"loaded {', '.join(load_params_into(pipe, path))} from {path} (orbax)")
+        return [], []
     if not path.endswith(".ckpt") or os.path.isdir(path):
         raise ValueError(
             f"{path}: the port loads a reference Lightning .ckpt or a directory written by "
-            f"its checkpoint.save_params (holding {PARAMS_FILE}); an orbax directory of the "
-            "JAX package is neither")
+            f"save_params (the port's, holding {PARAMS_FILE}, or the JAX package's orbax "
+            "directory); this is neither")
     separate = hasattr(pipe.model["mvd"], "image_encoder_unet")
     cfg = pipe.config
     tree, skipped = convert_lightning_checkpoint(path, cfg.camera_encoder.simple_encoder,

@@ -6,8 +6,9 @@ cameras, N generations, and source / generated / side-by-side PNGs in
 Same flags as ``mvd_tpu/cli/infer.py``; ``--device`` picks the device (the
 GPU by default; without one the CLI raises). ``--checkpoint`` takes the
 JAX CLI's two forms: a reference Lightning ``.ckpt``, or a directory written
-by the port's ``checkpoint.save_params``, loaded component by component (a
-JAX package's orbax directory raises, naming both). ``--tiny`` runs on the
+by ``save_params``: the port's, loaded component by component, or the JAX
+package's orbax directory of the whole pipeline tree, loaded 1:1 (anything
+else raises, naming the forms). ``--tiny`` runs on the
 CPU only: its f32, 16-wide attention heads are not what the GPU kernels take
 (bf16, 64 wide).
 
@@ -40,7 +41,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="a reference Lightning .ckpt (the multi-view UNet and camera encoder) "
-                   "or a checkpoint.save_params directory")
+                   "or a save_params directory (the port's, or the JAX package's orbax one)")
     p.add_argument("--encoder-reuse", type=int, default=1,
                    help="k > 1: run the UNet's down path at one of every k steps and reuse its "
                    "state at the others (approximate; arXiv 2312.09608)")

@@ -8,8 +8,8 @@ encodes every view of every object zip once and writes the posterior
 moments (``data/latent_cache.py``, the JAX package's format); pass
 ``--latent-cache-dir`` to ``cli.train`` afterwards. The same flags, plus
 ``--device`` (the GPU by default; without one it raises; ``--tiny`` runs
-on the CPU only). ``--checkpoint`` takes a ``checkpoint.save_params``
-directory with a ``vae`` component; without it the VAE has random weights
+on the CPU only). ``--checkpoint`` takes a ``save_params`` directory (the
+port's, or the JAX package's orbax one) with a ``vae`` component; without it the VAE has random weights
 from seed 0 (smoke tests only).
 """
 
@@ -27,7 +27,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None,
                    help="cache directory (default <dataset>/.mvd_latent_cache/<size>)")
     p.add_argument("--checkpoint", default=None,
-                   help="a save_params dir holding the VAE weights; without it the VAE is "
+                   help="a save_params dir (the port's or the JAX package's orbax one) holding the VAE weights; without it the VAE is "
                    "RANDOM (smoke tests only)")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--dtype", default="float32", choices=["float32", "float16"],
@@ -70,9 +70,9 @@ def main(argv=None):
     with torch.device(device):
         vae = AutoencoderKL(cfg.vae)
     if args.checkpoint:
-        from ..checkpoint import load_params
+        from ..checkpoint import load_component
 
-        vae.load_state_dict(load_params(args.checkpoint)["vae"])
+        load_component(vae, args.checkpoint, "vae")
     else:
         init_weights(vae, torch.Generator(device).manual_seed(0))
         print("WARNING: no --checkpoint given: encoding with RANDOM VAE weights (only useful "

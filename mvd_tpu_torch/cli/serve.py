@@ -143,7 +143,8 @@ def make_handler(pipe, size: int, lock: threading.Lock, request_timeout: float =
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Multi-view inference server (PyTorch/CUDA)")
     p.add_argument("--checkpoint", default=None,
-                   help="a reference Lightning .ckpt or a checkpoint.save_params directory")
+                   help="a reference Lightning .ckpt or a save_params directory (the port's, or "
+                   "the JAX package's orbax one)")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--image-size", type=int, default=512)

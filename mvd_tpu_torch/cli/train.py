@@ -10,7 +10,10 @@ The flags of ``mvd_tpu/cli/train.py``, plus ``--device`` (the GPU by
 default; without one the CLI raises; ``--tiny`` runs on the CPU only, as in
 ``cli/infer.py``) and ``--wandb`` (log to W&B as well as the JSONL; W&B is
 not imported otherwise). ``--config`` needs PyYAML. ``--init-params`` takes
-a directory written by ``checkpoint.save_params``. ``--num-views`` V above 1
+a directory written by ``save_params`` (the port's, or the JAX package's
+orbax one); ``--resume`` a run of either package (a JAX step restores
+through ``checkpoint.from_jax.carry_jax_train_state``; the port then saves
+its own steps beside the JAX ones and never replaces one). ``--num-views`` V above 1
 trains joint multi-view attention over the V views of each sample (the
 loader yields V views a sample).
 
@@ -52,7 +55,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "JAX package's automatic choice, which takes its C++ reader whenever g++ "
                         "and libpng build it. Off: the PIL path's function (Lanczos), bitwise")
     p.add_argument("--resume", type=str, default=None,
-                   help="run dir, its checkpoints/ dir, or one step dir to resume from")
+                   help="run dir, its checkpoints/ dir, or one step dir to resume from (the port's "
+                   "or the JAX package's)")
     p.add_argument("--output-dir", type=str, default="outputs")
     p.add_argument("--wandb", action="store_true", help="also log to W&B")
     p.add_argument("--wandb-id", type=str, default=None)
@@ -81,7 +85,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--use-ray-conditioning", action="store_true",
                    help="concatenate per-pixel Plücker ray maps to the UNet input")
     p.add_argument("--init-params", type=str, default=None,
-                   help="a checkpoint.save_params dir whose components (vae / text_encoder / "
+                   help="a save_params dir (the port's or the JAX package's orbax one) whose components (vae / text_encoder / "
                    "mvd) replace the fresh init")
     p.add_argument("--tiny", action="store_true", help="tiny model (smoke test; CPU only)")
     p.add_argument("--debug-nans", action="store_true")

@@ -9,11 +9,12 @@ metric sweep of ``metrics/harness.py:run_validation`` and its two CSVs.
 The flags of ``mvd_tpu/cli/val.py``, plus ``--device`` (the GPU by default;
 without one the CLI raises; ``--tiny`` runs on the CPU only, as in
 ``cli/infer.py``). ``--checkpoint`` takes a reference Lightning ``.ckpt``,
-a Trainer run dir of the port (its ``checkpoints/`` dir or one step dir;
-the latest step is restored into the multi-view UNet and printed), or a
-directory written by ``checkpoint.save_params``; a JAX package's orbax
-directory raises, naming those forms. ``--vae-params`` reads the ``vae``
-component of a ``save_params`` directory. ``--config`` builds the model
+a Trainer run dir of the port or of the JAX package (its ``checkpoints/``
+dir or one step dir; the latest step is restored into the multi-view UNet
+and printed), or a directory written by ``save_params`` (the port's, or the
+JAX package's orbax one of the whole pipeline tree); anything else raises,
+naming those forms. ``--vae-params`` reads the ``vae`` component of a
+``save_params`` directory of either package. ``--config`` builds the model
 from the YAML (needs PyYAML). A weight file that cannot be loaded raises,
 and so does ``--fid`` without ``--vgg-weights`` or ``--inception-weights``.
 ``main(argv)`` returns (the pipeline, the overall metrics).
@@ -32,10 +33,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="training YAML; the model is built with its arch/scheduler/conditioning "
                    "settings (the SD2.1 shape when omitted)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="Lightning .ckpt, a save_params dir, or a Trainer run dir (checkpoints/ "
-                   "restored at the latest step)")
+                   help="Lightning .ckpt, a save_params dir (the port's or the JAX package's orbax "
+                   "one), or a Trainer run dir of either package (checkpoints/ restored at the "
+                   "latest step)")
     p.add_argument("--vae-params", type=str, default=None,
-                   help="save_params dir holding a pretrained 'vae' component")
+                   help="save_params dir (the port's or the JAX package's orbax one) holding a "
+                   "pretrained 'vae' component")
     p.add_argument("--dataset-path", type=str, default=None)
     p.add_argument("--output-dir", type=str, default="outputs/validation")
     p.add_argument("--num-samples", type=int, default=None)
@@ -94,12 +97,12 @@ def _restore_run_dir(train_cfg, pipe, path: str) -> int:
 
 
 def _load_vae_params(pipe, path: str) -> None:
-    from ..checkpoint import load_params
+    from ..checkpoint import load_component
 
-    params = load_params(path)
-    if "vae" not in params:
-        raise ValueError(f"--vae-params {path}: no 'vae' component (have {sorted(params)})")
-    pipe.model["vae"].load_state_dict(params["vae"])
+    try:
+        load_component(pipe.model["vae"], path, "vae")
+    except ValueError as e:
+        raise ValueError(f"--vae-params {e}") from None
     pipe.drop_compute_model()
 
 

@@ -70,6 +70,6 @@ KERNEL_SOURCES = {
     "groupnorm_silu": ("groupnorm_silu",),
     "ring_merge": ("ring_merge",),
 }
-# the host C++ under csrc/ (<name>.cpp, built with c++): the JPEG decoder and
-# the native Objaverse reader
-HOST_SOURCES = ("jpeg_decode", "native_reader")
+# the host C++ under csrc/ (<name>.cpp, built with c++): the JPEG decoder, the
+# native Objaverse reader and the zstd decoder of the orbax checkpoint reader
+HOST_SOURCES = ("jpeg_decode", "native_reader", "zstd_decode")
