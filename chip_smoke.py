@@ -147,18 +147,32 @@ Twelve phases; any failure exits non-zero:
    second batch's seconds and img/s, each tower's device ms per batch,
    the peak memory and the phase's seconds.
 9. the image readers (host C++ built from the checkout with the host's
-   ``c++`` in phase 1), after phase 8: (a) every JPEG fixture of
-   ``tests/fixtures/torch_port_jpeg`` decoded to PIL's pixels (sha256) or
-   refused as it must be; (b)
+   ``c++`` in phase 1), after phase 8: (a) every fixture of
+   ``tests/fixtures/torch_port_jpeg`` and ``tests/fixtures/torch_port_images``
+   (sequential, progressive, CMYK and YCCK JPEG; PNG of every colour type
+   and depth, Adam7 or not) decoded to PIL's pixels (sha256; the white
+   composite too where PIL opens it as RGBA), or refused naming block
+   smoothing where libjpeg would smooth it; (b)
    ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
    1067x800 JPEG frames (``frame_annotations.jgz``; 9 sequences, so no val
    split) at phase 5's point for 3 steps: K1, K2, K3a and K3b exactly the
    train step's launches per step, no plain call, finite losses; (c) the
    native reader held to ``load_view_plain`` on 4 views, ``cli.train.main
-   --native-loader`` on phase 5's corpus for 2 steps; then the host ms per
-   768² view of the PIL path, the native reader and a JPEG frame, and the
-   loader's seconds a batch of 6 with each reader, in turns, against the
-   step, beside the card's name and power limit.
+   --native-loader`` on phase 5's corpus for 2 steps; (d) right after
+   phase 7c, on phase 3's pipeline: phase 3's call from a progressive
+   JPEG source (a 1067x800 frame through ``load_image``) and from its
+   pixels as PNG, sources and images bitwise equal, K1 1312 and K2 1333
+   each with no plain call, then one server request with the progressive
+   JPEG base64-encoded (the server's decode PIL's pixels, phase 3's
+   launches); (e) ``cli.train.main`` for 2 steps at phase 5's point on 9
+   objects of 16-bit Adam7 RGBA PNG renders: the train step's launches per
+   step, no plain call, finite losses, and its first batch bitwise that
+   of an 8-bit corpus of the same high bytes; then the host ms to decode a
+   1067x800 frame as progressive JPEG, baseline JPEG, 16-bit PNG and
+   Adam7 PNG, the host ms per 768² view of the PIL path, the native
+   reader and a JPEG frame, and the loader's seconds a batch of 6 with
+   each reader, in turns, against the step, beside the card's name and
+   power limit.
 10. the JAX package's orbax checkpoints read on the host by the port's own
    OCDBT, zarr and zstd readers (the zstd decoder built with the host's
    ``c++`` in phase 1), after phase 9: (a) every fixture of
@@ -195,6 +209,7 @@ repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import hashlib
 import importlib.util
@@ -1544,13 +1559,15 @@ CORPUS_OBJECTS, CORPUS_VIEWS, CORPUS_RES = 16, 4, 512
 TRAIN_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "train_config.yaml")
 
 
-def write_corpus(root: str, seed: int = 0, first: int = 0, count: int = CORPUS_OBJECTS) -> int:
+def write_corpus(root: str, seed: int = 0, first: int = 0, count: int = CORPUS_OBJECTS, encode=None) -> int:
     """A seeded synthetic Objaverse corpus in the rendered-zip layout under
     ``root/renders_final``: smooth RGBA renders (a soft-edged disk of real
     alpha over transparent black) at CORPUS_RES², so the loader composites
     over white and resizes; a 4x4 ``.npy`` camera per view from
     ``orbit_cameras``; ``prompt.txt``. Writes objects ``first`` to
-    ``first + count - 1``; returns their bytes."""
+    ``first + count - 1``, each view's (H, W, 4) uint8 pixels as
+    ``encode`` makes a PNG of them (default ``encode_png``: 8-bit RGBA);
+    returns their bytes."""
     import io
     import zipfile
 
@@ -1559,6 +1576,7 @@ def write_corpus(root: str, seed: int = 0, first: int = 0, count: int = CORPUS_O
     from mvd_tpu_torch.camera import orbit_cameras
     from mvd_tpu_torch.utils.images import encode_png
 
+    encode = encode or encode_png
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "renders_final"), exist_ok=True)
     yy, xx = np.mgrid[0:CORPUS_RES, 0:CORPUS_RES] / CORPUS_RES
@@ -1574,7 +1592,7 @@ def write_corpus(root: str, seed: int = 0, first: int = 0, count: int = CORPUS_O
                 rgb = [127.5 + 127.5 * np.sin(2 * np.pi * f[c] * (xx + (c + 1) * yy) + ph[c] + v)
                        for c in range(3)]
                 rgba = np.stack(rgb + [alpha], -1).round().astype(np.uint8)
-                z.writestr(f"{v:03d}.png", encode_png(rgba))
+                z.writestr(f"{v:03d}.png", encode(rgba))
                 buf = io.BytesIO()
                 np.save(buf, cams[v].astype(np.float32))
                 z.writestr(f"{v:03d}.npy", buf.getvalue())
@@ -2459,16 +2477,55 @@ def phase_val(corpus: str, run_root: str, card: str):
 # CO3D_SEQUENCES x CO3D_FRAMES frames (under 10 sequences: no val split)
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                              "torch_port_jpeg")
+IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                              "torch_port_images")
 CO3D_FRAMES_SRC = ("frame_a.jpg", "frame_b.jpg")
+PROG_SOURCE = "frame_a_prog.jpg"  # frame_a.jpg's frame written progressive by PIL
+# (e): 16-bit interlaced renders; under 10 objects, so no val split
+DEEP_OBJECTS, DEEP_STEPS, DECODE_TURNS = 9, 2, 5
 CO3D_SEQUENCES, CO3D_FRAMES, CO3D_STEPS, NATIVE_STEPS = 9, 4, 3, 2
 NATIVE_TOL = 5e-7  # the C++ reader against its numpy plain version (the tests: bitwise)
 READER_TURNS, LOADER_BATCHES = 3, 4
 
 
 def fixture_digests() -> dict:
-    """name -> {"sha256", "shape"} of PIL's pixels, or {"refused": word}."""
+    """name -> {"sha256", "shape"} of PIL's pixels of each sequential JPEG
+    fixture."""
     with open(os.path.join(JPEG_FIXTURES, "pil_sha256.json")) as f:
         return json.load(f)
+
+
+def image_digests() -> dict:
+    """name -> PIL's mode, the sha256 and shape of its pixels (and of the
+    loaders' white composite where the mode is RGBA) of each progressive,
+    CMYK/YCCK and PNG fixture; the refused ones also name their refusal."""
+    with open(os.path.join(IMAGE_FIXTURES, "pil_sha256.json")) as f:
+        return json.load(f)
+
+
+def image_fixture_script():
+    """``tests/fixtures/torch_port_images/make_fixtures.py``, whose
+    ``encode_png`` (any depth, Adam7, a filter type per row) needs no PIL."""
+    spec = importlib.util.spec_from_file_location("torch_port_images_fixtures",
+                                                  os.path.join(IMAGE_FIXTURES, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def png16_encoder(seed: int):
+    """(H, W, 4) uint8 -> a 16-bit Adam7 RGBA PNG whose high bytes are the
+    pixels and whose low bytes are seeded noise, a seeded filter type a row
+    (the form Blender can write, interlaced)."""
+    import numpy as np
+
+    fx, rng = image_fixture_script(), np.random.default_rng(seed)
+
+    def encode(rgba):
+        samples = (rgba.astype(np.int64) << 8) | rng.integers(0, 256, rgba.shape)
+        return fx.encode_png(samples, 16, 6, interlace=1, filters=rng)
+
+    return encode
 
 
 def write_co3d_corpus(root: str, seed: int = 0) -> int:
@@ -2537,6 +2594,108 @@ def _loader_s_per_batch(loader, batches: int = LOADER_BATCHES) -> float:
         _join_loader_threads()
 
 
+def phase_reader_generation(call, card: str) -> dict:
+    """Phase 9d, on phase 3's pipeline and weights while they are up: phase
+    3's call from a progressive-JPEG source (``frame_a_prog.jpg``, 1067x800,
+    read by ``load_image`` at 512² as ``cli.infer --image-path`` reads it)
+    and from that source's decoded pixels re-encoded as PNG: the two
+    sources and the two generations bitwise equal, each with K1 and K2
+    exactly phase 3's launches and no plain call; then one request to the
+    HTTP server carrying the progressive JPEG, base64-encoded, whose decode
+    in the server is PIL's pixels (sha256) and whose launches are phase
+    3's. Returns the metrics."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.cli import serve as serve_mod
+    from mvd_tpu_torch.cli.serve import make_handler
+    from mvd_tpu_torch.utils.images import decode_jpeg, encode_png, load_image
+
+    t_phase = time.perf_counter()
+    pipe, prompts, kwargs = call
+    want = expected_launches(pipe, STEPS)
+    digest = image_digests()[PROG_SOURCE]
+    with open(os.path.join(IMAGE_FIXTURES, PROG_SOURCE), "rb") as f:
+        jpeg = f.read()
+    pixels = decode_jpeg(jpeg)
+    if hashlib.sha256(pixels.tobytes()).hexdigest() != digest["sha256"]:
+        raise AssertionError(f"(d): {PROG_SOURCE} does not decode to PIL's pixels")
+    tmp = tempfile.mkdtemp(prefix="mvd_prog_")
+    sources, images, secs = {}, {}, {}
+    try:
+        for label, name, data in (("progressive JPEG", "source.jpg", jpeg),
+                                  ("its pixels as PNG", "source.png", encode_png(pixels))):
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            src = load_image(path, RES)[None]  # [-1, 1], as cli.infer reads --image-path
+            sources[label] = src
+            run = dict(kwargs, source_images=(src + 1) / 2)
+            out, secs[label], _ = _counted_call(lambda: pipe(prompts, seed=0, **run), want,
+                                                f"[readers] (d) {label} source,")
+            _check_images(out["images"], f"(d) {label}")
+            images[label] = out["images"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (sa, sb), (ia, ib) = sources.values(), images.values()
+    if not np.array_equal(sa, sb) or not torch.equal(ia, ib):
+        raise AssertionError("(d): the progressive JPEG's source or images differ from its PNG's")
+    print(f"[readers] (d) phase 3's call ({VIEWS} views, {RES}², DDPM {STEPS}, guidance 1.0) from "
+          f"{PROG_SOURCE} (1067x800 progressive, {len(jpeg)} bytes) and from its pixels as PNG: sources "
+          f"and images bitwise equal; launches {want} each, no plain call")
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(pipe, RES, threading.Lock()))
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    decoded = []
+
+    def recorded(decode):
+        def run(data, *a, **k):
+            img = decode(data, *a, **k)
+            decoded.append(img)
+            return img
+        return run
+
+    try:
+        payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": 5,
+                   "source_image_b64": base64.b64encode(jpeg).decode()}
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/generate",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with _Hooks() as hooks:
+            hooks.wrap(serve_mod, "decode_image", recorded)
+            reset_counts()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                if r.status != 200:
+                    raise AssertionError(f"(d): /generate answered {r.status}")
+                reply = json.loads(r.read())
+            launches, plain = read_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=60)
+    got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() for img in decoded]
+    if got != [digest["sha256"]] or launches != want or any(plain.values()):
+        raise AssertionError(f"(d) serve: decoded {got} (PIL's {digest['sha256']}), launches {launches} "
+                             f"!= {want}, plain {plain}")
+    if len(reply["images_b64"]) != VIEWS:
+        raise AssertionError(f"(d) serve: {len(reply['images_b64'])} images")
+    for b64 in reply["images_b64"]:
+        _check_png(base64.b64decode(b64), (RES, RES, 3), "(d) serve")
+    metrics = dict(first_call_s=secs, serve_latency_s=reply["latency_s"], launches=launches,
+                   phase_s=time.perf_counter() - t_phase)
+    print(f"[readers] (d) serve: a /generate request with the progressive JPEG base64-encoded answered "
+          f"200 with {VIEWS} PNGs in {reply['latency_s']:.2f} s; the server's decode is PIL's pixels "
+          f"(sha256 {got[0][:16]}...); launches {launches}, no plain call; (d) in "
+          f"{metrics['phase_s']:.1f} s ({card})")
+    return metrics
+
+
 def phase_readers(corpus: str, card: str) -> tuple:
     """Phase 9, the image readers (host C++ built from the checkout with the
     host's ``c++`` in phase 1): (a) every JPEG fixture decoded to PIL's
@@ -2559,7 +2718,7 @@ def phase_readers(corpus: str, card: str) -> tuple:
     from mvd_tpu_torch.data.objaverse import DataLoader, ObjaverseDataset, _load_image_from_bytes
     from mvd_tpu_torch.data.tokenizer import HashTokenizer
     from mvd_tpu_torch.kernels import HOST_SOURCES, _build
-    from mvd_tpu_torch.utils.images import decode_jpeg
+    from mvd_tpu_torch.utils.images import decode_image, decode_jpeg, decode_png
 
     t_phase = time.perf_counter()
     base = ["--config", TRAIN_YAML, "--batch-size", str(TRAIN_BATCH), "--image-size", str(TRAIN_RES)]
@@ -2569,24 +2728,34 @@ def phase_readers(corpus: str, card: str) -> tuple:
     for name in HOST_SOURCES:
         if _build.build_host(name) != os.path.join(_build.BUILD_DIR, f"lib{name}.so"):
             raise AssertionError(f"{name}: not built into {_build.BUILD_DIR}")
-    digests, refused = fixture_digests(), []
-    for name, want in sorted(digests.items()):
-        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
-            data = f.read()
-        if "refused" in want:
-            try:
-                decode_jpeg(data)
-            except ValueError as e:
-                if want["refused"] not in str(e):
-                    raise AssertionError(f"{name}: refused with {e!r}, not for {want['refused']}")
-                refused.append(name)
-                continue
-            raise AssertionError(f"{name}: decoded, but the port does not read {want['refused']}")
-        img = decode_jpeg(data)
-        if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"] or list(img.shape) != want["shape"]:
-            raise AssertionError(f"{name}: the decode is not PIL's pixels")
-    print(f"[readers] (a) {len(digests) - len(refused)} JPEG fixtures decode bitwise to PIL's pixels "
-          f"(sha256), {refused} refused as they must be")
+    decoded, composites, refused = [], 0, []
+    for folder, digests in ((JPEG_FIXTURES, fixture_digests()), (IMAGE_FIXTURES, image_digests())):
+        for name, want in sorted(digests.items()):
+            with open(os.path.join(folder, name), "rb") as f:
+                data = f.read()
+            if "refused" in want:
+                try:
+                    decode_image(data)
+                except ValueError as e:
+                    if want["refused"] not in str(e):
+                        raise AssertionError(f"{name}: refused with {e!r}, not for {want['refused']}")
+                    refused.append(name)
+                    continue
+                raise AssertionError(f"{name}: decoded, but the port refuses {want['refused']}")
+            img = decode_image(data)
+            if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"] or list(img.shape) != want["shape"]:
+                raise AssertionError(f"{name}: the decode is not PIL's pixels")
+            if "composite_sha256" in want:
+                comp = decode_image(data, composite_alpha=True)
+                if hashlib.sha256(comp.tobytes()).hexdigest() != want["composite_sha256"]:
+                    raise AssertionError(f"{name}: the white composite is not PIL's")
+                composites += 1
+            decoded.append(name)
+    n_png = sum(n.endswith(".png") for n in decoded)
+    print(f"[readers] (a) {len(decoded) - n_png} JPEG (sequential, progressive, CMYK, YCCK) and {n_png} PNG "
+          f"(every colour type and depth, Adam7 or not) fixtures decode bitwise to PIL's pixels (sha256; "
+          f"{composites} white composites of PIL's RGBA images too); {refused} refused naming their "
+          f"feature, as they must be")
 
     tmp = tempfile.mkdtemp(prefix="mvd_readers_")
     try:
@@ -2660,6 +2829,86 @@ def phase_readers(corpus: str, card: str) -> tuple:
         native_loader_ = tr.train_loader
         del tr
         torch.cuda.empty_cache()
+
+        # (e) the train CLI on 16-bit interlaced RGBA renders, against an
+        # 8-bit corpus of the same high bytes
+        c8, c16 = os.path.join(tmp, "c8"), os.path.join(tmp, "c16")
+        bytes8 = write_corpus(c8, count=DEEP_OBJECTS)
+        t0 = time.perf_counter()
+        bytes16 = write_corpus(c16, count=DEEP_OBJECTS, encode=png16_encoder(16))
+        write16_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(base + ["--dataset-path", c16, "--max-steps", str(DEEP_STEPS), "--output-dir",
+                                    os.path.join(tmp, "out_c16")])
+        torch.cuda.synchronize()
+        run_e_s = time.perf_counter() - t0
+        launches_e, plain_e = read_counts()
+        per_step = expected_train_launches(tr.state.model)
+        bad = {k: launches_e[k] for k in launches_e if launches_e[k] != per_step[k] * DEEP_STEPS}
+        if bad or set(per_step) != set(launches_e) or any(plain_e.values()) or tr.state.step != DEEP_STEPS:
+            raise AssertionError(f"(e): launches {launches_e} != {DEEP_STEPS} x {per_step}, plain {plain_e}, "
+                                 f"step {tr.state.step}")
+        if len(tr.val_loader.ds):
+            raise AssertionError("(e): the corpus has a val split")
+        deep_losses = _train_records(tr, DEEP_STEPS, "(e)")
+        deep_times = [t["step_s"] for t in tr.timings]
+        # the run's first batch (a fresh iteration of its datamodule's train
+        # loader: epoch 0, as the run's first) against the 8-bit corpus's
+        dm8 = copy.copy(tr.dm)
+        dm8.kwargs, dm8.datasets = {**tr.dm.kwargs, "data_root": c8}, {}
+        firsts = []
+        for dm in (tr.dm, dm8):
+            it = iter(dm.loader("train"))
+            try:
+                firsts.append(next(it))
+            finally:
+                it.close()
+                _join_loader_threads()
+        b16, b8 = firsts
+        if b16.keys() != b8.keys() or not all(np.array_equal(b16[k], b8[k]) for k in b16):
+            raise AssertionError("(e): the 16-bit corpus's first batch is not the 8-bit corpus's")
+        shapes = {k: tuple(v.shape) for k, v in b16.items() if k.endswith("_image")}
+        per_step_e = {k: launches_e[k] // DEEP_STEPS for k in ("flash_attn_fwd", "groupnorm_silu",
+                                                                 "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+        print(f"[readers] (e) cli.train.main {' '.join(base)} --max-steps {DEEP_STEPS} on {DEEP_OBJECTS} "
+              f"objects x {CORPUS_VIEWS} views of 16-bit Adam7 RGBA PNG {CORPUS_RES}² ({bytes16} bytes, "
+              f"written in {write16_s:.1f} s; the 8-bit corpus {bytes8}): {run_e_s:.1f} s; launches per step "
+              f"{per_step_e} (every kernel the train step's), no plain call; noise_loss "
+              f"{[round(v, 5) for v in deep_losses]}; s per step {[round(t, 3) for t in deep_times]}; first "
+              f"batch {shapes} bitwise the 8-bit corpus's")
+        metrics["deep"] = dict(run_s=run_e_s, launches=launches_e, losses=deep_losses, step_s=deep_times,
+                               corpus_bytes=bytes16, write_s=write16_s)
+        del tr
+        torch.cuda.empty_cache()
+
+        # host ms to decode a frame of CO3D's size four ways, in turns
+        fx, frng = image_fixture_script(), np.random.default_rng(9)
+        with open(os.path.join(IMAGE_FIXTURES, PROG_SOURCE), "rb") as f:
+            prog = f.read()
+        with open(os.path.join(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]), "rb") as f:
+            base_jpg = f.read()
+        frame = decode_jpeg(base_jpg)
+        rgba = np.dstack([frame, np.full(frame.shape[:2], 255, np.uint8)]).astype(np.int64)
+        png16 = fx.encode_png((rgba << 8) | frng.integers(0, 256, rgba.shape), 16, 6, filters=frng)
+        png_i = fx.encode_png(rgba, 8, 6, interlace=1, filters=frng)
+        decoders = {"progressive JPEG": lambda: decode_jpeg(prog), "baseline JPEG": lambda: decode_jpeg(base_jpg),
+                    "16-bit RGBA PNG": lambda: decode_png(png16), "Adam7 8-bit RGBA PNG": lambda: decode_png(png_i)}
+        if not (np.array_equal(decode_png(png16), frame) and np.array_equal(decode_png(png_i), frame)):
+            raise AssertionError("the frame's PNGs do not decode to the frame")
+        dms = {k: [] for k in decoders}
+        for _ in range(DECODE_TURNS):
+            for k, fn in decoders.items():
+                t0 = time.perf_counter()
+                fn()
+                dms[k].append((time.perf_counter() - t0) * 1e3)
+        decode_ms = {k: statistics.median(v) for k, v in dms.items()}
+        sizes = {"progressive JPEG": len(prog), "baseline JPEG": len(base_jpg), "16-bit RGBA PNG": len(png16),
+                 "Adam7 8-bit RGBA PNG": len(png_i)}
+        print(f"[readers] host ms to decode a 1067x800 frame, median of {DECODE_TURNS} in turns (one thread; "
+              f"PNG rows of a seeded filter type each; {card}): "
+              + "; ".join(f"{k} ({sizes[k]} bytes) {v:.2f}" for k, v in decode_ms.items()))
+        metrics.update(decode_ms=decode_ms, decode_bytes=sizes)
 
         # host ms per view of each reader, in turns (one thread)
         with zipfile.ZipFile(zp) as z:
@@ -3631,6 +3880,7 @@ def main(argv=None) -> int:
     results["flash_attn_fwd"].extend(phase_model_axis_kernels(card))
     model_launches, model_metrics = phase_model_axis(call, images, card)
     model_metrics["phase_s"] = time.perf_counter() - t_model
+    prog_metrics = phase_reader_generation(call, card)  # 9d, on phase 3's pipeline while it is up
     orbax_src = orbax_export(call)  # phase 10b's source: phase 3's weights in host memory
     orbax_src["images"] = images
     del call, images  # free the generation pipelines before the train phase
@@ -3663,6 +3913,7 @@ def main(argv=None) -> int:
         val_launches, val_metrics = phase_val(corpus, run_root, card)
         torch.cuda.empty_cache()
         co3d_launches, reader_metrics = phase_readers(corpus, card)
+        reader_metrics["generation"] = prog_metrics
         torch.cuda.empty_cache()
         orbax_metrics = phase_orbax(orbax_src, corpus, run_root, card)
         del orbax_src

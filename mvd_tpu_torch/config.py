@@ -46,6 +46,10 @@ class UNetConfig:
     )
     num_attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
     cross_attention_dim: int = 1024
+    # diffusers' Transformer2DModel switch; only the linear projection
+    # (SD2.1's) is built, so False raises (the JAX package ignores the field
+    # and builds the linear model either way)
+    use_linear_projection: bool = True
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     transformer_layers_per_block: int = 1
@@ -69,6 +73,9 @@ class UNetConfig:
 
     def __post_init__(self):
         check_impl(self.attention_impl)
+        if not self.use_linear_projection:
+            raise ValueError("use_linear_projection=False (1x1-conv projections in Transformer2D) is "
+                             "not built: only the linear projection (SD2.1's) is")
 
 
 TINY_UNET = UNetConfig(

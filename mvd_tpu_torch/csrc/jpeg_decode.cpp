@@ -1,4 +1,4 @@
-// Baseline JPEG decoder of the port: host C++, the C++ standard library only.
+// JPEG decoder of the port: host C++, the C++ standard library only.
 //
 // Replaces no TPU kernel. The JAX package reads every image through PIL
 // (mvd_tpu/utils/images.py:33, mvd_tpu/cli/serve.py:45,
@@ -11,6 +11,14 @@
 //
 //   * Huffman decode of sequential scans (interleaved or not), DC
 //     prediction, restart intervals (DRI / RSTn);
+//   * progressive scans (SOF2) into the same whole-image coefficient
+//     buffer, as jdphuff.c decodes them: DC first and DC refine scans
+//     (interleaved or not), AC first scans with end-of-band runs, AC refine
+//     scans with libjpeg's correction bits; Huffman tables and restart
+//     intervals may change between scans; the scan parameters libjpeg
+//     refuses (JERR_BAD_PROGRESSION) are refused; a component's
+//     coefficients keep libjpeg's coef_bits (the Al of the last scan of
+//     each), which decide whether libjpeg block-smooths the image;
 //   * dequantization with the table latched at the component's first scan
 //     and the islow IDCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2, the
 //     post-IDCT range-limit table indexed by the value & 1023);
@@ -22,16 +30,25 @@
 //   * jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16, ONE_HALF);
 //     a gray image replicated to RGB as convert("RGB") does; three
 //     components are YCbCr or RGB by libjpeg's rule (JFIF, then Adobe's
-//     transform flag, then the component ids).
+//     transform flag, then the component ids); four components are CMYK,
+//     or YCCK where an Adobe marker's transform flag is not 0, converted to
+//     CMYK by jdcolor.c's ycck_cmyk_convert; PIL reads CMYK as "CMYK;I"
+//     (255 - each sample, with or without an Adobe marker) and its
+//     convert("RGB") gives K' - MULDIV255(C', K') per channel, K' = 255 -
+//     its K.
 //
-// EXIF orientation is not applied (PIL's open does not). Progressive,
-// arithmetic-coded, lossless, hierarchical, 12-bit and 4-component
-// (CMYK / YCCK) images are refused with a message naming the marker or the
-// feature, as is entropy data that runs past its end (at the end of the
-// MCU row where it does), a DC Huffman table with a symbol above 15 (as
-// libjpeg refuses it) and a header of more pixels than PIL's
-// decompression-bomb limit (refused before anything is allocated, as
-// Image.open refuses it).
+// EXIF orientation is not applied (PIL's open does not). Arithmetic-coded,
+// lossless, hierarchical and 12-bit images are refused with a message
+// naming the marker or the feature, as is a progressive image whose scans
+// leave one of the first nine AC coefficients of a component unrefined
+// (coef_bits not 0; a DC-only file among them): libjpeg decodes such a file
+// with block smoothing (jdcoefct.c:decompress_smooth_data, on by default
+// and left on by PIL), which is not ported. So is entropy data that runs
+// past its end (at the end of the MCU row where it does), a DC Huffman
+// table with a symbol above 15 (as libjpeg refuses it), sampling factors
+// of more than 10 blocks in an interleaved MCU (as libjpeg refuses them)
+// and a header of more pixels than PIL's decompression-bomb limit (refused
+// before anything is allocated, as Image.open refuses it).
 //
 // Bound: host work, a few tens of operations per pixel; no device part.
 
@@ -198,6 +215,7 @@ struct Component {
   int bw = 0, bh = 0;          // blocks stored (the MCU grid's padding included)
   bool latched = false;        // quant table copied at its first scan
   bool scanned = false;
+  int coef_bits[64];           // progressive: Al of the last scan of each zigzag coefficient, -1 before
   int16_t quant[64] = {};      // natural order, as ISLOW_MULT_TYPE (short)
   std::vector<int16_t> coef;   // bh * bw blocks of 64, natural order
   std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8) samples
@@ -341,12 +359,11 @@ class Decoder {
       int m = next_marker();
       if (m == 0xD9) break;  // EOI
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         frame(m);
         if (header_only) return;
         continue;
       }
-      if (m == 0xC2) fail("progressive JPEG (SOF2) is not read");
       if (m == 0xC3) fail("lossless JPEG (SOF3) is not read");
       if (m >= 0xC5 && m <= 0xC7) fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not read");
       if (m >= 0xC9 && m <= 0xCF && m != 0xCC)
@@ -384,6 +401,9 @@ class Decoder {
     if (header_only) return;
     for (const Component& c : comps_)
       if (!c.scanned) fail("JPEG ends before every component was scanned");
+    if (needs_block_smoothing())
+      fail("progressive JPEG whose scans leave some of the first nine AC coefficients unrefined: libjpeg "
+           "decodes it with block smoothing, which is not read");
   }
 
   int width() const { return width_; }
@@ -409,9 +429,8 @@ class Decoder {
         }
       return;
     }
-    std::vector<uint8_t> full[3];
-    for (int i = 0; i < 3; ++i) full[i] = upsample(comps_[i]);
-    bool rgb = color_is_rgb();
+    std::vector<uint8_t> full[4];
+    for (size_t i = 0; i < comps_.size(); ++i) full[i] = upsample(comps_[i]);
     // jdcolor.c:build_ycc_rgb_table
     constexpr int SB = 16;
     constexpr int64_t HALF = int64_t(1) << (SB - 1);
@@ -426,6 +445,31 @@ class Decoder {
       cb_g[i] = -fix(0.34414) * x + HALF;
     }
     auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
+    if (comps_.size() == 4) {
+      // jdapimin.c:default_decompress_parms: YCCK only by an Adobe marker
+      const bool ycck = saw_adobe_ && adobe_transform_ != 0;
+      // PIL's MULDIV255 (ImagingCore's integer a * b / 255)
+      auto muldiv255 = [](int a, int b) {
+        int t = a * b + 128;
+        return ((t >> 8) + t) >> 8;
+      };
+      for (size_t i = 0; i < W * H; ++i) {
+        int c = full[0][i], m = full[1][i], ye = full[2][i], k = full[3][i];
+        if (ycck) {  // jdcolor.c:ycck_cmyk_convert
+          int Y = c, cb = m, cr = ye;
+          c = clamp(255 - (Y + cr_r[cr]));
+          m = clamp(255 - (Y + int((cb_g[cb] + cr_g[cr]) >> SB)));
+          ye = clamp(255 - (Y + cb_b[cb]));
+        }
+        // "CMYK;I" stores 255 - each sample; cmyk2rgb's nk = 255 - that K = k
+        uint8_t* o = out + i * 3;
+        o[0] = clamp(k - muldiv255(255 - c, k));
+        o[1] = clamp(k - muldiv255(255 - m, k));
+        o[2] = clamp(k - muldiv255(255 - ye, k));
+      }
+      return;
+    }
+    const bool rgb = color_is_rgb();
     for (size_t y = 0; y < H; ++y)
       for (size_t x = 0; x < W; ++x) {
         size_t i = y * W + x;
@@ -447,7 +491,7 @@ class Decoder {
   const uint8_t* d_;
   size_t n_;
   size_t pos_ = 0;
-  bool have_frame_ = false, saw_jfif_ = false, saw_adobe_ = false;
+  bool have_frame_ = false, saw_jfif_ = false, saw_adobe_ = false, progressive_ = false;
   int adobe_transform_ = 0;
   int width_ = 0, height_ = 0, max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0;
@@ -494,8 +538,7 @@ class Decoder {
     if (int64_t(width_) * height_ > kMaxPixels)
       fail("JPEG of " + std::to_string(width_) + "x" + std::to_string(height_) + " pixels is over the limit of " +
            std::to_string(kMaxPixels) + " pixels (PIL's decompression-bomb limit)");
-    if (nc == 4) fail("4-component JPEG (CMYK / YCCK) is not read");
-    if (nc != 1 && nc != 3) fail("JPEG with " + std::to_string(nc) + " components is not read");
+    if (nc != 1 && nc != 3 && nc != 4) fail("JPEG with " + std::to_string(nc) + " components is not read");
     if (len < size_t(8 + 3 * nc)) fail("JPEG frame header is too short");
     comps_.resize(size_t(nc));
     for (int i = 0; i < nc; ++i) {
@@ -504,6 +547,7 @@ class Decoder {
       c.h = s[7 + 3 * i] >> 4;
       c.v = s[7 + 3 * i] & 15;
       c.tq = s[8 + 3 * i];
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) fail("JPEG frame header is invalid");
       max_h_ = std::max(max_h_, c.h);
       max_v_ = std::max(max_v_, c.v);
@@ -518,6 +562,7 @@ class Decoder {
       c.bh = nc == 1 ? (c.ds_h + 7) / 8 : mcuy_ * c.v;
     }
     have_frame_ = true;
+    progressive_ = m == 0xC2;
     pos_ += len;
   }
 
@@ -550,11 +595,18 @@ class Decoder {
     }
   }
 
+  // the DC prediction plus a difference, refused where it would leave an
+  // int as libjpeg refuses it (JERR_BAD_DCT_COEF)
+  static int add_dc(int& pred, int diff) {
+    int64_t v = int64_t(pred) + diff;
+    if (v > INT32_MAX || v < INT32_MIN) fail("JPEG DC coefficient is out of range");
+    return pred = int(v);
+  }
+
   void decode_block(BitReader& br, const Huffman& dc, const Huffman& ac, int& pred, int16_t* blk) {
     int t = br.decode(dc);
     int diff = t ? extend(br.get(t), t) : 0;
-    pred += diff;
-    blk[0] = int16_t(pred);
+    blk[0] = int16_t(add_dc(pred, diff));
     for (int k = 1; k < 64; ++k) {
       int rs = br.decode(ac);
       int r = rs >> 4, sz = rs & 15;
@@ -568,12 +620,89 @@ class Decoder {
     }
   }
 
+  // jdphuff.c:decode_mcu_AC_first on one block
+  static void ac_first(BitReader& br, const Huffman& ac, int Ss, int Se, int Al, unsigned& eobrun,
+                       int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = Ss; k <= Se; ++k) {
+      int rs = br.decode(ac);
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[kNatural[k]] = int16_t(unsigned(extend(br.get(sz), sz)) << Al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1u << r) + unsigned(br.get(r)) - 1;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c:decode_mcu_AC_refine on one block: a correction bit for each
+  // coefficient already nonzero, a newly nonzero one of +-1 << Al where the
+  // run of zeros ends
+  static void ac_refine(BitReader& br, const Huffman& ac, int Ss, int Se, int Al, unsigned& eobrun,
+                        int16_t* blk) {
+    const int p1 = 1 << Al, m1 = -p1;
+    auto correct = [&](int16_t* coef) {
+      if (br.get(1) && (*coef & p1) == 0) *coef = int16_t(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    int k = Ss;
+    if (eobrun == 0) {
+      for (; k <= Se; ++k) {
+        int rs = br.decode(ac);
+        int r = rs >> 4, sz = rs & 15, v = 0;
+        if (sz) {  // a size other than 1 is a warning in libjpeg, read as 1
+          v = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = (1u << r) + unsigned(br.get(r));
+          break;
+        }
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= Se);
+        if (v) blk[kNatural[k]] = int16_t(v);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= Se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      --eobrun;
+    }
+  }
+
   void scan(const uint8_t* s, size_t sl) {
     if (sl < 1) fail("JPEG SOS segment is too short");
     int ns = s[0];
     if (ns < 1 || ns > 4 || sl < size_t(4 + 2 * ns)) fail("JPEG SOS segment is invalid");
+    const int Ss = s[1 + 2 * ns], Se = s[2 + 2 * ns], Ah = s[3 + 2 * ns] >> 4, Al = s[3 + 2 * ns] & 15;
+    if (progressive_) {
+      // jdphuff.c:start_pass_phuff_decoder's validation (JERR_BAD_PROGRESSION)
+      bool bad = Ss == 0 ? Se != 0 : (Ss > Se || Se > 63 || ns != 1);
+      if (Ah != 0 && Al != Ah - 1) bad = true;
+      if (Al > 13) bad = true;
+      if (bad)
+        fail("JPEG has invalid progressive parameters Ss=" + std::to_string(Ss) + " Se=" + std::to_string(Se) +
+             " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al));
+    }
+    // which tables the scan decodes with: a progressive DC refine scan none,
+    // a DC first scan the DC table, an AC scan the AC table
+    const bool use_dc = !progressive_ || (Ss == 0 && Ah == 0), use_ac = !progressive_ || Ss != 0;
     std::vector<Component*> sc;
     std::vector<int> tds, tas;
+    int blocks_in_mcu = 0;
     for (int i = 0; i < ns; ++i) {
       int id = s[1 + 2 * i];
       Component* found = nullptr;
@@ -581,11 +710,11 @@ class Decoder {
         if (c.id == id) found = &c;
       if (!found) fail("JPEG scan names a component its frame lacks");
       int td = s[2 + 2 * i] >> 4, ta = s[2 + 2 * i] & 15;
-      if (td > 3 || ta > 3 || !dc_[td].defined || !ac_[ta].defined)
+      if ((use_dc && (td > 3 || !dc_[td].defined)) || (use_ac && (ta > 3 || !ac_[ta].defined)))
         fail("JPEG scan uses a Huffman table that is not defined");
       // jdhuff.c:jpeg_make_d_derived_tbl refuses a DC table with a symbol
       // above 15 when a scan takes it (a DC difference has at most 15 bits)
-      if (dc_[td].max_val > 15) fail("JPEG DC Huffman table holds a symbol above 15");
+      if (use_dc && dc_[td].max_val > 15) fail("JPEG DC Huffman table holds a symbol above 15");
       if (!found->latched) {
         if (!quant_defined_[found->tq]) fail("JPEG component uses a quantization table that is not defined");
         for (int k = 0; k < 64; ++k) found->quant[k] = int16_t(quant_[found->tq][k]);
@@ -593,12 +722,32 @@ class Decoder {
         found->coef.assign(size_t(found->bw) * found->bh * 64, 0);
       }
       found->scanned = true;
+      if (progressive_) std::fill(found->coef_bits + Ss, found->coef_bits + Se + 1, Al);
+      blocks_in_mcu += found->h * found->v;
       sc.push_back(found);
       tds.push_back(td);
       tas.push_back(ta);
     }
+    // jdinput.c:per_scan_setup (D_MAX_BLOCKS_IN_MCU)
+    if (ns > 1 && blocks_in_mcu > 10) fail("JPEG sampling factors are too large for an interleaved scan");
     BitReader br(d_, n_, pos_);
     std::vector<int> pred(size_t(ns), 0);
+    unsigned eobrun = 0;
+    auto block = [&](int i, int16_t* blk) {
+      if (!progressive_) {
+        decode_block(br, dc_[tds[size_t(i)]], ac_[tas[size_t(i)]], pred[size_t(i)], blk);
+      } else if (Ss == 0 && Ah == 0) {  // DC first
+        int t = br.decode(dc_[tds[size_t(i)]]);
+        int diff = t ? extend(br.get(t), t) : 0;
+        blk[0] = int16_t(unsigned(add_dc(pred[size_t(i)], diff)) << Al);
+      } else if (Ss == 0) {  // DC refine: the next bit of the two's complement value
+        if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << Al));
+      } else if (Ah == 0) {
+        ac_first(br, ac_[tas[0]], Ss, Se, Al, eobrun, blk);
+      } else {
+        ac_refine(br, ac_[tas[0]], Ss, Se, Al, eobrun, blk);
+      }
+    };
     int mcus_x, mcus_y;
     if (ns == 1) {
       mcus_x = (sc[0]->ds_w + 7) / 8;
@@ -622,24 +771,41 @@ class Decoder {
         truncated(my);
         restart(br, rst++);
         std::fill(pred.begin(), pred.end(), 0);
+        eobrun = 0;
       }
       for (int i = 0; i < ns; ++i) {
         Component& c = *sc[size_t(i)];
-        const Huffman& dc = dc_[tds[size_t(i)]];
-        const Huffman& ac = ac_[tas[size_t(i)]];
         if (ns == 1) {
-          decode_block(br, dc, ac, pred[0], &c.coef[(size_t(my) * c.bw + mx) * 64]);
+          block(0, &c.coef[(size_t(my) * c.bw + mx) * 64]);
           continue;
         }
         for (int v = 0; v < c.v; ++v)
           for (int h = 0; h < c.h; ++h) {
             size_t by = size_t(my) * c.v + v, bx = size_t(mx) * c.h + h;
-            decode_block(br, dc, ac, pred[size_t(i)], &c.coef[(by * c.bw + bx) * 64]);
+            block(i, &c.coef[(by * c.bw + bx) * 64]);
           }
       }
       if (mx == mcus_x - 1) truncated(my);
     }
     pos_ = br.pos;
+  }
+
+  // jdcoefct.c:smoothing_ok at the end of the input (libjpeg-turbo 3.1: DC
+  // and the first nine AC coefficients, SAVED_COEFS 10): whether libjpeg
+  // would decode the image with block smoothing
+  bool needs_block_smoothing() const {
+    if (!progressive_) return false;
+    static const int kSmoothed[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // natural positions
+    bool useful = false;
+    for (const Component& c : comps_) {
+      if (!c.latched) return false;
+      for (int p : kSmoothed)
+        if (c.quant[p] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
   void restart(BitReader& br, int count) {

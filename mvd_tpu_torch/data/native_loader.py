@@ -37,11 +37,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.images import _CHANNELS, _unfilter, png_chunks
-
-# Adam7: (x start, x step, y start, y step) of each pass
-_ADAM7 = ((0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (1, 2, 0, 2),
-          (0, 1, 1, 2))
+from ..utils.images import _CHANNELS, _unfilter, png_chunks, png_passes
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -84,15 +80,7 @@ class _Png:
     def passes(self) -> List[Tuple[int, int, int, int, int, int]]:
         """(x0, dx, y0, dy, width, height) of each non-empty pass: the whole
         image, or Adam7's seven."""
-        if self.interlace == 0:
-            return [(0, 1, 0, 1, self.w, self.h)]
-        out = []
-        for x0, dx, y0, dy in _ADAM7:
-            pw = (self.w - x0 + dx - 1) // dx if self.w > x0 else 0
-            ph = (self.h - y0 + dy - 1) // dy if self.h > y0 else 0
-            if pw and ph:
-                out.append((x0, dx, y0, dy, pw, ph))
-        return out
+        return png_passes(self.w, self.h, self.interlace)
 
 
 def _png_rgba(png: _Png) -> np.ndarray:

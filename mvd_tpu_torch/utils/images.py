@@ -2,13 +2,16 @@
 host C++).
 
 Counterpart of ``mvd_tpu/utils/images.py`` without PIL: the machine that
-holds the GPU may not have it. PNG is written and read by a small codec on
-``zlib`` (8-bit RGB out; 8-bit gray, gray+alpha, RGB, RGBA and palette
-images in, non-interlaced, all five scanline filters; RGBA optionally
-composited over white as PIL's ``Image.alpha_composite`` does). JPEG is
-read by ``csrc/jpeg_decode.cpp`` (``decode_jpeg``: baseline and extended
-sequential Huffman, 8-bit, gray or three components, bitwise PIL's
-``convert("RGB")``), built with the host's ``c++`` on first use.
+holds the GPU may not have it. PNG is written by a small encoder on
+``zlib`` (8-bit RGB or RGBA) and read by ``decode_png`` (``zlib``, then
+``csrc/png_decode.cpp`` for the scanline filters: every colour type at
+every bit depth PNG allows, 1 to 16, interlaced or not, converted as PIL's
+``convert("RGB")`` converts PIL's mode; an image PIL opens as RGBA
+optionally composited over white as PIL's ``Image.alpha_composite`` does).
+JPEG is read by ``csrc/jpeg_decode.cpp`` (``decode_jpeg``: baseline,
+extended and progressive Huffman, 8-bit, gray, three components or four
+(CMYK, YCCK), bitwise PIL's ``convert("RGB")``). Both are built with the
+host's ``c++`` on first use.
 ``decode_image`` takes either, as ``Image.open`` does. ``resize`` stands in
 for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
 support widens with the downscale factor, with PIL's 8-bit fixed-point
@@ -34,6 +37,11 @@ JPEG_SIGNATURE = b"\xff\xd8\xff"
 MAX_PIXELS = 2 * 89478485
 # colour type -> channels of a decoded pixel before conversion to RGB
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths PNG allows it
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x start, x step, y start, y step) of each pass
+ADAM7 = ((0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (1, 2, 0, 2),
+         (0, 1, 1, 2))
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -173,37 +181,96 @@ def png_chunks(data: bytes, drop_bad_ancillary: bool = False) -> PngChunks:
     return PngChunks(header, plte, trns, b"".join(idat))
 
 
+def png_passes(w: int, h: int, interlace: int) -> list:
+    """(x0, dx, y0, dy, width, height) of each non-empty pass of a w x h
+    image: the whole image, or Adam7's seven."""
+    if interlace == 0:
+        return [(0, 1, 0, 1, w, h)]
+    out = []
+    for x0, dx, y0, dy in ADAM7:
+        pw = (w - x0 + dx - 1) // dx if w > x0 else 0
+        ph = (h - y0 + dy - 1) // dy if h > y0 else 0
+        if pw and ph:
+            out.append((x0, dx, y0, dy, pw, ph))
+    return out
+
+
+def _bind_png(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    lib.mvd_png_samples.argtypes = [p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, p, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_png_samples.restype = ctypes.c_int
+
+
+def png_mode(depth: int, colour: int) -> str:
+    """The mode PIL opens a PNG of this bit depth and colour type in
+    (``PngImagePlugin._MODES``): 16-bit gray is ``I;16``, 1-bit gray ``1``,
+    and 16-bit gray+alpha ``RGBA``."""
+    if colour == 0:
+        return {1: "1", 16: "I;16"}.get(depth, "L")
+    if colour == 4:
+        return "RGBA" if depth == 16 else "LA"
+    return {2: "RGB", 3: "P", 6: "RGBA"}[colour]
+
+
 def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
-    it: gray replicated, alpha dropped, palette indices looked up. With
-    ``composite_alpha`` an RGBA image is first composited over white
-    (``over_white``), as the data loaders do before the conversion. Takes
-    non-interlaced 8-bit gray, gray+alpha, RGB, RGBA and palette images;
-    raises ``ValueError`` on anything else (16-bit or sub-byte depths,
-    interlacing), on a damaged file and on a header of more than
-    ``MAX_PIXELS`` pixels. Inflates no more than the header's rows need."""
+    it from the mode PIL opens the file in (``png_mode``): gray replicated,
+    alpha dropped, palette indices looked up, sub-byte gray scaled to 0-255
+    (1-bit to 0 and 255), 16-bit samples cut to their high byte except
+    16-bit gray, which ``I;16`` clips (a value over 255 gives 255). With
+    ``composite_alpha`` an image PIL opens as RGBA (8- or 16-bit RGBA,
+    16-bit gray+alpha) is first composited over white (``over_white``), as
+    the data loaders do before the conversion. Takes every colour type at
+    every bit depth PNG allows, interlaced (Adam7) or not; tRNS changes no
+    pixel, as in ``convert("RGB")``. Raises ``ValueError`` on a damaged
+    file, a palette index past the PLTE chunk and a header of more than
+    ``MAX_PIXELS`` pixels. Inflates no more than the header's rows need.
+    Raises ``RuntimeError`` when the scanline decoder cannot be built."""
+    from ..kernels._build import load_host
+
     chunks = png_chunks(data)
     w, h, depth, colour, _, _, interlace = chunks.header
     if w * h > MAX_PIXELS:
         raise ValueError(f"PNG of {w}x{h} pixels is over the limit of {MAX_PIXELS} pixels (PIL's "
                          "decompression-bomb limit)")
-    if depth != 8:
-        raise ValueError(f"PNG bit depth {depth} is not read (8-bit images only)")
-    if interlace != 0:
-        raise ValueError("interlaced PNG is not read (non-interlaced images only)")
+    if depth not in _DEPTHS[colour]:
+        raise ValueError(f"PNG bit depth {depth} is invalid for colour type {colour}")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} is unknown")
+    if w == 0 or h == 0:
+        raise ValueError("PNG has no pixels")
     ch = _CHANNELS[colour]
-    raw = zlib.decompressobj().decompress(chunks.idat, h * (w * ch + 1))
-    pixels = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+    need = sum(ph * ((pw * ch * depth + 7) // 8 + 1) for _, _, _, _, pw, ph in png_passes(w, h, interlace))
+    raw = zlib.decompressobj().decompress(chunks.idat, need)
+    samples = np.empty((h, w, ch), np.uint16)
+    err = ctypes.create_string_buffer(256)
+    lib = load_host("png_decode", _bind_png)
+    if lib.mvd_png_samples(raw, len(raw), w, h, depth, ch, interlace, samples.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
     if colour == 3:
         if not chunks.plte:
             raise ValueError("palette PNG has no PLTE chunk")
         palette = np.frombuffer(chunks.plte, np.uint8).reshape(-1, 3)
-        if pixels.max(initial=0) >= len(palette):
+        if samples.max(initial=0) >= len(palette):
             raise ValueError("palette PNG indexes past its PLTE chunk")
-        return palette[pixels[..., 0]]
+        return palette[samples[..., 0]]
+    mode = png_mode(depth, colour)
+    if mode == "I;16":
+        pixels = np.minimum(samples, 255)
+    elif depth == 16:
+        pixels = samples >> 8
+    elif depth < 8:
+        pixels = samples * (255 // ((1 << depth) - 1))
+    else:
+        pixels = samples
+    pixels = pixels.astype(np.uint8)
     if ch <= 2:  # gray (+ alpha)
-        return np.repeat(pixels[..., :1], 3, axis=-1)
-    if ch == 4 and composite_alpha:
+        gray = np.repeat(pixels[..., :1], 3, axis=-1)
+        if mode == "RGBA" and composite_alpha:
+            return over_white(np.concatenate([gray, pixels[..., 1:]], axis=-1))
+        return gray
+    if mode == "RGBA" and composite_alpha:
         return over_white(pixels)
     return np.ascontiguousarray(pixels[..., :3])
 
@@ -221,15 +288,16 @@ def _bind_jpeg(lib: ctypes.CDLL) -> None:
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8 RGB, bitwise what PIL gives for
     ``Image.open(...).convert("RGB")`` (libjpeg's islow IDCT, fancy
-    upsampling and fixed-point YCbCr tables; gray replicated; EXIF
-    orientation not applied). Takes baseline and extended sequential
-    Huffman JPEGs of 8 bits with 1 or 3 components, any integral sampling,
-    restart intervals; raises ``ValueError`` naming what it does not read
-    (progressive, arithmetic, lossless, hierarchical, 12-bit, CMYK), on a
-    damaged file, and on a header of more pixels than PIL's
-    decompression-bomb limit (twice ``Image.MAX_IMAGE_PIXELS``), before
-    anything is allocated. Raises ``RuntimeError`` when the decoder cannot
-    be built."""
+    upsampling and fixed-point YCbCr tables; gray replicated; CMYK and
+    YCCK through PIL's inverted CMYK and its ``convert("RGB")``; EXIF
+    orientation not applied). Takes baseline, extended and progressive
+    Huffman JPEGs of 8 bits with 1, 3 or 4 components, any integral
+    sampling, restart intervals; raises ``ValueError`` naming what it does
+    not read (arithmetic, lossless, hierarchical, 12-bit, a progressive
+    file that libjpeg would block-smooth), on a damaged file, and on a
+    header of more pixels than PIL's decompression-bomb limit (twice
+    ``Image.MAX_IMAGE_PIXELS``), before anything is allocated. Raises
+    ``RuntimeError`` when the decoder cannot be built."""
     from ..kernels._build import load_host
 
     lib = load_host("jpeg_decode", _bind_jpeg)

@@ -131,9 +131,8 @@ def _fields_equal(t_obj, j_obj, path="cfg"):
     return skipped | {f"{path}.{n}" for n in j_fields - {f.name for f in dataclasses.fields(t_obj)}}
 
 
-# JAX fields of paths the port does not run yet (the mesh); the port's UNet
-# is always SD2.1's linear projection
-NOT_PORTED = {"cfg.model.unet.use_linear_projection", "cfg.mesh_shape"}
+# JAX fields of paths the port does not run yet (the mesh)
+NOT_PORTED = {"cfg.mesh_shape"}
 
 
 @pytest.mark.parametrize("name", ["train_config.yaml", "train_config_all.yaml", "evidence_256.yaml",
@@ -158,6 +157,36 @@ def test_yaml_overrides_and_refusals(tmp_path):
     p.write_text("text_encoder_config:\n  hidden_size: 256\n")
     with pytest.raises(ValueError, match="cross_attention_dim"):
         tconfig.train_config_from_yaml(str(p))
+
+
+@pytest.mark.parametrize("value", ["true", "false"])
+def test_use_linear_projection_loads_in_both_packages(tmp_path, value):
+    """One two-line YAML through both loaders: ``true`` loads in both;
+    ``false`` raises in the port, naming the linear projection, while the
+    JAX package (which never reads the field) builds the linear model."""
+    p = tmp_path / "c.yaml"
+    p.write_text(f"unet_config:\n  use_linear_projection: {value}\n")
+    jcfg = jconfig.train_config_from_yaml(str(p))
+    assert jcfg.model.unet.use_linear_projection is (value == "true")
+    if value == "true":
+        tcfg = tconfig.train_config_from_yaml(str(p))
+        assert tcfg.model.unet.use_linear_projection is True
+        assert _fields_equal(tcfg, jcfg) == NOT_PORTED
+        return
+    with pytest.raises(ValueError, match="only the linear projection \\(SD2.1's\\)"):
+        tconfig.train_config_from_yaml(str(p))
+    # the JAX UNet built from that config has linear (2-D) projections
+    from mvd_tpu.nn.unet import UNet2DCondition as JUNet
+
+    cfg = dataclasses.replace(jconfig.TINY_UNET, use_linear_projection=False)
+    n = cfg.sample_size
+    shapes = jax.eval_shape(JUNet(cfg).init, jax.random.PRNGKey(0), jnp.zeros((1, n, n, 4)),
+                            jnp.zeros(()), jnp.zeros((1, 77, cfg.cross_attention_dim)))
+    flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    proj = [leaf.shape for path, leaf in flat
+            if any(getattr(k, "key", None) in ("proj_in", "proj_out") for k in path)
+            and getattr(path[-1], "key", None) == "kernel"]
+    assert proj and all(len(s) == 2 for s in proj), proj
 
 
 def test_yaml_loaders_without_pyyaml_raise(monkeypatch):

@@ -108,15 +108,14 @@ def _patched(name: str, find: bytes, offset: int, value: int) -> bytes:
 
 
 @pytest.mark.parametrize("data,match", [
-    (lambda: _fixture("progressive.jpg"), "progressive JPEG \\(SOF2\\)"),
-    (lambda: _fixture("cmyk.jpg"), "CMYK"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC9), "arithmetic-coded JPEG \\(SOF9\\)"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC3), "lossless JPEG \\(SOF3\\)"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC5), "hierarchical JPEG \\(SOF5\\)"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 4, 12), "12-bit JPEG"),
+    (lambda: _patched("s420.jpg", b"\xff\xc0", 6, 0), "DNL marker \\(height 0\\)"),
     (lambda: _fixture("s420.jpg")[:1500], "truncated"),
     (lambda: b"\xff\xd8\xff\xd9", "no frame header"),
-], ids=["progressive", "cmyk", "arithmetic", "lossless", "hierarchical", "12-bit", "truncated",
+], ids=["arithmetic", "lossless", "hierarchical", "12-bit", "dnl-height", "truncated",
         "empty"])
 def test_unsupported_jpegs_raise(data, match):
     with pytest.raises(ValueError, match=match):

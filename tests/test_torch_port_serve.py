@@ -102,10 +102,17 @@ def test_png_encode_is_what_pil_reads():
 
 
 def test_png_decode_rejects_what_it_does_not_read():
-    with pytest.raises(ValueError, match="bit depth 16"):
-        decode_png(_pil_png(Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 999)))
-    with pytest.raises(ValueError, match="interlaced"):
+    """A 16-bit gray PNG and an interlaced one are read now (PIL's pixels:
+    I;16 clipped to 255); a depth the colour type does not allow and
+    interlaced data one byte short of its seven passes are refused."""
+    i16 = _pil_png(Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 999))
+    np.testing.assert_array_equal(decode_png(i16), np.asarray(Image.open(io.BytesIO(i16)).convert("RGB")))
+    with pytest.raises(ValueError, match="bit depth 16 is invalid for colour type 3"):
+        decode_png(_png(struct.pack(">IIBBBBB", 2, 2, 16, 3, 0, 0, 0), bytes(10)))
+    with pytest.raises(ValueError, match="truncated"):
         decode_png(_png(struct.pack(">IIBBBBB", 2, 2, 8, 2, 0, 0, 1), bytes(14)))
+    np.testing.assert_array_equal(decode_png(_png(struct.pack(">IIBBBBB", 2, 2, 8, 2, 0, 0, 1), bytes(15))),
+                                  np.zeros((2, 2, 3), np.uint8))
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"\xff\xd8\xff\xe0 a JPEG")
     data = bytearray(encode_png(_photo(4, 4, 3)))
