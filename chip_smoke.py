@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases; any failure exits non-zero:
+Thirteen phases; any failure exits non-zero:
 
 1. build: compiles every kernel source under ``mvd_tpu_torch/csrc/`` (one
    ``nvcc`` each, in parallel; the host C++ readers with ``c++`` beside
@@ -189,6 +189,28 @@ Twelve phases; any failure exits non-zero:
    phase 5's, the train step's launches per step, no plain call, finite
    losses, the JAX step's files unchanged. Prints the checkpoints' bytes
    and each read's seconds and GB/s beside the card's name and power limit.
+11. the evidence chain's first stages (``mvd_tpu_torch/tools/``), after
+   phase 10: (a) ``tools.procedural`` writes 20 objects x 8 views at 256²
+   (seed 0) on the host, object 0 in this process (host ms a view), the
+   rest in 8 spawned processes; objects 0 and 1 held to the JAX tool's zips in
+   ``tests/fixtures/torch_port_evidence`` (members, prompt and metadata
+   equal, cameras within 1e-6, RGBA pixels counted where they differ: at
+   most 1 level off on at most 1e-4 of them); every split loads through
+   ``ObjaverseDataset``; (b) ``tools.pretrain_vae.main`` without
+   ``--config`` (SD2.1's VAE, (128, 256, 512, 512)) at 256², batch 16, 8
+   steps, validation at 4 and 8: K2 exactly once per GroupNorm (52 a step
+   and a validation forward, 22 a probe encode) and nothing else, no plain
+   call, the non-logging steps under ``torch.cuda.set_sync_debug_mode
+   ("error")``, finite losses, the saved directory bitwise in a VAE of
+   NaNs, K2 against its plain version at every GroupNorm shape of the
+   step; prints ms a step, peak memory, the host ms to make a batch and
+   the GroupNorm backward's f32 recompute at the largest shape; (c) the
+   chain at ``config/evidence_256.yaml``: the tool for 4 steps,
+   ``cli.precompute_latents --checkpoint``, ``cli.train.main
+   --init-params --latent-cache-dir`` for 2 steps (the VAE bitwise the
+   tool's output, K1/K2/K3a/K3b a step as the structure says, no plain
+   call, finite losses) and ``cli.val.main --checkpoint <run> --vae-params``
+   on 2 test samples.
 
 With ``--trace OUT.json`` it also traces one more generation, one more int8
 generation, one call of each sampler configuration of phase 3c and one
@@ -197,9 +219,10 @@ the step, the metric fetch and the log line) with ``torch.profiler`` and
 prints, and writes to OUT.json (the int8 generation under
 ``"int8_generation"``, phase 3c's under ``"entry_points"``, phase 4's
 traced step with remat under ``"train_step"``, the Trainer's under
-``"train_entry"``), the wall time,
-the summed device-kernel time, the device's idle share, the share of each
-port kernel and the kernels that take the most device time.
+``"train_entry"``, phase 11b's last step under ``"vae_pretrain_step"``),
+the wall time, the summed device-kernel time, the device's idle share, the
+share of each port kernel and the kernels that take the most device time
+(for phase 11b also the device time under the GroupNorm backward).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a GPU, or outside the
@@ -1336,7 +1359,9 @@ def expected_train_launches(model):
     and at attn1, attn2 and both adapters in the denoise pass; in the
     backward, K3a at those four denoise sites and K3b at the three whose K/V
     carry gradient (attn1 and the adapters; attn2's K/V come from the frozen
-    text); K2 at every UNet GroupNorm in both UNet passes and at every VAE
+    text, and carry gradient only where the whole UNet trains,
+    ``train_denoising_unet``, through attn2's own K/V projections; the
+    feature pass is not differentiated); K2 at every UNet GroupNorm in both UNet passes and at every VAE
     encoder GroupNorm in the source and the target encode. With remat (the
     config default, as in the JAX package) the backward runs every
     ResnetBlock and Transformer2D again, K2 with them, but not K1, whose
@@ -1353,11 +1378,12 @@ def expected_train_launches(model):
     again_gn = sum(isinstance(g, GroupNorm) for b in unet.modules()
                    if isinstance(b, (ResnetBlock, Transformer2D)) for g in b.modules()) if remat else 0
     again_k1 = blocks * 4 if remat and os.environ.get("MVD_REMAT_POLICY") == "none" else 0
+    text_kv = any(p.requires_grad for n, p in unet.named_parameters() if ".attn2.to_k." in n)
     return {
         "flash_attn_fwd": blocks * 2 + blocks * 4 + again_k1,
         "flash_attn_fwd_bhsd": 0,
         "flash_attn_bwd_dq": blocks * 4,
-        "flash_attn_bwd_dkv": blocks * 3,
+        "flash_attn_bwd_dkv": blocks * (4 if text_kv else 3),
         "flash_attn_int8": 0,
         "quantize_int8": 0,
         "groupnorm_silu": unet_gn * 2 + enc_gn * 2 + again_gn,
@@ -1619,6 +1645,26 @@ class _Hooks:
     def __exit__(self, *exc):
         for owner, name, original in reversed(self._undo):
             setattr(owner, name, original)
+
+
+def counted_train_steps(per_call: list):
+    """For ``_Hooks.wrap(loop, "make_train_step", ...)``: each step of the
+    step function made appends (its launches, its plain calls, its noise
+    loss, the model) to ``per_call``."""
+    def wrap(make_step):
+        def make(schedule, cfg, **kw):
+            step = make_step(schedule, cfg, **kw)
+
+            def run(state, batch, **k):
+                before, _ = read_counts()
+                out = step(state, batch, **k)
+                after, plain = read_counts()
+                per_call.append(({n: after[n] - before[n] for n in after}, plain,
+                                 float(out["noise_loss"]), state.model))
+                return out
+            return run
+        return make
+    return wrap
 
 
 def _state_snapshot(state) -> dict:
@@ -1885,24 +1931,10 @@ def phase_train_entry(corpus: str, corpus_bytes: int, run_home: str, trace: bool
         if stats != {"zips": CORPUS_OBJECTS, "views": CORPUS_OBJECTS * CORPUS_VIEWS, "skipped": 0}:
             raise AssertionError(f"(c): precompute {stats}")
         per_call = []
-        make_step = loop.make_train_step
-
-        def counted_steps(schedule, cfg, **kw):
-            step = make_step(schedule, cfg, **kw)
-
-            def run(state, batch, **k):
-                before, _ = read_counts()
-                out = step(state, batch, **k)
-                after, plain_c = read_counts()
-                per_call.append(({n: after[n] - before[n] for n in after}, plain_c,
-                                 float(out["noise_loss"]), state.model))
-                return out
-            return run
-
         torch.cuda.empty_cache()
         reset_counts()
         with _Hooks() as hooks:
-            hooks.wrap(loop, "make_train_step", lambda _: counted_steps)
+            hooks.wrap(loop, "make_train_step", counted_train_steps(per_call))
             tr = train_cli.main(base + ["--output-dir", os.path.join(tmp, "out_c"), "--max-steps", "2",
                                         "--latent-cache-dir", cache], metrics_log_interval=0)
         # as expected_train_launches, without the VAE encoder's GroupNorms
@@ -3179,27 +3211,13 @@ def phase_orbax(export: dict, corpus: str, run_root: str, card: str) -> dict:
                 return out_
             return run_
 
-        make_step = loop.make_train_step
-
-        def counted_steps(schedule, cfg, **kw):
-            step = make_step(schedule, cfg, **kw)
-
-            def run_(state, batch, **k):
-                before_, _ = read_counts()
-                out_ = step(state, batch, **k)
-                after, plain = read_counts()
-                per_call.append(({n: after[n] - before_[n] for n in after}, plain,
-                                 float(out_["noise_loss"]), state.model))
-                return out_
-            return run_
-
         reset_counts()
         t0 = time.perf_counter()
         with _Hooks() as hooks:
             hooks.wrap(Trainer, "validate", no_val)
             hooks.wrap(Trainer, "resume", resume_guard)
             hooks.wrap(CheckpointManager, "restore", timer)
-            hooks.wrap(loop, "make_train_step", lambda _: counted_steps)
+            hooks.wrap(loop, "make_train_step", counted_train_steps(per_call))
             tr = train_cli.main(base + ["--output-dir", os.path.join(tmp, "out"), "--resume", run,
                                         "--max-steps", str(5 + ORBAX_RESUME_STEPS)], metrics_log_interval=0)
         torch.cuda.synchronize()
@@ -3233,6 +3251,474 @@ def phase_orbax(export: dict, corpus: str, run_root: str, card: str) -> dict:
     metrics["phase_s"] = time.perf_counter() - t_phase
     print(f"[orbax] phase 10 in {metrics['phase_s']:.1f} s ({card})")
     return metrics
+
+
+# phase 11: the evidence chain's first stages (mvd_tpu_torch/tools/): the
+# procedural corpus, VAE pretraining at full width, then the chain at
+# config/evidence_256.yaml through precompute_latents, train and val
+EVIDENCE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                                 "torch_port_evidence")
+EVIDENCE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "evidence_256.yaml")
+EVIDENCE_OBJECTS, EVIDENCE_VIEWS, EVIDENCE_RES, EVIDENCE_SEED = 20, 8, 256, 0
+EVIDENCE_WORKERS = 8  # processes rendering objects at once (threads gain 1.2x: the GIL)
+# phase 11a's bar on the card host's renders against the JAX tool's zips
+RENDER_MAX_DIFF, RENDER_DIFF_SHARE, CAMERA_MAX_DIFF = 1, 1e-4, 1e-6
+VAE_BATCH, VAE_STEPS, VAE_VAL_EVERY = 16, 8, 4
+CHAIN_VAE_STEPS, CHAIN_TRAIN_STEPS, CHAIN_VAL_SAMPLES = 4, 2, 2
+
+
+def _rgba(data: bytes):
+    """A PNG's 8-bit RGBA pixels, as the file stores them."""
+    import numpy as np
+
+    from mvd_tpu_torch.utils.images import png_samples
+
+    samples, chunks = png_samples(data)
+    if chunks.header[2:4] != (8, 6):
+        raise AssertionError(f"not an 8-bit RGBA PNG: depth and colour type {chunks.header[2:4]}")
+    return samples.astype(np.uint8)
+
+
+def _hold_to_fixture(corpus: str) -> dict:
+    """Phase 11a's check: each object of the fixture (the JAX tool's zips,
+    seed 0) against the same object of ``corpus``, member by member: the
+    same names in the same order, prompt and metadata equal, cameras and
+    RGBA pixels counted where they differ."""
+    import io
+
+    import numpy as np
+
+    fixture = os.path.join(EVIDENCE_FIXTURES, "renders_final")
+    names = sorted(os.listdir(fixture))
+    out = dict(objects=len(names), pixels=0, pixels_differ=0, max_diff=0, camera_max_diff=0.0)
+    for name in names:
+        with zipfile.ZipFile(os.path.join(fixture, name)) as want, \
+                zipfile.ZipFile(os.path.join(corpus, "renders_final", name)) as got:
+            if want.namelist() != got.namelist():
+                raise AssertionError(f"(a) {name}: members {got.namelist()}, the JAX tool's {want.namelist()}")
+            for member in want.namelist():
+                a, b = want.read(member), got.read(member)
+                if member.endswith(".png"):
+                    pa, pb = _rgba(a).astype(np.int16), _rgba(b).astype(np.int16)
+                    if pa.shape != pb.shape:
+                        raise AssertionError(f"(a) {name}/{member}: {pb.shape}, the JAX tool's {pa.shape}")
+                    diff = np.abs(pa - pb).max(axis=-1)
+                    out["pixels"] += diff.size
+                    out["pixels_differ"] += int((diff > 0).sum())
+                    out["max_diff"] = max(out["max_diff"], int(diff.max()))
+                elif member.endswith(".npy"):
+                    ca, cb = np.load(io.BytesIO(a)), np.load(io.BytesIO(b))
+                    if ca.dtype != cb.dtype or ca.shape != cb.shape:
+                        raise AssertionError(f"(a) {name}/{member}: {cb.dtype} {cb.shape}, the JAX tool's "
+                                             f"{ca.dtype} {ca.shape}")
+                    out["camera_max_diff"] = max(out["camera_max_diff"], float(np.abs(ca - cb).max()))
+                elif a != b:
+                    raise AssertionError(f"(a) {name}/{member} differs from the JAX tool's")
+    share = out["pixels_differ"] / out["pixels"]
+    print(f"[evidence] (a) the fixture's {len(names)} objects (the JAX tool's zips, seed {EVIDENCE_SEED}): "
+          f"members, prompts and metadata equal; {out['pixels_differ']} of {out['pixels']} RGBA pixels "
+          f"differ (share {share:.2e}, max |diff| {out['max_diff']}); cameras max |diff| "
+          f"{out['camera_max_diff']:.3g}")
+    if out["max_diff"] > RENDER_MAX_DIFF or share > RENDER_DIFF_SHARE or out["camera_max_diff"] > CAMERA_MAX_DIFF:
+        raise AssertionError(f"(a) the renders here are off the JAX tool's: {out}")
+    return out
+
+
+def _one_blas_thread() -> None:
+    """A render worker's set-up, run before it imports numpy: one BLAS
+    thread, so that the workers' small matrix products do not oversubscribe
+    the host's cores (8 workers of 8 threads each rendered slower than one
+    process on the card's host)."""
+    for name in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[name] = "1"
+
+
+def write_evidence_corpus(root: str) -> dict:
+    """Phase 11a: ``tools.procedural.generate_corpus`` for EVIDENCE_OBJECTS
+    objects of EVIDENCE_VIEWS views at EVIDENCE_RES² (seed EVIDENCE_SEED):
+    object 0 in this process (the host ms a view), the rest in
+    EVIDENCE_WORKERS spawned processes of one BLAS thread each; held to the
+    fixture and loaded
+    through ``ObjaverseDataset`` on every split."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from mvd_tpu_torch.data.objaverse import ObjaverseDataset
+    from mvd_tpu_torch.tools.procedural import generate_corpus
+
+    args = (root, 1, EVIDENCE_VIEWS, EVIDENCE_RES, EVIDENCE_SEED, 2)  # one object, supersample 2
+    t0 = time.perf_counter()
+    generate_corpus(*args, 0)
+    ms_view = (time.perf_counter() - t0) * 1e3 / EVIDENCE_VIEWS
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(EVIDENCE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_one_blas_thread) as pool:
+        for f in [pool.submit(generate_corpus, *args, i) for i in range(1, EVIDENCE_OBJECTS)]:
+            f.result()
+    pool_s = time.perf_counter() - t0
+    views = (EVIDENCE_OBJECTS - 1) * EVIDENCE_VIEWS
+    print(f"[evidence] (a) tools.procedural: {EVIDENCE_OBJECTS} objects x {EVIDENCE_VIEWS} views at "
+          f"{EVIDENCE_RES}² (supersample 2): {ms_view:.1f} host ms a view in one process; the other {views} "
+          f"views in {EVIDENCE_WORKERS} processes in {pool_s:.2f} s, their start included "
+          f"({pool_s * 1e3 / views:.1f} ms a view)")
+    held = _hold_to_fixture(root)
+    splits = {}
+    for split in ("train", "val", "test"):
+        ds = ObjaverseDataset(root, split, image_size=EVIDENCE_RES)
+        img = ds[0]["target_image"]
+        if len(ds.files) < 2 or img.shape != (EVIDENCE_RES, EVIDENCE_RES, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"(a) {split}: {len(ds.files)} objects, target image {img.shape}")
+        splits[split] = dict(objects=len(ds.files), pairs=len(ds))
+    print(f"[evidence] (a) ObjaverseDataset (objects, pairs): "
+          f"{ {k: (v['objects'], v['pairs']) for k, v in splits.items()} }")
+    return dict(host_ms_per_view=ms_view, pool_ms_per_view=pool_s * 1e3 / views, splits=splits, **held)
+
+
+def _gn_counts(vae) -> tuple:
+    """The GroupNorms of an AutoencoderKL: all of them (a train or a
+    validation forward) and the encoder's (the latent probe)."""
+    from mvd_tpu_torch.nn.layers import GroupNorm
+
+    count = lambda m: sum(isinstance(g, GroupNorm) for g in m.modules())
+    return count(vae), count(vae.encoder)
+
+
+class _VaeRun:
+    """Hooks on ``tools.pretrain_vae`` for one ``main``: the launches and
+    plain calls of each train step, validation and latent probe, each step's
+    seconds (synchronised before and after) and loss; the non-logging steps
+    under ``torch.cuda.set_sync_debug_mode("error")`` but step ``trace_at``,
+    which is traced; the VAE (and its GroupNorm calls) and the state dict
+    that ``main`` saves."""
+
+    def __init__(self, trace_at: int = 0):
+        self.trace_at, self.steps, self.evals, self.traced = trace_at, [], [], None
+        self.vae = self.calls = self.hooks = self.saved = None
+
+    def install(self, hooks: "_Hooks") -> None:
+        from mvd_tpu_torch.tools import pretrain_vae as pv
+
+        hooks.wrap(pv, "train_step", self._step)
+        hooks.wrap(pv, "val_recon", lambda fn: self._eval("val", fn))
+        hooks.wrap(pv, "latent_std", lambda fn: self._eval("probe", fn))
+        hooks.wrap(pv, "make_optimizer", self._optimizer)
+        hooks.wrap(pv, "vae_state_dict", self._saved)
+
+    def _step(self, fn):
+        import torch
+
+        def run(*a, **k):
+            i = len(self.steps) + 1
+            checked = i != 1 and i % 100 != 0 and i != self.trace_at
+            before, _ = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == self.trace_at:
+                box = []
+                self.traced = trace_run(lambda: box.append(fn(*a, **k)), "vae pretrain step",
+                                        ops=("GroupNormSiLUBackward",))
+                res = box[0]
+            else:
+                if checked:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    res = fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after, plain = read_counts()
+            self.steps.append(dict(launches={n: after[n] - before[n] for n in after}, plain=plain,
+                                   checked=checked, s=secs, loss=res[0]))
+            return res
+        return run
+
+    def _eval(self, kind, fn):
+        def run(vae, batch, chunk):
+            before, _ = read_counts()
+            res = fn(vae, batch, chunk)
+            after, plain = read_counts()
+            self.evals.append(dict(kind=kind, chunks=-(-batch.shape[0] // chunk), plain=plain,
+                                   launches={n: after[n] - before[n] for n in after}))
+            return res
+        return run
+
+    def _optimizer(self, fn):
+        def run(vae):
+            self.vae = vae
+            self.calls, self.hooks = record_groupnorm_calls(vae)
+            return fn(vae)
+        return run
+
+    def _saved(self, fn):
+        def run(vae):
+            self.saved = fn(vae)
+            return self.saved
+        return run
+
+    def check(self, what: str, steps: int) -> dict:
+        """Every step's, validation's and probe's launches as the VAE's
+        GroupNorms say, no plain call, finite losses; returns a step's."""
+        import torch
+
+        for h in self.hooks:
+            h.remove()
+        n_gn, n_enc = _gn_counts(self.vae)
+        zero = {n: 0 for n in self.steps[0]["launches"]}
+        want = {**zero, "groupnorm_silu": n_gn}
+        if len(self.steps) != steps:
+            raise AssertionError(f"{what}: {len(self.steps)} steps, not {steps}")
+        for i, s in enumerate(self.steps):
+            if s["launches"] != want or any(s["plain"].values()):
+                raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {want}), "
+                                     f"plain calls {s['plain']}")
+        for e in self.evals:
+            per = n_gn if e["kind"] == "val" else n_enc
+            if e["launches"] != {**zero, "groupnorm_silu": per * e["chunks"]} or any(e["plain"].values()):
+                raise AssertionError(f"{what} {e['kind']}: launches {e['launches']} (expected K2 {per} x "
+                                     f"{e['chunks']}), plain calls {e['plain']}")
+        losses = torch.stack([s["loss"] for s in self.steps]).float().cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{what}: losses {losses.tolist()}")
+        return want
+
+
+def phase_vae_pretrain(corpus: str, work: str, card: str, trace: bool = False) -> tuple:
+    """Phase 11b: ``tools.pretrain_vae.main`` without ``--config`` (SD2.1's
+    VAE, (128, 256, 512, 512)) at EVIDENCE_RES², batch VAE_BATCH, for
+    VAE_STEPS steps with validation every VAE_VAL_EVERY (``_VaeRun``'s
+    checks); the saved directory into a VAE of NaNs, bitwise; K2 against
+    its plain version at every GroupNorm shape of the step; the GroupNorm
+    backward's recompute timed at the largest, beside K2's forward; the
+    host ms to make a batch. With ``trace``, the last step is traced.
+    Returns (the launches of one step, metrics, the trace or None)."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.checkpoint import load_component
+    from mvd_tpu_torch.config import VAEConfig
+    from mvd_tpu_torch.data.latent_cache import corpus_zips
+    from mvd_tpu_torch.data.objaverse import split_files
+    from mvd_tpu_torch.kernels import groupnorm_silu, groupnorm_silu_plain, groupnorm_silu_vjp
+    from mvd_tpu_torch.kernels.groupnorm_silu import FUSED, _entry, launch, launch_plan
+    from mvd_tpu_torch.kernels.measure import GN_TOL, gn_bounds, max_err, time_graph_ms, time_ms
+    from mvd_tpu_torch.nn.vae import AutoencoderKL
+    from mvd_tpu_torch.tools import pretrain_vae as pv
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(work, "vae_full")
+    run = _VaeRun(trace_at=VAE_STEPS if trace else 0)
+    argv = ["--dataset-path", corpus, "--output", out_dir, "--image-size", str(EVIDENCE_RES),
+            "--batch-size", str(VAE_BATCH), "--steps", str(VAE_STEPS), "--val-every", str(VAE_VAL_EVERY)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _Hooks() as hooks:
+        run.install(hooks)
+        meta = pv.main(argv)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = run.check("(b)", VAE_STEPS)
+    n_gn, n_enc = _gn_counts(run.vae)
+    cfg = run.vae.cfg
+    if cfg != VAEConfig():
+        raise AssertionError(f"(b): main without --config built {cfg}, not SD2.1's VAE")
+    n_params = sum(p.numel() for p in run.vae.parameters())
+    timed = [s["s"] for s in run.steps[1:] if s["checked"]]
+    step_ms = statistics.median(timed) * 1e3
+    print(f"[evidence] (b) tools.pretrain_vae.main {' '.join(argv[4:])} (SD2.1's VAE {cfg.block_out_channels}, "
+          f"{n_params / 1e6:.2f} M parameters, bf16 compute, f32 masters): {run_s:.1f} s; K2 {n_gn} a step "
+          f"({n_gn - n_enc} decoder + {n_enc} encoder GroupNorms), {n_gn} a validation forward, {n_enc} a "
+          f"probe encode, nothing else, no plain call; steps {[i + 1 for i, s in enumerate(run.steps) if s['checked']]} "
+          f"under the sync check; logged {meta['logged']}; val {meta['val_history']}; latent std "
+          f"{meta['latent_std']:.4f}")
+    print(f"[evidence] (b) ms a step (steps 2-{VAE_STEPS}, synchronised): "
+          f"{[round(s['s'] * 1e3, 1) for s in run.steps]}, median of the checked ones {step_ms:.1f}; "
+          f"peak memory {peak:.2f} GiB ({card})")
+
+    # the saved directory, bitwise, into a VAE of NaNs
+    with torch.device("cuda"):
+        fresh = AutoencoderKL(VAEConfig())
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.fill_(float("nan"))
+    load_component(fresh, out_dir, "vae")
+    got = fresh.state_dict()
+    differ = [k for k, v in run.saved.items() if not torch.equal(got[k].cpu(), v)]
+    if differ or got.keys() != run.saved.keys():
+        raise AssertionError(f"(b): {len(differ)} tensors of the saved VAE differ after the load: {differ[:5]}")
+    del fresh, got
+
+    # K2 at every GroupNorm shape of the step, the backward at the largest
+    shapes = sorted(set(run.calls[:n_gn]))
+    gen = torch.Generator("cuda").manual_seed(11)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    cases, eps = [], 1e-6
+    for B, HW, C, G, silu in shapes:
+        side = int(math.isqrt(HW))
+        x = (randn(B, side, side, C) * 2 + 0.5).bfloat16()
+        w, b = 1 + 0.1 * randn(C), 0.1 * randn(C)
+        err = max_err(groupnorm_silu(x, w, b, G, eps, silu), groupnorm_silu_plain(x, w, b, G, eps, silu),
+                      GN_TOL, f"(b) K2 {(B, side, side, C)}")
+        plan = launch_plan(B, HW, C, G)
+        cases.append(dict(case=f"vae pretrain {B}x{side}x{side}x{C}{' silu' if silu else ''}",
+                          max_abs_err=err, path="fused" if plan.path == FUSED else "two-pass"))
+        del x
+    B, HW, C, G, silu = max(shapes, key=lambda s: s[0] * s[1] * s[2])
+    side = int(math.isqrt(HW))
+    x = (randn(B, side, side, C) * 2 + 0.5).bfloat16()
+    w, b, dy = 1 + 0.1 * randn(C), 0.1 * randn(C), randn(B, side, side, C).bfloat16()
+    plan = launch_plan(B, HW, C, G)
+    y = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch, device="cuda") if plan.scratch else None
+    fwd_ms = time_graph_ms(lambda: launch(_entry(), x, w, b, y, scratch, G, eps, silu, plan), 10)
+    bwd_ms = time_ms(lambda: groupnorm_silu_vjp(x, w, b, dy, G, eps, silu), 5, 1)
+    largest = f"{B}x{side}x{side}x{C}"
+    bound = gn_bounds(B, HW, C, silu)
+    print(f"[evidence] (b) K2 against groupnorm_silu_plain at the step's {len(shapes)} GroupNorm shapes within "
+          f"{GN_TOL} (max abs err {max(c['max_abs_err'] for c in cases):.3g}; paths "
+          f"{sorted({c['path'] for c in cases})}); at the largest, {largest}: K2 {fwd_ms:.4f} ms (bound "
+          f"{bound['bound_ms']:.4f}), the backward's f32 recompute {bwd_ms:.3f} ms ({card})")
+    del x, y, dy, scratch
+    torch.cuda.empty_cache()
+
+    # the host's batch against the step: VAE_BATCH views decoded on one thread
+    index = pv.build_image_index(split_files(corpus_zips(corpus), 42, 0.1, 0.1, "train")[0])
+    t0 = time.perf_counter()
+    for i in range(VAE_BATCH):
+        pv.load_image(*index[i], EVIDENCE_RES)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[evidence] (b) the host makes a batch of {VAE_BATCH} in {batch_ms:.1f} ms on one thread against "
+          f"a step of {step_ms:.1f} ms; the saved directory loads bitwise into a VAE of NaNs; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    metrics = dict(run_s=run_s, step_ms=step_ms, steps_ms=[s["s"] * 1e3 for s in run.steps], peak_gib=peak,
+                   host_batch_ms=batch_ms, gn_shapes=cases, gn_largest=largest, gn_fwd_ms=fwd_ms,
+                   gn_bwd_recompute_ms=bwd_ms, gn_bound_ms=bound["bound_ms"], params_m=n_params / 1e6,
+                   logged=meta["logged"], val_history=meta["val_history"], latent_std=meta["latent_std"],
+                   phase_s=time.perf_counter() - t_phase)
+    return per_step, metrics, run.traced
+
+
+def phase_evidence_chain(corpus: str, work: str, card: str) -> tuple:
+    """Phase 11c, the chain at ``config/evidence_256.yaml`` on phase 11a's
+    corpus: ``tools.pretrain_vae.main --steps CHAIN_VAE_STEPS``,
+    ``cli.precompute_latents --checkpoint <vae>``, ``cli.train.main
+    --init-params <vae> --latent-cache-dir <cache>`` for CHAIN_TRAIN_STEPS
+    steps and ``cli.val.main --checkpoint <run> --vae-params <vae>``. Each
+    must finish; the trainer's VAE bitwise the tool's output when loaded;
+    each train step's launches as the structure says, no plain call,
+    finite losses. Returns (a train step's launches, metrics)."""
+    import torch
+
+    from mvd_tpu_torch.cli import precompute_latents
+    from mvd_tpu_torch.cli import train as train_cli
+    from mvd_tpu_torch.cli import val as val_cli
+    from mvd_tpu_torch.tools import pretrain_vae as pv
+    from mvd_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    vae_dir, cache = os.path.join(work, "vae_evidence"), os.path.join(work, "latents")
+    metrics = {}
+    # 1. pretrain
+    run = _VaeRun()
+    t0 = time.perf_counter()
+    reset_counts()
+    with _Hooks() as hooks:
+        run.install(hooks)
+        meta = pv.main(["--dataset-path", corpus, "--output", vae_dir, "--config", EVIDENCE_YAML,
+                        "--steps", str(CHAIN_VAE_STEPS)])
+    run.check("(c) pretrain", CHAIN_VAE_STEPS)
+    metrics["pretrain_s"] = time.perf_counter() - t0
+    saved = run.saved
+    print(f"[evidence] (c) tools.pretrain_vae.main --config config/evidence_256.yaml --steps {CHAIN_VAE_STEPS} "
+          f"(VAE {run.vae.cfg.block_out_channels}): {metrics['pretrain_s']:.1f} s, logged {meta['logged']}, "
+          f"val {meta['val_history']}")
+    del run
+    # 2. the latent cache
+    t0 = time.perf_counter()
+    stats = precompute_latents.main(["--dataset-path", corpus, "--config", EVIDENCE_YAML,
+                                     "--checkpoint", vae_dir, "--out", cache])
+    metrics["precompute_s"] = time.perf_counter() - t0
+    if stats != {"zips": EVIDENCE_OBJECTS, "views": EVIDENCE_OBJECTS * EVIDENCE_VIEWS, "skipped": 0}:
+        raise AssertionError(f"(c) precompute_latents: {stats}")
+    # 3. train from the cache, the VAE from the tool
+    loaded, per_call = [], []
+
+    def check_init(fn):
+        def run_(pipe, path):
+            fn(pipe, path)
+            got = pipe.model["vae"].state_dict()
+            loaded.append([k for k, v in saved.items() if not torch.equal(got[k].cpu(), v)])
+        return run_
+
+    t0 = time.perf_counter()
+    reset_counts()
+    with _Hooks() as hooks:
+        hooks.wrap(train_cli, "_load_init_params", check_init)
+        hooks.wrap(loop, "make_train_step", counted_train_steps(per_call))
+        tr = train_cli.main(["--config", EVIDENCE_YAML, "--dataset-path", corpus, "--init-params", vae_dir,
+                             "--latent-cache-dir", cache, "--max-steps", str(CHAIN_TRAIN_STEPS),
+                             "--output-dir", os.path.join(work, "run")])
+    metrics["train_s"] = time.perf_counter() - t0
+    if loaded != [[]]:
+        raise AssertionError(f"(c) train --init-params: the VAE differs from the tool's output at {loaded}")
+    want = expected_train_launches(per_call[0][3])  # from the cache: no VAE encode
+    want["groupnorm_silu"] -= 2 * _gn_counts(per_call[0][3]["vae"])[1]
+    if len(per_call) != CHAIN_TRAIN_STEPS:
+        raise AssertionError(f"(c) train: {len(per_call)} steps")
+    for i, (got, plain, loss, _) in enumerate(per_call):
+        if got != want or any(plain.values()) or not math.isfinite(loss):
+            raise AssertionError(f"(c) train step {i + 1}: launches {got} (expected {want}), plain {plain}, "
+                                 f"loss {loss}")
+    run_root, losses = tr.dirs["root"], [c[2] for c in per_call]
+    metrics["train_step_s"] = [t["step_s"] for t in tr.timings]
+    del tr, per_call
+    torch.cuda.empty_cache()
+    print(f"[evidence] (c) cli.precompute_latents --checkpoint <vae>: {stats} in {metrics['precompute_s']:.1f} s; "
+          f"cli.train.main --init-params <vae> --latent-cache-dir <cache> --max-steps {CHAIN_TRAIN_STEPS}: the "
+          f"VAE bitwise the tool's output, launches a step {want}, no plain call, noise losses "
+          f"{[round(v, 5) for v in losses]}, {metrics['train_s']:.1f} s")
+    # 4. score the run on the test split
+    t0 = time.perf_counter()
+    reset_counts()
+    _, overall = val_cli.main(["--config", EVIDENCE_YAML, "--checkpoint", run_root, "--vae-params", vae_dir,
+                               "--image-size", str(EVIDENCE_RES), "--dataset-path", corpus,
+                               "--num-samples", str(CHAIN_VAL_SAMPLES), "--batch-size", str(CHAIN_VAL_SAMPLES),
+                               "--output-dir", os.path.join(work, "val")])
+    metrics["val_s"] = time.perf_counter() - t0
+    _, plain = read_counts()
+    if (overall.get("num_samples") != CHAIN_VAL_SAMPLES or any(plain.values())
+            or not all(math.isfinite(overall[k]) for k in ("psnr_mean", "ssim_mean"))):
+        raise AssertionError(f"(c) val: {overall}, plain {plain}")
+    metrics.update(launches_per_train_step=want, losses=losses,
+                   val={k: overall[k] for k in ("num_samples", "psnr_mean", "ssim_mean")},
+                   phase_s=time.perf_counter() - t_phase)
+    print(f"[evidence] (c) cli.val.main --config config/evidence_256.yaml --checkpoint <run> --vae-params <vae> "
+          f"--image-size {EVIDENCE_RES} --num-samples {CHAIN_VAL_SAMPLES}: {metrics['val']} in "
+          f"{metrics['val_s']:.1f} s; (c) {metrics['phase_s']:.1f} s ({card})")
+    return want, metrics
+
+
+def phase_evidence(card: str, trace: bool = False) -> tuple:
+    """Phase 11 in a temporary directory: (a) the corpus, (b) the VAE
+    pretrained at full width, (c) the chain at config/evidence_256.yaml.
+    Returns (a pretrain step's launches, a chain train step's, metrics,
+    the trace of (b) or None)."""
+    work = tempfile.mkdtemp(prefix="mvd_evidence_")
+    t_phase = time.perf_counter()
+    try:
+        corpus = os.path.join(work, "corpus")
+        metrics = dict(a=write_evidence_corpus(corpus))
+        step_launches, metrics["b"], traced = phase_vae_pretrain(corpus, work, card, trace)
+        chain_launches, metrics["c"] = phase_evidence_chain(corpus, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"[evidence] phase 11 in {metrics['phase_s']:.1f} s ({card})")
+    return step_launches, chain_launches, metrics, traced
 
 
 # device-kernel name patterns (regular expressions) of each port kernel in a
@@ -3741,10 +4227,12 @@ TRACE_GROUPS = {
 TRACE_TOP = 25
 
 
-def trace_run(fn, label: str, top: int = TRACE_TOP, cpu: bool = True) -> dict:
+def trace_run(fn, label: str, top: int = TRACE_TOP, cpu: bool = True, ops=()) -> dict:
     """Trace one call of ``fn`` and report where the device time goes (the
-    ``top`` kernels by device time); ``cpu=False`` records the device's
-    activity only, which the profiler sums in a fraction of the time."""
+    ``top`` kernels by device time, and for each host op named in ``ops``
+    the device time of the kernels it launched, its children's included);
+    ``cpu=False`` records the device's activity only, which the profiler
+    sums in a fraction of the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3767,14 +4255,20 @@ def trace_run(fn, label: str, top: int = TRACE_TOP, cpu: bool = True) -> dict:
     rows = [dict(kernel=e.key[:120], calls=e.count, device_ms=e.self_device_time_total / 1e3)
             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]
     n_launch = sum(e.count for e in kernels)
+    # an op's events nest (the autograd node inside its engine call): the outermost holds the rest
+    op_ms = {op: max([e.device_time_total / 1e3 for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU and e.key.endswith(op)], default=0.0) for op in ops}
     print(f"[trace] {label}: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, kernel launches {n_launch}")
     for g, ms in shares.items():
         print(f"[trace]   {g}: {ms:.2f} ms ({ms / busy_ms:.3f} of device time) in {counts[g]} kernels")
+    for op, ms in op_ms.items():
+        print(f"[trace]   under {op}: {ms:.2f} ms ({ms / busy_ms:.3f} of device time)")
     for r in rows:
         print(f"[trace]   {r['device_ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                kernel_launches=n_launch, port_kernels_ms=shares, port_kernel_counts=counts, top=rows)
+                kernel_launches=n_launch, port_kernels_ms=shares, port_kernel_counts=counts, ops_ms=op_ms,
+                top=rows)
 
 
 KERNEL_META = {
@@ -3900,9 +4394,6 @@ def main(argv=None) -> int:
             corpus, corpus_bytes, corpus_dir, trace=bool(args.trace))
         if args.trace:
             traces["train_entry"] = entry_trace
-            os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-            with open(args.trace, "w") as f:
-                json.dump(dict(card=card, **traces), f, indent=1)
         t_joint = time.perf_counter()
         for key, rows in phase_joint_kernels().items():
             results[key].extend(rows)
@@ -3923,6 +4414,14 @@ def main(argv=None) -> int:
                          train_phase_s=time.perf_counter() - t_joint)
     print(f"[joint] phase 6: generation parts {joint_metrics['phase_s']:.1f} s, kernels and train parts "
           f"{joint_metrics['train_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    vae_step_launches, chain_launches, evidence_metrics, vae_trace = phase_evidence(card, trace=bool(args.trace))
+    results["groupnorm_silu"].extend(evidence_metrics["b"]["gn_shapes"])
+    if args.trace:
+        traces["vae_pretrain_step"] = vae_trace
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        with open(args.trace, "w") as f:
+            json.dump(dict(card=card, **traces), f, indent=1)
     torch.cuda.empty_cache()
     t_multi = time.perf_counter()
     merges, rings, ring_launches = phase_ring()
@@ -3959,6 +4458,8 @@ def main(argv=None) -> int:
             joint_train_entry_launches=joint_entry_launches[key],
             val_launches_per_batch=val_launches[key],
             co3d_train_launches_per_step=co3d_launches[key],
+            vae_pretrain_launches_per_step=vae_step_launches[key],
+            evidence_train_launches_per_step=chain_launches[key],
             model_axis_generation_launches={str(n): c[key] for n, c in model_launches.items()},
             cases=cases,
         ))
@@ -3973,6 +4474,7 @@ def main(argv=None) -> int:
     print(f"[val] {json.dumps(val_metrics)}")
     print(f"[readers] {json.dumps(reader_metrics)}")
     print(f"[orbax] {json.dumps(orbax_metrics)}")
+    print(f"[evidence] {json.dumps(evidence_metrics)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

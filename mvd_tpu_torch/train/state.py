@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -86,6 +86,21 @@ def make_lr_schedule(cfg: OptimizerConfig, total_steps: int) -> Callable[[int], 
     return schedule
 
 
+def make_adamw(params: Iterable[nn.Parameter], betas=(0.9, 0.999), weight_decay: float = 0.0) -> torch.optim.AdamW:
+    """optax's ``adamw(lr, b1, b2, eps=1e-8, weight_decay)`` over ``params``;
+    the caller sets each group's ``lr`` before a step."""
+    return torch.optim.AdamW(list(params), lr=0.0, betas=tuple(betas), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], grad_norm: torch.Tensor, max_norm: float) -> None:
+    """optax's ``clip_by_global_norm(max_norm)`` in place: every gradient
+    scaled by ``max_norm / grad_norm`` where ``grad_norm >= max_norm``
+    (``grad_norm`` is their global norm, a 0-d tensor on their device)."""
+    coef = torch.where(grad_norm < max_norm, torch.ones_like(grad_norm), max_norm / grad_norm)
+    torch._foreach_mul_(list(grads), coef)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The networks ({"mvd", "vae", "text_encoder"}), the optimizer over the
@@ -129,10 +144,7 @@ class TrainState:
                     trainable[name] = p
         set_compute_dtype(model, None if dtype == torch.float32 else dtype)
         o = cfg.optimizer
-        optimizer = torch.optim.AdamW(
-            list(trainable.values()), lr=0.0, betas=tuple(o.betas), eps=1e-8,
-            weight_decay=o.weight_decay,
-        )
+        optimizer = make_adamw(trainable.values(), o.betas, o.weight_decay)
         return cls(model, trainable, optimizer, make_lr_schedule(o, total_steps), o.max_grad_norm,
                    cfg.grad_accum_steps)
 
@@ -151,11 +163,7 @@ class TrainState:
     def _update(self, grad_norm: torch.Tensor) -> None:
         """Clip the gradients by their global norm ``grad_norm`` and take
         one AdamW step at ``lr_schedule(updates)``."""
-        coef = torch.where(
-            grad_norm < self.max_grad_norm, torch.ones_like(grad_norm),
-            self.max_grad_norm / grad_norm,
-        )
-        torch._foreach_mul_(list(self.grads().values()), coef)
+        clip_by_global_norm_(self.grads().values(), grad_norm, self.max_grad_norm)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.updates)
         self.optimizer.step()

@@ -25,7 +25,7 @@ import os
 import ctypes
 import struct
 import zlib
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -213,20 +213,10 @@ def png_mode(depth: int, colour: int) -> str:
     return {2: "RGB", 3: "P", 6: "RGBA"}[colour]
 
 
-def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
-    it from the mode PIL opens the file in (``png_mode``): gray replicated,
-    alpha dropped, palette indices looked up, sub-byte gray scaled to 0-255
-    (1-bit to 0 and 255), 16-bit samples cut to their high byte except
-    16-bit gray, which ``I;16`` clips (a value over 255 gives 255). With
-    ``composite_alpha`` an image PIL opens as RGBA (8- or 16-bit RGBA,
-    16-bit gray+alpha) is first composited over white (``over_white``), as
-    the data loaders do before the conversion. Takes every colour type at
-    every bit depth PNG allows, interlaced (Adam7) or not; tRNS changes no
-    pixel, as in ``convert("RGB")``. Raises ``ValueError`` on a damaged
-    file, a palette index past the PLTE chunk and a header of more than
-    ``MAX_PIXELS`` pixels. Inflates no more than the header's rows need.
-    Raises ``RuntimeError`` when the scanline decoder cannot be built."""
+def png_samples(data: bytes) -> Tuple[np.ndarray, PngChunks]:
+    """The samples of a PNG as the file stores them, (H, W, channels)
+    uint16 (palette indices not looked up, sub-byte and 16-bit samples not
+    scaled), and its chunks. Raises as ``decode_png`` does."""
     from ..kernels._build import load_host
 
     chunks = png_chunks(data)
@@ -248,6 +238,26 @@ def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     lib = load_host("png_decode", _bind_png)
     if lib.mvd_png_samples(raw, len(raw), w, h, depth, ch, interlace, samples.ctypes.data, err, len(err)):
         raise ValueError(err.value.decode())
+    return samples, chunks
+
+
+def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
+    it from the mode PIL opens the file in (``png_mode``): gray replicated,
+    alpha dropped, palette indices looked up, sub-byte gray scaled to 0-255
+    (1-bit to 0 and 255), 16-bit samples cut to their high byte except
+    16-bit gray, which ``I;16`` clips (a value over 255 gives 255). With
+    ``composite_alpha`` an image PIL opens as RGBA (8- or 16-bit RGBA,
+    16-bit gray+alpha) is first composited over white (``over_white``), as
+    the data loaders do before the conversion. Takes every colour type at
+    every bit depth PNG allows, interlaced (Adam7) or not; tRNS changes no
+    pixel, as in ``convert("RGB")``. Raises ``ValueError`` on a damaged
+    file, a palette index past the PLTE chunk and a header of more than
+    ``MAX_PIXELS`` pixels. Inflates no more than the header's rows need.
+    Raises ``RuntimeError`` when the scanline decoder cannot be built."""
+    samples, chunks = png_samples(data)
+    _, _, depth, colour, _, _, _ = chunks.header
+    ch = _CHANNELS[colour]
     if colour == 3:
         if not chunks.plte:
             raise ValueError("palette PNG has no PLTE chunk")

@@ -309,9 +309,14 @@ def test_port_imports_nothing_of_jax():
     files.append(REPO / "tests" / "_torch_port_world.py")
     # the orbax layout writer chip_smoke.py runs on the card's machine
     files.append(REPO / "tests" / "_torch_port_orbax_writer.py")
+    # the evidence-chain tools the port adds beside the JAX package's
+    for name in ("tools/procedural.py", "tools/pretrain_vae.py"):
+        assert REPO / "mvd_tpu_torch" / name in files, name
     # no JAX, and none of the libraries that read or write orbax checkpoints:
-    # the port reads them with its own OCDBT, zarr and zstd readers
-    banned = ("jax", "flax", "mvd_tpu", "orbax", "tensorstore", "zstandard", "numcodecs")
+    # the port reads them with its own OCDBT, zarr and zstd readers; no PIL,
+    # which the card's machine lacks: the port decodes and writes its own
+    # PNGs and JPEGs
+    banned = ("jax", "flax", "mvd_tpu", "orbax", "tensorstore", "zstandard", "numcodecs", "PIL")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
