@@ -149,27 +149,32 @@ Thirteen phases; any failure exits non-zero:
 9. the image readers (host C++ built from the checkout with the host's
    ``c++`` in phase 1), after phase 8: (a) every fixture of
    ``tests/fixtures/torch_port_jpeg`` and ``tests/fixtures/torch_port_images``
-   (sequential, progressive, CMYK and YCCK JPEG; PNG of every colour type
-   and depth, Adam7 or not) decoded to PIL's pixels (sha256; the white
-   composite too where PIL opens it as RGBA), or refused naming block
-   smoothing where libjpeg would smooth it; (b)
+   (sequential, progressive, block-smoothed, arithmetic-coded, lossless,
+   CMYK and YCCK JPEG; PNG of every colour type and depth, Adam7 or not)
+   decoded to PIL's pixels (sha256; the white composite too where PIL
+   opens it as RGBA); (b)
    ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
    1067x800 JPEG frames (``frame_annotations.jgz``; 9 sequences, so no val
    split) at phase 5's point for 3 steps: K1, K2, K3a and K3b exactly the
    train step's launches per step, no plain call, finite losses; (c) the
    native reader held to ``load_view_plain`` on 4 views, ``cli.train.main
    --native-loader`` on phase 5's corpus for 2 steps; (d) right after
-   phase 7c, on phase 3's pipeline: phase 3's call from a progressive
-   JPEG source (a 1067x800 frame through ``load_image``) and from its
-   pixels as PNG, sources and images bitwise equal, K1 1312 and K2 1333
-   each with no plain call, then one server request with the progressive
-   JPEG base64-encoded (the server's decode PIL's pixels, phase 3's
-   launches); (e) ``cli.train.main`` for 2 steps at phase 5's point on 9
+   phase 7c, on phase 3's pipeline: phase 3's call from CO3D's 1067x800
+   frame through ``load_image`` as a progressive, a block-smoothed
+   progressive, an arithmetic-coded and a lossless JPEG (the last two
+   written on the host by the fixture script's ``frame_forms``; each
+   decode PIL's pixels by digest, its Huffman twin's, or its source's) and
+   from each one's pixels as PNG, sources and images bitwise equal, K1 1312
+   and K2 1333 each with no plain call, then a server request with the
+   progressive and one with the arithmetic-coded JPEG base64-encoded (the
+   server's decode those pixels, phase 3's launches); (e)
+   ``cli.train.main`` for 2 steps at phase 5's point on 9
    objects of 16-bit Adam7 RGBA PNG renders: the train step's launches per
    step, no plain call, finite losses, and its first batch bitwise that
    of an 8-bit corpus of the same high bytes; then the host ms to decode a
-   1067x800 frame as progressive JPEG, baseline JPEG, 16-bit PNG and
-   Adam7 PNG, the host ms per 768² view of the PIL path, the native
+   1067x800 frame as progressive, baseline, block-smoothed, arithmetic-coded
+   and lossless JPEG, 16-bit PNG and Adam7 PNG, the host ms per 768² view
+   of the PIL path, the native
    reader and a JPEG frame, and the loader's seconds a batch of 6 with
    each reader, in turns, against the step, beside the card's name and
    power limit.
@@ -2513,6 +2518,7 @@ IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests
                               "torch_port_images")
 CO3D_FRAMES_SRC = ("frame_a.jpg", "frame_b.jpg")
 PROG_SOURCE = "frame_a_prog.jpg"  # frame_a.jpg's frame written progressive by PIL
+SMOOTH_SOURCE = "frame_a_smooth.jpg"  # its pixels as a progressive JPEG libjpeg block-smooths
 # (e): 16-bit interlaced renders; under 10 objects, so no val split
 DEEP_OBJECTS, DEEP_STEPS, DECODE_TURNS = 9, 2, 5
 CO3D_SEQUENCES, CO3D_FRAMES, CO3D_STEPS, NATIVE_STEPS = 9, 4, 3, 2
@@ -2530,7 +2536,7 @@ def fixture_digests() -> dict:
 def image_digests() -> dict:
     """name -> PIL's mode, the sha256 and shape of its pixels (and of the
     loaders' white composite where the mode is RGBA) of each progressive,
-    CMYK/YCCK and PNG fixture; the refused ones also name their refusal."""
+    block-smoothed, arithmetic-coded, lossless, CMYK/YCCK and PNG fixture."""
     with open(os.path.join(IMAGE_FIXTURES, "pil_sha256.json")) as f:
         return json.load(f)
 
@@ -2626,16 +2632,48 @@ def _loader_s_per_batch(loader, batches: int = LOADER_BATCHES) -> float:
         _join_loader_threads()
 
 
-def phase_reader_generation(call, card: str) -> dict:
+def frame_sources() -> dict:
+    """CO3D's 1067x800 frame (``frame_a.jpg``) as phase 9d's sources: form ->
+    (JPEG bytes, the sha256 its decode must have, whose pixels those are).
+    The progressive and block-smoothed files are fixtures with PIL's
+    digests; the arithmetic-coded (SOF9, 4:2:0, IJG quality 85) and lossless
+    (SOF3, RGB) files are written here by the fixture script's
+    ``frame_forms`` from the frame's pixels, as a host without PIL can: the
+    first must decode to its Huffman twin's pixels (the same coefficients),
+    the second to the frame's pixels."""
+    from mvd_tpu_torch.utils.images import decode_jpeg
+
+    def read(folder, name):
+        with open(os.path.join(folder, name), "rb") as f:
+            return f.read()
+
+    def sha(a):
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    pixels = decode_jpeg(read(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]))
+    forms = image_fixture_script().frame_forms(pixels)
+    digests = image_digests()
+    return {
+        "progressive JPEG": (read(IMAGE_FIXTURES, PROG_SOURCE), digests[PROG_SOURCE]["sha256"], "PIL's"),
+        "block-smoothed progressive JPEG": (read(IMAGE_FIXTURES, SMOOTH_SOURCE), digests[SMOOTH_SOURCE]["sha256"],
+                                            "PIL's"),
+        "arithmetic-coded JPEG": (forms["arithmetic"], sha(decode_jpeg(forms["huffman"])), "its Huffman twin's"),
+        "lossless JPEG": (forms["lossless"], sha(pixels), "its source's"),
+    }
+
+
+def phase_reader_generation(call, sources: dict, card: str) -> dict:
     """Phase 9d, on phase 3's pipeline and weights while they are up: phase
-    3's call from a progressive-JPEG source (``frame_a_prog.jpg``, 1067x800,
-    read by ``load_image`` at 512² as ``cli.infer --image-path`` reads it)
-    and from that source's decoded pixels re-encoded as PNG: the two
-    sources and the two generations bitwise equal, each with K1 and K2
-    exactly phase 3's launches and no plain call; then one request to the
-    HTTP server carrying the progressive JPEG, base64-encoded, whose decode
-    in the server is PIL's pixels (sha256) and whose launches are phase
-    3's. Returns the metrics."""
+    3's call from CO3D's frame as each of ``sources`` (``frame_sources``)
+    (progressive, block-smoothed progressive, arithmetic-coded and lossless
+    JPEG, read by ``load_image`` at 512² as ``cli.infer --image-path`` reads
+    it) and from that source's decoded pixels re-encoded as PNG: each
+    decode the pixels it must be, the two sources and the two generations
+    bitwise equal, each call with K1 and K2 exactly phase 3's launches and
+    no plain call; then a request to the HTTP server carrying the
+    progressive JPEG and one carrying the arithmetic-coded JPEG,
+    base64-encoded, whose decodes in the server are those pixels (sha256)
+    and whose launches are phase 3's. Returns the metrics."""
     import base64
     import threading
     import urllib.request
@@ -2651,40 +2689,38 @@ def phase_reader_generation(call, card: str) -> dict:
     t_phase = time.perf_counter()
     pipe, prompts, kwargs = call
     want = expected_launches(pipe, STEPS)
-    digest = image_digests()[PROG_SOURCE]
-    with open(os.path.join(IMAGE_FIXTURES, PROG_SOURCE), "rb") as f:
-        jpeg = f.read()
-    pixels = decode_jpeg(jpeg)
-    if hashlib.sha256(pixels.tobytes()).hexdigest() != digest["sha256"]:
-        raise AssertionError(f"(d): {PROG_SOURCE} does not decode to PIL's pixels")
-    tmp = tempfile.mkdtemp(prefix="mvd_prog_")
-    sources, images, secs = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="mvd_frames_")
+    secs = {}
     try:
-        for label, name, data in (("progressive JPEG", "source.jpg", jpeg),
-                                  ("its pixels as PNG", "source.png", encode_png(pixels))):
-            path = os.path.join(tmp, name)
-            with open(path, "wb") as f:
-                f.write(data)
-            src = load_image(path, RES)[None]  # [-1, 1], as cli.infer reads --image-path
-            sources[label] = src
-            run = dict(kwargs, source_images=(src + 1) / 2)
-            out, secs[label], _ = _counted_call(lambda: pipe(prompts, seed=0, **run), want,
-                                                f"[readers] (d) {label} source,")
-            _check_images(out["images"], f"(d) {label}")
-            images[label] = out["images"]
+        for form, (jpeg, digest, whose) in sources.items():
+            pixels = decode_jpeg(jpeg)
+            if hashlib.sha256(pixels.tobytes()).hexdigest() != digest:
+                raise AssertionError(f"(d): the {form} frame does not decode to {whose} pixels")
+            srcs, imgs = [], []
+            for label, name, data in ((form, "source.jpg", jpeg),
+                                      (f"{form}'s pixels as PNG", "source.png", encode_png(pixels))):
+                path = os.path.join(tmp, name)
+                with open(path, "wb") as f:
+                    f.write(data)
+                src = load_image(path, RES)[None]  # [-1, 1], as cli.infer reads --image-path
+                run = dict(kwargs, source_images=(src + 1) / 2)
+                out, secs[label], _ = _counted_call(lambda: pipe(prompts, seed=0, **run), want,
+                                                    f"[readers] (d) {label} source,")
+                _check_images(out["images"], f"(d) {label}")
+                srcs.append(src)
+                imgs.append(out["images"])
+            if not np.array_equal(*srcs) or not torch.equal(*imgs):
+                raise AssertionError(f"(d): the {form} source or images differ from its PNG's")
+            print(f"[readers] (d) phase 3's call ({VIEWS} views, {RES}², DDPM {STEPS}, guidance 1.0) from the "
+                  f"1067x800 frame as {form} ({len(jpeg)} bytes; its decode {whose} pixels) and from its pixels "
+                  f"as PNG: sources and images bitwise equal; launches {want} each, no plain call")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    (sa, sb), (ia, ib) = sources.values(), images.values()
-    if not np.array_equal(sa, sb) or not torch.equal(ia, ib):
-        raise AssertionError("(d): the progressive JPEG's source or images differ from its PNG's")
-    print(f"[readers] (d) phase 3's call ({VIEWS} views, {RES}², DDPM {STEPS}, guidance 1.0) from "
-          f"{PROG_SOURCE} (1067x800 progressive, {len(jpeg)} bytes) and from its pixels as PNG: sources "
-          f"and images bitwise equal; launches {want} each, no plain call")
 
     srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(pipe, RES, threading.Lock()))
     server = threading.Thread(target=srv.serve_forever, daemon=True)
     server.start()
-    decoded = []
+    decoded, latency = [], {}
 
     def recorded(decode):
         def run(data, *a, **k):
@@ -2694,86 +2730,60 @@ def phase_reader_generation(call, card: str) -> dict:
         return run
 
     try:
-        payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": 5,
-                   "source_image_b64": base64.b64encode(jpeg).decode()}
-        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/generate",
-                                     data=json.dumps(payload).encode(),
-                                     headers={"Content-Type": "application/json"})
-        with _Hooks() as hooks:
-            hooks.wrap(serve_mod, "decode_image", recorded)
-            reset_counts()
-            with urllib.request.urlopen(req, timeout=600) as r:
-                if r.status != 200:
-                    raise AssertionError(f"(d): /generate answered {r.status}")
-                reply = json.loads(r.read())
-            launches, plain = read_counts()
+        for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG"), start=5):
+            jpeg, digest, whose = sources[form]
+            payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": seed,
+                       "source_image_b64": base64.b64encode(jpeg).decode()}
+            req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/generate",
+                                         data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            decoded.clear()
+            with _Hooks() as hooks:
+                hooks.wrap(serve_mod, "decode_image", recorded)
+                reset_counts()
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"(d): /generate answered {r.status}")
+                    reply = json.loads(r.read())
+                launches, plain = read_counts()
+            got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() for img in decoded]
+            if got != [digest] or launches != want or any(plain.values()):
+                raise AssertionError(f"(d) serve, {form}: decoded {got} ({whose} {digest}), launches {launches} "
+                                     f"!= {want}, plain {plain}")
+            if len(reply["images_b64"]) != VIEWS:
+                raise AssertionError(f"(d) serve: {len(reply['images_b64'])} images")
+            for b64 in reply["images_b64"]:
+                _check_png(base64.b64decode(b64), (RES, RES, 3), "(d) serve")
+            latency[form] = reply["latency_s"]
+            print(f"[readers] (d) serve: a /generate request with the {form} base64-encoded answered 200 with "
+                  f"{VIEWS} PNGs in {reply['latency_s']:.2f} s; the server's decode is {whose} pixels (sha256 "
+                  f"{got[0][:16]}...); launches {launches}, no plain call")
     finally:
         srv.shutdown()
         srv.server_close()
         server.join(timeout=60)
-    got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() for img in decoded]
-    if got != [digest["sha256"]] or launches != want or any(plain.values()):
-        raise AssertionError(f"(d) serve: decoded {got} (PIL's {digest['sha256']}), launches {launches} "
-                             f"!= {want}, plain {plain}")
-    if len(reply["images_b64"]) != VIEWS:
-        raise AssertionError(f"(d) serve: {len(reply['images_b64'])} images")
-    for b64 in reply["images_b64"]:
-        _check_png(base64.b64decode(b64), (RES, RES, 3), "(d) serve")
-    metrics = dict(first_call_s=secs, serve_latency_s=reply["latency_s"], launches=launches,
+    metrics = dict(first_call_s=secs, serve_latency_s=latency, launches=launches,
                    phase_s=time.perf_counter() - t_phase)
-    print(f"[readers] (d) serve: a /generate request with the progressive JPEG base64-encoded answered "
-          f"200 with {VIEWS} PNGs in {reply['latency_s']:.2f} s; the server's decode is PIL's pixels "
-          f"(sha256 {got[0][:16]}...); launches {launches}, no plain call; (d) in "
+    print(f"[readers] (d) {len(sources)} forms, {2 * len(sources)} calls and {len(latency)} requests in "
           f"{metrics['phase_s']:.1f} s ({card})")
     return metrics
 
 
-def phase_readers(corpus: str, card: str) -> tuple:
-    """Phase 9, the image readers (host C++ built from the checkout with the
-    host's ``c++`` in phase 1): (a) every JPEG fixture decoded to PIL's
-    pixels (sha256; the refused ones raise naming their feature);
-    (b) ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
-    JPEG frames at the YAML's point (batch 6, 768²) for 3 steps: K1, K2,
-    K3a and K3b exactly ``expected_train_launches`` per step (no validation:
-    no val split), no plain call, finite losses; (c) the native reader on
-    phase 5's corpus against ``load_view_plain`` on 4 views, then
-    ``cli.train.main --native-loader`` for 2 steps with K3a/K3b per step;
-    then the host ms per 768² view of each reader and the loader's seconds
-    a batch of 6 with each, in turns, against the step. Returns (the CO3D
-    run's launches per step, metrics)."""
-    import numpy as np
-    import torch
-
-    from mvd_tpu_torch.cli import train as train_cli
-    from mvd_tpu_torch.data import native_loader
-    from mvd_tpu_torch.data.co3d import CO3DDataset
-    from mvd_tpu_torch.data.objaverse import DataLoader, ObjaverseDataset, _load_image_from_bytes
-    from mvd_tpu_torch.data.tokenizer import HashTokenizer
+def check_fixture_digests() -> None:
+    """Phase 9a: every JPEG and PNG fixture decoded to PIL's pixels by
+    sha256 (the white composite too where PIL opens it as RGBA), with the
+    libraries phase 1 built."""
     from mvd_tpu_torch.kernels import HOST_SOURCES, _build
-    from mvd_tpu_torch.utils.images import decode_image, decode_jpeg, decode_png
+    from mvd_tpu_torch.utils.images import decode_image
 
-    t_phase = time.perf_counter()
-    base = ["--config", TRAIN_YAML, "--batch-size", str(TRAIN_BATCH), "--image-size", str(TRAIN_RES)]
-    size, batch, metrics = TRAIN_RES, TRAIN_BATCH, {}
-
-    # (a) every fixture against PIL's digest (phase 1 built the libraries)
     for name in HOST_SOURCES:
         if _build.build_host(name) != os.path.join(_build.BUILD_DIR, f"lib{name}.so"):
             raise AssertionError(f"{name}: not built into {_build.BUILD_DIR}")
-    decoded, composites, refused = [], 0, []
+    decoded, composites = [], 0
     for folder, digests in ((JPEG_FIXTURES, fixture_digests()), (IMAGE_FIXTURES, image_digests())):
         for name, want in sorted(digests.items()):
             with open(os.path.join(folder, name), "rb") as f:
                 data = f.read()
-            if "refused" in want:
-                try:
-                    decode_image(data)
-                except ValueError as e:
-                    if want["refused"] not in str(e):
-                        raise AssertionError(f"{name}: refused with {e!r}, not for {want['refused']}")
-                    refused.append(name)
-                    continue
-                raise AssertionError(f"{name}: decoded, but the port refuses {want['refused']}")
             img = decode_image(data)
             if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"] or list(img.shape) != want["shape"]:
                 raise AssertionError(f"{name}: the decode is not PIL's pixels")
@@ -2784,10 +2794,83 @@ def phase_readers(corpus: str, card: str) -> tuple:
                 composites += 1
             decoded.append(name)
     n_png = sum(n.endswith(".png") for n in decoded)
-    print(f"[readers] (a) {len(decoded) - n_png} JPEG (sequential, progressive, CMYK, YCCK) and {n_png} PNG "
-          f"(every colour type and depth, Adam7 or not) fixtures decode bitwise to PIL's pixels (sha256; "
-          f"{composites} white composites of PIL's RGBA images too); {refused} refused naming their "
-          f"feature, as they must be")
+    forms = {k: sum(n.startswith(k) for n in decoded) for k in ("smooth", "arith", "lossless")}
+    print(f"[readers] (a) {len(decoded) - n_png} JPEG (sequential, progressive, CMYK, YCCK; "
+          f"{forms['smooth']} block-smoothed, {forms['arith']} arithmetic-coded, {forms['lossless']} lossless) "
+          f"and {n_png} PNG (every colour type and depth, Adam7 or not) fixtures decode bitwise to PIL's pixels "
+          f"(sha256; {composites} white composites of PIL's RGBA images too)")
+
+
+def frame_decode_ms(sources: dict, card: str) -> dict:
+    """The host ms to decode CO3D's 1067x800 frame seven ways (progressive,
+    baseline, 16-bit RGBA PNG, Adam7 PNG, and 9d's block-smoothed,
+    arithmetic-coded and lossless JPEGs of ``sources``), in turns on one
+    thread: the median, min and max of ``DECODE_TURNS`` and each file's
+    bytes."""
+    import numpy as np
+
+    from mvd_tpu_torch.utils.images import decode_jpeg, decode_png
+
+    fx, frng = image_fixture_script(), np.random.default_rng(9)
+    with open(os.path.join(IMAGE_FIXTURES, PROG_SOURCE), "rb") as f:
+        prog = f.read()
+    with open(os.path.join(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]), "rb") as f:
+        base_jpg = f.read()
+    frame = decode_jpeg(base_jpg)
+    rgba = np.dstack([frame, np.full(frame.shape[:2], 255, np.uint8)]).astype(np.int64)
+    png16 = fx.encode_png((rgba << 8) | frng.integers(0, 256, rgba.shape), 16, 6, filters=frng)
+    png_i = fx.encode_png(rgba, 8, 6, interlace=1, filters=frng)
+    decoders = {"progressive JPEG": lambda: decode_jpeg(prog), "baseline JPEG": lambda: decode_jpeg(base_jpg),
+                "16-bit RGBA PNG": lambda: decode_png(png16), "Adam7 8-bit RGBA PNG": lambda: decode_png(png_i)}
+    new_forms = {k: v[0] for k, v in sources.items() if k != "progressive JPEG"}
+    decoders.update({k: (lambda d=d: decode_jpeg(d)) for k, d in new_forms.items()})
+    if not (np.array_equal(decode_png(png16), frame) and np.array_equal(decode_png(png_i), frame)):
+        raise AssertionError("the frame's PNGs do not decode to the frame")
+    dms = {k: [] for k in decoders}
+    for _ in range(DECODE_TURNS):
+        for k, fn in decoders.items():
+            t0 = time.perf_counter()
+            fn()
+            dms[k].append((time.perf_counter() - t0) * 1e3)
+    decode_ms = {k: statistics.median(v) for k, v in dms.items()}
+    decode_range = {k: [min(v), max(v)] for k, v in dms.items()}
+    sizes = {"progressive JPEG": len(prog), "baseline JPEG": len(base_jpg), "16-bit RGBA PNG": len(png16),
+             "Adam7 8-bit RGBA PNG": len(png_i), **{k: len(d) for k, d in new_forms.items()}}
+    print(f"[readers] host ms to decode a 1067x800 frame, median of {DECODE_TURNS} in turns (one thread; "
+          f"PNG rows of a seeded filter type each; {card}): "
+          + "; ".join(f"{k} ({sizes[k]} bytes) {v:.2f} [{decode_range[k][0]:.2f}-{decode_range[k][1]:.2f}]"
+                      for k, v in decode_ms.items()))
+    return dict(decode_ms=decode_ms, decode_ms_range=decode_range, decode_bytes=sizes)
+
+
+def phase_readers(corpus: str, sources: dict, card: str) -> tuple:
+    """Phase 9, the image readers (host C++ built from the checkout with the
+    host's ``c++`` in phase 1): (a) ``check_fixture_digests``;
+    (b) ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
+    JPEG frames at the YAML's point (batch 6, 768²) for 3 steps: K1, K2,
+    K3a and K3b exactly ``expected_train_launches`` per step (no validation:
+    no val split), no plain call, finite losses; (c) the native reader on
+    phase 5's corpus against ``load_view_plain`` on 4 views, then
+    ``cli.train.main --native-loader`` for 2 steps with K3a/K3b per step;
+    then ``frame_decode_ms`` of 9d's ``sources``, the host ms per 768² view
+    of each reader and the loader's seconds a batch of 6 with each, in
+    turns, against the step.
+    Returns (the CO3D run's launches per step, metrics)."""
+    import numpy as np
+    import torch
+
+    from mvd_tpu_torch.cli import train as train_cli
+    from mvd_tpu_torch.data import native_loader
+    from mvd_tpu_torch.data.co3d import CO3DDataset
+    from mvd_tpu_torch.data.objaverse import DataLoader, ObjaverseDataset, _load_image_from_bytes
+    from mvd_tpu_torch.data.tokenizer import HashTokenizer
+    from mvd_tpu_torch.utils.images import decode_jpeg
+
+    t_phase = time.perf_counter()
+    base = ["--config", TRAIN_YAML, "--batch-size", str(TRAIN_BATCH), "--image-size", str(TRAIN_RES)]
+    size, batch, metrics = TRAIN_RES, TRAIN_BATCH, {}
+
+    check_fixture_digests()  # (a)
 
     tmp = tempfile.mkdtemp(prefix="mvd_readers_")
     try:
@@ -2914,33 +2997,7 @@ def phase_readers(corpus: str, card: str) -> tuple:
         del tr
         torch.cuda.empty_cache()
 
-        # host ms to decode a frame of CO3D's size four ways, in turns
-        fx, frng = image_fixture_script(), np.random.default_rng(9)
-        with open(os.path.join(IMAGE_FIXTURES, PROG_SOURCE), "rb") as f:
-            prog = f.read()
-        with open(os.path.join(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]), "rb") as f:
-            base_jpg = f.read()
-        frame = decode_jpeg(base_jpg)
-        rgba = np.dstack([frame, np.full(frame.shape[:2], 255, np.uint8)]).astype(np.int64)
-        png16 = fx.encode_png((rgba << 8) | frng.integers(0, 256, rgba.shape), 16, 6, filters=frng)
-        png_i = fx.encode_png(rgba, 8, 6, interlace=1, filters=frng)
-        decoders = {"progressive JPEG": lambda: decode_jpeg(prog), "baseline JPEG": lambda: decode_jpeg(base_jpg),
-                    "16-bit RGBA PNG": lambda: decode_png(png16), "Adam7 8-bit RGBA PNG": lambda: decode_png(png_i)}
-        if not (np.array_equal(decode_png(png16), frame) and np.array_equal(decode_png(png_i), frame)):
-            raise AssertionError("the frame's PNGs do not decode to the frame")
-        dms = {k: [] for k in decoders}
-        for _ in range(DECODE_TURNS):
-            for k, fn in decoders.items():
-                t0 = time.perf_counter()
-                fn()
-                dms[k].append((time.perf_counter() - t0) * 1e3)
-        decode_ms = {k: statistics.median(v) for k, v in dms.items()}
-        sizes = {"progressive JPEG": len(prog), "baseline JPEG": len(base_jpg), "16-bit RGBA PNG": len(png16),
-                 "Adam7 8-bit RGBA PNG": len(png_i)}
-        print(f"[readers] host ms to decode a 1067x800 frame, median of {DECODE_TURNS} in turns (one thread; "
-              f"PNG rows of a seeded filter type each; {card}): "
-              + "; ".join(f"{k} ({sizes[k]} bytes) {v:.2f}" for k, v in decode_ms.items()))
-        metrics.update(decode_ms=decode_ms, decode_bytes=sizes)
+        metrics.update(frame_decode_ms(sources, card))
 
         # host ms per view of each reader, in turns (one thread)
         with zipfile.ZipFile(zp) as z:
@@ -4374,7 +4431,11 @@ def main(argv=None) -> int:
     results["flash_attn_fwd"].extend(phase_model_axis_kernels(card))
     model_launches, model_metrics = phase_model_axis(call, images, card)
     model_metrics["phase_s"] = time.perf_counter() - t_model
-    prog_metrics = phase_reader_generation(call, card)  # 9d, on phase 3's pipeline while it is up
+    t0 = time.perf_counter()
+    frames = frame_sources()
+    print(f"[readers] (d) the arithmetic-coded and lossless frames written in {time.perf_counter() - t0:.2f} s "
+          f"({card})")
+    prog_metrics = phase_reader_generation(call, frames, card)  # 9d, on phase 3's pipeline while it is up
     orbax_src = orbax_export(call)  # phase 10b's source: phase 3's weights in host memory
     orbax_src["images"] = images
     del call, images  # free the generation pipelines before the train phase
@@ -4403,7 +4464,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         val_launches, val_metrics = phase_val(corpus, run_root, card)
         torch.cuda.empty_cache()
-        co3d_launches, reader_metrics = phase_readers(corpus, card)
+        co3d_launches, reader_metrics = phase_readers(corpus, frames, card)
         reader_metrics["generation"] = prog_metrics
         torch.cuda.empty_cache()
         orbax_metrics = phase_orbax(orbax_src, corpus, run_root, card)

@@ -21,7 +21,10 @@
 //     each), which decide whether libjpeg block-smooths the image;
 //   * dequantization with the table latched at the component's first scan
 //     and the islow IDCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2, the
-//     post-IDCT range-limit table indexed by the value & 1023);
+//     post-IDCT range-limit table indexed by the value & 1023); PIL runs
+//     libjpeg-turbo's SIMD form of it, which is the same on every
+//     coefficient a conforming encoder writes and saturates where this
+//     one wraps on corrupt data (ROADMAP Queue 3, fault 12);
 //   * jdsample.c's upsampling: h2v1 "fancy" (biases 1 and 2, edge columns
 //     copied), h1v2 fancy (biases 1 and 2), h2v2 fancy (biases 8 and 7,
 //     rows above the first and below the last real row replicated, as
@@ -35,20 +38,42 @@
 //     CMYK by jdcolor.c's ycck_cmyk_convert; PIL reads CMYK as "CMYK;I"
 //     (255 - each sample, with or without an Adobe marker) and its
 //     convert("RGB") gives K' - MULDIV255(C', K') per channel, K' = 255 -
-//     its K.
+//     its K;
+//   * arithmetic-coded frames (SOF9 sequential, SOF10 progressive; T.81
+//     Annex D, F.1.4 and G.1.3), decoded as jdarith.c decodes them: the C
+//     and A registers with jaricom.c's 113-entry Qe table, 64 DC and 256
+//     AC statistics bins a table slot, DAC conditioning (L, U, Kx; 0, 1
+//     and 5 by default), zeros fed after a marker, statistics and DC
+//     contexts reset at each restart, libjpeg's give-up (ct = -1) on a
+//     bad code until the next restart;
+//   * lossless frames (SOF3, Huffman; jdlossls.c, jddiffct.c, jdlhuff.c of
+//     libjpeg-turbo 3): predictors 1-7, the point transform, the initial
+//     predictor 2^(P-Pt-1) on the first row and on the first row that
+//     libjpeg undifferences after a restart, difference categories 0-16,
+//     interleaved MCUs of one sample a sampling unit, samples modulo 2^16
+//     shifted left by Pt; upsampling by replication (libjpeg's fancy
+//     upsampling needs a DCT size above 1); only the colour spaces libjpeg
+//     leaves unconverted in lossless mode (gray, RGB, CMYK);
+//   * block smoothing (jdcoefct.c:decompress_smooth_data, libjpeg-turbo
+//     3.1, on by default and left on by PIL) of a progressive image whose
+//     scans leave one of the first nine AC coefficients of a component
+//     unrefined (smoothing_ok on the final coef_bits, as PIL reads every
+//     scan before the output pass): the 5x5 DC neighbourhood in libjpeg's
+//     sliding registers, its DC-only estimate (change_dc) and the
+//     estimates of AC 1-9 rounded against Q00 x Qkl and clamped below
+//     2^Al.
 //
-// EXIF orientation is not applied (PIL's open does not). Arithmetic-coded,
-// lossless, hierarchical and 12-bit images are refused with a message
-// naming the marker or the feature, as is a progressive image whose scans
-// leave one of the first nine AC coefficients of a component unrefined
-// (coef_bits not 0; a DC-only file among them): libjpeg decodes such a file
-// with block smoothing (jdcoefct.c:decompress_smooth_data, on by default
-// and left on by PIL), which is not ported. So is entropy data that runs
-// past its end (at the end of the MCU row where it does), a DC Huffman
-// table with a symbol above 15 (as libjpeg refuses it), sampling factors
-// of more than 10 blocks in an interleaved MCU (as libjpeg refuses them)
-// and a header of more pixels than PIL's decompression-bomb limit (refused
-// before anything is allocated, as Image.open refuses it).
+// EXIF orientation is not applied (PIL's open does not). What PIL refuses
+// is refused with a message naming it: hierarchical frames (SOF5-7,
+// SOF13-15), lossless arithmetic coding (SOF11), precision other than 8
+// bits, a height of 0 (DNL), a lossless frame in a colour space libjpeg
+// would convert (YCbCr, YCCK). So is entropy data of a Huffman scan that
+// runs past its end (at the end of the MCU row where it does), a DC
+// Huffman table with a symbol above 15 (16 in a lossless frame) as libjpeg
+// refuses it, sampling factors of more than 10 blocks in an interleaved
+// MCU (as libjpeg refuses them) and a header of more pixels than PIL's
+// decompression-bomb limit (refused before anything is allocated, as
+// Image.open refuses it).
 //
 // Bound: host work, a few tens of operations per pixel; no device part.
 
@@ -209,6 +234,131 @@ struct BitReader {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v + (-(1 << s) + 1) : v; }
 
+// jaricom.c:jpeg_aritab, T.81 Table D.2: Qe_Value << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+#define QE(i, qe, lps, mps, sw) ((uint32_t(qe) << 16) | (uint32_t(mps) << 8) | (uint32_t(sw) << 7) | uint32_t(lps))
+const uint32_t kAriTab[114] = {
+    QE(0, 0x5a1d, 1, 1, 1),       QE(1, 0x2586, 14, 2, 0),      QE(2, 0x1114, 16, 3, 0),
+    QE(3, 0x080b, 18, 4, 0),      QE(4, 0x03d8, 20, 5, 0),      QE(5, 0x01da, 23, 6, 0),
+    QE(6, 0x00e5, 25, 7, 0),      QE(7, 0x006f, 28, 8, 0),      QE(8, 0x0036, 30, 9, 0),
+    QE(9, 0x001a, 33, 10, 0),     QE(10, 0x000d, 35, 11, 0),    QE(11, 0x0006, 9, 12, 0),
+    QE(12, 0x0003, 10, 13, 0),    QE(13, 0x0001, 12, 13, 0),    QE(14, 0x5a7f, 15, 15, 1),
+    QE(15, 0x3f25, 36, 16, 0),    QE(16, 0x2cf2, 38, 17, 0),    QE(17, 0x207c, 39, 18, 0),
+    QE(18, 0x17b9, 40, 19, 0),    QE(19, 0x1182, 42, 20, 0),    QE(20, 0x0cef, 43, 21, 0),
+    QE(21, 0x09a1, 45, 22, 0),    QE(22, 0x072f, 46, 23, 0),    QE(23, 0x055c, 48, 24, 0),
+    QE(24, 0x0406, 49, 25, 0),    QE(25, 0x0303, 51, 26, 0),    QE(26, 0x0240, 52, 27, 0),
+    QE(27, 0x01b1, 54, 28, 0),    QE(28, 0x0144, 56, 29, 0),    QE(29, 0x00f5, 57, 30, 0),
+    QE(30, 0x00b7, 59, 31, 0),    QE(31, 0x008a, 60, 32, 0),    QE(32, 0x0068, 62, 33, 0),
+    QE(33, 0x004e, 63, 34, 0),    QE(34, 0x003b, 32, 35, 0),    QE(35, 0x002c, 33, 9, 0),
+    QE(36, 0x5ae1, 37, 37, 1),    QE(37, 0x484c, 64, 38, 0),    QE(38, 0x3a0d, 65, 39, 0),
+    QE(39, 0x2ef1, 67, 40, 0),    QE(40, 0x261f, 68, 41, 0),    QE(41, 0x1f33, 69, 42, 0),
+    QE(42, 0x19a8, 70, 43, 0),    QE(43, 0x1518, 72, 44, 0),    QE(44, 0x1177, 73, 45, 0),
+    QE(45, 0x0e74, 74, 46, 0),    QE(46, 0x0bfb, 75, 47, 0),    QE(47, 0x09f8, 77, 48, 0),
+    QE(48, 0x0861, 78, 49, 0),    QE(49, 0x0706, 79, 50, 0),    QE(50, 0x05cd, 48, 51, 0),
+    QE(51, 0x04de, 50, 52, 0),    QE(52, 0x040f, 50, 53, 0),    QE(53, 0x0363, 51, 54, 0),
+    QE(54, 0x02d4, 52, 55, 0),    QE(55, 0x025c, 53, 56, 0),    QE(56, 0x01f8, 54, 57, 0),
+    QE(57, 0x01a4, 55, 58, 0),    QE(58, 0x0160, 56, 59, 0),    QE(59, 0x0125, 57, 60, 0),
+    QE(60, 0x00f6, 58, 61, 0),    QE(61, 0x00cb, 59, 62, 0),    QE(62, 0x00ab, 61, 63, 0),
+    QE(63, 0x008f, 61, 32, 0),    QE(64, 0x5b12, 65, 65, 1),    QE(65, 0x4d04, 80, 66, 0),
+    QE(66, 0x412c, 81, 67, 0),    QE(67, 0x37d8, 82, 68, 0),    QE(68, 0x2fe8, 83, 69, 0),
+    QE(69, 0x293c, 84, 70, 0),    QE(70, 0x2379, 86, 71, 0),    QE(71, 0x1edf, 87, 72, 0),
+    QE(72, 0x1aa9, 87, 73, 0),    QE(73, 0x174e, 72, 74, 0),    QE(74, 0x1424, 72, 75, 0),
+    QE(75, 0x119c, 74, 76, 0),    QE(76, 0x0f6b, 74, 77, 0),    QE(77, 0x0d51, 75, 78, 0),
+    QE(78, 0x0bb6, 77, 79, 0),    QE(79, 0x0a40, 77, 48, 0),    QE(80, 0x5832, 80, 81, 1),
+    QE(81, 0x4d1c, 88, 82, 0),    QE(82, 0x438e, 89, 83, 0),    QE(83, 0x3bdd, 90, 84, 0),
+    QE(84, 0x34ee, 91, 85, 0),    QE(85, 0x2eae, 92, 86, 0),    QE(86, 0x299a, 93, 87, 0),
+    QE(87, 0x2516, 86, 71, 0),    QE(88, 0x5570, 88, 89, 1),    QE(89, 0x4ca9, 95, 90, 0),
+    QE(90, 0x44d9, 96, 91, 0),    QE(91, 0x3e22, 97, 92, 0),    QE(92, 0x3824, 99, 93, 0),
+    QE(93, 0x32b4, 99, 94, 0),    QE(94, 0x2e17, 93, 86, 0),    QE(95, 0x56a8, 95, 96, 1),
+    QE(96, 0x4f46, 101, 97, 0),   QE(97, 0x47e5, 102, 98, 0),   QE(98, 0x41cf, 103, 99, 0),
+    QE(99, 0x3c3d, 104, 100, 0),  QE(100, 0x375e, 99, 93, 0),   QE(101, 0x5231, 105, 102, 0),
+    QE(102, 0x4c0f, 106, 103, 0), QE(103, 0x4639, 107, 104, 0), QE(104, 0x415e, 103, 99, 0),
+    QE(105, 0x5627, 105, 106, 1), QE(106, 0x50e7, 108, 107, 0), QE(107, 0x4b85, 109, 103, 0),
+    QE(108, 0x5597, 110, 109, 0), QE(109, 0x504f, 111, 107, 0), QE(110, 0x5a10, 110, 111, 1),
+    QE(111, 0x5522, 112, 109, 0), QE(112, 0x59eb, 112, 111, 1), QE(113, 0x5a1d, 113, 113, 0)};
+#undef QE
+
+// jdarith.c's decoder state and arith_decode. Past a marker the input
+// supplies zero bytes (legal in arithmetic coding); the position stays at
+// the marker's 0xFF so that a restart or the next segment finds it.
+// `furthest` is the last byte get_byte has read (the data's end if it ran
+// out).
+struct ArithDecoder {
+  const uint8_t* d;
+  size_t n;
+  size_t pos;
+  size_t furthest;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read before the first decision
+  bool stopped = false;
+
+  ArithDecoder(const uint8_t* data, size_t size, size_t start) : d(data), n(size), pos(start), furthest(start) {}
+
+  int byte() {
+    if (stopped) return 0;
+    if (pos >= n) {
+      furthest = n;
+      return 0;
+    }
+    furthest = std::max(furthest, pos);
+    int b = d[pos++];
+    if (b != 0xFF) return b;
+    size_t q = pos;
+    while (q < n && d[q] == 0xFF) ++q;  // fill bytes before a marker
+    furthest = std::max(furthest, q);
+    if (q < n && d[q] == 0) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    stopped = true;
+    pos = q - 1;
+    return 0;
+  }
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+    stopped = false;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalization and data input, T.81 D.2.6
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    const uint8_t nl = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    const uint8_t nm = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - int64_t(qe);
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {  // the upper subinterval: LPS unless the two were exchanged
+      c -= temp;
+      if (a < int64_t(qe)) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < int64_t(qe)) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int ds_w = 0, ds_h = 0;      // samples that hold image data
@@ -217,8 +367,12 @@ struct Component {
   bool scanned = false;
   int coef_bits[64];           // progressive: Al of the last scan of each zigzag coefficient, -1 before
   int16_t quant[64] = {};      // natural order, as ISLOW_MULT_TYPE (short)
+  int quantval[64] = {};       // natural order, the table's own values (smoothing divides by them)
   std::vector<int16_t> coef;   // bh * bw blocks of 64, natural order
-  std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8) samples
+  std::vector<int> samp;       // lossless: ds_h x ds_w undifferenced samples, modulo 2^16
+  int pt = 0;                  // lossless: the point transform of the component's scan
+  std::vector<uint8_t> plane;  // rows of `stride` samples: (bh * 8) x (bw * 8), or ds_h x ds_w
+  int stride = 0;
 };
 
 // libjpeg's post-IDCT range limit: (value & 1023) -> sample, i.e. clamp of
@@ -238,6 +392,8 @@ const RangeLimit kRange;
 // Image.MAX_IMAGE_PIXELS (a DecompressionBombError), before any pixel is
 // decoded; the header is refused here at the same size
 constexpr int64_t kMaxPixels = int64_t(2) * 89478485;
+// the bytes PIL reads of a file at a time (ImageFile.MAXBLOCK)
+constexpr size_t kPilBlock = 65536;
 
 // jidctint.c:jpeg_idct_islow on one block
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
@@ -349,7 +505,11 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {}
+  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {
+    std::fill(arith_dc_L_, arith_dc_L_ + 16, 0);
+    std::fill(arith_dc_U_, arith_dc_U_ + 16, 1);
+    std::fill(arith_ac_K_, arith_ac_K_ + 16, 5);
+  }
 
   // Parse up to the frame header (header_only) or decode the whole image.
   void run(bool header_only) {
@@ -359,22 +519,23 @@ class Decoder {
       int m = next_marker();
       if (m == 0xD9) break;  // EOI
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
         frame(m);
         if (header_only) return;
         continue;
       }
-      if (m == 0xC3) fail("lossless JPEG (SOF3) is not read");
-      if (m >= 0xC5 && m <= 0xC7) fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not read");
-      if (m >= 0xC9 && m <= 0xCF && m != 0xCC)
-        fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + ") is not read");
-      if (m == 0xCC) fail("arithmetic-coded JPEG (DAC) is not read");
+      // jdmarker.c:read_markers refuses the rest (JERR_SOF_UNSUPPORTED)
+      if ((m >= 0xC5 && m <= 0xC7) || (m >= 0xCD && m <= 0xCF))
+        fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not read, as libjpeg does not read it");
+      if (m == 0xCB) fail("lossless arithmetic-coded JPEG (SOF11) is not read, as libjpeg does not read it");
       if (m == 0xDC) fail("JPEG with a DNL marker is not read");
       size_t len = segment_length();
       const uint8_t* s = d_ + pos_ + 2;
       size_t sl = len - 2;
       if (m == 0xC4) {
         dht(s, sl);
+      } else if (m == 0xCC) {
+        dac(s, sl);
       } else if (m == 0xDB) {
         dqt(s, sl);
       } else if (m == 0xDD) {
@@ -401,29 +562,34 @@ class Decoder {
     if (header_only) return;
     for (const Component& c : comps_)
       if (!c.scanned) fail("JPEG ends before every component was scanned");
-    if (needs_block_smoothing())
-      fail("progressive JPEG whose scans leave some of the first nine AC coefficients unrefined: libjpeg "
-           "decodes it with block smoothing, which is not read");
   }
 
   int width() const { return width_; }
   int height() const { return height_; }
 
   void output(uint8_t* out) {
+    const bool smooth = block_smoothing();
     for (Component& c : comps_) {
-      c.plane.assign(size_t(c.bh) * 8 * c.bw * 8, 0);
-      int stride = c.bw * 8;
+      if (lossless_) {  // jdlossls.c's scaler: the sample shifted left by its scan's Pt, as an 8-bit JSAMPLE
+        c.stride = c.ds_w;
+        c.plane.resize(c.samp.size());
+        for (size_t i = 0; i < c.samp.size(); ++i) c.plane[i] = uint8_t(c.samp[i] << c.pt);
+        continue;
+      }
+      c.stride = c.bw * 8;
+      c.plane.assign(size_t(c.bh) * 8 * c.stride, 0);
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx)
           idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.quant,
-                     &c.plane[size_t(by) * 8 * stride + size_t(bx) * 8], stride);
+                     &c.plane[size_t(by) * 8 * c.stride + size_t(bx) * 8], c.stride);
+      if (smooth) smooth_blocks(c);
     }
     const size_t W = size_t(width_), H = size_t(height_);
     if (comps_.size() == 1) {
       const Component& c = comps_[0];
       for (size_t y = 0; y < H; ++y)
         for (size_t x = 0; x < W; ++x) {
-          uint8_t g = c.plane[y * c.bw * 8 + x];
+          uint8_t g = c.plane[y * c.stride + x];
           uint8_t* o = out + (y * W + x) * 3;
           o[0] = o[1] = o[2] = g;
         }
@@ -492,6 +658,7 @@ class Decoder {
   size_t n_;
   size_t pos_ = 0;
   bool have_frame_ = false, saw_jfif_ = false, saw_adobe_ = false, progressive_ = false;
+  bool arith_ = false, lossless_ = false, scanned_any_ = false;
   int adobe_transform_ = 0;
   int width_ = 0, height_ = 0, max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0;
@@ -499,6 +666,12 @@ class Decoder {
   Huffman dc_[4], ac_[4];
   int quant_[4][64] = {};
   bool quant_defined_[4] = {};
+  // arithmetic coding: DAC conditioning (jdmarker.c's defaults L 0, U 1,
+  // Kx 5, set by the constructor) and the statistics bins of each table
+  // slot (jdarith.c)
+  uint8_t arith_dc_L_[16], arith_dc_U_[16], arith_ac_K_[16];
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  uint8_t fixed_bin_ = 113;
 
   int next_marker() {
     // tolerate bytes between segments, as libjpeg does (with a warning)
@@ -517,10 +690,24 @@ class Decoder {
   }
 
   bool color_is_rgb() const {
-    // jdapimin.c:default_decompress_parms for three components
+    // jdapimin.c:default_decompress_parms for three components; without a
+    // JFIF or Adobe marker a lossless frame is RGB whatever its ids
     if (saw_jfif_) return false;
     if (saw_adobe_) return adobe_transform_ == 0;
+    if (lossless_) return true;
     return comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+  }
+
+  // jdcolor.c:jinit_color_deconverter allows no colour conversion in
+  // lossless mode (JERR_CONVERSION_NOTIMPL): YCbCr -> RGB and YCCK -> CMYK
+  // are refused where libjpeg refuses them, before any scan is decoded
+  void check_lossless_color() const {
+    if (comps_.size() == 3 && !color_is_rgb())
+      fail("lossless JPEG in the YCbCr colour space is not read: libjpeg does no colour conversion in "
+           "lossless mode");
+    if (comps_.size() == 4 && saw_adobe_ && adobe_transform_ != 0)
+      fail("lossless JPEG in the YCCK colour space is not read: libjpeg does no colour conversion in "
+           "lossless mode");
   }
 
   void frame(int m) {
@@ -529,7 +716,8 @@ class Decoder {
     const uint8_t* s = d_ + pos_ + 2;
     if (len < 8) fail("JPEG frame header is too short");
     if (s[0] != 8)
-      fail(std::to_string(s[0]) + "-bit JPEG (SOF" + std::to_string(m - 0xC0) + ") is not read (8-bit only)");
+      fail(std::to_string(s[0]) + "-bit " + (m == 0xC3 ? "lossless " : "") + "JPEG (SOF" +
+           std::to_string(m - 0xC0) + ") is not read (8-bit only)");
     height_ = (s[1] << 8) | s[2];
     width_ = (s[3] << 8) | s[4];
     int nc = s[5];
@@ -548,7 +736,9 @@ class Decoder {
       c.v = s[7 + 3 * i] & 15;
       c.tq = s[8 + 3 * i];
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
-      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) fail("JPEG frame header is invalid");
+      // a lossless frame has no quantization tables (libjpeg latches none)
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || (c.tq > 3 && m != 0xC3))
+        fail("JPEG frame header is invalid");
       max_h_ = std::max(max_h_, c.h);
       max_v_ = std::max(max_v_, c.v);
     }
@@ -562,8 +752,26 @@ class Decoder {
       c.bh = nc == 1 ? (c.ds_h + 7) / 8 : mcuy_ * c.v;
     }
     have_frame_ = true;
-    progressive_ = m == 0xC2;
+    progressive_ = m == 0xC2 || m == 0xCA;
+    arith_ = m == 0xC9 || m == 0xCA;
+    lossless_ = m == 0xC3;
     pos_ += len;
+  }
+
+  // jdmarker.c:get_dac
+  void dac(const uint8_t* s, size_t sl) {
+    if (sl % 2) fail("JPEG DAC segment has a bad length");
+    for (size_t p = 0; p < sl; p += 2) {
+      int index = s[p], val = s[p + 1];
+      if (index >= 32) fail("JPEG DAC segment names table " + std::to_string(index));
+      if (index >= 16) {
+        arith_ac_K_[index - 16] = uint8_t(val);
+      } else {
+        arith_dc_L_[index] = uint8_t(val & 15);
+        arith_dc_U_[index] = uint8_t(val >> 4);
+        if (arith_dc_L_[index] > arith_dc_U_[index]) fail("JPEG DAC segment has L above U");
+      }
+    }
   }
 
   void dht(const uint8_t* s, size_t sl) {
@@ -688,18 +896,26 @@ class Decoder {
     int ns = s[0];
     if (ns < 1 || ns > 4 || sl < size_t(4 + 2 * ns)) fail("JPEG SOS segment is invalid");
     const int Ss = s[1 + 2 * ns], Se = s[2 + 2 * ns], Ah = s[3 + 2 * ns] >> 4, Al = s[3 + 2 * ns] & 15;
-    if (progressive_) {
-      // jdphuff.c:start_pass_phuff_decoder's validation (JERR_BAD_PROGRESSION)
+    const std::string params = " Ss=" + std::to_string(Ss) + " Se=" + std::to_string(Se) +
+                               " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al);
+    if (lossless_) {
+      // jdlossls.c:start_pass_lossless (JERR_BAD_PROGRESSION): Ss is the
+      // predictor, Al the point transform
+      if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= 8) fail("JPEG has invalid lossless parameters" + params);
+      if (!scanned_any_) check_lossless_color();
+    } else if (progressive_) {
+      // jdphuff.c / jdarith.c start_pass's validation (JERR_BAD_PROGRESSION)
       bool bad = Ss == 0 ? Se != 0 : (Ss > Se || Se > 63 || ns != 1);
       if (Ah != 0 && Al != Ah - 1) bad = true;
       if (Al > 13) bad = true;
-      if (bad)
-        fail("JPEG has invalid progressive parameters Ss=" + std::to_string(Ss) + " Se=" + std::to_string(Se) +
-             " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al));
+      if (bad) fail("JPEG has invalid progressive parameters" + params);
     }
+    scanned_any_ = true;
     // which tables the scan decodes with: a progressive DC refine scan none,
-    // a DC first scan the DC table, an AC scan the AC table
-    const bool use_dc = !progressive_ || (Ss == 0 && Ah == 0), use_ac = !progressive_ || Ss != 0;
+    // a DC first scan the DC table, an AC scan the AC table, a lossless
+    // scan its DC table
+    const bool use_dc = lossless_ || !progressive_ || (Ss == 0 && Ah == 0);
+    const bool use_ac = !lossless_ && (!progressive_ || Ss != 0);
     std::vector<Component*> sc;
     std::vector<int> tds, tas;
     int blocks_in_mcu = 0;
@@ -710,16 +926,27 @@ class Decoder {
         if (c.id == id) found = &c;
       if (!found) fail("JPEG scan names a component its frame lacks");
       int td = s[2 + 2 * i] >> 4, ta = s[2 + 2 * i] & 15;
-      if ((use_dc && (td > 3 || !dc_[td].defined)) || (use_ac && (ta > 3 || !ac_[ta].defined)))
-        fail("JPEG scan uses a Huffman table that is not defined");
-      // jdhuff.c:jpeg_make_d_derived_tbl refuses a DC table with a symbol
-      // above 15 when a scan takes it (a DC difference has at most 15 bits)
-      if (use_dc && dc_[td].max_val > 15) fail("JPEG DC Huffman table holds a symbol above 15");
+      if (!arith_) {  // arithmetic coding needs no table: 16 slots of statistics
+        if ((use_dc && (td > 3 || !dc_[td].defined)) || (use_ac && (ta > 3 || !ac_[ta].defined)))
+          fail("JPEG scan uses a Huffman table that is not defined");
+        // jdhuff.c:jpeg_make_d_derived_tbl refuses a DC table with a symbol
+        // above 15 when a scan takes it (a DC difference has at most 15
+        // bits; a lossless difference category goes to 16)
+        if (use_dc && dc_[td].max_val > (lossless_ ? 16 : 15))
+          fail("JPEG DC Huffman table holds a symbol above " + std::to_string(lossless_ ? 16 : 15));
+      }
       if (!found->latched) {
-        if (!quant_defined_[found->tq]) fail("JPEG component uses a quantization table that is not defined");
-        for (int k = 0; k < 64; ++k) found->quant[k] = int16_t(quant_[found->tq][k]);
+        if (lossless_) {
+          found->samp.assign(size_t(found->ds_w) * found->ds_h, 0);
+        } else {
+          if (!quant_defined_[found->tq]) fail("JPEG component uses a quantization table that is not defined");
+          for (int k = 0; k < 64; ++k) {
+            found->quantval[k] = quant_[found->tq][k];
+            found->quant[k] = int16_t(quant_[found->tq][k]);
+          }
+          found->coef.assign(size_t(found->bw) * found->bh * 64, 0);
+        }
         found->latched = true;
-        found->coef.assign(size_t(found->bw) * found->bh * 64, 0);
       }
       found->scanned = true;
       if (progressive_) std::fill(found->coef_bits + Ss, found->coef_bits + Se + 1, Al);
@@ -730,16 +957,61 @@ class Decoder {
     }
     // jdinput.c:per_scan_setup (D_MAX_BLOCKS_IN_MCU)
     if (ns > 1 && blocks_in_mcu > 10) fail("JPEG sampling factors are too large for an interleaved scan");
+    if (lossless_) {
+      lossless_scan(sc, tds, Ss, Al);
+      return;
+    }
     BitReader br(d_, n_, pos_);
-    std::vector<int> pred(size_t(ns), 0);
+    ArithDecoder ad(d_, n_, pos_);
+    // PIL hands libjpeg the file 65536 bytes at a time (ImageFile.load's
+    // MAXBLOCK) and jdarith.c's get_byte cannot wait for the next block
+    // (JERR_CANT_SUSPEND): an arithmetic scan must read nothing past the
+    // block its segment header ends in (nor past the file's end)
+    const size_t block_end = std::min(n_, ((pos_ - 1) / kPilBlock + 1) * kPilBlock);
+    std::vector<int> pred(size_t(ns), 0), dc_ctx(size_t(ns), 0);
     unsigned eobrun = 0;
+    bool gave_up = false;  // jdarith.c's ct = -1: a bad code ends the decoding until a restart
+    // jdarith.c:start_pass and process_restart: the statistics the scan
+    // uses, the DC predictions and contexts, the coder's registers
+    auto reset_arith = [&]() {
+      for (size_t i = 0; i < size_t(ns); ++i) {
+        if (!progressive_ || (Ss == 0 && Ah == 0)) {
+          std::memset(dc_stats_[tds[i]], 0, sizeof dc_stats_[0]);
+          pred[i] = dc_ctx[i] = 0;
+        }
+        if (!progressive_ || Ss) std::memset(ac_stats_[tas[i]], 0, sizeof ac_stats_[0]);
+      }
+      ad.reset();
+      gave_up = false;
+    };
+    if (arith_) reset_arith();
     auto block = [&](int i, int16_t* blk) {
-      if (!progressive_) {
-        decode_block(br, dc_[tds[size_t(i)]], ac_[tas[size_t(i)]], pred[size_t(i)], blk);
+      const size_t u = size_t(i);
+      if (arith_) {
+        if (gave_up) return;
+        if (!progressive_) {
+          if (!arith_dc(ad, tds[u], dc_ctx[u], pred[u])) {
+            gave_up = true;
+            return;
+          }
+          blk[0] = int16_t(uint16_t(pred[u]));
+          gave_up = !arith_ac_sequential(ad, tas[u], blk);
+        } else if (Ss == 0 && Ah == 0) {
+          gave_up = !arith_dc(ad, tds[u], dc_ctx[u], pred[u]);
+          if (!gave_up) blk[0] = int16_t(uint32_t(pred[u]) << Al);
+        } else if (Ss == 0) {  // DC refine: the next bit at the fixed 0.5 estimate
+          if (ad.decode(&fixed_bin_)) blk[0] = int16_t(blk[0] | (1 << Al));
+        } else if (Ah == 0) {
+          gave_up = !arith_ac_first(ad, tas[0], Ss, Se, Al, blk);
+        } else {
+          gave_up = !arith_ac_refine(ad, tas[0], Ss, Se, Al, blk);
+        }
+      } else if (!progressive_) {
+        decode_block(br, dc_[tds[u]], ac_[tas[u]], pred[u], blk);
       } else if (Ss == 0 && Ah == 0) {  // DC first
-        int t = br.decode(dc_[tds[size_t(i)]]);
+        int t = br.decode(dc_[tds[u]]);
         int diff = t ? extend(br.get(t), t) : 0;
-        blk[0] = int16_t(unsigned(add_dc(pred[size_t(i)], diff)) << Al);
+        blk[0] = int16_t(unsigned(add_dc(pred[u], diff)) << Al);
       } else if (Ss == 0) {  // DC refine: the next bit of the two's complement value
         if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << Al));
       } else if (Ah == 0) {
@@ -759,9 +1031,10 @@ class Decoder {
     int64_t total = int64_t(mcus_x) * mcus_y;
     int rst = 0;
     // refused as soon as a restart or the end of an MCU row finds that the
-    // blocks took bits past the data's end, not after decoding the rest
+    // Huffman blocks took bits past the data's end, not after decoding the
+    // rest (arithmetic coding reads zeros past a marker by design)
     auto truncated = [&](int64_t row) {
-      if (br.overran())
+      if (!arith_ && br.overran())
         fail("JPEG entropy data is truncated (in MCU row " + std::to_string(row) + " of " +
              std::to_string(mcus_y) + ")");
     };
@@ -769,9 +1042,17 @@ class Decoder {
       int mx = int(m % mcus_x), my = int(m / mcus_x);
       if (restart_interval_ && m > 0 && m % restart_interval_ == 0) {
         truncated(my);
-        restart(br, rst++);
-        std::fill(pred.begin(), pred.end(), 0);
-        eobrun = 0;
+        if (arith_) {
+          ad.pos = restart(ad.pos, rst++);
+          ad.furthest = std::max(ad.furthest, ad.pos - 1);  // read_restart_marker read up to the marker
+          reset_arith();
+        } else {
+          br.pos = restart(br.pos, rst++);
+          br.stopped = false;
+          br.reset();
+          std::fill(pred.begin(), pred.end(), 0);
+          eobrun = 0;
+        }
       }
       for (int i = 0; i < ns; ++i) {
         Component& c = *sc[size_t(i)];
@@ -787,20 +1068,245 @@ class Decoder {
       }
       if (mx == mcus_x - 1) truncated(my);
     }
+    if (arith_ && ad.furthest >= block_end)
+      fail("arithmetic-coded JPEG whose scan reads byte " + std::to_string(ad.furthest) + " past byte " +
+           std::to_string(block_end) + " is not read, as PIL does not read it (it feeds libjpeg 65536 bytes at "
+           "a time, and libjpeg's arithmetic decoder cannot wait for more)");
+    pos_ = arith_ ? ad.pos : br.pos;
+  }
+
+  // jdarith.c, T.81 Figures F.19 and F.21-F.24: a DC difference added to
+  // last (modulo 2^16) in the context ctx of table tbl; false on a
+  // magnitude overflow (libjpeg's JWRN_ARITH_BAD_CODE)
+  bool arith_dc(ArithDecoder& ad, int tbl, int& ctx, int& last) {
+    uint8_t* st = dc_stats_[tbl] + ctx;
+    if (ad.decode(st) == 0) {
+      ctx = 0;
+      return true;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m) {
+      st = dc_stats_[tbl] + 20;  // X1
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        ++st;
+      }
+    }
+    // F.1.4.4.1.2: the conditioning category of the next difference
+    if (m < ((1 << arith_dc_L_[tbl]) >> 1))
+      ctx = 0;
+    else if (m > ((1 << arith_dc_U_[tbl]) >> 1))
+      ctx = 12 + sign * 4;
+    else
+      ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last = (last + v) & 0xFFFF;
+    return true;
+  }
+
+  // the sign, magnitude category and bits of the AC coefficient at k whose
+  // nonzero decision was taken in the bins at st (SE)
+  bool arith_ac_value(ArithDecoder& ad, int tbl, int k, uint8_t* st, int& v) {
+    const int sign = ad.decode(&fixed_bin_);
+    st += 2;
+    int m = ad.decode(st);
+    if (m && ad.decode(st)) {
+      m <<= 1;
+      st = ac_stats_[tbl] + (k <= arith_ac_K_[tbl] ? 189 : 217);  // X2, by Kx
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        ++st;
+      }
+    }
+    v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    return true;
+  }
+
+  // jdarith.c:decode_mcu's AC part (Figure F.20) on one block
+  bool arith_ac_sequential(ArithDecoder& ad, int tbl, int16_t* blk) {
+    int k = 0;
+    do {
+      uint8_t* st = ac_stats_[tbl] + 3 * k;
+      if (ad.decode(st)) break;  // EOB
+      for (;;) {
+        ++k;
+        if (ad.decode(st + 1)) break;
+        st += 3;
+        if (k >= 63) return false;  // spectral overflow
+      }
+      int v;
+      if (!arith_ac_value(ad, tbl, k, st, v)) return false;
+      blk[kNatural[k]] = int16_t(v);
+    } while (k < 63);
+    return true;
+  }
+
+  // jdarith.c:decode_mcu_AC_first on one block
+  bool arith_ac_first(ArithDecoder& ad, int tbl, int Ss, int Se, int Al, int16_t* blk) {
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (ad.decode(st)) break;  // EOB
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > Se) return false;
+      }
+      int v;
+      if (!arith_ac_value(ad, tbl, k, st, v)) return false;
+      blk[kNatural[k]] = int16_t(unsigned(v) << Al);
+    }
+    return true;
+  }
+
+  // jdarith.c:decode_mcu_AC_refine on one block (Figure G.11): below the
+  // previous stage's end of block no EOB decision; a correction bit for a
+  // coefficient already nonzero, +-1 << Al for a newly nonzero one
+  bool arith_ac_refine(ArithDecoder& ad, int tbl, int Ss, int Se, int Al, int16_t* blk) {
+    const int p1 = 1 << Al, m1 = -p1;
+    int kex = Se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (ad.decode(st + 2)) *coef = int16_t(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ad.decode(st + 1)) {
+          *coef = int16_t(ad.decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) return false;
+      }
+    }
+    return true;
+  }
+
+  // a lossless scan (jddiffct.c's iMCU rows, jdlhuff.c:decode_mcus,
+  // jdlossls.c's undifferencing): the differences of an iMCU row are
+  // decoded first, then each of its rows is undifferenced
+  void lossless_scan(const std::vector<Component*>& sc, const std::vector<int>& tds, int psv, int pt) {
+    const int ns = int(sc.size());
+    const bool inter = ns > 1;
+    for (Component* c : sc) c->pt = pt;
+    const int T = (height_ + max_v_ - 1) / max_v_;  // iMCU rows: a data unit is one sample
+    const int per_row = inter ? (width_ + max_h_ - 1) / max_h_ : sc[0]->ds_w;  // MCUs a row
+    // jddiffct.c:start_input_pass (JERR_BAD_RESTART)
+    if (restart_interval_ % per_row)
+      fail("lossless JPEG restart interval " + std::to_string(restart_interval_) + " is not a multiple of the " +
+           std::to_string(per_row) + " MCUs of a row");
+    const int rows_per_restart = restart_interval_ / per_row;
+    auto last_rows = [](const Component& c) { return c.ds_h % c.v ? c.ds_h % c.v : c.v; };
+    BitReader br(d_, n_, pos_);
+    std::vector<std::vector<int>> diff(sc.size());
+    std::vector<int> dw(sc.size());
+    for (size_t i = 0; i < size_t(ns); ++i) {
+      dw[i] = inter ? per_row * sc[i]->h : sc[i]->ds_w;
+      diff[i].assign(size_t(sc[i]->v) * size_t(dw[i]), 0);
+    }
+    // each component's undifferencer takes its first-row form at the
+    // scan's start and at every restart (start_pass_lossless)
+    std::vector<char> first(size_t(ns), 1);
+    auto difference = [&](const Huffman& h) {
+      int t = br.decode(h);
+      if (t == 16) return 32768;
+      return t ? extend(br.get(t), t) : 0;
+    };
+    int togo = rows_per_restart, rst = 0;
+    for (int r = 0; r < T; ++r) {
+      const int mcu_rows = inter ? 1 : (r < T - 1 ? sc[0]->v : last_rows(*sc[0]));
+      for (int yo = 0; yo < mcu_rows; ++yo) {
+        if (restart_interval_ && togo == 0) {
+          if (br.overran()) fail("JPEG entropy data is truncated (in iMCU row " + std::to_string(r) + ")");
+          br.pos = restart(br.pos, rst++);
+          br.stopped = false;
+          br.reset();
+          std::fill(first.begin(), first.end(), 1);
+          togo = rows_per_restart;
+        }
+        for (int mx = 0; mx < per_row; ++mx) {
+          if (!inter) {
+            diff[0][size_t(yo) * dw[0] + mx] = difference(dc_[tds[0]]);
+            continue;
+          }
+          for (size_t i = 0; i < size_t(ns); ++i)
+            for (int y = 0; y < sc[i]->v; ++y)
+              for (int x = 0; x < sc[i]->h; ++x)
+                diff[i][size_t(y) * dw[i] + size_t(mx) * sc[i]->h + x] = difference(dc_[tds[i]]);
+        }
+        if (restart_interval_) --togo;
+        if (br.overran()) fail("JPEG entropy data is truncated (in iMCU row " + std::to_string(r) + ")");
+      }
+      for (size_t i = 0; i < size_t(ns); ++i) {
+        Component& c = *sc[i];
+        const int rows = r == T - 1 ? last_rows(c) : c.v;
+        for (int row = 0; row < rows; ++row) {
+          undifference(c, &diff[i][size_t(row) * dw[i]], r * c.v + row, first[i], psv, pt);
+          first[i] = 0;
+        }
+      }
+    }
     pos_ = br.pos;
+  }
+
+  // jdlossls.c: row y of c from its differences, modulo 2^16; the first
+  // row form predicts its first sample by 2^(P - Pt - 1), every other
+  // row's first sample by the one above
+  static void undifference(Component& c, const int* diff, int y, bool first, int psv, int pt) {
+    int* out = &c.samp[size_t(y) * c.ds_w];
+    const int w = c.ds_w;
+    if (first) {
+      int ra = (diff[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+      out[0] = ra;
+      for (int x = 1; x < w; ++x) out[x] = ra = (diff[x] + ra) & 0xFFFF;
+      return;
+    }
+    const int* prev = out - c.ds_w;
+    int64_t rb = prev[0], ra = (diff[0] + rb) & 0xFFFF;
+    out[0] = int(ra);
+    for (int x = 1; x < w; ++x) {
+      const int64_t rc = rb;
+      rb = prev[x];
+      int64_t p;
+      switch (psv) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      out[x] = int(ra = (diff[x] + p) & 0xFFFF);
+    }
   }
 
   // jdcoefct.c:smoothing_ok at the end of the input (libjpeg-turbo 3.1: DC
   // and the first nine AC coefficients, SAVED_COEFS 10): whether libjpeg
-  // would decode the image with block smoothing
-  bool needs_block_smoothing() const {
+  // decodes the image with block smoothing
+  bool block_smoothing() const {
     if (!progressive_) return false;
     static const int kSmoothed[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // natural positions
     bool useful = false;
     for (const Component& c : comps_) {
       if (!c.latched) return false;
       for (int p : kSmoothed)
-        if (c.quant[p] == 0) return false;
+        if (c.quantval[p] == 0) return false;
       if (c.coef_bits[0] < 0) return false;
       for (int k = 1; k < 10; ++k)
         if (c.coef_bits[k] != 0) useful = true;
@@ -808,13 +1314,118 @@ class Decoder {
     return useful;
   }
 
-  void restart(BitReader& br, int count) {
-    size_t p = br.pos;
+  // jdcoefct.c:decompress_smooth_data over c's blocks, iMCU row by iMCU row
+  // as libjpeg walks them (its row clamps use block_rows x the iMCU rows,
+  // also on a short last iMCU row), the DC neighbourhood in its sliding
+  // registers (initialized to column 0, the last two to column 1 at the
+  // first block, column +2 loaded only while it is inside the component:
+  // a clamp at both edges); each estimate is applied to a
+  // coefficient still 0 whose coef_bits is not 0, and the block's IDCT
+  // replaces the plain one
+  void smooth_blocks(Component& c) const {
+    const int* cb = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k)
+      if (cb[k] != -1) change_dc = false;
+    const int64_t Q00 = c.quantval[0], Q01 = c.quantval[1], Q10 = c.quantval[8], Q20 = c.quantval[16],
+                  Q11 = c.quantval[9], Q02 = c.quantval[2], Q03 = c.quantval[3], Q12 = c.quantval[10],
+                  Q21 = c.quantval[17], Q30 = c.quantval[24];
+    const int T = (height_ + 8 * max_v_ - 1) / (8 * max_v_);
+    const int hib = (c.ds_h + 7) / 8, last_col = (c.ds_w + 7) / 8 - 1;
+    // a block row past the stored ones is one libjpeg keeps zeroed
+    auto dc = [&](int row, int col) -> int {
+      return row < c.bh && col < c.bw ? c.coef[(size_t(row) * c.bw + col) * 64] : 0;
+    };
+    // the estimate num / (Q << 8) rounded, its magnitude clamped below 2^Al
+    auto est = [](int64_t num, int64_t q, int Al) {
+      int pred = int(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+      if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+      return int16_t(num >= 0 ? pred : -pred);
+    };
+    int16_t ws[64];
+    for (int r = 0; r < T; ++r) {
+      int block_rows = c.v;
+      if (r == T - 1 && hib % c.v) block_rows = hib % c.v;
+      const int image_block_rows = block_rows * T;
+      for (int br = 0; br < block_rows; ++br) {
+        const int ibr = r * block_rows + br, row = r * c.v + br;
+        const int prev = ibr > 0 ? row - 1 : row, pprev = ibr > 1 ? row - 2 : prev;
+        const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+        const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+        const int rows[5] = {pprev, prev, row, next, nnext};
+        int reg[5][5];
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) reg[i][j] = dc(rows[i], 0);
+        for (int col = 0; col <= last_col; ++col) {
+          std::memcpy(ws, &c.coef[(size_t(row) * c.bw + col) * 64], sizeof ws);
+          if (col == 0 && col < last_col)  // DC04 = DC05 = column 1, and so on
+            for (int i = 0; i < 5; ++i) reg[i][3] = reg[i][4] = dc(rows[i], col + 1);
+          if (col + 1 < last_col)
+            for (int i = 0; i < 5; ++i) reg[i][4] = dc(rows[i], col + 2);
+          // libjpeg's DC01..DC25: rows from two above to two below, columns
+          // from two left to two right
+          int D[26];
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 5; ++j) D[5 * i + j + 1] = reg[i][j];
+          int Al;
+          if ((Al = cb[1]) != 0 && ws[1] == 0)  // AC01
+            ws[1] = est(Q00 * (change_dc ? (-D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10] -
+                                            3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] - 3 * D[16] +
+                                            13 * D[17] - 13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25])
+                                         : (-7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15])),
+                        Q01, Al);
+          if ((Al = cb[2]) != 0 && ws[8] == 0)  // AC10
+            ws[8] = est(Q00 * (change_dc ? (-D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7] +
+                                            38 * D[8] + 13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18] -
+                                            13 * D[19] + D[20] + D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24] + D[25])
+                                         : (-7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23])),
+                        Q10, Al);
+          if ((Al = cb[3]) != 0 && ws[16] == 0)  // AC20
+            ws[16] = est(Q00 * (change_dc ? (D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] -
+                                             5 * D[14] + 2 * D[17] + 7 * D[18] + 2 * D[19] + D[23])
+                                          : (-D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23])),
+                         Q20, Al);
+          if ((Al = cb[4]) != 0 && ws[9] == 0)  // AC11
+            ws[9] = est(Q00 * (change_dc ? (-D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25])
+                                         : (D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24] +
+                                            D[4] - D[6] + 10 * D[7] - 10 * D[9])),
+                        Q11, Al);
+          if ((Al = cb[5]) != 0 && ws[2] == 0)  // AC02
+            ws[2] = est(Q00 * (change_dc ? (2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] +
+                                            7 * D[14] + D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19])
+                                         : (-D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15])),
+                        Q02, Al);
+          if (change_dc) {
+            if ((Al = cb[6]) != 0 && ws[3] == 0)  // AC03
+              ws[3] = est(Q00 * (D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]), Q03, Al);
+            if ((Al = cb[7]) != 0 && ws[10] == 0)  // AC12
+              ws[10] = est(Q00 * (D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]), Q12, Al);
+            if ((Al = cb[8]) != 0 && ws[17] == 0)  // AC21
+              ws[17] = est(Q00 * (D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19]), Q21, Al);
+            if ((Al = cb[9]) != 0 && ws[24] == 0)  // AC30
+              ws[24] = est(Q00 * (D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]), Q30, Al);
+            // the DC term, from the whole 5x5 neighbourhood (weights sum to 256)
+            ws[0] = est(Q00 * (-2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] + 6 * D[7] +
+                               42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] + 42 * D[12] + 152 * D[13] +
+                               42 * D[14] - 8 * D[15] - 6 * D[16] + 6 * D[17] + 42 * D[18] + 6 * D[19] -
+                               6 * D[20] - 2 * D[21] - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25]),
+                        Q00, 0);
+          }
+          idct_islow(ws, c.quant, &c.plane[size_t(row) * 8 * c.stride + size_t(col) * 8], c.stride);
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) reg[i][j] = reg[i][j + 1];
+        }
+      }
+    }
+  }
+
+  // the position after restart marker RST(count & 7), which must be the
+  // next marker at or after pos
+  size_t restart(size_t pos, int count) const {
+    size_t p = pos;
     while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0xFF && d_[p + 1] != 0)) ++p;
     if (p + 1 >= n_ || d_[p + 1] != 0xD0 + (count & 7)) fail("JPEG restart marker is missing");
-    br.pos = p + 2;
-    br.stopped = false;
-    br.reset();
+    return p + 2;
   }
 
   // the component upsampled to (at least) the image's size, as jdsample.c
@@ -822,7 +1433,8 @@ class Decoder {
   std::vector<uint8_t> upsample(const Component& c) const {
     const int W = width_, H = height_;
     const int rh = max_h_ / c.h, rv = max_v_ / c.v;
-    const int stride = c.bw * 8;
+    const int stride = c.stride;
+    const bool fancy = !lossless_;  // jdsample.c: fancy only at a DCT size above 1
     std::vector<uint8_t> out(size_t(W) * H);
     auto in = [&](int x, int y) -> int { return c.plane[size_t(y) * stride + x]; };
     // context rows: above the first real row and below the last one, the
@@ -830,7 +1442,7 @@ class Decoder {
     auto row = [&](int y) { return y < 0 ? 0 : y >= c.ds_h ? c.ds_h - 1 : y; };
     if (rh == 1 && rv == 1) {
       for (int y = 0; y < H; ++y) std::memcpy(&out[size_t(y) * W], &c.plane[size_t(y) * stride], size_t(W));
-    } else if (rh == 2 && rv == 1 && c.ds_w > 2) {  // h2v1_fancy_upsample
+    } else if (fancy && rh == 2 && rv == 1 && c.ds_w > 2) {  // h2v1_fancy_upsample
       std::vector<uint8_t> line(size_t(c.ds_w) * 2);
       for (int y = 0; y < H; ++y) {
         const int n = c.ds_w;
@@ -845,12 +1457,12 @@ class Decoder {
         line[2 * n - 1] = uint8_t(in(n - 1, y));
         std::memcpy(&out[size_t(y) * W], line.data(), size_t(W));
       }
-    } else if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
+    } else if (fancy && rh == 1 && rv == 2) {  // h1v2_fancy_upsample
       for (int y = 0; y < H; ++y) {
         int iy = y >> 1, near = row(iy), far = row((y & 1) ? iy + 1 : iy - 1), bias = (y & 1) ? 2 : 1;
         for (int x = 0; x < W; ++x) out[size_t(y) * W + x] = uint8_t((in(x, near) * 3 + in(x, far) + bias) >> 2);
       }
-    } else if (rh == 2 && rv == 2 && c.ds_w > 2) {  // h2v2_fancy_upsample
+    } else if (fancy && rh == 2 && rv == 2 && c.ds_w > 2) {  // h2v2_fancy_upsample
       std::vector<uint8_t> line(size_t(c.ds_w) * 2);
       std::vector<int> sum(size_t(c.ds_w));
       for (int y = 0; y < H; ++y) {
@@ -867,7 +1479,7 @@ class Decoder {
         line[2 * size_t(n) - 1] = uint8_t((sum[size_t(n) - 1] * 4 + 7) >> 4);
         std::memcpy(&out[size_t(y) * W], line.data(), size_t(W));
       }
-    } else {  // box replication (h2v1/h2v2 at a width of 2 or less, other integral factors)
+    } else {  // box replication (lossless, h2v1/h2v2 at a width of 2 or less, other integral factors)
       for (int y = 0; y < H; ++y)
         for (int x = 0; x < W; ++x) out[size_t(y) * W + x] = uint8_t(in(x / rh, y / rv));
     }

@@ -9,9 +9,10 @@ every bit depth PNG allows, 1 to 16, interlaced or not, converted as PIL's
 ``convert("RGB")`` converts PIL's mode; an image PIL opens as RGBA
 optionally composited over white as PIL's ``Image.alpha_composite`` does).
 JPEG is read by ``csrc/jpeg_decode.cpp`` (``decode_jpeg``: baseline,
-extended and progressive Huffman, 8-bit, gray, three components or four
-(CMYK, YCCK), bitwise PIL's ``convert("RGB")``). Both are built with the
-host's ``c++`` on first use.
+extended and progressive Huffman, progressive files libjpeg block-smooths,
+arithmetic-coded sequential and progressive, lossless; 8-bit, gray, three
+components or four (CMYK, YCCK), bitwise PIL's ``convert("RGB")``). Both
+are built with the host's ``c++`` on first use.
 ``decode_image`` takes either, as ``Image.open`` does. ``resize`` stands in
 for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
 support widens with the downscale factor, with PIL's 8-bit fixed-point
@@ -300,14 +301,21 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     ``Image.open(...).convert("RGB")`` (libjpeg's islow IDCT, fancy
     upsampling and fixed-point YCbCr tables; gray replicated; CMYK and
     YCCK through PIL's inverted CMYK and its ``convert("RGB")``; EXIF
-    orientation not applied). Takes baseline, extended and progressive
-    Huffman JPEGs of 8 bits with 1, 3 or 4 components, any integral
-    sampling, restart intervals; raises ``ValueError`` naming what it does
-    not read (arithmetic, lossless, hierarchical, 12-bit, a progressive
-    file that libjpeg would block-smooth), on a damaged file, and on a
-    header of more pixels than PIL's decompression-bomb limit (twice
-    ``Image.MAX_IMAGE_PIXELS``), before anything is allocated. Raises
-    ``RuntimeError`` when the decoder cannot be built."""
+    orientation not applied). Takes 8-bit JPEGs with 1, 3 or 4 components,
+    any integral sampling and restart intervals: baseline, extended and
+    progressive Huffman (a progressive file whose scans leave one of AC
+    coefficients 1-9 unrefined block-smoothed as libjpeg smooths it),
+    arithmetic-coded sequential and progressive (SOF9, SOF10, DAC
+    conditioning), and lossless (SOF3: predictors 1-7, point transforms;
+    gray, RGB or CMYK, the colour spaces libjpeg leaves unconverted in
+    lossless mode). Raises ``ValueError`` naming what PIL refuses too
+    (hierarchical SOF5-7 and SOF13-15, lossless arithmetic SOF11, 12-bit,
+    a height of 0, lossless YCbCr or YCCK, an arithmetic scan that reads
+    past the 65536-byte block of the file PIL has handed libjpeg), on a
+    damaged file, and on a header of more pixels than PIL's
+    decompression-bomb limit (twice ``Image.MAX_IMAGE_PIXELS``), before
+    anything is allocated. Raises ``RuntimeError`` when the decoder cannot
+    be built."""
     from ..kernels._build import load_host
 
     lib = load_host("jpeg_decode", _bind_jpeg)

@@ -1,12 +1,14 @@
 """Write the image fixtures of ``tests/test_torch_port_images.py`` and
 ``chip_smoke.py`` phase 9 beyond the sequential JPEGs beside them
-(``../torch_port_jpeg``): progressive, CMYK and YCCK JPEGs, PNGs at every
-(colour type, bit depth) pair PNG allows, interlaced or not, and
-``pil_sha256.json``: for each file PIL's mode and the sha256 and shape of
-``Image.open(...).convert("RGB")``; for a file PIL opens as RGBA also those
-of the data loaders' white composite (``Image.alpha_composite`` over
-opaque white, then ``convert("RGB")``); for a file the port refuses, the
-word its error names beside PIL's digest.
+(``../torch_port_jpeg``): progressive, block-smoothed, arithmetic-coded,
+lossless, CMYK and YCCK JPEGs, PNGs at every (colour type, bit depth) pair
+PNG allows, interlaced or not, and ``pil_sha256.json``: for each file PIL's
+mode and the sha256 and shape of ``Image.open(...).convert("RGB")``; for a
+file PIL opens as RGBA also those of the data loaders' white composite
+(``Image.alpha_composite`` over opaque white, then ``convert("RGB")``);
+for an arithmetic-coded file the name of its Huffman twin (the same
+coefficients and scan script); for a lossless one the sha256 of the RGB
+its source samples give (not for CMYK).
 
     python tests/fixtures/torch_port_images/make_fixtures.py
 
@@ -17,13 +19,17 @@ and 8 bits. The encoders below write the rest: ``encode_progressive``
 (any scan script: DC scans interleaved or of one component, spectral
 selection, successive approximation with libjpeg's jcphuff.c end-of-band
 runs and correction bits, a restart interval, Huffman tables redefined
-before every scan, an Adobe marker for YCCK) and ``encode_png`` (every
-depth and colour type, Adam7, a filter type per row). The block-smoothing
-files leave some of the first nine AC coefficients unrefined, so libjpeg
-block-smooths them and the port refuses them. Every file comes from a
-fixed seed, so the script writes the same bytes on every run with the same
-PIL. ``encode_png`` imports no PIL: ``chip_smoke.py`` loads this file to
-write 16-bit and interlaced PNGs on a host without PIL.
+before every scan, an Adobe marker for YCCK), ``encode_arithmetic``
+(jcarith.c's coder: SOF9 or SOF10 of any scan script, DAC conditioning,
+restarts), ``encode_lossless`` (SOF3: any predictor and point transform,
+restarts, sampling factors, interleaved or one scan a component) and
+``encode_png`` (every depth and colour type, Adam7, a filter type per
+row). The block-smoothing files leave some of the first nine AC
+coefficients unrefined, so libjpeg block-smooths them. Every file comes
+from a fixed seed, so the script writes the same bytes on every run with
+the same PIL. The encoders import no PIL: ``chip_smoke.py`` loads this
+file on a host without PIL to write 16-bit and interlaced PNGs and
+(``frame_forms``) phase 9d's arithmetic-coded and lossless frames.
 """
 
 from __future__ import annotations
@@ -48,7 +54,15 @@ ADAM7 = ((0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (
 PNG_FORMATS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
                (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
 PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-SMOOTHING = "block smoothing"  # the word the port's refusal names
+# IJG's (libjpeg's jcparam.c) luminance and chrominance tables, natural order
+IJG_LUMA = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+                     14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104,
+                     113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+IJG_CHROMA = np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4 + [24, 26, 56] + [99] * 5
+                      + [47, 66] + [99] * 38)
+# phase 9d's smoothed frame: DC at Al 1 then refined, luma AC at Al 1 only,
+# chroma DC only (so luma smooths AC 1-9 and chroma takes the DC term too)
+SMOOTH_SCRIPT = [([0, 1, 2], 0, 0, 0, 1), ([0], 1, 63, 0, 1), ([0, 1, 2], 0, 0, 1, 0)]
 
 
 def _jpeg_fixtures():
@@ -109,8 +123,60 @@ def quantized_blocks(planes, sampling, q) -> list:
     return out
 
 
+def _mcu_grid(planes, sampling):
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    H, W = planes[0].shape
+    return -(-W // (8 * hmax)), -(-H // (8 * vmax))
+
+
+def _units(planes, sampling, comps):
+    """The blocks of each MCU of a scan of ``comps``, in coding order:
+    (component, block row, block column) lists."""
+    if len(comps) > 1:
+        mcux, mcuy = _mcu_grid(planes, sampling)
+        for my in range(mcuy):
+            for mx in range(mcux):
+                yield [(ci, my * sampling[ci][1] + vv, mx * sampling[ci][0] + hh)
+                       for ci in comps for vv in range(sampling[ci][1]) for hh in range(sampling[ci][0])]
+    else:
+        ci = comps[0]
+        for by in range(-(-planes[ci].shape[0] // 8)):
+            for bx in range(-(-planes[ci].shape[1] // 8)):
+                yield [(ci, by, bx)]
+
+
+def _soi(jfif: bool, adobe) -> bytearray:
+    """SOI, then a JFIF marker and an Adobe one with transform ``adobe``
+    where asked for."""
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe is not None:
+        out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
+    return out
+
+
+def _dct_header(planes, sampling, q, ids, tq, sof, restart, adobe, jfif) -> bytearray:
+    """SOI, JFIF / Adobe markers, the DQT tables, the frame header ``sof``
+    and a DRI."""
+    nc = len(planes)
+    out = _soi(jfif, adobe)
+    for t in sorted(set(tq)):
+        table = q[tq.index(t)]
+        out += _segment(0xDB, bytes([t]) + bytes(int(x) for x in np.asarray(table)[ZIGZAG]))
+    H, W = planes[0].shape
+    body = struct.pack(">BHHB", 8, H, W, nc)
+    for ci, (h, v) in enumerate(sampling):
+        body += bytes([ids[ci], (h << 4) | v, tq[ci]])
+    out += _segment(sof, body)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    return out
+
+
 def encode_progressive(planes, sampling, scans, q=None, ids=None, restart=0, adobe=None, jfif=True,
-                       seed=0, ac_limit=None) -> bytes:
+                       seed=0, ac_limit=None, coefs=None) -> bytes:
     """A progressive (SOF2) JPEG of ``planes`` (uint8, each at its sampled
     size) with (h, v) ``sampling`` per component and the scan script
     ``scans``: (component indices, Ss, Se, Ah, Al) each, encoded as
@@ -119,47 +185,18 @@ def encode_progressive(planes, sampling, scans, q=None, ids=None, restart=0, ado
     ``restart``: MCUs per restart interval (0: none); ``adobe``: the APP14
     transform flag (None: no APP14). Every scan is preceded by its own DHT
     (fixed-length codes in a seeded order, DC and AC tables 0 and 1 in
-    turns). ``ac_limit`` clips every AC coefficient to +-it."""
+    turns). ``ac_limit`` clips every AC coefficient to +-it; ``coefs``:
+    the planes' ``quantized_blocks`` where the caller has them."""
     nc = len(planes)
     ids = ids or list(range(1, nc + 1))
     q = q or [np.full(64, 3)] + [np.full(64, 5)] * (nc - 1)
     tq = [0] + [1] * (nc - 1)
-    coefs = quantized_blocks(planes, sampling, q)
+    coefs = coefs if coefs is not None else quantized_blocks(planes, sampling, q)
     if ac_limit is not None:
         for c in coefs:
             c[..., 1:] = np.clip(c[..., 1:], -ac_limit, ac_limit)
-    hmax = max(h for h, _ in sampling)
-    vmax = max(v for _, v in sampling)
-    H, W = planes[0].shape
-    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
     rng = np.random.default_rng(seed)
-    out = bytearray(b"\xff\xd8")
-    if jfif:
-        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    if adobe is not None:
-        out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
-    for t in sorted(set(tq)):
-        table = q[tq.index(t)]
-        out += _segment(0xDB, bytes([t]) + bytes(int(x) for x in np.asarray(table)[ZIGZAG]))
-    sof = struct.pack(">BHHB", 8, H, W, nc)
-    for ci, (h, v) in enumerate(sampling):
-        sof += bytes([ids[ci], (h << 4) | v, tq[ci]])
-    out += _segment(0xC2, sof)
-    if restart:
-        out += _segment(0xDD, struct.pack(">H", restart))
-
-    def units(comps):
-        if len(comps) > 1:
-            for my in range(mcuy):
-                for mx in range(mcux):
-                    yield [(ci, my * sampling[ci][1] + vv, mx * sampling[ci][0] + hh)
-                           for ci in comps for vv in range(sampling[ci][1]) for hh in range(sampling[ci][0])]
-        else:
-            ci = comps[0]
-            for by in range(-(-planes[ci].shape[0] // 8)):
-                for bx in range(-(-planes[ci].shape[1] // 8)):
-                    yield [(ci, by, bx)]
-
+    out = _dct_header(planes, sampling, q, ids, tq, 0xC2, restart, adobe, jfif)
     for si, (comps, Ss, Se, Ah, Al) in enumerate(scans):
         th = si % 2
         dc_code, dc_body = _code(DC_SYMS, rng)
@@ -182,7 +219,7 @@ def encode_progressive(planes, sampling, scans, q=None, ids=None, restart=0, ado
                     bits.put(b, 1)
                 state["be"] = []
 
-        for m, unit in enumerate(units(comps)):
+        for m, unit in enumerate(_units(planes, sampling, comps)):
             if restart and m and m % restart == 0:
                 emit_eobrun()
                 bits.flush()
@@ -269,6 +306,564 @@ def full_script(nc: int, dc_interleaved: bool = True):
     return s
 
 
+# T.81 Table D.2 (libjpeg's jaricom.c): (Qe, Next_Index_LPS, Next_Index_MPS,
+# Switch_MPS) of each state; state 113 is the fixed 0.5 estimate
+QE_TABLE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0),
+    (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0), (0x001a, 33, 10, 0),
+    (0x000d, 35, 11, 0), (0x0006, 9, 12, 0), (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0), (0x0406, 49, 25, 0),
+    (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0),
+    (0x002c, 33, 9, 0), (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0), (0x0861, 78, 49, 0), (0x0706, 79, 50, 0),
+    (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0),
+    (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1),
+    (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0),
+    (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0), (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0), (0x34ee, 91, 85, 0),
+    (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0),
+    (0x56a8, 95, 96, 1), (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0), (0x5597, 110, 109, 0), (0x504f, 111, 107, 0),
+    (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+
+
+class _ArithEncoder:
+    """libjpeg's jcarith.c coder: the C and A registers, carries through
+    stacked 0xFF bytes, byte stuffing, and ``finish`` (T.81 D.1.8)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _zeros(self):
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def _byte(self, b):
+        self._zeros()
+        self.out.append(b)
+        if b == 0xFF:
+            self.out.append(0)
+
+    def encode(self, st, i: int, val: int):
+        """Code ``val`` in bin ``st[i]`` and update its estimate."""
+        sv = st[i]
+        qe, lps, mps, switch = QE_TABLE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:  # the less probable symbol
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ (lps | (switch << 7))
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ mps
+        while True:  # renormalization and output, D.1.6
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:  # a carry into the stacked 0xFF bytes
+                    if self.buffer >= 0:
+                        self._byte(self.buffer + 1)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._byte(self.buffer)
+                    if self.sc:
+                        self._zeros()
+                        self.out += b"\xff\x00" * self.sc
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._byte(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._byte(self.buffer)
+            if self.sc:
+                self._zeros()
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:  # the final bytes, only where they are not 0
+            self._byte((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._byte((self.c >> 11) & 0xFF)
+
+
+def _arith_dc(e, st, v, ctx, L, U):
+    """A DC difference ``v`` (F.1.4.1, Figures F.4-F.9) in context ``ctx``
+    of the statistics ``st``; returns the next context."""
+    if v == 0:
+        e.encode(st, ctx, 0)
+        return 0
+    e.encode(st, ctx, 1)
+    sign = int(v < 0)
+    v = abs(v)
+    e.encode(st, ctx + 1, sign)
+    s, nxt = ctx + 2 + sign, 4 + 4 * sign
+    m = 0
+    v -= 1
+    if v:
+        e.encode(st, s, 1)
+        m, v2, s = 1, v >> 1, 20
+        while v2:
+            e.encode(st, s, 1)
+            m, s, v2 = m << 1, s + 1, v2 >> 1
+    e.encode(st, s, 0)
+    if m < (1 << L) >> 1:
+        nxt = 0
+    elif m > (1 << U) >> 1:
+        nxt += 8
+    s += 14
+    m >>= 1
+    while m:
+        e.encode(st, s, int(bool(m & v)))
+        m >>= 1
+    return nxt
+
+
+def _arith_ac_value(e, st, s, k, v, K, fixed):
+    """The sign and magnitude of a nonzero AC value ``v`` at ``k``, its
+    nonzero decision taken in bin ``s`` - 1 (F.1.4.2)."""
+    e.encode(fixed, 0, int(v < 0))
+    v = abs(v)
+    s += 2
+    m = 0
+    v -= 1
+    if v:
+        e.encode(st, s, 1)
+        m, v2 = 1, v >> 1
+        if v2:
+            e.encode(st, s, 1)
+            m, s, v2 = 2, (189 if k <= K else 217), v2 >> 1
+            while v2:
+                e.encode(st, s, 1)
+                m, s, v2 = m << 1, s + 1, v2 >> 1
+    e.encode(st, s, 0)
+    s += 14
+    m >>= 1
+    while m:
+        e.encode(st, s, int(bool(m & v)))
+        m >>= 1
+
+
+def _arith_ac(e, st, blk, Ss, Se, Al, K, fixed):
+    """An AC band (sequential: Ss 1, Se 63, Al 0; or a progressive first
+    scan), jcarith.c's encode_mcu / encode_mcu_AC_first."""
+    mag = [abs(int(x)) >> Al for x in blk]
+    ke = Se
+    while ke > 0 and mag[ke] == 0:
+        ke -= 1
+    k = Ss
+    while k <= ke:
+        s = 3 * (k - 1)
+        e.encode(st, s, 0)
+        while mag[k] == 0:
+            e.encode(st, s + 1, 0)
+            s, k = s + 3, k + 1
+        e.encode(st, s + 1, 1)
+        _arith_ac_value(e, st, s, k, mag[k] if blk[k] > 0 else -mag[k], K, fixed)
+        k += 1
+    if k <= Se:
+        e.encode(st, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(e, st, blk, Ss, Se, Ah, Al, fixed):
+    """jcarith.c:encode_mcu_AC_refine (Figure G.10)."""
+    mag = [abs(int(x)) >> Al for x in blk]
+    ke = Se
+    while ke > 0 and mag[ke] == 0:
+        ke -= 1
+    kex = ke
+    while kex > 0 and abs(int(blk[kex])) >> Ah == 0:
+        kex -= 1
+    k = Ss
+    while k <= ke:
+        s = 3 * (k - 1)
+        if k > kex:
+            e.encode(st, s, 0)
+        while mag[k] == 0:
+            e.encode(st, s + 1, 0)
+            s, k = s + 3, k + 1
+        if mag[k] >> 1:  # already nonzero: its next bit
+            e.encode(st, s + 2, mag[k] & 1)
+        else:  # newly nonzero
+            e.encode(st, s + 1, 1)
+            e.encode(fixed, 0, int(blk[k] < 0))
+        k += 1
+    if k <= Se:
+        e.encode(st, 3 * (k - 1), 1)
+
+
+def encode_arithmetic(planes, sampling, scans=None, q=None, ids=None, restart=0, adobe=None, jfif=True,
+                      dac=None, slots=None, coefs=None, overflow_at=None) -> bytes:
+    """An arithmetic-coded JPEG of ``planes`` (as ``encode_progressive``
+    takes them, or their ``quantized_blocks`` in ``coefs``), coded as
+    libjpeg's jcarith.c codes: sequential (SOF9) where ``scans`` is None
+    (one interleaved scan) or every scan is (components, 0, 63, 0, 0), else
+    progressive (SOF10) with the scan script ``scans`` ((component indices,
+    Ss, Se, Ah, Al) each). ``dac``: {(class, slot): value} for a DAC
+    segment (class 0: the DC (U << 4) | L; 1: the AC Kx); ``slots``: the
+    conditioning table of each component (default libjpeg's: 0 for the
+    first, 1 for the rest); ``restart``: MCUs a restart interval;
+    ``overflow_at``: (component, block row, block column) of a sequential
+    block whose AC codes run past coefficient 63, a bad code on which
+    libjpeg's decoder gives up until the next restart."""
+    nc = len(planes)
+    ids = ids or list(range(1, nc + 1))
+    q = q or [np.full(64, 3)] + [np.full(64, 5)] * (nc - 1)
+    tq = [0] + [1] * (nc - 1)
+    slots = slots or [0] + [1] * (nc - 1)
+    scans = scans or [(list(range(nc)), 0, 63, 0, 0)]
+    coefs = coefs if coefs is not None else quantized_blocks(planes, sampling, q)
+    sequential = all(Ss == 0 and Se == 63 and Ah == 0 and Al == 0 for _, Ss, Se, Ah, Al in scans)
+    dac = dac or {}
+    L = {t: dac.get((0, t), 0x10) & 15 for t in range(16)}
+    U = {t: dac.get((0, t), 0x10) >> 4 for t in range(16)}
+    K = {t: dac.get((1, t), 5) for t in range(16)}
+    out = _dct_header(planes, sampling, q, ids, tq, 0xC9 if sequential else 0xCA, restart, adobe, jfif)
+    if dac:
+        out += _segment(0xCC, b"".join(bytes([(tc << 4) | t, v]) for (tc, t), v in sorted(dac.items())))
+    for comps, Ss, Se, Ah, Al in scans:
+        sos = bytes([len(comps)]) + b"".join(bytes([ids[ci], (slots[ci] << 4) | slots[ci]]) for ci in comps)
+        out += _segment(0xDA, sos + bytes([Ss, Se, (Ah << 4) | Al]))
+        e, fixed = _ArithEncoder(), bytearray([113])
+
+        def reset():
+            e.reset()
+            state = {}
+            for ci in comps:  # the bins the scan codes with, zeroed
+                if sequential or (Ss == 0 and Ah == 0):
+                    state[("dc", slots[ci])] = bytearray(64)
+                if sequential or Ss:
+                    state[("ac", slots[ci])] = bytearray(256)
+            return state, {ci: 0 for ci in comps}, {ci: 0 for ci in comps}
+
+        stats, last, ctx = reset()
+        for m, unit in enumerate(_units(planes, sampling, comps)):
+            if restart and m and m % restart == 0:
+                e.finish()
+                e.out += bytes([0xFF, 0xD0 + ((m // restart - 1) & 7)])
+                stats, last, ctx = reset()
+            for ci, by, bx in unit:
+                blk, t = coefs[ci][by, bx], slots[ci]
+                if sequential or (Ss == 0 and Ah == 0):
+                    dcv = int(blk[0]) >> Al
+                    ctx[ci] = _arith_dc(e, stats[("dc", t)], dcv - last[ci], ctx[ci], L[t], U[t])
+                    last[ci] = dcv
+                    if sequential and (ci, by, bx) == overflow_at:  # not EOB, then 63 zeros
+                        e.encode(stats[("ac", t)], 0, 0)
+                        for k in range(1, 64):
+                            e.encode(stats[("ac", t)], 3 * (k - 1) + 1, 0)
+                    elif sequential:
+                        _arith_ac(e, stats[("ac", t)], blk, 1, 63, 0, K[t], fixed)
+                elif Ss == 0:
+                    e.encode(fixed, 0, (int(blk[0]) >> Al) & 1)
+                elif Ah == 0:
+                    _arith_ac(e, stats[("ac", t)], blk, Ss, Se, Al, K[t], fixed)
+                else:
+                    _arith_ac_refine(e, stats[("ac", t)], blk, Ss, Se, Ah, Al, fixed)
+        e.finish()
+        out += e.out
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Codes of ``lengths`` bits (up to 32) MSB first, padded with 1 bits
+    to a byte and 0xFF-stuffed."""
+    bits = (values[:, None].astype(np.uint64) >> np.arange(31, -1, -1, dtype=np.uint64)) & 1
+    keep = np.arange(32)[None, :] >= 32 - lengths[:, None]
+    flat = bits[keep].astype(np.uint8)
+    flat = np.concatenate([flat, np.ones(-len(flat) % 8, np.uint8)])
+    return np.packbits(flat).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _lossless_predict(rows, y: int, first: bool, psv: int, pt: int):
+    """jdlossls.c's prediction of row ``y`` of ``rows`` (int samples,
+    modulo 2^16): the first-row form (2^(7 - pt), then the left sample), or
+    predictor ``psv`` with the sample above at column 0."""
+    cur = rows[y].astype(np.int64)
+    pred = np.empty_like(cur)
+    if first:
+        pred[0] = 1 << (8 - pt - 1)
+        pred[1:] = cur[:-1]
+        return pred
+    up = rows[y - 1].astype(np.int64)
+    ra, rb, rc = cur[:-1], up[1:], up[:-1]
+    pred[0] = up[0]
+    pred[1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                7: (ra + rb) >> 1}[psv]
+    return pred
+
+
+def _lossless_differences(samples, sampling, comps, psv, pt, restart_rows, T):
+    """The difference of every sample of ``comps`` (modulo 2^16, in
+    -32767..32768) and the MCU rows a restart precedes, walked as
+    jddiffct.c walks them: the MCU rows of an iMCU row are decoded, then its
+    rows undifferenced; the first-row form at the scan's start and on the
+    first row undifferenced after a restart."""
+    inter = len(comps) > 1
+    diffs = {c: np.zeros(samples[c].shape, np.int64) for c in comps}
+    first, togo, mcu_row, restarts_at = {c: True for c in comps}, restart_rows, 0, []
+    for r in range(T):
+        c0 = comps[0]
+        v0, rows0 = sampling[c0][1], samples[c0].shape[0]
+        for _ in range(1 if inter else (v0 if r < T - 1 else rows0 % v0 or v0)):
+            if restart_rows and togo == 0:
+                restarts_at.append(mcu_row)
+                first = {c: True for c in comps}
+                togo = restart_rows
+            mcu_row += 1
+            togo -= 1
+        for c in comps:
+            v, rows = sampling[c][1], samples[c].shape[0]
+            for row in range(v if r < T - 1 else rows % v or v):
+                y = r * v + row
+                d = samples[c][y].astype(np.int64) - _lossless_predict(samples[c], y, first[c], psv, pt[c])
+                diffs[c][y] = ((d + 32767) & 0xFFFF) - 32767
+                first[c] = False
+    return diffs, restarts_at
+
+
+def _huffman_differences(d: np.ndarray, code: dict) -> bytes:
+    """Lossless differences as jdlhuff.c reads them: a category (16: 32768,
+    no extra bits) and its extra bits."""
+    mag = np.abs(d)
+    cat = np.where(d == 32768, 16, np.ceil(np.log2(mag + 1)).astype(np.int64))
+    nbits = np.where(cat == 16, 0, cat)
+    extra = np.where(d >= 0, d, d - 1) & ((1 << nbits) - 1)
+    cval = np.array([code[k][0] for k in range(17)], np.int64)[cat]
+    clen = np.array([code[k][1] for k in range(17)], np.int64)[cat]
+    return _pack_bits((cval << nbits) | extra, clen + nbits)
+
+
+def encode_lossless(samples, sampling, psv: int, pt=0, restart_rows: int = 0, ids=None, adobe=None,
+                    jfif=False, interleaved=True, seed=0) -> bytes:
+    """A lossless Huffman JPEG (SOF3) of ``samples`` (one int array a
+    component at its sampled size: the values libjpeg keeps, modulo 2^16,
+    whose decoded sample is the low byte of value << ``pt``) with predictor
+    ``psv`` and point transform ``pt`` (one for every component, or one a
+    component where each has its own scan): one interleaved scan (the MCU
+    grid's padding coded as differences of 0), or one scan a component; a
+    restart every ``restart_rows`` MCU rows (the interval a multiple of
+    the MCUs of a row, as libjpeg requires); a seeded fixed-length code of
+    the difference categories 0-16 a scan. Imports no PIL."""
+    nc = len(samples)
+    ids = ids or list(range(1, nc + 1))
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    H, W = samples[0].shape
+    rng = np.random.default_rng(seed)
+    out = _soi(jfif, adobe)
+    body = struct.pack(">BHHB", 8, H, W, nc)
+    for ci, (h, v) in enumerate(sampling):
+        body += bytes([ids[ci], (h << 4) | v, 0])
+    out += _segment(0xC3, body)
+    T, mcux = -(-H // vmax), -(-W // hmax)
+    pt = [pt] * nc if isinstance(pt, int) else list(pt)
+    for si, comps in enumerate([list(range(nc))] if interleaved and nc > 1 else [[c] for c in range(nc)]):
+        inter = len(comps) > 1
+        per_row = mcux if inter else samples[comps[0]].shape[1]
+        code, dht = _code(list(range(17)), rng)
+        out += _segment(0xC4, bytes([si % 2]) + dht)
+        out += _segment(0xDD, struct.pack(">H", restart_rows * per_row))
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(bytes([ids[c], (si % 2) << 4]) for c in comps)
+                        + bytes([psv, 0, pt[comps[0]]]))
+        diffs, restarts_at = _lossless_differences(samples, sampling, comps, psv, pt, restart_rows, T)
+        if inter:  # MCU rows: (MCU columns, components, v rows, h columns)
+            parts = []
+            for c in comps:
+                h, v = sampling[c]
+                d = diffs[c]
+                padded = np.zeros((T * v, mcux * h), np.int64)
+                padded[:d.shape[0], :d.shape[1]] = d
+                parts.append(padded.reshape(T, v, mcux, h).transpose(0, 2, 1, 3).reshape(T, mcux, v * h))
+            rows = list(np.concatenate(parts, axis=2).reshape(T, -1))
+        else:
+            rows = list(diffs[comps[0]])
+        bounds = [0] + restarts_at + [len(rows)]
+        for k in range(len(bounds) - 1):
+            if k:
+                out += bytes([0xFF, 0xD0 + ((k - 1) & 7)])
+            out += _huffman_differences(np.concatenate(rows[bounds[k]:bounds[k + 1]]), code)
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def ijg_tables(quality: int, nc: int = 3) -> list:
+    """jcparam.c:jpeg_quality_scaling of IJG's tables, one a component."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    luma, chroma = (np.clip((t * scale + 50) // 100, 1, 255) for t in (IJG_LUMA, IJG_CHROMA))
+    return [luma] + [chroma] * (nc - 1)
+
+
+def _420(rgb):
+    y, cb, cr = seq._ycc(rgb)
+    return [y, seq._down(cb, 2, 2), seq._down(cr, 2, 2)], [(2, 2), (1, 1), (1, 1)]
+
+
+def frame_forms(pixels: np.ndarray, quality: int = 85) -> dict:
+    """A frame's (H, W, 3 uint8) forms that ``chip_smoke.py`` phase 9d
+    generates from CO3D's 1067x800 frame on a host without PIL: "arithmetic"
+    (SOF9, 4:2:0, IJG's tables at ``quality``), "huffman" (SOF2 of the same
+    coefficients, every one refined: the same pixels by construction) and
+    "lossless" (SOF3, RGB by its component ids, predictor 1: the frame's
+    pixels exactly)."""
+    planes, sampling = _420(pixels)
+    q = ijg_tables(quality)
+    coefs = quantized_blocks(planes, sampling, q)
+    full = [([0, 1, 2], 0, 0, 0, 0)] + [([c], 1, 63, 0, 0) for c in range(3)]
+    return {"arithmetic": encode_arithmetic(planes, sampling, q=q, coefs=coefs),
+            "huffman": encode_progressive(planes, sampling, full, q=q, coefs=coefs),
+            "lossless": encode_lossless([pixels[..., k].astype(np.int64) for k in range(3)], [(1, 1)] * 3, 1,
+                                        ids=[82, 71, 66])}
+
+
+def smoothed_frame(pixels: np.ndarray, quality: int = 85) -> bytes:
+    """The frame as a progressive JPEG of ``SMOOTH_SCRIPT``, which libjpeg
+    block-smooths (phase 9d's smoothed source; PIL's digest is stored)."""
+    planes, sampling = _420(pixels)
+    return encode_progressive(planes, sampling, SMOOTH_SCRIPT, q=ijg_tables(quality))
+
+
+def _upsampled(planes, sampling, shape) -> list:
+    """Each plane replicated to the image's size (libjpeg's upsampling of a
+    lossless frame)."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    return [np.repeat(np.repeat(p, vmax // v, 0), hmax // h, 1)[:shape[0], :shape[1]]
+            for p, (h, v) in zip(planes, sampling)]
+
+
+def lossless_fixtures() -> dict:
+    """name -> (SOF3 bytes, the RGB pixels its samples give, or None for
+    CMYK): every predictor, point transforms, restarts, sampling factors
+    interleaved or one scan a component, the colour spaces libjpeg leaves
+    unconverted, and a difference of category 16."""
+    g = seq.photo(29, 43, 1, seed=41)[..., 0].astype(np.int64)
+    a = seq.photo(37, 53, 3, seed=42).astype(np.int64)
+    rgb = [a[..., k] for k in range(3)]
+    odd = seq.photo(13, 11, 3, seed=43)
+    cmyk = [seq.photo(15, 17, 4, seed=44)[..., k].astype(np.int64) for k in range(4)]
+    sub = [rgb[0], seq._down(a[..., 1], 2, 2).astype(np.int64), seq._down(a[..., 2], 2, 1).astype(np.int64)]
+    s_sub = [(2, 2), (1, 1), (2, 1)]
+    o420 = [odd[..., 0].astype(np.int64), seq._down(odd[..., 1], 2, 2).astype(np.int64),
+            seq._down(odd[..., 2], 2, 2).astype(np.int64)]
+    s420 = [(2, 2), (1, 1), (1, 1)]
+    flat = np.full((9, 12), 77, np.int64)
+    flat[3, 5:7] += 32768  # differences of exactly 32768 (category 16), and of -32768
+    flat[6, 2] += 32768
+    gray = {f"lossless_gray_p{p}{tag}.jpg": (p, pt, rr)
+            for p, pt, rr, tag in ((1, 0, 0, ""), (2, 2, 0, "_pt2"), (3, 0, 4, "_rst"), (4, 0, 0, ""),
+                                   (5, 1, 1, "_pt1_rst"), (6, 0, 0, ""), (7, 7, 0, "_pt7"))}
+    out = {}
+    for i, (name, (psv, pt, rr)) in enumerate(sorted(gray.items())):
+        out[name] = (encode_lossless([g >> pt], [(1, 1)], psv, pt, rr, seed=i),
+                     np.repeat(((g >> pt) << pt).astype(np.uint8)[..., None], 3, 2))
+    px = np.dstack(rgb).astype(np.uint8)
+    out.update({
+        "lossless_rgb_ids.jpg": (encode_lossless(rgb, [(1, 1)] * 3, 4, ids=[82, 71, 66], seed=10), px),
+        "lossless_rgb_123.jpg": (encode_lossless(rgb, [(1, 1)] * 3, 7, seed=11), px),
+        "lossless_rgb_adobe0.jpg": (encode_lossless(rgb, [(1, 1)] * 3, 6, adobe=0, seed=12), px),
+        "lossless_rgb_sub_rst.jpg": (encode_lossless(sub, s_sub, 7, restart_rows=2, ids=[82, 71, 66], seed=13),
+                                     np.dstack(_upsampled(sub, s_sub, (37, 53))).astype(np.uint8)),
+        # one scan a component, a restart every MCU row: libjpeg's first-row
+        # form lands on the first row of each two-row iMCU row of luma
+        "lossless_420_scans_rst.jpg": (encode_lossless(o420, s420, 1, restart_rows=1, interleaved=False,
+                                                       ids=[82, 71, 66], seed=14),
+                                       np.dstack(_upsampled(o420, s420, (13, 11))).astype(np.uint8)),
+        # one scan a component, each its own point transform
+        "lossless_rgb_scans_pt.jpg": (encode_lossless([x >> p for x, p in zip(rgb, (0, 2, 5))], [(1, 1)] * 3, 5,
+                                                      (0, 2, 5), interleaved=False, ids=[82, 71, 66], seed=18),
+                                      np.dstack([(x >> p) << p for x, p in zip(rgb, (0, 2, 5))]).astype(np.uint8)),
+        "lossless_cmyk.jpg": (encode_lossless(cmyk, [(1, 1)] * 4, 2, seed=15), None),
+        "lossless_cmyk_adobe0.jpg": (encode_lossless(cmyk, [(1, 1)] * 4, 3, adobe=0, restart_rows=3, seed=16),
+                                     None),
+        "lossless_cat16.jpg": (encode_lossless([flat], [(1, 1)], 1, seed=17),
+                               np.repeat((flat & 255).astype(np.uint8)[..., None], 3, 2)),
+    })
+    return out
+
+
+def arithmetic_fixtures() -> dict:
+    """name -> (SOF9/SOF10 bytes, the SOF2 bytes of the same coefficients
+    and scan script: its Huffman twin, whose pixels PIL must give alike)."""
+    a = seq.photo(37, 53, 3, seed=51)
+    y, cb, cr = seq._ycc(a)
+    g = seq.photo(29, 43, 1, seed=52)[..., 0]
+    cmyk = seq.photo(27, 35, 4, seed=53)
+    yk = _ycck(cmyk)
+    p420, s420 = _420(a)
+    gray_script = [([0], 0, 0, 0, 2), ([0], 1, 2, 0, 3), ([0], 3, 63, 0, 1), ([0], 1, 2, 3, 2), ([0], 0, 0, 2, 1),
+                   ([0], 1, 2, 2, 1), ([0], 0, 0, 1, 0), ([0], 1, 63, 1, 0)]
+    specs = {  # name -> (planes, sampling, scan script or None (sequential), keywords)
+        "arith_seq_gray.jpg": ([g], [(1, 1)], None, {}),
+        "arith_seq_420_rst.jpg": (p420, s420, None, dict(restart=3, dac={(0, 0): 0x52, (0, 1): 0x31,
+                                                                         (1, 0): 2, (1, 1): 20})),
+        # one scan a component, conditioning tables 2 and 5 (L 0 U 15, Kx 0)
+        "arith_seq_scans.jpg": ([y, cb, cr], [(1, 1)] * 3, [([c], 0, 63, 0, 0) for c in range(3)],
+                                dict(slots=[2, 5, 5], dac={(0, 2): 0xF0, (1, 5): 0, (1, 2): 63})),
+        "arith_rgb_ids.jpg": (list(np.moveaxis(a, 2, 0)), [(1, 1)] * 3, None, dict(ids=[82, 71, 66], jfif=False)),
+        "arith_cmyk.jpg": ([255 - cmyk[..., k] for k in range(4)], [(1, 1)] * 4, None, dict(adobe=0, jfif=False)),
+        "arith_prog_420.jpg": (p420, s420, full_script(3), {}),
+        "arith_prog_rst.jpg": (p420, s420, full_script(3, dc_interleaved=False),
+                               dict(restart=2, dac={(0, 0): 0x11, (0, 1): 0x00, (1, 0): 63})),
+        "arith_prog_gray_script.jpg": ([g], [(1, 1)], gray_script, dict(restart=5)),
+        "arith_prog_ycck.jpg": (yk, [(1, 1)] * 4, full_script(4), dict(adobe=2, jfif=False)),
+        # libjpeg block-smooths these: luma AC at Al 1, chroma DC only
+        "arith_smooth.jpg": (p420, s420, SMOOTH_SCRIPT, dict(restart=4)),
+        "arith_smooth_dc_only.jpg": ([g], [(1, 1)], [([0], 0, 0, 0, 0)], {}),
+    }
+    out = {}
+    # a bad code in MCU 1 of the first restart interval: libjpeg gives up
+    # there and resumes at the next interval (no twin: the pixels differ)
+    out["arith_gives_up.jpg"] = (encode_arithmetic(p420, s420, restart=3, overflow_at=(0, 1, 2)), None)
+    for name, (planes, sampling, scans, kw) in specs.items():
+        nc = len(planes)
+        sequential = scans is None or all(sc[1:] == (0, 63, 0, 0) for sc in scans)
+        twin_scans = [(list(range(nc)), 0, 0, 0, 0)] + [([c], 1, 63, 0, 0) for c in range(nc)] if sequential else scans
+        twin_kw = {k: v for k, v in kw.items() if k in ("restart", "ids", "adobe", "jfif")}
+        out[name] = (encode_arithmetic(planes, sampling, scans, **kw),
+                     encode_progressive(planes, sampling, twin_scans, **twin_kw))
+    return out
+
+
 def _pil_jpeg(arr, mode=None, **options) -> bytes:
     from PIL import Image
 
@@ -292,7 +887,8 @@ def _ycck(cmyk: np.ndarray) -> list:
 
 
 def jpeg_fixtures() -> dict:
-    """name -> (bytes, the word of the port's refusal or None)."""
+    """name -> bytes of the progressive, CMYK/YCCK and block-smoothed
+    JPEGs."""
     a = seq.photo(37, 53, 3, seed=21)
     y, cb, cr = seq._ycc(a)
     g = seq.photo(29, 43, 1, seed=22)[..., 0]
@@ -353,9 +949,25 @@ def jpeg_fixtures() -> dict:
                                                     seed=13),
         "smooth_chroma.jpg": encode_progressive([y, cb, cr], [(1, 1)] * 3, [
             ([0, 1, 2], 0, 0, 0, 0), ([0], 1, 63, 0, 0), ([1], 1, 63, 0, 0)], seed=14),
+        # the neighbourhood's edges: luma two blocks wide, chroma one, five
+        # luma block rows in three iMCU rows (the last one short)
+        "smooth_420_2cols.jpg": encode_progressive(*_420(seq.photo(40, 16, 3, seed=15)), [
+            ([0, 1, 2], 0, 0, 0, 0), ([0], 1, 2, 0, 0)], seed=15),
+        # 4:4:0 in two iMCU rows, the last of one block row: libjpeg clamps
+        # its rows by block_rows x iMCU rows
+        "smooth_440_rows.jpg": encode_progressive(
+            [y[:24, :40], seq._down(cb[:24, :40], 2, 1), seq._down(cr[:24, :40], 2, 1)], [(1, 2), (1, 1), (1, 1)],
+            [([0, 1, 2], 0, 0, 0, 0), ([0], 1, 9, 0, 1), ([1], 1, 5, 0, 0)], seed=16),
+        # DC never refined below Al 2, AC at Al 1: estimates clamped below 2
+        "smooth_gray_al2.jpg": encode_progressive([g], [(1, 1)], [
+            ([0], 0, 0, 0, 2), ([0], 1, 63, 0, 2), ([0], 1, 63, 2, 1)], seed=17),
+        "smooth_cmyk.jpg": encode_progressive([255 - cmyk[..., k] for k in range(4)], [(1, 1)] * 4,
+                                              [([0, 1, 2, 3], 0, 0, 0, 0)] + [([c], 1, 5, 0, 0) for c in range(4)],
+                                              adobe=0, jfif=False, seed=18),
+        "smooth_1x1.jpg": encode_progressive(*_420(seq.photo(1, 1, 3, seed=19)), [([0, 1, 2], 0, 0, 0, 0)],
+                                             seed=19),
     }
-    refused = {n: SMOOTHING for n in f if n.startswith("smooth_")}
-    return {n: (d, refused.get(n)) for n, d in f.items()}
+    return f
 
 
 # ---------------------------------------------------------------- PNG
@@ -506,15 +1118,28 @@ def pil_digest(data: bytes) -> dict:
 
 
 def main(out_dir: str = HERE) -> int:
-    digests = {}
-    files = {n: (d, None) for n, d in png_fixtures().items()}
+    from PIL import Image
+
+    digests, extra = {}, {}
+    files = dict(png_fixtures())
     files.update(jpeg_fixtures())
-    for name, (data, refused) in sorted(files.items()):
+    for name, (data, twin) in arithmetic_fixtures().items():
+        files[name] = data
+        if twin is not None:
+            files["twin_" + name] = twin
+            extra[name] = {"huffman_twin": "twin_" + name}
+    for name, (data, source) in lossless_fixtures().items():
+        files[name] = data
+        if source is not None:
+            extra[name] = {"source_sha256": hashlib.sha256(source.tobytes()).hexdigest()}
+    # phase 9d's smoothed source, from CO3D's frame (frame_a.jpg's pixels)
+    frame = np.asarray(Image.open(os.path.join(JPEG_DIR, "frame_a.jpg")).convert("RGB"))
+    files["frame_a_smooth.jpg"] = smoothed_frame(frame)
+    for name, data in sorted(files.items()):
         with open(os.path.join(out_dir, name), "wb") as fh:
             fh.write(data)
         digests[name] = pil_digest(data)
-        if refused:
-            digests[name]["refused"] = refused
+        digests[name].update(extra.get(name, {}))
     with open(os.path.join(out_dir, "pil_sha256.json"), "w") as fh:
         json.dump(digests, fh, indent=1, sort_keys=True)
         fh.write("\n")

@@ -108,8 +108,8 @@ def _patched(name: str, find: bytes, offset: int, value: int) -> bytes:
 
 
 @pytest.mark.parametrize("data,match", [
-    (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC9), "arithmetic-coded JPEG \\(SOF9\\)"),
-    (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC3), "lossless JPEG \\(SOF3\\)"),
+    (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xCB), "lossless arithmetic-coded JPEG \\(SOF11\\)"),
+    (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC3), "invalid lossless parameters Ss=0 Se=63"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 1, 0xC5), "hierarchical JPEG \\(SOF5\\)"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 4, 12), "12-bit JPEG"),
     (lambda: _patched("s420.jpg", b"\xff\xc0", 6, 0), "DNL marker \\(height 0\\)"),
