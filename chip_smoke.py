@@ -150,9 +150,10 @@ Thirteen phases; any failure exits non-zero:
    ``c++`` in phase 1), after phase 8: (a) every fixture of
    ``tests/fixtures/torch_port_jpeg`` and ``tests/fixtures/torch_port_images``
    (sequential, progressive, block-smoothed, arithmetic-coded, lossless,
-   CMYK and YCCK JPEG; PNG of every colour type and depth, Adam7 or not)
-   decoded to PIL's pixels (sha256; the white composite too where PIL
-   opens it as RGBA); (b)
+   CMYK and YCCK JPEG; PNG of every colour type and depth, Adam7 or not;
+   lossless, lossy, lossy-with-alpha and animated WebP) decoded to PIL's
+   pixels (sha256; the white composite too where PIL opens it as RGBA; a
+   WebP in PIL's mode); (b)
    ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
    1067x800 JPEG frames (``frame_annotations.jgz``; 9 sequences, so no val
    split) at phase 5's point for 3 steps: K1, K2, K3a and K3b exactly the
@@ -162,18 +163,21 @@ Thirteen phases; any failure exits non-zero:
    phase 7c, on phase 3's pipeline: phase 3's call from CO3D's 1067x800
    frame through ``load_image`` as a progressive, a block-smoothed
    progressive, an arithmetic-coded and a lossless JPEG (the last two
-   written on the host by the fixture script's ``frame_forms``; each
-   decode PIL's pixels by digest, its Huffman twin's, or its source's) and
-   from each one's pixels as PNG, sources and images bitwise equal, K1 1312
-   and K2 1333 each with no plain call, then a server request with the
-   progressive and one with the arithmetic-coded JPEG base64-encoded (the
-   server's decode those pixels, phase 3's launches); (e)
+   written on the host by the fixture script's ``frame_forms``) and a lossy
+   WebP, and from a 512² procedural render as lossless RGBA WebP and lossy
+   WebP with alpha (each decode PIL's pixels by digest, its Huffman twin's,
+   or its source's), and from each one's pixels as PNG, sources and images
+   bitwise equal, K1 1312 and K2 1333 each with no plain call, then a
+   server request with the progressive JPEG, one with the arithmetic-coded
+   JPEG and one with the lossy WebP base64-encoded (the server's decode
+   those pixels, phase 3's launches); (e)
    ``cli.train.main`` for 2 steps at phase 5's point on 9
    objects of 16-bit Adam7 RGBA PNG renders: the train step's launches per
    step, no plain call, finite losses, and its first batch bitwise that
    of an 8-bit corpus of the same high bytes; then the host ms to decode a
    1067x800 frame as progressive, baseline, block-smoothed, arithmetic-coded
-   and lossless JPEG, 16-bit PNG and Adam7 PNG, the host ms per 768² view
+   and lossless JPEG, 16-bit PNG, Adam7 PNG and lossy WebP, and the 512²
+   render as lossless and lossy-with-alpha WebP, the host ms per 768² view
    of the PIL path, the native
    reader and a JPEG frame, and the loader's seconds a batch of 6 with
    each reader, in turns, against the step, beside the card's name and
@@ -2519,6 +2523,10 @@ IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests
 CO3D_FRAMES_SRC = ("frame_a.jpg", "frame_b.jpg")
 PROG_SOURCE = "frame_a_prog.jpg"  # frame_a.jpg's frame written progressive by PIL
 SMOOTH_SOURCE = "frame_a_smooth.jpg"  # its pixels as a progressive JPEG libjpeg block-smooths
+# its pixels as lossy WebP at quality 90, and a 512² procedural render as
+# lossless RGBA WebP (exact: its own pixels) and as lossy WebP with alpha
+WEBP_SOURCES = {"lossy WebP": "webp_frame_a_q90.webp", "lossless RGBA WebP (512² render)": "webp_render_lossless.webp",
+                "lossy WebP with alpha (512² render)": "webp_render_alpha.webp"}
 # (e): 16-bit interlaced renders; under 10 objects, so no val split
 DEEP_OBJECTS, DEEP_STEPS, DECODE_TURNS = 9, 2, 5
 CO3D_SEQUENCES, CO3D_FRAMES, CO3D_STEPS, NATIVE_STEPS = 9, 4, 3, 2
@@ -2633,15 +2641,17 @@ def _loader_s_per_batch(loader, batches: int = LOADER_BATCHES) -> float:
 
 
 def frame_sources() -> dict:
-    """CO3D's 1067x800 frame (``frame_a.jpg``) as phase 9d's sources: form ->
-    (JPEG bytes, the sha256 its decode must have, whose pixels those are).
-    The progressive and block-smoothed files are fixtures with PIL's
-    digests; the arithmetic-coded (SOF9, 4:2:0, IJG quality 85) and lossless
-    (SOF3, RGB) files are written here by the fixture script's
-    ``frame_forms`` from the frame's pixels, as a host without PIL can: the
-    first must decode to its Huffman twin's pixels (the same coefficients),
-    the second to the frame's pixels."""
-    from mvd_tpu_torch.utils.images import decode_jpeg
+    """CO3D's 1067x800 frame (``frame_a.jpg``) and a 512² render as phase
+    9d's sources: form -> (file bytes, the sha256 its RGB decode must have,
+    whose pixels those are). The progressive and block-smoothed JPEGs and
+    the WebP files (``WEBP_SOURCES``) are fixtures with PIL's digests (the
+    lossless WebP's RGBA decode must also be its render's own pixels); the
+    arithmetic-coded (SOF9, 4:2:0, IJG quality 85) and lossless (SOF3, RGB)
+    JPEGs are written here by the fixture script's ``frame_forms`` from the
+    frame's pixels, as a host without PIL can: the first must decode to its
+    Huffman twin's pixels (the same coefficients), the second to the
+    frame's pixels."""
+    from mvd_tpu_torch.utils.images import decode_jpeg, decode_webp
 
     def read(folder, name):
         with open(os.path.join(folder, name), "rb") as f:
@@ -2653,13 +2663,20 @@ def frame_sources() -> dict:
     pixels = decode_jpeg(read(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]))
     forms = image_fixture_script().frame_forms(pixels)
     digests = image_digests()
-    return {
+    sources = {
         "progressive JPEG": (read(IMAGE_FIXTURES, PROG_SOURCE), digests[PROG_SOURCE]["sha256"], "PIL's"),
         "block-smoothed progressive JPEG": (read(IMAGE_FIXTURES, SMOOTH_SOURCE), digests[SMOOTH_SOURCE]["sha256"],
                                             "PIL's"),
         "arithmetic-coded JPEG": (forms["arithmetic"], sha(decode_jpeg(forms["huffman"])), "its Huffman twin's"),
         "lossless JPEG": (forms["lossless"], sha(pixels), "its source's"),
     }
+    for form, name in WEBP_SOURCES.items():
+        data, want = read(IMAGE_FIXTURES, name), digests[name]
+        rgba, mode = decode_webp(data)
+        if mode != want["mode"] or ("source_sha256" in want and sha(rgba) != want["source_sha256"]):
+            raise AssertionError(f"(d): {name} decodes in mode {mode} (PIL's {want['mode']}) or not to its source")
+        sources[form] = (data, want["sha256"], "PIL's")
+    return sources
 
 
 def phase_reader_generation(call, sources: dict, card: str) -> dict:
@@ -2684,7 +2701,7 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
 
     from mvd_tpu_torch.cli import serve as serve_mod
     from mvd_tpu_torch.cli.serve import make_handler
-    from mvd_tpu_torch.utils.images import decode_jpeg, encode_png, load_image
+    from mvd_tpu_torch.utils.images import decode_image, encode_png, load_image
 
     t_phase = time.perf_counter()
     pipe, prompts, kwargs = call
@@ -2693,11 +2710,12 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
     secs = {}
     try:
         for form, (jpeg, digest, whose) in sources.items():
-            pixels = decode_jpeg(jpeg)
+            pixels = decode_image(jpeg)
             if hashlib.sha256(pixels.tobytes()).hexdigest() != digest:
-                raise AssertionError(f"(d): the {form} frame does not decode to {whose} pixels")
+                raise AssertionError(f"(d): the {form} source does not decode to {whose} pixels")
             srcs, imgs = [], []
-            for label, name, data in ((form, "source.jpg", jpeg),
+            ext = ".webp" if "WebP" in form else ".jpg"
+            for label, name, data in ((form, "source" + ext, jpeg),
                                       (f"{form}'s pixels as PNG", "source.png", encode_png(pixels))):
                 path = os.path.join(tmp, name)
                 with open(path, "wb") as f:
@@ -2711,8 +2729,9 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
                 imgs.append(out["images"])
             if not np.array_equal(*srcs) or not torch.equal(*imgs):
                 raise AssertionError(f"(d): the {form} source or images differ from its PNG's")
+            shape = "x".join(str(n) for n in pixels.shape[1::-1])
             print(f"[readers] (d) phase 3's call ({VIEWS} views, {RES}², DDPM {STEPS}, guidance 1.0) from the "
-                  f"1067x800 frame as {form} ({len(jpeg)} bytes; its decode {whose} pixels) and from its pixels "
+                  f"{shape} source as {form} ({len(jpeg)} bytes; its decode {whose} pixels) and from its pixels "
                   f"as PNG: sources and images bitwise equal; launches {want} each, no plain call")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2730,7 +2749,7 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
         return run
 
     try:
-        for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG"), start=5):
+        for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG", "lossy WebP"), start=5):
             jpeg, digest, whose = sources[form]
             payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": seed,
                        "source_image_b64": base64.b64encode(jpeg).decode()}
@@ -2770,11 +2789,12 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
 
 
 def check_fixture_digests() -> None:
-    """Phase 9a: every JPEG and PNG fixture decoded to PIL's pixels by
-    sha256 (the white composite too where PIL opens it as RGBA), with the
+    """Phase 9a: every JPEG, PNG and WebP fixture decoded to PIL's pixels
+    by sha256 (the white composite too where PIL opens it as RGBA; a WebP
+    in PIL's mode, a lossless one with ``exact`` to its source), with the
     libraries phase 1 built."""
     from mvd_tpu_torch.kernels import HOST_SOURCES, _build
-    from mvd_tpu_torch.utils.images import decode_image
+    from mvd_tpu_torch.utils.images import decode_image, decode_webp
 
     for name in HOST_SOURCES:
         if _build.build_host(name) != os.path.join(_build.BUILD_DIR, f"lib{name}.so"):
@@ -2792,24 +2812,33 @@ def check_fixture_digests() -> None:
                 if hashlib.sha256(comp.tobytes()).hexdigest() != want["composite_sha256"]:
                     raise AssertionError(f"{name}: the white composite is not PIL's")
                 composites += 1
+            if name.endswith(".webp"):
+                rgba, mode = decode_webp(data)
+                if mode != want["mode"]:
+                    raise AssertionError(f"{name}: mode {mode}, PIL's {want['mode']}")
+                if "source_sha256" in want and hashlib.sha256(rgba.tobytes()).hexdigest() != want["source_sha256"]:
+                    raise AssertionError(f"{name}: the lossless decode is not its source")
             decoded.append(name)
     n_png = sum(n.endswith(".png") for n in decoded)
-    forms = {k: sum(n.startswith(k) for n in decoded) for k in ("smooth", "arith", "lossless")}
-    print(f"[readers] (a) {len(decoded) - n_png} JPEG (sequential, progressive, CMYK, YCCK; "
-          f"{forms['smooth']} block-smoothed, {forms['arith']} arithmetic-coded, {forms['lossless']} lossless) "
-          f"and {n_png} PNG (every colour type and depth, Adam7 or not) fixtures decode bitwise to PIL's pixels "
-          f"(sha256; {composites} white composites of PIL's RGBA images too)")
+    n_webp = sum(n.endswith(".webp") for n in decoded)
+    forms = {k: sum(n.startswith(k) for n in decoded) for k in ("smooth", "arith", "lossless", "webp_ll")}
+    print(f"[readers] (a) {len(decoded) - n_png - n_webp} JPEG (sequential, progressive, CMYK, YCCK; "
+          f"{forms['smooth']} block-smoothed, {forms['arith']} arithmetic-coded, {forms['lossless']} lossless), "
+          f"{n_png} PNG (every colour type and depth, Adam7 or not) and {n_webp} WebP ({forms['webp_ll']} "
+          f"simple lossless; lossy, ALPH, VP8X, animated) fixtures decode bitwise to PIL's pixels "
+          f"(sha256; {composites} white composites of PIL's RGBA images too; each WebP in PIL's mode)")
 
 
 def frame_decode_ms(sources: dict, card: str) -> dict:
-    """The host ms to decode CO3D's 1067x800 frame seven ways (progressive,
+    """The host ms to decode CO3D's 1067x800 frame eight ways (progressive,
     baseline, 16-bit RGBA PNG, Adam7 PNG, and 9d's block-smoothed,
-    arithmetic-coded and lossless JPEGs of ``sources``), in turns on one
+    arithmetic-coded and lossless JPEGs and lossy WebP of ``sources``) and
+    9d's 512² render as lossless and lossy-with-alpha WebP, in turns on one
     thread: the median, min and max of ``DECODE_TURNS`` and each file's
     bytes."""
     import numpy as np
 
-    from mvd_tpu_torch.utils.images import decode_jpeg, decode_png
+    from mvd_tpu_torch.utils.images import decode_image, decode_jpeg, decode_png
 
     fx, frng = image_fixture_script(), np.random.default_rng(9)
     with open(os.path.join(IMAGE_FIXTURES, PROG_SOURCE), "rb") as f:
@@ -2823,7 +2852,7 @@ def frame_decode_ms(sources: dict, card: str) -> dict:
     decoders = {"progressive JPEG": lambda: decode_jpeg(prog), "baseline JPEG": lambda: decode_jpeg(base_jpg),
                 "16-bit RGBA PNG": lambda: decode_png(png16), "Adam7 8-bit RGBA PNG": lambda: decode_png(png_i)}
     new_forms = {k: v[0] for k, v in sources.items() if k != "progressive JPEG"}
-    decoders.update({k: (lambda d=d: decode_jpeg(d)) for k, d in new_forms.items()})
+    decoders.update({k: (lambda d=d: decode_image(d)) for k, d in new_forms.items()})
     if not (np.array_equal(decode_png(png16), frame) and np.array_equal(decode_png(png_i), frame)):
         raise AssertionError("the frame's PNGs do not decode to the frame")
     dms = {k: [] for k in decoders}
@@ -2836,8 +2865,8 @@ def frame_decode_ms(sources: dict, card: str) -> dict:
     decode_range = {k: [min(v), max(v)] for k, v in dms.items()}
     sizes = {"progressive JPEG": len(prog), "baseline JPEG": len(base_jpg), "16-bit RGBA PNG": len(png16),
              "Adam7 8-bit RGBA PNG": len(png_i), **{k: len(d) for k, d in new_forms.items()}}
-    print(f"[readers] host ms to decode a 1067x800 frame, median of {DECODE_TURNS} in turns (one thread; "
-          f"PNG rows of a seeded filter type each; {card}): "
+    print(f"[readers] host ms to decode a 1067x800 frame (or the 512² render where named), median of "
+          f"{DECODE_TURNS} in turns (one thread; PNG rows of a seeded filter type each; {card}): "
           + "; ".join(f"{k} ({sizes[k]} bytes) {v:.2f} [{decode_range[k][0]:.2f}-{decode_range[k][1]:.2f}]"
                       for k, v in decode_ms.items()))
     return dict(decode_ms=decode_ms, decode_ms_range=decode_range, decode_bytes=sizes)
@@ -4433,8 +4462,8 @@ def main(argv=None) -> int:
     model_metrics["phase_s"] = time.perf_counter() - t_model
     t0 = time.perf_counter()
     frames = frame_sources()
-    print(f"[readers] (d) the arithmetic-coded and lossless frames written in {time.perf_counter() - t0:.2f} s "
-          f"({card})")
+    print(f"[readers] (d) the arithmetic-coded and lossless frames written and the WebP sources checked in "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
     prog_metrics = phase_reader_generation(call, frames, card)  # 9d, on phase 3's pipeline while it is up
     orbax_src = orbax_export(call)  # phase 10b's source: phase 3's weights in host memory
     orbax_src["images"] = images

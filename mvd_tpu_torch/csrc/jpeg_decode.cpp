@@ -375,19 +375,6 @@ struct Component {
   int stride = 0;
 };
 
-// libjpeg's post-IDCT range limit: (value & 1023) -> sample, i.e. clamp of
-// value + 128 to [0, 255] for |value| < 512 and a wrap beyond
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int v = (i < 512 ? i : i - 1024) + 128;
-      t[i] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
-    }
-  }
-};
-const RangeLimit kRange;
-
 // PIL's Image.open refuses an image of more pixels than twice
 // Image.MAX_IMAGE_PIXELS (a DecompressionBombError), before any pixel is
 // decoded; the header is refused here at the same size
@@ -395,111 +382,82 @@ constexpr int64_t kMaxPixels = int64_t(2) * 89478485;
 // the bytes PIL reads of a file at a time (ImageFile.MAXBLOCK)
 constexpr size_t kPilBlock = 65536;
 
-// jidctint.c:jpeg_idct_islow on one block
+// libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm, jidctint-sse2.asm),
+// the one PIL's libjpeg-turbo runs, on one block. It is jidctint.c's
+// algorithm in 16-bit lanes: each coefficient is dequantized in 16 bits
+// (pmullw, the product wraps); the sums in0 + in4, in0 - in4, in3 + in7 and
+// in1 + in5 wrap in 16 bits (paddw); the products and butterflies are 32-bit
+// (pmaddwd, paddd); pass 1's outputs saturate to int16 (packssdw), and pass
+// 2's to [-128, 127] before the +128 (packssdw, packsswb). A block whose
+// rows 1-7 are all zero takes pass 1's shortcut: row 0 dequantized and
+// shifted left by PASS1_BITS, both in 16 bits (pmullw, psllw).
+namespace idct {
+constexpr int CB = 13, P1 = 2;
+constexpr int F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
+              F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+
+inline int16_t wrap16(int32_t v) { return int16_t(uint16_t(uint32_t(v))); }
+inline int16_t sat16(int32_t v) { return int16_t(v < -32768 ? -32768 : v > 32767 ? 32767 : v); }
+inline int32_t add(int32_t a, int32_t b) { return int32_t(uint32_t(a) + uint32_t(b)); }
+inline int32_t sub(int32_t a, int32_t b) { return int32_t(uint32_t(a) - uint32_t(b)); }
+// pmaddwd: a * ca + b * cb, 32-bit
+inline int32_t madd(int16_t a, int ca, int16_t b, int cb) { return add(int32_t(a) * ca, int32_t(b) * cb); }
+
+// one 8-point pass on 16-bit inputs; out holds the 32-bit values before
+// the descale
+inline void pass(const int16_t* in, int32_t* out) {
+  int32_t tmp3 = madd(in[2], F0541 + F0765, in[6], F0541);
+  int32_t tmp2 = madd(in[2], F0541, in[6], F0541 - F1847);
+  int32_t tmp0 = int32_t(wrap16(int32_t(in[0]) + in[4])) * (1 << CB);
+  int32_t tmp1 = int32_t(wrap16(int32_t(in[0]) - in[4])) * (1 << CB);
+  int32_t tmp10 = add(tmp0, tmp3), tmp13 = sub(tmp0, tmp3), tmp11 = add(tmp1, tmp2), tmp12 = sub(tmp1, tmp2);
+  int16_t z3 = wrap16(int32_t(in[3]) + in[7]), z4 = wrap16(int32_t(in[1]) + in[5]);
+  int32_t z3p = madd(z3, F1175 - F1961, z4, F1175);
+  int32_t z4p = madd(z3, F1175, z4, F1175 - F0390);
+  int32_t o0 = add(madd(in[7], F0298 - F0899, in[1], -F0899), z3p);
+  int32_t o3 = add(madd(in[7], -F0899, in[1], F1501 - F0899), z4p);
+  int32_t o1 = add(madd(in[5], F2053 - F2562, in[3], -F2562), z4p);
+  int32_t o2 = add(madd(in[5], -F2562, in[3], F3072 - F2562), z3p);
+  out[0] = add(tmp10, o3);
+  out[7] = sub(tmp10, o3);
+  out[1] = add(tmp11, o2);
+  out[6] = sub(tmp11, o2);
+  out[2] = add(tmp12, o1);
+  out[5] = sub(tmp12, o1);
+  out[3] = add(tmp13, o0);
+  out[4] = sub(tmp13, o0);
+}
+
+inline int32_t descale(int32_t x, int n) { return add(x, 1 << (n - 1)) >> n; }
+}  // namespace idct
+
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
-  constexpr int CB = 13, P1 = 2;
-  constexpr int F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
-                F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
-                F2562 = 20995, F3072 = 25172;
-  auto descale = [](int64_t x, int n) { return int((x + (int64_t(1) << (n - 1))) >> n); };
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      int dc = int(ip[0]) * int(qp[0]) * (1 << P1);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
-      continue;
+  using namespace idct;
+  int16_t ws[64];
+  bool ac_rows = false;
+  for (int i = 8; i < 64; ++i) ac_rows |= in[i] != 0;
+  if (!ac_rows) {
+    for (int c = 0; c < 8; ++c) {
+      int16_t v = wrap16(int32_t(uint16_t(wrap16(int32_t(in[c]) * q[c]))) << P1);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
     }
-    int64_t z2 = int(ip[16]) * int(qp[16]), z3 = int(ip[48]) * int(qp[48]);
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847;
-    int64_t tmp3 = z1 + z2 * F0765;
-    z2 = int(ip[0]) * int(qp[0]);
-    z3 = int(ip[32]) * int(qp[32]);
-    int64_t tmp0 = (z2 + z3) * (1 << CB);
-    int64_t tmp1 = (z2 - z3) * (1 << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int(ip[56]) * int(qp[56]);
-    tmp1 = int(ip[40]) * int(qp[40]);
-    tmp2 = int(ip[24]) * int(qp[24]);
-    tmp3 = int(ip[8]) * int(qp[8]);
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    wp[0] = descale(tmp10 + tmp3, CB - P1);
-    wp[56] = descale(tmp10 - tmp3, CB - P1);
-    wp[8] = descale(tmp11 + tmp2, CB - P1);
-    wp[48] = descale(tmp11 - tmp2, CB - P1);
-    wp[16] = descale(tmp12 + tmp1, CB - P1);
-    wp[40] = descale(tmp12 - tmp1, CB - P1);
-    wp[24] = descale(tmp13 + tmp0, CB - P1);
-    wp[32] = descale(tmp13 - tmp0, CB - P1);
+  } else {
+    for (int c = 0; c < 8; ++c) {
+      int16_t col[8];
+      int32_t o[8];
+      for (int r = 0; r < 8; ++r) col[r] = wrap16(int32_t(in[8 * r + c]) * q[8 * r + c]);
+      pass(col, o);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16(descale(o[r], CB - P1));
+    }
   }
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
+    int32_t o[8];
+    pass(ws + 8 * r, o);
     uint8_t* op = out + size_t(r) * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t v = kRange.t[descale(wp[0], P1 + 3) & 1023];
-      for (int c = 0; c < 8; ++c) op[c] = v;
-      continue;
+    for (int c = 0; c < 8; ++c) {
+      int32_t v = sat16(descale(o[c], CB + P1 + 3));
+      op[c] = uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847;
-    int64_t tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CB);
-    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int S = CB + P1 + 3;
-    op[0] = kRange.t[descale(tmp10 + tmp3, S) & 1023];
-    op[7] = kRange.t[descale(tmp10 - tmp3, S) & 1023];
-    op[1] = kRange.t[descale(tmp11 + tmp2, S) & 1023];
-    op[6] = kRange.t[descale(tmp11 - tmp2, S) & 1023];
-    op[2] = kRange.t[descale(tmp12 + tmp1, S) & 1023];
-    op[5] = kRange.t[descale(tmp12 - tmp1, S) & 1023];
-    op[3] = kRange.t[descale(tmp13 + tmp0, S) & 1023];
-    op[4] = kRange.t[descale(tmp13 - tmp0, S) & 1023];
   }
 }
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -152,6 +153,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def _source_mtime(src: str) -> float:
+    """The newest mtime of ``src`` and the headers of ``csrc/`` it includes
+    by name (``#include "..."``)."""
+    newest = os.path.getmtime(src)
+    with open(src) as f:
+        for line in f:
+            m = re.match(r'\s*#include "([^"]+)"', line)
+            if m and os.path.exists(os.path.join(CSRC, m.group(1))):
+                newest = max(newest, os.path.getmtime(os.path.join(CSRC, m.group(1))))
+    return newest
+
+
 def build_host(name: str, build_dir: Optional[str] = None) -> str:
     """Compile ``csrc/<name>.cpp`` into ``<build_dir>/lib<name>.so`` (default
     ``_build/``) with ``HOST_CXX`` and ``HOST_FLAGS`` when the library is
@@ -165,7 +178,7 @@ def build_host(name: str, build_dir: Optional[str] = None) -> str:
     os.makedirs(build_dir, exist_ok=True)
     with open(lib + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        if os.path.exists(lib) and os.path.getmtime(lib) >= _source_mtime(src):
             return lib
         exe = shutil.which(HOST_CXX)
         if exe is None:

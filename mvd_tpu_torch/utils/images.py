@@ -11,9 +11,12 @@ optionally composited over white as PIL's ``Image.alpha_composite`` does).
 JPEG is read by ``csrc/jpeg_decode.cpp`` (``decode_jpeg``: baseline,
 extended and progressive Huffman, progressive files libjpeg block-smooths,
 arithmetic-coded sequential and progressive, lossless; 8-bit, gray, three
-components or four (CMYK, YCCK), bitwise PIL's ``convert("RGB")``). Both
-are built with the host's ``c++`` on first use.
-``decode_image`` takes either, as ``Image.open`` does. ``resize`` stands in
+components or four (CMYK, YCCK), bitwise PIL's ``convert("RGB")``). WebP is
+read by ``csrc/webp_decode.cpp`` (``decode_webp``: lossless VP8L, lossy VP8
+with or without its ALPH chunk, the VP8X container and an animation's first
+frame, bitwise PIL's libwebp, with PIL's mode). Each is built with the
+host's ``c++`` on first use.
+``decode_image`` takes any of them, as ``Image.open`` does. ``resize`` stands in
 for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
 support widens with the downscale factor, with PIL's 8-bit fixed-point
 coefficients and its uint8 rounding between the horizontal and the vertical
@@ -32,6 +35,8 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+# the first chunks of a file PIL opens as WebP
+WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")
 # PIL's Image.open refuses an image of more pixels than twice
 # Image.MAX_IMAGE_PIXELS (a DecompressionBombError); so do the decoders here
 # (csrc/jpeg_decode.cpp holds the same number)
@@ -330,17 +335,71 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out
 
 
+def _bind_webp(lib: ctypes.CDLL) -> None:
+    out_int = ctypes.POINTER(ctypes.c_int)
+    lib.mvd_webp_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, out_int, out_int, out_int,
+                                  ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_webp_info.restype = ctypes.c_int
+    lib.mvd_webp_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_webp_decode.restype = ctypes.c_int
+
+
+def is_webp(data: bytes) -> bool:
+    """Whether ``Image.open`` takes ``data`` for WebP
+    (``WebPImagePlugin._accept``): ``RIFF``, ``WEBP`` at byte 8 and a
+    first chunk of ``VP8 ``, ``VP8L`` or ``VP8X``."""
+    return data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS
+
+
+def decode_webp(data: bytes) -> Tuple[np.ndarray, str]:
+    """WebP bytes -> (pixels, mode), what PIL 12.1.0 gives for
+    ``np.asarray(Image.open(...))`` and its ``mode``: (H, W, 3) uint8 and
+    ``"RGB"``, or (H, W, 4) and ``"RGBA"`` (not premultiplied) where libwebp
+    reports alpha (a VP8L alpha bit, an ALPH chunk, the VP8X alpha flag).
+    Takes simple lossy (VP8) and lossless (VP8L) files and the extended
+    container (VP8X: ALPH, ICCP/EXIF/XMP skipped); of an animation, the
+    first frame on a canvas of zeros, as PIL's first frame. Bitwise
+    libwebp 1.6.0 (``csrc/webp_decode.cpp``). Raises ``ValueError`` where
+    PIL raises: a container libwebp's demuxer refuses, a non-key or hidden
+    VP8 frame, a bad VP8 start code or VP8L signature or version, truncated
+    chunks or partitions, invalid prefix codes; and on a canvas of more
+    pixels than PIL's decompression-bomb limit, before anything is
+    allocated. Raises ``RuntimeError`` when the decoder cannot be built."""
+    from ..kernels._build import load_host
+
+    lib = load_host("webp_decode", _bind_webp)
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    w, h, alpha = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.mvd_webp_info(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(alpha), err, len(err)):
+        raise ValueError(err.value.decode())
+    rgba = np.empty((h.value, w.value, 4), np.uint8)
+    if lib.mvd_webp_decode(data, len(data), rgba.ctypes.data, w, h, err, len(err)):
+        raise ValueError(err.value.decode())
+    if alpha.value:
+        return rgba, "RGBA"
+    return np.ascontiguousarray(rgba[..., :3]), "RGB"
+
+
 def decode_image(data: bytes, composite_alpha: bool = False) -> np.ndarray:
-    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB, chosen by the file's
+    """PNG, JPEG or WebP bytes -> (H, W, 3) uint8 RGB, chosen by the file's
     signature as ``Image.open`` chooses: ``decode_png`` (``composite_alpha``
-    goes to it) or ``decode_jpeg``. Raises ``ValueError`` on anything else,
-    naming its first bytes."""
+    goes to it), ``decode_jpeg`` or ``decode_webp`` (alpha dropped as
+    ``convert("RGB")`` drops it, or with ``composite_alpha`` an RGBA image
+    first composited over white, ``over_white``). Raises ``ValueError`` on
+    anything else, naming its first bytes."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, composite_alpha=composite_alpha)
     if data.startswith(JPEG_SIGNATURE):
         return decode_jpeg(data)
-    raise ValueError(f"not a PNG or JPEG file (it starts {bytes(data[:8])!r}); only PNG and JPEG "
-                     "images are read")
+    if is_webp(data):
+        pixels, mode = decode_webp(data)
+        if mode == "RGBA":
+            return over_white(pixels) if composite_alpha else np.ascontiguousarray(pixels[..., :3])
+        return pixels
+    raise ValueError(f"not a WebP, PNG or JPEG file (it starts {bytes(data[:16])!r}); only WebP, PNG "
+                     "and JPEG images are read")
 
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:
@@ -403,7 +462,7 @@ def save_image(img: np.ndarray, path: str):
 
 
 def load_image(path: str, size: Optional[int] = None) -> np.ndarray:
-    """PNG or JPEG -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48,
+    """PNG, JPEG or WebP -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48,
     NHWC; alpha dropped as ``convert("RGB")`` drops it), resized to
     (size, size) where it differs."""
     with open(path, "rb") as f:

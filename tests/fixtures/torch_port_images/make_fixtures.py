@@ -2,13 +2,16 @@
 ``chip_smoke.py`` phase 9 beyond the sequential JPEGs beside them
 (``../torch_port_jpeg``): progressive, block-smoothed, arithmetic-coded,
 lossless, CMYK and YCCK JPEGs, PNGs at every (colour type, bit depth) pair
-PNG allows, interlaced or not, and ``pil_sha256.json``: for each file PIL's
+PNG allows, interlaced or not, WebP files (lossless, lossy, lossy with an
+ALPH chunk of each filter, the VP8X container, animations, the loop filter
+and partition forms PIL's save cannot select), and ``pil_sha256.json``: for each file PIL's
 mode and the sha256 and shape of ``Image.open(...).convert("RGB")``; for a
 file PIL opens as RGBA also those of the data loaders' white composite
 (``Image.alpha_composite`` over opaque white, then ``convert("RGB")``);
 for an arithmetic-coded file the name of its Huffman twin (the same
 coefficients and scan script); for a lossless one the sha256 of the RGB
-its source samples give (not for CMYK).
+its source samples give (not for CMYK); for a lossless WebP saved with
+``exact`` the sha256 of the RGBA it was made from.
 
     python tests/fixtures/torch_port_images/make_fixtures.py
 
@@ -34,6 +37,7 @@ file on a host without PIL to write 16-bit and interlaced PNGs and
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import importlib.util
 import io
@@ -1097,6 +1101,637 @@ def png_fixtures() -> dict:
 # -------------------------------------------------------------- digests
 
 
+# ------------------------------------------------------------------ WebP
+#
+# PIL's save writes lossless VP8L (method 0-6, any quality, ``exact``),
+# lossy VP8 with and without an ALPH chunk and animations. The features it
+# cannot select (the simple loop filter, 2-8 token partitions, 1-4
+# segments, filter sharpness, raw alpha) come from libwebp's own encoder
+# through ctypes (``webp_encode``); the ALPH filters, from ``alpha_chunk``,
+# which writes an ALPH chunk of any filter and method by hand; an animation
+# whose first frame sits at an offset of a larger canvas, from
+# ``animation``.
+
+
+class _WebPConfig(ctypes.Structure):
+    """libwebp's ``WebPConfig`` at encoder ABI 0x020f (``webp/encode.h``)."""
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR") else ctypes.c_int)
+                for n in ("lossless", "quality", "method", "image_hint", "target_size", "target_PSNR", "segments",
+                          "sns_strength", "filter_strength", "filter_sharpness", "filter_type", "autofilter",
+                          "alpha_compression", "alpha_filtering", "alpha_quality", "pass", "show_compressed",
+                          "preprocessing", "partitions", "partition_limit", "emulate_jpeg_size", "thread_level",
+                          "low_memory", "near_lossless", "exact", "use_delta_palette", "use_sharp_yuv", "qmin",
+                          "qmax")]
+
+
+_P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+
+
+class _WebPPicture(ctypes.Structure):
+    """libwebp's ``WebPPicture`` at encoder ABI 0x020f."""
+    _fields_ = [("use_argb", _I), ("colorspace", _I), ("width", _I), ("height", _I), ("y", _P), ("u", _P),
+                ("v", _P), ("y_stride", _I), ("uv_stride", _I), ("a", _P), ("a_stride", _I), ("pad1", _U32 * 2),
+                ("argb", _P), ("argb_stride", _I), ("pad2", _U32 * 3), ("writer", _P), ("custom_ptr", _P),
+                ("extra_info_type", _I), ("extra_info", _P), ("stats", _P), ("error_code", _I),
+                ("progress_hook", _P), ("user_data", _P), ("pad3", _U32 * 3), ("pad4", _P), ("pad5", _P),
+                ("pad6", _U32 * 8), ("memory_", _P), ("memory_argb_", _P), ("pad7", _P * 2)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", _P), ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t), ("pad", _U32 * 1)]
+
+
+WEBP_ENCODER_ABI = 0x020F
+
+
+def webp_encode(img: np.ndarray, **config) -> bytes:
+    """(H, W, 3 or 4) uint8 -> a WebP file from the system libwebp's encoder
+    (``libwebp.so.7``, 1.2.x, whose ``webp/encode.h`` is ABI 0x020f): the
+    default config at quality 75, then ``config``'s ``WebPConfig`` fields
+    (``filter_type=0`` the simple filter, ``partitions`` log2 of the token
+    partitions, ``segments``, ``filter_sharpness``, ``alpha_compression=0``
+    raw alpha, ...). An opaque image has no ALPH chunk."""
+    import ctypes.util
+
+    lib = ctypes.CDLL(ctypes.util.find_library("webp"))
+    if lib.WebPGetEncoderVersion() >> 8 != 0x0102:
+        raise RuntimeError(f"webp_encode needs libwebp 1.2.x, found {lib.WebPGetEncoderVersion():#x}")
+    cfg = _WebPConfig()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, ctypes.c_float(75.0), WEBP_ENCODER_ABI):
+        raise RuntimeError("WebPConfigInit failed")
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the config {config}")
+    pic = _WebPPicture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), WEBP_ENCODER_ABI):
+        raise RuntimeError("WebPPictureInit failed")
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"webp_encode takes (H, W, 3 or 4) uint8, got {img.shape}")
+    h, w, ch = img.shape
+    pic.width, pic.height = w, h
+    pic.use_argb = int(cfg.lossless)
+    writer = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    try:
+        importer = lib.WebPPictureImportRGBA if ch == 4 else lib.WebPPictureImportRGB
+        if not importer(ctypes.byref(pic), img.ctypes.data_as(ctypes.c_void_p), w * ch):
+            raise RuntimeError("WebPPictureImport failed")
+        pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p)
+        pic.custom_ptr = ctypes.cast(ctypes.pointer(writer), ctypes.c_void_p)
+        if not lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)):
+            raise RuntimeError(f"WebPEncode failed, error {pic.error_code}")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def _riff_chunk(kind: bytes, body: bytes) -> bytes:
+    return kind + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def riff_chunks(data: bytes) -> list:
+    """(fourcc, body) of each chunk of a RIFF/WEBP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        kind, size = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        out.append((kind, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def webp_file(chunks) -> bytes:
+    """A RIFF/WEBP file of (fourcc, body) chunks."""
+    body = b"WEBP" + b"".join(_riff_chunk(k, b) for k, b in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x(w: int, h: int, flags: int) -> tuple:
+    """A VP8X chunk: the flags byte, 3 reserved bytes, the canvas size."""
+    return (b"VP8X", bytes([flags]) + b"\0\0\0" + struct.pack("<I", w - 1)[:3] + struct.pack("<I", h - 1)[:3])
+
+
+def _alpha_predict(rows: np.ndarray, filt: int) -> np.ndarray:
+    """libwebp's alpha filter predictions of each sample (its unfilter's):
+    horizontal from the left (the first row from 0, later first columns
+    from above), vertical from above, gradient clip(left + above -
+    above-left); the first row is horizontal whatever the filter."""
+    h, w = rows.shape
+    r = rows.astype(np.int64)
+    pred = np.zeros_like(r)
+    pred[0, 1:] = r[0, :-1]
+    if h > 1:
+        if filt == 1:
+            pred[1:, 0] = r[:-1, 0]
+            pred[1:, 1:] = r[1:, :-1]
+        elif filt == 2:
+            pred[1:] = r[:-1]
+        else:
+            pred[1:, 0] = r[:-1, 0]
+            pred[1:, 1:] = np.clip(r[1:, :-1] + r[:-1, 1:] - r[:-1, :-1], 0, 255)
+    return pred
+
+
+def alpha_chunk(alpha: np.ndarray, filt: int, method: int) -> bytes:
+    """An ALPH chunk body for the (H, W) uint8 ``alpha``: filter ``filt``
+    (0 none, 1 horizontal, 2 vertical, 3 gradient), method 0 (raw) or 1
+    (the filtered plane in the green of a VP8L stream without its header,
+    written by PIL's lossless encoder)."""
+    d = alpha.astype(np.int64) - (_alpha_predict(alpha, filt) if filt else 0)
+    d = (d % 256).astype(np.uint8)
+    if method == 0:
+        return bytes([filt << 2]) + d.tobytes()
+    from PIL import Image
+
+    rgb = np.zeros(d.shape + (3,), np.uint8)
+    rgb[..., 1] = d
+    buf = io.BytesIO()
+    Image.fromarray(rgb, "RGB").save(buf, "WEBP", lossless=True, quality=100, method=4)
+    vp8l = dict(riff_chunks(buf.getvalue()))[b"VP8L"]
+    return bytes([(filt << 2) | 1]) + vp8l[5:]
+
+
+def animation(canvas: tuple, frames) -> bytes:
+    """An animated WebP of ``canvas`` (w, h): frames (x, y, chunks), each
+    ANMF's image chunks (ALPH and VP8, or VP8L) at the even offset (x, y),
+    the frame's size its bitstream's."""
+    w, h = canvas
+    out = [vp8x(w, h, 0x12), (b"ANIM", struct.pack("<IH", 0xff336699, 0))]
+    for x, y, chunks, size in frames:
+        fw, fh = size
+        head = (struct.pack("<I", x // 2)[:3] + struct.pack("<I", y // 2)[:3] + struct.pack("<I", fw - 1)[:3]
+                + struct.pack("<I", fh - 1)[:3] + struct.pack("<I", 100)[:3] + b"\0")
+        out.append((b"ANMF", head + b"".join(_riff_chunk(k, b) for k, b in chunks)))
+    return webp_file(out)
+
+
+# RFC 6386's keyframe tables, for the VP8 writer below; the decoder's copies
+# (csrc/webp_tables.h) are libwebp's. Read from the C header, so they are
+# the same bytes.
+def _vp8_tables() -> dict:
+    import re
+
+    src = open(os.path.join(HERE, "..", "..", "..", "mvd_tpu_torch", "csrc", "webp_tables.h")).read()
+    out = {}
+    for m in re.finditer(r"constexpr u?int\d+_t (\w+)((?:\[\d+\])+) = \{(.*?)\};", src, re.S):
+        dims = [int(d) for d in re.findall(r"\d+", m.group(2))]
+        out[m.group(1)] = np.array([int(v) for v in re.findall(r"-?\d+", m.group(3))]).reshape(dims)
+    return out
+
+
+class BoolEncoder:
+    """RFC 6386 section 7.3's boolean entropy encoder."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.bit_count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v: int, bits: int):
+        for b in range(bits - 1, -1, -1):
+            self.put((v >> b) & 1, 128)
+
+    def signed(self, v: int, bits: int):
+        self.value(abs(v), bits)
+        self.put(int(v < 0), 128)
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _put_tree(e: BoolEncoder, tree, probs, leaf: int):
+    """Write ``leaf`` of a libwebp-layout tree (a leaf is -value; node i's
+    branches at tree[2i], tree[2i + 1], its probability probs[i])."""
+    def path(node):
+        for b in (0, 1):
+            nxt = tree[2 * node + b]
+            if nxt <= 0:
+                if -nxt == leaf:
+                    return [(node, b)]
+            else:
+                sub = path(nxt)
+                if sub:
+                    return [(node, b)] + sub
+        return None
+
+    for node, b in path(0):
+        e.put(b, int(probs[node]))
+
+
+def encode_vp8_random(rng, w: int, h: int, **force) -> bytes:
+    """A VP8 key frame (the chunk body) of w x h with every header field,
+    macroblock mode and coefficient drawn from ``rng``: segments (absolute
+    or relative, with or without a map), the loop filter's type, level,
+    sharpness and reference/mode deltas, quantizer deltas, 1-8 token
+    partitions, probability updates, skip flags, every 16x16, 4x4 and
+    chroma mode, and sparse coefficients up to the largest token (their
+    dequantized values kept within [-2047, 2047], the range a conforming
+    encoder writes). ``force`` fixes header fields by name. Written with
+    RFC 6386's boolean encoder; PIL's libwebp is the oracle of its pixels."""
+    T = _vp8_tables()
+    r = lambda lo, hi: int(rng.integers(lo, hi + 1))
+    hdr = dict(segments=r(0, 1), update_map=r(0, 1), update_data=r(0, 1), absolute=r(0, 1),
+               filter_type=r(0, 1), level=r(0, 63), sharpness=r(0, 7), lf_adj=r(0, 1), lf_update=r(0, 1),
+               log2_parts=r(0, 3), base_q=r(0, 127), use_skip=r(0, 1), skip_p=r(1, 254), proba_updates=r(0, 1))
+    hdr.update(force)
+    quant_deltas = [r(-15, 15) if rng.random() < 0.4 else None for _ in range(5)]
+    e = BoolEncoder()
+    e.put(0, 128)  # colour space
+    e.put(r(0, 1), 128)  # clamping type
+    seg_q, seg_f, seg_probs = [0] * 4, [0] * 4, [255] * 3
+    e.put(hdr["segments"], 128)
+    if hdr["segments"]:
+        e.put(hdr["update_map"], 128)
+        e.put(hdr["update_data"], 128)
+        if hdr["update_data"]:
+            e.put(hdr["absolute"], 128)
+            for s in range(4):
+                seg_q[s] = r(0, 127) if hdr["absolute"] else r(-30, 30)
+                e.put(1, 128)
+                e.signed(seg_q[s], 7)
+            for s in range(4):
+                seg_f[s] = r(0, 63) if hdr["absolute"] else r(-20, 20)
+                present = rng.random() < 0.8
+                e.put(int(present), 128)
+                if present:
+                    e.signed(seg_f[s], 6)
+                else:
+                    seg_f[s] = 0
+        if hdr["update_map"]:
+            for i in range(3):
+                seg_probs[i] = r(1, 255) if rng.random() < 0.7 else 255
+                e.put(int(seg_probs[i] != 255), 128)
+                if seg_probs[i] != 255:
+                    e.value(seg_probs[i], 8)
+    e.put(hdr["filter_type"], 128)
+    e.value(hdr["level"], 6)
+    e.value(hdr["sharpness"], 3)
+    e.put(hdr["lf_adj"], 128)
+    if hdr["lf_adj"]:
+        e.put(hdr["lf_update"], 128)
+        if hdr["lf_update"]:
+            for _ in range(8):  # 4 reference, 4 mode deltas
+                present = rng.random() < 0.6
+                e.put(int(present), 128)
+                if present:
+                    e.signed(r(-63, 63), 6)
+    e.value(hdr["log2_parts"], 2)
+    e.value(hdr["base_q"], 7)
+    for d in quant_deltas:
+        e.put(int(d is not None), 128)
+        if d is not None:
+            e.signed(d, 4)
+    e.put(r(0, 1), 128)  # refresh entropy probs
+    proba = T["CoeffsProba0"].copy()
+    for idx in np.ndindex(proba.shape):
+        upd = hdr["proba_updates"] and rng.random() < 0.1
+        e.put(int(upd), int(T["CoeffsUpdateProba"][idx]))
+        if upd:
+            proba[idx] = r(1, 255)
+            e.value(int(proba[idx]), 8)
+    e.put(hdr["use_skip"], 128)
+    if hdr["use_skip"]:
+        e.value(hdr["skip_p"], 8)
+
+    # the quantizer steps, to keep dequantized coefficients in range
+    def q_of(seg):
+        q = (seg_q[seg] + (0 if hdr["absolute"] else hdr["base_q"])) if hdr["segments"] else hdr["base_q"]
+        if hdr["segments"] and not hdr["update_data"]:
+            q = 0
+        d = [x or 0 for x in quant_deltas]
+        c = lambda v, m: min(max(v, 0), m)
+        return dict(y1=(int(T["kDcTable"][c(q + d[0], 127)]), int(T["kAcTable"][c(q, 127)])),
+                    y2=(int(T["kDcTable"][c(q + d[1], 127)]) * 2,
+                        max(8, (int(T["kAcTable"][c(q + d[2], 127)]) * 101581) >> 16)),
+                    uv=(int(T["kDcTable"][c(q + d[3], 117)]), int(T["kAcTable"][c(q + d[4], 127)])))
+
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    nparts = 1 << hdr["log2_parts"]
+    parts = [BoolEncoder() for _ in range(nparts)]
+    intra_t = [0] * (4 * mb_w)
+    top_nz, top_nz_dc = [0] * mb_w, [0] * mb_w
+    cat_tabs = [T["kCat3"], T["kCat4"], T["kCat5"], T["kCat6"]]
+    bands, zigzag = T["kBands"], T["kZigzag"]
+
+    def put_coeffs(p_enc, typ, ctx, first, coeffs):
+        """coeffs: 16 values in zigzag order; returns the decoder's nz."""
+        last = max([i for i in range(first, 16) if coeffs[i]], default=-1)
+        p = proba[typ][bands[first]][ctx]
+        n = first
+        if last < 0:
+            p_enc.put(0, int(p[0]))
+            return first
+        while n <= last:
+            p_enc.put(1, int(p[0]))  # not the end of the block
+            while coeffs[n] == 0:
+                p_enc.put(0, int(p[1]))
+                n += 1
+                p = proba[typ][bands[n]][0]
+            p_enc.put(1, int(p[1]))
+            v = abs(int(coeffs[n]))
+            if v == 1:
+                p_enc.put(0, int(p[2]))
+                nxt = 1
+            else:
+                p_enc.put(1, int(p[2]))
+                if v <= 4:
+                    p_enc.put(0, int(p[3]))
+                    if v == 2:
+                        p_enc.put(0, int(p[4]))
+                    else:
+                        p_enc.put(1, int(p[4]))
+                        p_enc.put(v - 3, int(p[5]))
+                elif v <= 10:
+                    p_enc.put(1, int(p[3]))
+                    p_enc.put(0, int(p[6]))
+                    if v <= 6:
+                        p_enc.put(0, int(p[7]))
+                        p_enc.put(v - 5, 159)
+                    else:
+                        p_enc.put(1, int(p[7]))
+                        p_enc.put((v - 7) >> 1, 165)
+                        p_enc.put((v - 7) & 1, 145)
+                else:
+                    p_enc.put(1, int(p[3]))
+                    p_enc.put(1, int(p[6]))
+                    cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+                    p_enc.put(cat >> 1, int(p[8]))
+                    p_enc.put(cat & 1, int(p[9 + (cat >> 1)]))
+                    extra = v - (3 + (8 << cat))
+                    tab = [int(t) for t in cat_tabs[cat] if t]
+                    for i, prob in enumerate(tab):
+                        p_enc.put((extra >> (len(tab) - 1 - i)) & 1, prob)
+                nxt = 2
+            p_enc.put(int(coeffs[n] < 0), 128)
+            n += 1
+            if n < 16:
+                p = proba[typ][bands[n]][nxt]
+        if n < 16:
+            p_enc.put(0, int(p[0]))  # end of block
+        return n
+
+    def random_block(first, q, density, cap):
+        out = [0] * 16
+        for i in range(first, 16):
+            if rng.random() < density:
+                step = q[1] if i else q[0]
+                lim = max(1, min(cap, 2047 // step))
+                mag = 1 + int(rng.integers(0, lim)) if rng.random() < 0.3 else int(rng.integers(1, min(lim, 4) + 1))
+                out[i] = mag if rng.random() < 0.5 else -mag
+        return out
+
+    for mb_y in range(mb_h):
+        intra_l = [0] * 4
+        left_nz, left_nz_dc = 0, 0
+        tokens = parts[mb_y & (nparts - 1)]
+        for mb_x in range(mb_w):
+            seg = r(0, 3) if hdr["segments"] and hdr["update_map"] else 0
+            if hdr["segments"] and hdr["update_map"]:
+                if seg < 2:
+                    e.put(0, seg_probs[0])
+                    e.put(seg, seg_probs[1])
+                else:
+                    e.put(1, seg_probs[0])
+                    e.put(seg - 2, seg_probs[2])
+            skip = r(0, 1) if hdr["use_skip"] and rng.random() < 0.3 else 0
+            if hdr["use_skip"]:
+                e.put(skip, hdr["skip_p"])
+            i4 = r(0, 1)
+            e.put(1 - i4, 145)
+            if not i4:
+                ymode = r(0, 3)  # DC, TM, V, H
+                if ymode in (1, 3):
+                    e.put(1, 156)
+                    e.put(int(ymode == 1), 128)
+                else:
+                    e.put(0, 156)
+                    e.put(int(ymode == 2), 163)
+                intra_t[4 * mb_x:4 * mb_x + 4] = [ymode] * 4
+                intra_l = [ymode] * 4
+            else:
+                for y in range(4):
+                    ym = intra_l[y]
+                    for x in range(4):
+                        mode = r(0, 9)
+                        _put_tree(e, T["kYModesIntra4"], T["kBModesProba"][intra_t[4 * mb_x + x]][ym], mode)
+                        ym = mode
+                        intra_t[4 * mb_x + x] = mode
+                    intra_l[y] = ym
+            uv = r(0, 3)
+            e.put(int(uv != 0), 142)
+            if uv:
+                e.put(int(uv != 2), 114)
+                if uv != 2:
+                    e.put(int(uv == 1), 183)
+            # residuals, with the decoder's non-zero contexts
+            if skip:
+                top_nz[mb_x], left_nz = 0, 0
+                if not i4:
+                    top_nz_dc[mb_x] = left_nz_dc = 0
+                continue
+            q = q_of(seg)
+            density = rng.choice([0.0, 0.1, 0.4, 0.9])
+            first = 0 if i4 else 1
+            if not i4:
+                dc = random_block(0, q["y2"], density, 500 // 16)
+                nz = put_coeffs(tokens, 1, top_nz_dc[mb_x] + left_nz_dc, 0, dc)
+                top_nz_dc[mb_x] = left_nz_dc = int(nz > 0)
+            tnz, lnz = top_nz[mb_x] & 0x0F, left_nz & 0x0F
+            for y in range(4):
+                l = lnz & 1
+                for x in range(4):
+                    nz = put_coeffs(tokens, 0 if not i4 else 3, l + (tnz & 1), first,
+                                    random_block(first, q["y1"], density, 2047))
+                    l = int(nz > first)
+                    tnz = (tnz >> 1) | (l << 7)
+                tnz >>= 4
+                lnz = (lnz >> 1) | (l << 7)
+            out_t, out_l = tnz, lnz >> 4
+            for ch in (0, 2):
+                tnz = top_nz[mb_x] >> (4 + ch)
+                lnz = left_nz >> (4 + ch)
+                for y in range(2):
+                    l = lnz & 1
+                    for x in range(2):
+                        nz = put_coeffs(tokens, 2, l + (tnz & 1), 0, random_block(0, q["uv"], density, 2047))
+                        l = int(nz > 0)
+                        tnz = (tnz >> 1) | (l << 3)
+                    tnz >>= 2
+                    lnz = (lnz >> 1) | (l << 5)
+                out_t |= (tnz << 4) << ch
+                out_l |= (lnz & 0xF0) << ch
+            top_nz[mb_x], left_nz = out_t & 0xFF, out_l & 0xFF
+    first_part = e.flush()
+    data = [p.flush() for p in parts]
+    tag = (len(first_part) << 5) | (1 << 4) | (r(0, 3) << 1)  # key frame, shown, a profile 0-3
+    out = bytearray(struct.pack("<I", tag)[:3]) + b"\x9d\x01\x2a" + struct.pack("<HH", w, h)
+    out += first_part
+    for d in data[:-1]:
+        out += struct.pack("<I", len(d))[:3]
+    for d in data:
+        out += d
+    return bytes(out)
+
+
+def _pil_webp(img: np.ndarray, **options) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **options)
+    return buf.getvalue()
+
+
+def _webp_images(rng):
+    """name -> an image each lossless form is made of: an RGBA
+    gradient (predictor, cross-colour, subtract-green), a noisy photo-like
+    RGB one, and palettes of 2, 4, 16 and 200 colours (colour indexing with
+    8, 4, 2 and 1 pixels a byte)."""
+    h, w = 37, 53
+    y, x = np.mgrid[:h, :w]
+    gradient = np.stack([(3 * x + 2 * y) % 256, (x * y) % 256, (5 * y) % 256, 255 - (2 * x) % 256], -1)
+    photo = np.clip(np.stack([x * 4 + y, y * 6, 255 - x * 3], -1) + rng.integers(0, 24, (h, w, 3)), 0, 255)
+    out = {"gradient": gradient.astype(np.uint8), "photo": photo.astype(np.uint8)}
+    for n in (2, 4, 16, 200):
+        pal = rng.integers(0, 256, (n, 4)).astype(np.uint8)
+        pal[:, 3] = np.where(np.arange(n) % 3 == 0, 255, pal[:, 3])
+        out[f"pal{n}"] = pal[(x // 3 + y // 2 + rng.integers(0, 2, (h, w))) % n]
+    return out
+
+
+def _render_512():
+    """The 512² procedural render of seed 0 (RGBA, most of it transparent)
+    that the card fixtures hold."""
+    sys.path.insert(0, os.path.abspath(os.path.join(HERE, "..", "..", "..")))
+    from mvd_tpu_torch.tools.procedural import object_cameras, render_view, sample_object
+
+    rng = np.random.default_rng(0)
+    prims = sample_object(rng)
+    return render_view(prims, object_cameras(rng, 1)[0], 512)
+
+
+def webp_fixtures() -> tuple:
+    """name -> WebP bytes, and name -> extra digest entries (the sha256 of
+    the RGBA a lossless file with ``exact`` must decode to)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(19)
+    files, extra = {}, {}
+    imgs = _webp_images(rng)
+    for name, img in imgs.items():  # lossless: every method, several qualities
+        for method, quality in ((0, 0), (2, 25), (4, 75), (6, 100)) if name in ("gradient", "photo") else ((3, 50),):
+            files[f"webp_ll_{name}_m{method}_q{quality}.webp"] = _pil_webp(img, lossless=True, method=method,
+                                                                           quality=quality, exact=True)
+            extra[f"webp_ll_{name}_m{method}_q{quality}.webp"] = {
+                "source_sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+    for m in (1, 5):
+        files[f"webp_ll_photo_m{m}_q90.webp"] = _pil_webp(imgs["photo"], lossless=True, method=m, quality=90)
+    files["webp_ll_gradient_inexact.webp"] = _pil_webp(imgs["gradient"], lossless=True)  # transparent RGB rewritten
+    one = rng.integers(0, 256, (1, 1, 4)).astype(np.uint8)
+    files["webp_ll_1x1.webp"] = _pil_webp(one, lossless=True, exact=True)
+    files["webp_lossy_1x1.webp"] = _pil_webp(one[..., :3].copy(), quality=80)
+    files["webp_alpha_1x1.webp"] = _pil_webp(one, quality=80)
+    for h, w in ((3, 5), (17, 2), (31, 33)):  # odd sizes: the crop and the upsampler's edges
+        img = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+        files[f"webp_ll_{h}x{w}.webp"] = _pil_webp(img, lossless=True, exact=True)
+        files[f"webp_lossy_{h}x{w}.webp"] = _pil_webp(img[..., :3].copy(), quality=70)
+        files[f"webp_alpha_{h}x{w}.webp"] = _pil_webp(img, quality=70)
+    photo = imgs["photo"]
+    for q in (0, 10, 25, 50, 75, 90, 100):  # lossy: the quantizer range
+        files[f"webp_lossy_q{q}.webp"] = _pil_webp(photo, quality=q, method=4)
+    rgba = imgs["gradient"].copy()
+    rgba[..., 3] = np.where((np.arange(53)[None] + np.arange(37)[:, None]) % 7 < 2, 0, rgba[..., 3])
+    for aq in (0, 40, 100):  # lossy with alpha: the alpha levels
+        files[f"webp_alpha_aq{aq}.webp"] = _pil_webp(rgba, quality=80, alpha_quality=aq)
+    # the features PIL's save cannot select, from libwebp's encoder
+    big = np.clip(np.stack([np.mgrid[:96, :112][1] * 2, np.mgrid[:96, :112][0] * 3,
+                            (np.mgrid[:96, :112][0] * np.mgrid[:96, :112][1]) % 256, np.full((96, 112), 255)], -1)
+                  + rng.integers(0, 40, (96, 112, 4)) * np.array([1, 1, 1, 0]), 0, 255).astype(np.uint8)
+    files["webp_simple_filter.webp"] = webp_encode(big, filter_type=0, filter_strength=60)
+    files["webp_strong_filter.webp"] = webp_encode(big, filter_type=1, filter_strength=100, sns_strength=100)
+    for parts in (1, 2, 3):  # libwebp 1.2 writes one partition at method 3 and up
+        files[f"webp_parts{1 << parts}.webp"] = webp_encode(big, partitions=parts, quality=60, method=2)
+    for seg in (1, 2, 3, 4):
+        files[f"webp_segments{seg}.webp"] = webp_encode(big, segments=seg, sns_strength=80, quality=50)
+    for sharp in (1, 5, 7):
+        files[f"webp_sharpness{sharp}.webp"] = webp_encode(big, filter_sharpness=sharp, filter_strength=80)
+    files["webp_no_filter.webp"] = webp_encode(big, filter_strength=0)
+    alpha_img = big.copy()
+    alpha_img[..., 3] = np.clip(np.mgrid[:96, :112][1] * 2 + rng.integers(0, 3, (96, 112)), 0, 255)
+    files["webp_alpha_raw.webp"] = webp_encode(alpha_img, alpha_compression=0)
+    files["webp_alpha_best.webp"] = webp_encode(alpha_img, alpha_filtering=2)
+    lossy = dict(riff_chunks(webp_encode(alpha_img[..., :3].copy(), quality=70)))[b"VP8 "]
+    for filt, fname in enumerate(("none", "horizontal", "vertical", "gradient")):
+        for method in (0, 1):
+            files[f"webp_alph_{fname}_m{method}.webp"] = webp_file(
+                [vp8x(112, 96, 0x10), (b"ALPH", alpha_chunk(alpha_img[..., 3], filt, method)), (b"VP8 ", lossy)])
+    # header fields libwebp's encoder never writes, from the random VP8
+    # writer: loop-filter reference and mode deltas (normal and simple
+    # filter), segments relative to the base quantizer and filter level, and
+    # segments enabled without data (every segment at quantizer 0)
+    for name, force in (("lf_deltas", dict(lf_adj=1, lf_update=1, filter_type=0, level=36, sharpness=2)),
+                        ("lf_deltas_simple", dict(lf_adj=1, lf_update=1, filter_type=1, level=20)),
+                        ("relative_segments", dict(segments=1, update_map=1, update_data=1, absolute=0, level=30,
+                                                   lf_adj=0)),
+                        ("segments_no_data", dict(segments=1, update_map=1, update_data=0, level=12))):
+        files[f"webp_vp8_{name}.webp"] = webp_file([(b"VP8 ", encode_vp8_random(rng, 61, 45, **force))])
+    # animations: PIL's own (frame 1 full size), and a first frame at an
+    # offset of a larger canvas, lossless and lossy with alpha
+    frames = [Image.fromarray(imgs["gradient"]), Image.fromarray(imgs["pal16"])]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=100, lossless=True)
+    files["webp_anim_pil.webp"] = buf.getvalue()
+    small = imgs["pal200"][:10, :20]
+    ll = dict(riff_chunks(_pil_webp(small, lossless=True, exact=True)))[b"VP8L"]
+    files["webp_anim_offset_lossless.webp"] = animation((40, 30), [(6, 4, [(b"VP8L", ll)], (20, 10)),
+                                                                   (0, 0, [(b"VP8L", ll)], (20, 10))])
+    al = riff_chunks(_pil_webp(small, quality=60))
+    files["webp_anim_offset_alpha.webp"] = animation((41, 31), [(20, 20, [c for c in al if c[0] != b"VP8X"],
+                                                                  (20, 10))])
+    # the card fixtures: CO3D's frame lossy at quality 90; the procedural
+    # render lossless with exact (its own pixels) and lossy with alpha
+    frame = np.asarray(Image.open(os.path.join(JPEG_DIR, "frame_a.jpg")).convert("RGB"))
+    files["webp_frame_a_q90.webp"] = _pil_webp(frame, quality=90)
+    render = _render_512()
+    files["webp_render_lossless.webp"] = _pil_webp(render, lossless=True, exact=True)
+    extra["webp_render_lossless.webp"] = {"source_sha256": hashlib.sha256(render.tobytes()).hexdigest()}
+    files["webp_render_alpha.webp"] = _pil_webp(render, quality=90)
+    return files, extra
+
+
 def pil_digest(data: bytes) -> dict:
     """PIL's mode, and the sha256 and shape of ``convert("RGB")`` and, for
     an RGBA image, of the data loaders' white composite."""
@@ -1135,6 +1770,9 @@ def main(out_dir: str = HERE) -> int:
     # phase 9d's smoothed source, from CO3D's frame (frame_a.jpg's pixels)
     frame = np.asarray(Image.open(os.path.join(JPEG_DIR, "frame_a.jpg")).convert("RGB"))
     files["frame_a_smooth.jpg"] = smoothed_frame(frame)
+    webp, webp_extra = webp_fixtures()
+    files.update(webp)
+    extra.update(webp_extra)
     for name, data in sorted(files.items()):
         with open(os.path.join(out_dir, name), "wb") as fh:
             fh.write(data)

@@ -18,7 +18,10 @@ PIL's decode of its Huffman twin (the same coefficients and scan script),
 which holds the fixture encoder without the port; each lossless fixture
 decodes to its source samples. Seeded random files of the three new forms
 decode as PIL decodes them, or are refused where PIL refuses them; every
-form PIL refuses is refused, naming the form, where PIL raises.
+form PIL refuses is refused, naming the form, where PIL raises. The IDCT is
+libjpeg-turbo's SIMD one, which PIL runs: 28 Huffman files read as
+arithmetic-coded (garbage coefficients at its 16-bit edges) and one-block
+files at each of its 16-bit steps decode as PIL decodes them.
 """
 
 import base64
@@ -61,6 +64,7 @@ SMOOTHED_BEFORE = {
     "smooth_ac_al1.jpg": "7733716b3333a32aa6716a0ba5e31fe3b9bd155b79de75136aded42e29dff111",
     "smooth_chroma.jpg": "cfdace48a3fdf747cbe4125db9cf018a25b5b67b3708a465c83c12b13fa7c418",
     "smooth_dc_only.jpg": "d1bedb30544339a0ef059bf0a35b83b67863951ce1da8e12c3bbacb515e3f781"}
+SEQUENTIAL_FIXTURES = REPO / "tests" / "fixtures" / "torch_port_jpeg"
 SIZE = TINY_MODEL.unet.sample_size * 8
 LEVEL = 2 / 255 + 1e-6  # one level of 255 in [-1, 1]
 
@@ -326,6 +330,79 @@ def test_random_files_of_the_new_forms_decode_as_pil(form, seed):
         np.testing.assert_array_equal(decode_jpeg(data), want)
 
 
+# ---------------------------------------- the SIMD IDCT (fault 12)
+
+# every Huffman fixture of torch_port_jpeg and eight of these, read as
+# arithmetic-coded (frame marker set to SOF9, or SOF10 for a progressive
+# file): PIL's libjpeg-turbo decodes the garbage coefficients this gives
+# (or gives up on a bad code), which reach its 16-bit SIMD IDCT's edges
+ARITH_READS = [("torch_port_jpeg", n) for n in sorted(os.listdir(SEQUENTIAL_FIXTURES)) if n.endswith(".jpg")] + [
+    ("torch_port_images", n) for n in ("frame_a_prog.jpg", "frame_a_smooth.jpg", "prog_420_opt.jpg", "prog_gray.jpg",
+                                       "prog_444.jpg", "cmyk_prog.jpg", "ycck_22.jpg", "smooth_chroma.jpg")]
+
+
+def _read_as_arithmetic(folder: str, name: str) -> bytes:
+    data = bytearray((REPO / "tests" / "fixtures" / folder / name).read_bytes())
+    marker = _frame_marker(bytes(data))
+    data[data.index(bytes([0xFF, marker])) + 1] = {0xC0: 0xC9, 0xC1: 0xC9, 0xC2: 0xCA}[marker]
+    return bytes(data)
+
+
+@pytest.mark.parametrize("folder,name", ARITH_READS, ids=[f"{f[11:]}-{n}" for f, n in ARITH_READS])
+def test_huffman_files_read_as_arithmetic_are_pil(folder, name):
+    """Fault 12: the 28 files decode bitwise as PIL decodes them (and the
+    port refuses none that PIL reads)."""
+    assert len(ARITH_READS) == 28
+    data = _read_as_arithmetic(folder, name)
+    np.testing.assert_array_equal(decode_jpeg(data), _pil(data))
+
+
+def _one_block(zz, q, q16: bool = False) -> bytes:
+    """A gray 8x8 progressive JPEG of one block: ``zz`` its 64 quantized
+    coefficients in zigzag order, ``q`` the natural-order table; with
+    ``q16`` the table is a 16-bit DQT (Pq=1)."""
+    coefs = [np.asarray(zz, np.int64).reshape(1, 1, 64)]
+    data = FX.encode_progressive([np.zeros((8, 8), np.uint8)], [(1, 1)], [([0], 0, 0, 0, 0), ([0], 1, 63, 0, 0)],
+                                 q=[np.ones(64, np.int64) if q16 else np.asarray(q)], coefs=coefs)
+    if q16:
+        at = data.index(b"\xff\xdb")
+        size = struct.unpack(">H", data[at + 2:at + 4])[0]
+        dqt = b"\xff\xdb" + struct.pack(">HB", 2 + 1 + 128, 0x10) + b"".join(
+            struct.pack(">H", int(v)) for v in np.asarray(q)[FX.ZIGZAG])
+        data = data[:at] + dqt + data[at + 2 + size:]
+    return data
+
+
+def _zz(values: dict) -> list:
+    return [values.get(i, 0) for i in range(64)]
+
+
+def _q(values: dict, fill: int = 1) -> np.ndarray:
+    q = np.full(64, fill, np.int64)
+    for k, v in values.items():
+        q[k] = v
+    return q
+
+
+@pytest.mark.parametrize("zz,q,q16,first_row", [
+    (_zz({1: 40}), _q({1: 1000}), True, [255] * 4 + [0] * 4),  # 40000 wraps in 16 bits (pmullw)
+    (_zz({0: 100}), _q({0: 90}), False, [0] * 8),  # DC-only block: 9000 << 2 wraps (psllw)
+    (_zz({0: 100, 2: 1}), _q({0: 90}), False, [255] * 8),  # the same DC in a full pass 1 saturates
+    (_zz({0: 48}), _q({0: 100}), False, [255] * 8),  # an output of 600 saturates, not wraps
+    (_zz({0: -48}), _q({0: 100}), False, [0] * 8),  # and one of -600
+    (_zz({0: 1000, 3: 1000, 9: 1000, 10: 1000}), _q({}, 30), False, None),  # in0+in4, in3+in7 wrap
+], ids=["16-bit-dqt-product", "dc-only-shortcut", "dc-full-pass-saturates", "output-past-plus-128",
+        "output-past-minus-128", "16-bit-sums"])
+def test_idct_edges_are_libjpeg_turbo_simd(zz, q, q16, first_row):
+    """One-block files at each 16-bit step of libjpeg-turbo's SIMD islow
+    IDCT, which PIL runs: the port decodes each as PIL does."""
+    data = _one_block(zz, q, q16)
+    want = _pil(data)
+    np.testing.assert_array_equal(decode_jpeg(data), want)
+    if first_row is not None:
+        assert want[0, :, 0].tolist() == first_row
+
+
 # ------------------------------------------------- the JAX package's paths
 
 
@@ -438,9 +515,6 @@ def test_what_libjpeg_refuses_is_refused(data, match):
         decode_jpeg(data)
     with pytest.raises(OSError):
         _pil(data)
-
-
-SEQUENTIAL_FIXTURES = REPO / "tests" / "fixtures" / "torch_port_jpeg"
 
 
 def _marker_set(name: str, old: int, new: int, folder=FIXTURES) -> bytes:

@@ -636,9 +636,14 @@ def test_readers_run_without_pil_and_link_only_the_standard_library(native_zip, 
     standard headers (no libpng, libjpeg or zlib), and the port builds
     nothing under ``native/``."""
     std = {"algorithm", "cstdint", "cstdio", "cstdlib", "cstring", "stdexcept", "string", "vector"}
-    for src in sorted((REPO / "mvd_tpu_torch" / "csrc").glob("*.cpp")):
-        includes = {line.split("<")[1].split(">")[0] for line in src.read_text().splitlines()
-                    if line.startswith("#include")}
+    csrc = REPO / "mvd_tpu_torch" / "csrc"
+    for src in sorted(csrc.glob("*.cpp")):
+        lines = [line for line in src.read_text().splitlines() if line.startswith("#include")]
+        local = [line.split('"')[1] for line in lines if '"' in line]  # a header of csrc/, held below
+        for header in local:
+            assert header.endswith(".h") and (csrc / header).exists(), (src.name, header)
+            lines += [line for line in (csrc / header).read_text().splitlines() if line.startswith("#include")]
+        includes = {line.split("<")[1].split(">")[0] for line in lines if "<" in line}
         assert includes <= std, (src.name, includes - std)
     assert _build.CSRC == str(REPO / "mvd_tpu_torch" / "csrc")
     jpg = tmp_path / "s420.jpg"
