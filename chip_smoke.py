@@ -151,9 +151,11 @@ Thirteen phases; any failure exits non-zero:
    ``tests/fixtures/torch_port_jpeg`` and ``tests/fixtures/torch_port_images``
    (sequential, progressive, block-smoothed, arithmetic-coded, lossless,
    CMYK and YCCK JPEG; PNG of every colour type and depth, Adam7 or not;
-   lossless, lossy, lossy-with-alpha and animated WebP) decoded to PIL's
-   pixels (sha256; the white composite too where PIL opens it as RGBA; a
-   WebP in PIL's mode); (b)
+   lossless, lossy, lossy-with-alpha and animated WebP; GIF, BMP/DIB and
+   TIFF of every form ``make_formats.py`` writes) decoded to PIL's pixels
+   (sha256; the white composite too where PIL opens it as RGBA; a WebP in
+   PIL's mode; each file PIL refuses refused, each form PIL reads and the
+   port does not named ROADMAP item 13c); (b)
    ``cli.train.main --dataset-format co3d`` on a CO3D-layout corpus of
    1067x800 JPEG frames (``frame_annotations.jgz``; 9 sequences, so no val
    split) at phase 5's point for 3 steps: K1, K2, K3a and K3b exactly the
@@ -163,21 +165,25 @@ Thirteen phases; any failure exits non-zero:
    phase 7c, on phase 3's pipeline: phase 3's call from CO3D's 1067x800
    frame through ``load_image`` as a progressive, a block-smoothed
    progressive, an arithmetic-coded and a lossless JPEG (the last two
-   written on the host by the fixture script's ``frame_forms``) and a lossy
-   WebP, and from a 512² procedural render as lossless RGBA WebP and lossy
-   WebP with alpha (each decode PIL's pixels by digest, its Huffman twin's,
-   or its source's), and from each one's pixels as PNG, sources and images
-   bitwise equal, K1 1312 and K2 1333 each with no plain call, then a
-   server request with the progressive JPEG, one with the arithmetic-coded
-   JPEG and one with the lossy WebP base64-encoded (the server's decode
-   those pixels, phase 3's launches); (e)
+   written on the host by the fixture script's ``frame_forms``), a lossy
+   WebP, a GIF (its palette quantized in numpy), a 24-bit BMP, a TIFF with
+   LZW and predictor 2 in strips, a tiled deflate TIFF and a 16-bit TIFF
+   (written on the host by ``make_formats.py``'s ``frame_formats``), and
+   from a 512² procedural render as lossless RGBA WebP, lossy WebP with
+   alpha and an RLE8 BMP (each decode PIL's pixels by digest, its Huffman
+   twin's, or the pixels it was written from), and from each one's pixels
+   as PNG, sources and images bitwise equal, K1 1312 and K2 1333 each with
+   no plain call, then a server request with each of the progressive JPEG,
+   the arithmetic-coded JPEG, the lossy WebP, the LZW TIFF and the GIF
+   base64-encoded (the server's decode those pixels, phase 3's launches); (e)
    ``cli.train.main`` for 2 steps at phase 5's point on 9
    objects of 16-bit Adam7 RGBA PNG renders: the train step's launches per
    step, no plain call, finite losses, and its first batch bitwise that
    of an 8-bit corpus of the same high bytes; then the host ms to decode a
    1067x800 frame as progressive, baseline, block-smoothed, arithmetic-coded
-   and lossless JPEG, 16-bit PNG, Adam7 PNG and lossy WebP, and the 512²
-   render as lossless and lossy-with-alpha WebP, the host ms per 768² view
+   and lossless JPEG, 16-bit PNG, Adam7 PNG, lossy WebP, GIF, BMP and LZW,
+   deflate and 16-bit TIFF, and the 512² render as lossless and
+   lossy-with-alpha WebP and RLE8 BMP, the host ms per 768² view
    of the PIL path, the native
    reader and a JPEG frame, and the loader's seconds a batch of 6 with
    each reader, in turns, against the step, beside the card's name and
@@ -2549,14 +2555,24 @@ def image_digests() -> dict:
         return json.load(f)
 
 
-def image_fixture_script():
+def image_fixture_script(name: str = "make_fixtures"):
     """``tests/fixtures/torch_port_images/make_fixtures.py``, whose
-    ``encode_png`` (any depth, Adam7, a filter type per row) needs no PIL."""
-    spec = importlib.util.spec_from_file_location("torch_port_images_fixtures",
-                                                  os.path.join(IMAGE_FIXTURES, "make_fixtures.py"))
+    ``encode_png`` (any depth, Adam7, a filter type per row) needs no PIL,
+    or (``name`` "make_formats") its GIF, BMP and TIFF writers, which need
+    none either."""
+    spec = importlib.util.spec_from_file_location(f"torch_port_images_{name}",
+                                                  os.path.join(IMAGE_FIXTURES, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def format_digests() -> dict:
+    """name -> PIL's mode and the sha256 and shape of its pixels (and of
+    the white composite where the mode is RGBA), or PIL's refusal, of each
+    GIF, BMP/DIB and TIFF fixture (``make_formats.py``)."""
+    with open(os.path.join(IMAGE_FIXTURES, "formats_sha256.json")) as f:
+        return json.load(f)
 
 
 def png16_encoder(seed: int):
@@ -2650,7 +2666,12 @@ def frame_sources() -> dict:
     JPEGs are written here by the fixture script's ``frame_forms`` from the
     frame's pixels, as a host without PIL can: the first must decode to its
     Huffman twin's pixels (the same coefficients), the second to the
-    frame's pixels."""
+    frame's pixels. The GIF, BMP and TIFF sources are written here by
+    ``make_formats.py``'s ``frame_formats`` from the frame and from the
+    lossless WebP's render: each must decode to the pixels it was written
+    from (a GIF or RLE8 BMP its quantized palette expanded)."""
+    import numpy as np
+
     from mvd_tpu_torch.utils.images import decode_jpeg, decode_webp
 
     def read(folder, name):
@@ -2663,6 +2684,7 @@ def frame_sources() -> dict:
     pixels = decode_jpeg(read(JPEG_FIXTURES, CO3D_FRAMES_SRC[0]))
     forms = image_fixture_script().frame_forms(pixels)
     digests = image_digests()
+    render = None
     sources = {
         "progressive JPEG": (read(IMAGE_FIXTURES, PROG_SOURCE), digests[PROG_SOURCE]["sha256"], "PIL's"),
         "block-smoothed progressive JPEG": (read(IMAGE_FIXTURES, SMOOTH_SOURCE), digests[SMOOTH_SOURCE]["sha256"],
@@ -2676,19 +2698,23 @@ def frame_sources() -> dict:
         if mode != want["mode"] or ("source_sha256" in want and sha(rgba) != want["source_sha256"]):
             raise AssertionError(f"(d): {name} decodes in mode {mode} (PIL's {want['mode']}) or not to its source")
         sources[form] = (data, want["sha256"], "PIL's")
+        if name == "webp_render_lossless.webp":
+            render = rgba
+    for form, (data, written) in image_fixture_script("make_formats").frame_formats(pixels, render).items():
+        sources[form] = (data, sha(np.ascontiguousarray(written)), "its writer's")
     return sources
 
 
 def phase_reader_generation(call, sources: dict, card: str) -> dict:
     """Phase 9d, on phase 3's pipeline and weights while they are up: phase
-    3's call from CO3D's frame as each of ``sources`` (``frame_sources``)
-    (progressive, block-smoothed progressive, arithmetic-coded and lossless
-    JPEG, read by ``load_image`` at 512² as ``cli.infer --image-path`` reads
-    it) and from that source's decoded pixels re-encoded as PNG: each
-    decode the pixels it must be, the two sources and the two generations
-    bitwise equal, each call with K1 and K2 exactly phase 3's launches and
-    no plain call; then a request to the HTTP server carrying the
-    progressive JPEG and one carrying the arithmetic-coded JPEG,
+    3's call from CO3D's frame (or the 512² render) as each of ``sources``
+    (``frame_sources``: JPEG, WebP, GIF, BMP and TIFF forms, read by
+    ``load_image`` at 512² as ``cli.infer --image-path`` reads it) and from
+    that source's decoded pixels re-encoded as PNG: each decode the pixels
+    it must be, the two sources and the two generations bitwise equal, each
+    call with K1 and K2 exactly phase 3's launches and no plain call; then
+    a request to the HTTP server carrying each of the progressive JPEG, the
+    arithmetic-coded JPEG, the lossy WebP, the LZW TIFF and the GIF,
     base64-encoded, whose decodes in the server are those pixels (sha256)
     and whose launches are phase 3's. Returns the metrics."""
     import base64
@@ -2714,7 +2740,8 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
             if hashlib.sha256(pixels.tobytes()).hexdigest() != digest:
                 raise AssertionError(f"(d): the {form} source does not decode to {whose} pixels")
             srcs, imgs = [], []
-            ext = ".webp" if "WebP" in form else ".jpg"
+            ext = next((e for k, e in (("WebP", ".webp"), ("GIF", ".gif"), ("BMP", ".bmp"), ("TIFF", ".tif"))
+                        if k in form), ".jpg")
             for label, name, data in ((form, "source" + ext, jpeg),
                                       (f"{form}'s pixels as PNG", "source.png", encode_png(pixels))):
                 path = os.path.join(tmp, name)
@@ -2749,7 +2776,8 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
         return run
 
     try:
-        for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG", "lossy WebP"), start=5):
+        for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG", "lossy WebP",
+                                     "LZW TIFF with predictor 2", "GIF"), start=5):
             jpeg, digest, whose = sources[form]
             payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": seed,
                        "source_image_b64": base64.b64encode(jpeg).decode()}
@@ -2789,10 +2817,12 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
 
 
 def check_fixture_digests() -> None:
-    """Phase 9a: every JPEG, PNG and WebP fixture decoded to PIL's pixels
-    by sha256 (the white composite too where PIL opens it as RGBA; a WebP
-    in PIL's mode, a lossless one with ``exact`` to its source), with the
-    libraries phase 1 built."""
+    """Phase 9a: every JPEG, PNG, WebP, GIF, BMP/DIB and TIFF fixture
+    decoded to PIL's pixels by sha256 (the white composite too where PIL
+    opens it as RGBA; a WebP in PIL's mode, a lossless one with ``exact``
+    to its source), each GIF, BMP and TIFF that PIL refuses refused and
+    each form PIL reads and the port does not named ROADMAP item 13c, with
+    the libraries phase 1 built."""
     from mvd_tpu_torch.kernels import HOST_SOURCES, _build
     from mvd_tpu_torch.utils.images import decode_image, decode_webp
 
@@ -2819,6 +2849,27 @@ def check_fixture_digests() -> None:
                 if "source_sha256" in want and hashlib.sha256(rgba.tobytes()).hexdigest() != want["source_sha256"]:
                     raise AssertionError(f"{name}: the lossless decode is not its source")
             decoded.append(name)
+    formats, refused, not_read = [], 0, 0
+    for name, want in sorted(format_digests().items()):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        if name.startswith(("bad_", "notread_")):
+            try:
+                decode_image(data)
+            except ValueError as exc:
+                if name.startswith("notread_") and "ROADMAP item 13c" not in str(exc):
+                    raise AssertionError(f"{name}: the refusal does not name ROADMAP item 13c: {exc}")
+                refused += name.startswith("bad_")
+                not_read += name.startswith("notread_")
+                continue
+            raise AssertionError(f"{name}: decoded, but PIL refuses it or the port does not read its form")
+        img = decode_image(data)
+        if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"] or list(img.shape) != want["shape"]:
+            raise AssertionError(f"{name}: the decode is not PIL's pixels")
+        comp = decode_image(data, composite_alpha=True)
+        if hashlib.sha256(comp.tobytes()).hexdigest() != want.get("composite_sha256", want["sha256"]):
+            raise AssertionError(f"{name}: the white composite is not PIL's")
+        formats.append(name)
     n_png = sum(n.endswith(".png") for n in decoded)
     n_webp = sum(n.endswith(".webp") for n in decoded)
     forms = {k: sum(n.startswith(k) for n in decoded) for k in ("smooth", "arith", "lossless", "webp_ll")}
@@ -2827,15 +2878,20 @@ def check_fixture_digests() -> None:
           f"{n_png} PNG (every colour type and depth, Adam7 or not) and {n_webp} WebP ({forms['webp_ll']} "
           f"simple lossless; lossy, ALPH, VP8X, animated) fixtures decode bitwise to PIL's pixels "
           f"(sha256; {composites} white composites of PIL's RGBA images too; each WebP in PIL's mode)")
+    kinds = {k: sum(n.startswith(k) for n in formats) for k in ("gif", "bmp", "dib", "tif")}
+    print(f"[readers] (a) {len(formats)} GIF, BMP/DIB and TIFF fixtures ({kinds['gif']} GIF, {kinds['bmp']} BMP, "
+          f"{kinds['dib']} DIB, {kinds['tif']} TIFF) decode bitwise to PIL's pixels and white composites; "
+          f"{refused} files PIL refuses refused, {not_read} forms PIL reads named ROADMAP item 13c")
 
 
 def frame_decode_ms(sources: dict, card: str) -> dict:
-    """The host ms to decode CO3D's 1067x800 frame eight ways (progressive,
-    baseline, 16-bit RGBA PNG, Adam7 PNG, and 9d's block-smoothed,
-    arithmetic-coded and lossless JPEGs and lossy WebP of ``sources``) and
-    9d's 512² render as lossless and lossy-with-alpha WebP, in turns on one
-    thread: the median, min and max of ``DECODE_TURNS`` and each file's
-    bytes."""
+    """The host ms to decode CO3D's 1067x800 frame thirteen ways
+    (progressive, baseline, 16-bit RGBA PNG, Adam7 PNG, and 9d's
+    block-smoothed, arithmetic-coded and lossless JPEGs, lossy WebP, GIF,
+    24-bit BMP, LZW, tiled deflate and 16-bit TIFF of ``sources``) and 9d's
+    512² render as lossless and lossy-with-alpha WebP and RLE8 BMP, in
+    turns on one thread: the median, min and max of ``DECODE_TURNS`` and
+    each file's bytes."""
     import numpy as np
 
     from mvd_tpu_torch.utils.images import decode_image, decode_jpeg, decode_png

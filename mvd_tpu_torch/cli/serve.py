@@ -19,8 +19,8 @@ requests running or waiting for the device; one that waits longer than
 ``--request-timeout`` is answered 503. The port compiles nothing, so
 ``compiled_signatures`` counts the distinct call signatures served so far
 (what the JAX server would have compiled). Images go in and out through
-``utils/images.py``, without PIL: a PNG, JPEG or WebP source image in,
-PNGs out.
+``utils/images.py``, without PIL: a BMP, GIF, PNG, JPEG, TIFF or WebP
+source image in, PNGs out.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def _png_b64(img01: np.ndarray) -> str:
 
 
 def _b64_png(data: str, size: int) -> np.ndarray:
-    """A base64 PNG, JPEG or WebP -> (size, size, 3) float32 in [0, 1], alpha
+    """A base64 image ``decode_image`` reads -> (size, size, 3) float32 in [0, 1], alpha
     dropped (``convert("RGB")``), Lanczos-resized where it differs."""
     img = decode_image(base64.b64decode(data))
     if img.shape[:2] != (size, size):

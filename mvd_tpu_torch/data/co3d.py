@@ -15,7 +15,7 @@ has ``ObjaverseDataset``'s interface (``pairs``, ``view_groups``,
 ``_read_view``, ``state_dict``), so ``DataLoader`` and the Trainer take it
 unchanged. Prompts are "a photo of a <category>" unless the sequence holds
 a ``prompt.txt``. Frames decode through ``utils/images.py:decode_image``:
-JPEG (what CO3D ships) bitwise PIL's, PNG likewise, then the Lanczos
+JPEG (what CO3D ships) bitwise PIL's, the other formats it reads likewise, then the Lanczos
 resize within one level of PIL's, as in the JAX package.
 """
 

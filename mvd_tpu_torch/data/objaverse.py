@@ -14,7 +14,8 @@ both packages read a corpus into the same batches:
   * self-healing reads (3 tries, evicting a broken zip or pair live);
   * RGBA composited over white, Lanczos resize, [-1, 1] (``utils/images.py``,
     without PIL: bitwise PIL's decode, composite and resize on the tested
-    shapes; PNG, JPEG or WebP, another format raises ``ValueError``);
+    shapes; BMP, GIF, PNG, JPEG, TIFF or WebP, another format raises
+    ``ValueError``);
   * ``use_native=True``: the C++ reader (``data/native_loader.py``), the
     JAX package's other function (float composite, bilinear resize). The
     JAX dataset takes it whenever ``g++`` and libpng build it
@@ -53,7 +54,7 @@ logger = logging.getLogger(__name__)
 
 
 def _load_image_from_bytes(data: bytes, image_size: int) -> np.ndarray:
-    """PNG, JPEG or WebP bytes -> (H, W, 3) float32 in [-1, 1], RGBA composited
+    """Image bytes ``decode_image`` reads -> (H, W, 3) float32 in [-1, 1], RGBA composited
     over white, Lanczos-resized to (image_size, image_size)."""
     img = decode_image(data, composite_alpha=True)
     if img.shape[:2] != (image_size, image_size):

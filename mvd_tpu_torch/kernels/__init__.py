@@ -71,6 +71,7 @@ KERNEL_SOURCES = {
     "ring_merge": ("ring_merge",),
 }
 # the host C++ under csrc/ (<name>.cpp, built with c++): the JPEG decoder, the
-# PNG scanline decoder, the WebP decoder, the native Objaverse reader and the
-# zstd decoder of the orbax checkpoint reader
-HOST_SOURCES = ("jpeg_decode", "png_decode", "webp_decode", "native_reader", "zstd_decode")
+# PNG scanline decoder, the WebP, GIF, BMP and TIFF decoders, the native
+# Objaverse reader and the zstd decoder of the orbax checkpoint reader
+HOST_SOURCES = ("jpeg_decode", "png_decode", "webp_decode", "gif_decode", "bmp_decode", "tiff_decode",
+                "native_reader", "zstd_decode")

@@ -14,8 +14,11 @@ arithmetic-coded sequential and progressive, lossless; 8-bit, gray, three
 components or four (CMYK, YCCK), bitwise PIL's ``convert("RGB")``). WebP is
 read by ``csrc/webp_decode.cpp`` (``decode_webp``: lossless VP8L, lossy VP8
 with or without its ALPH chunk, the VP8X container and an animation's first
-frame, bitwise PIL's libwebp, with PIL's mode). Each is built with the
-host's ``c++`` on first use.
+frame, bitwise PIL's libwebp, with PIL's mode). GIF (``csrc/gif_decode.cpp``),
+BMP and DIB (``csrc/bmp_decode.cpp``) and TIFF (``utils/tiff.py`` on
+``csrc/tiff_decode.cpp``) decode into the image PIL holds, in PIL's mode,
+and ``pil_rgb`` converts it as ``convert("RGB")`` does. Each is built with
+the host's ``c++`` on first use.
 ``decode_image`` takes any of them, as ``Image.open`` does. ``resize`` stands in
 for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
 support widens with the downscale factor, with PIL's 8-bit fixed-point
@@ -37,6 +40,12 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # the first chunks of a file PIL opens as WebP
 WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")
+GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+# the bitmap header sizes PIL's DIB plugin accepts as a file's first int32
+DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+# TiffImagePlugin.PREFIXES: classic TIFF, the two "invalid" byte orders PIL
+# still opens, BigTIFF
+TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
 # PIL's Image.open refuses an image of more pixels than twice
 # Image.MAX_IMAGE_PIXELS (a DecompressionBombError); so do the decoders here
 # (csrc/jpeg_decode.cpp holds the same number)
@@ -382,24 +391,175 @@ def decode_webp(data: bytes) -> Tuple[np.ndarray, str]:
     return np.ascontiguousarray(rgba[..., :3]), "RGB"
 
 
+class PilImage(NamedTuple):
+    """An image as PIL holds it after ``Image.open(...).load()``: ``pixels``
+    (H, W) uint8 for modes 1 (0 or 255), L and P; (H, W) uint16 for I;16
+    and I;16B; (H, W) int32 for I and float32 for F; (H, W, 4) uint8 for
+    RGB, RGBA, CMYK, LA (L, L, L, A) and PA (P, 0, 0, A); ``mode``; and
+    ``palette`` (entries x 3 uint8) for P and PA, else None."""
+    pixels: np.ndarray
+    mode: str
+    palette: Optional[np.ndarray] = None
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def pil_rgb(img: PilImage, composite_alpha: bool = False) -> np.ndarray:
+    """``convert("RGB")`` of an image in any mode GIF, BMP and TIFF open in:
+    gray replicated (1, L, LA), palette indices looked up in a table whose
+    missing entries are black (P, PA), 16-bit gray clipped at 255 (I;16,
+    I;16B: 256 and 65535 give 255), I clipped to 0-255, F truncated toward
+    zero then clipped (NaN gives 0), CMYK as PIL's ``cmyk2rgb`` (K' -
+    MULDIV255(C, K'), K' = 255 - K), RGB and RGBA's first three bands. With
+    ``composite_alpha`` an image whose mode is exactly RGBA is first
+    composited over white (``over_white``), as the data loaders do; LA and
+    PA are not."""
+    px, mode = img.pixels, img.mode
+    if mode in ("1", "L"):
+        return np.repeat(px[..., None], 3, axis=-1)
+    if mode in ("P", "PA"):
+        table = np.zeros((256, 3), np.uint8)
+        if img.palette is not None:
+            table[:len(img.palette)] = img.palette[:256]
+        return table[px if mode == "P" else px[..., 0]]
+    if mode == "LA":
+        return np.repeat(px[..., :1], 3, axis=-1)
+    if mode in ("I;16", "I;16B"):
+        gray = np.minimum(px, 255).astype(np.uint8)
+    elif mode == "I":
+        gray = np.clip(px, 0, 255).astype(np.uint8)
+    elif mode == "F":
+        with np.errstate(invalid="ignore"):
+            gray = np.where(np.isnan(px), 0, np.clip(np.trunc(px), 0, 255)).astype(np.uint8)
+    elif mode == "CMYK":
+        cmy, k = px[..., :3].astype(np.int64), px[..., 3:].astype(np.int64)
+        nk = 255 - k
+        return np.clip(nk - _muldiv255(cmy, nk), 0, 255).astype(np.uint8)
+    elif mode == "RGBA" and composite_alpha:
+        return over_white(px)
+    elif mode in ("RGB", "RGBA"):
+        return np.ascontiguousarray(px[..., :3])
+    else:
+        raise ValueError(f"no conversion of PIL mode {mode!r} to RGB")
+    return np.repeat(gray[..., None], 3, axis=-1)
+
+
+def _bind_gif(lib: ctypes.CDLL) -> None:
+    out_int = ctypes.POINTER(ctypes.c_int)
+    lib.mvd_gif_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, out_int, out_int, out_int, out_int, out_int,
+                                 ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_gif_info.restype = ctypes.c_int
+    lib.mvd_gif_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_gif_decode.restype = ctypes.c_int
+
+
+def decode_gif(data: bytes) -> PilImage:
+    """GIF bytes -> the first frame as PIL 12.1.0 holds it: mode P with its
+    colour table (local, else global) or, where that table is the identity
+    gray ramp PIL drops, mode L; the image grown to hold a frame that
+    reaches past the logical screen, filled outside the frame with the
+    graphic control extension's transparency index, else 0; LZW with clear
+    and end codes, interlaced rows (``csrc/gif_decode.cpp``). A transparent
+    GIF stays mode P. Raises ``ValueError`` where PIL raises (no image, a
+    broken LZW stream, data ending before the frame's last pixel, more
+    pixels than PIL's decompression-bomb limit) and ``RuntimeError`` when
+    the decoder cannot be built."""
+    from ..kernels._build import load_host
+
+    lib = load_host("gif_decode", _bind_gif)
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    w, h, pmode, entries, trns = (ctypes.c_int() for _ in range(5))
+    if lib.mvd_gif_info(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(pmode),
+                        ctypes.byref(entries), ctypes.byref(trns), err, len(err)):
+        raise ValueError(err.value.decode())
+    pixels = np.full((h.value, w.value), max(trns.value, 0), np.uint8)
+    palette = np.zeros((entries.value, 3), np.uint8)
+    if lib.mvd_gif_decode(data, len(data), pixels.ctypes.data, w, h, palette.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    return PilImage(pixels, "P", palette) if pmode.value else PilImage(pixels, "L")
+
+
+def _bind_bmp(lib: ctypes.CDLL) -> None:
+    out_int = ctypes.POINTER(ctypes.c_int)
+    lib.mvd_bmp_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, out_int, out_int, ctypes.c_char_p, out_int,
+                                 ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_bmp_info.restype = ctypes.c_int
+    lib.mvd_bmp_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_bmp_decode.restype = ctypes.c_int
+
+
+def is_dib(data: bytes) -> bool:
+    """Whether ``Image.open`` takes ``data`` for a DIB
+    (``BmpImagePlugin._dib_accept``): its first little-endian int32 is a
+    bitmap header size PIL knows."""
+    return len(data) >= 4 and struct.unpack("<I", data[:4])[0] in DIB_HEADERS
+
+
+def decode_bmp(data: bytes) -> PilImage:
+    """BMP bytes (or a DIB: the same without the 14-byte file header) ->
+    the image as PIL 12.1.0's BmpImagePlugin holds it: 1-, 4- and 8-bit
+    pixels in mode P, or 1 or L where the palette is black and white or
+    the identity gray ramp; 16-, 24- and 32-bit BI_RGB in mode RGB (a
+    32-bit pixel's fourth byte dropped); BI_BITFIELDS by PIL's table of
+    masks (RGBA only with an alpha mask); RLE8 and RLE4 as PIL's
+    ``BmpRleDecoder`` decodes them; headers of 12 (OS/2 1), 40, 52, 56, 64,
+    108 and 124 bytes; bottom-up or top-down (``csrc/bmp_decode.cpp``).
+    Raises ``ValueError`` where PIL raises and ``RuntimeError`` when the
+    decoder cannot be built."""
+    from ..kernels._build import load_host
+
+    lib = load_host("bmp_decode", _bind_bmp)
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    mode = ctypes.create_string_buffer(8)
+    w, h, entries = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.mvd_bmp_info(data, len(data), ctypes.byref(w), ctypes.byref(h), mode, ctypes.byref(entries), err,
+                        len(err)):
+        raise ValueError(err.value.decode())
+    mode = mode.value.decode()
+    shape = (h.value, w.value) if mode in ("1", "L", "P") else (h.value, w.value, 4)
+    pixels = np.zeros(shape, np.uint8)
+    palette = np.zeros((entries.value, 3), np.uint8)
+    if lib.mvd_bmp_decode(data, len(data), pixels.ctypes.data, w, h, palette.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    return PilImage(pixels, mode, palette if mode == "P" else None)
+
+
 def decode_image(data: bytes, composite_alpha: bool = False) -> np.ndarray:
-    """PNG, JPEG or WebP bytes -> (H, W, 3) uint8 RGB, chosen by the file's
-    signature as ``Image.open`` chooses: ``decode_png`` (``composite_alpha``
-    goes to it), ``decode_jpeg`` or ``decode_webp`` (alpha dropped as
-    ``convert("RGB")`` drops it, or with ``composite_alpha`` an RGBA image
-    first composited over white, ``over_white``). Raises ``ValueError`` on
-    anything else, naming its first bytes."""
+    """Image bytes -> (H, W, 3) uint8 RGB, the format chosen by the file's
+    first bytes in the order ``Image.open`` tries its plugins (BMP, DIB,
+    GIF, PNG, JPEG, TIFF, WebP): ``decode_bmp``, ``decode_gif`` and
+    ``decode_tiff`` through ``pil_rgb``, ``decode_png``, ``decode_jpeg``,
+    ``decode_webp``. With ``composite_alpha`` an image PIL opens as RGBA
+    is first composited over white (``over_white``), as the data loaders
+    do; other modes are converted as ``convert("RGB")`` converts them.
+    Raises ``ValueError`` on anything else, naming its first bytes."""
+    from .tiff import decode_tiff
+
+    data = bytes(data)
+    if data.startswith(b"BM") or is_dib(data):
+        return pil_rgb(decode_bmp(data), composite_alpha)
+    if data.startswith(GIF_SIGNATURES):
+        return pil_rgb(decode_gif(data), composite_alpha)
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, composite_alpha=composite_alpha)
     if data.startswith(JPEG_SIGNATURE):
         return decode_jpeg(data)
+    if data.startswith(TIFF_PREFIXES):
+        return pil_rgb(decode_tiff(data), composite_alpha)
     if is_webp(data):
         pixels, mode = decode_webp(data)
         if mode == "RGBA":
             return over_white(pixels) if composite_alpha else np.ascontiguousarray(pixels[..., :3])
         return pixels
-    raise ValueError(f"not a WebP, PNG or JPEG file (it starts {bytes(data[:16])!r}); only WebP, PNG "
-                     "and JPEG images are read")
+    raise ValueError(f"not a BMP, GIF, PNG, JPEG, TIFF or WebP file (it starts {bytes(data[:16])!r}); only "
+                     "those images are read (PIL's other formats: ROADMAP item 13c)")
 
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:
@@ -462,7 +622,7 @@ def save_image(img: np.ndarray, path: str):
 
 
 def load_image(path: str, size: Optional[int] = None) -> np.ndarray:
-    """PNG, JPEG or WebP -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48,
+    """An image ``decode_image`` reads -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48,
     NHWC; alpha dropped as ``convert("RGB")`` drops it), resized to
     (size, size) where it differs."""
     with open(path, "rb") as f:

@@ -102,7 +102,7 @@ def test_load_image_matches_jax(mode, src, dst):
     want = jobj._load_image_from_bytes(buf.getvalue(), dst)
     got = tobj._load_image_from_bytes(buf.getvalue(), dst)
     assert want.dtype == got.dtype and np.array_equal(want, got)
-    with pytest.raises(ValueError, match="PNG or JPEG"):
+    with pytest.raises(ValueError, match="GIF: no image in the file"):
         tobj._load_image_from_bytes(b"GIF89a" + bytes(16), dst)
 
 
