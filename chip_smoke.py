@@ -2567,6 +2567,17 @@ def image_fixture_script(name: str = "make_fixtures"):
     return mod
 
 
+def codec_digests() -> dict:
+    """PIL's digests of the APNG fixtures ("apng") and of phase 9d's
+    TIFF-codec and APNG sources ("frames": ``frame_codec_forms`` of CO3D's
+    frame and the 512² render; the fault-13 TIFF's read by path too)."""
+    with open(os.path.join(IMAGE_FIXTURES, "codecs_sha256.json")) as f:
+        return json.load(f)
+
+
+FAULT13_SOURCE = "fault-13 TIFF (raw RGBA, orientation 6)"
+
+
 def format_digests() -> dict:
     """name -> PIL's mode and the sha256 and shape of its pixels (and of
     the white composite where the mode is RGBA), or PIL's refusal, of each
@@ -2669,7 +2680,14 @@ def frame_sources() -> dict:
     frame's pixels. The GIF, BMP and TIFF sources are written here by
     ``make_formats.py``'s ``frame_formats`` from the frame and from the
     lossless WebP's render: each must decode to the pixels it was written
-    from (a GIF or RLE8 BMP its quantized palette expanded)."""
+    from (a GIF or RLE8 BMP its quantized palette expanded). Its
+    ``frame_codec_forms`` writes JPEG-in-TIFF (4:2:0 strips with
+    JPEGTables, and tiles), LZMA, LAB, YCbCr under LZW, old-style JPEG and
+    APNG sources, and the fault-13 TIFF; the zstd TIFF is the fixture
+    ``frame_a_zstd.tif``, whose blocks the ``zstandard`` module compressed
+    (this host has no zstd writer). Each must decode to PIL's digest of the
+    same pixels (``codecs_sha256.json``; LZMA written by this host's
+    liblzma)."""
     import numpy as np
 
     from mvd_tpu_torch.utils.images import decode_jpeg, decode_webp
@@ -2700,8 +2718,14 @@ def frame_sources() -> dict:
         sources[form] = (data, want["sha256"], "PIL's")
         if name == "webp_render_lossless.webp":
             render = rgba
-    for form, (data, written) in image_fixture_script("make_formats").frame_formats(pixels, render).items():
+    formats = image_fixture_script("make_formats")
+    for form, (data, written) in formats.frame_formats(pixels, render).items():
         sources[form] = (data, sha(np.ascontiguousarray(written)), "its writer's")
+    frames = codec_digests()["frames"]
+    for form, data in formats.frame_codec_forms(pixels, render).items():
+        sources[form] = (data, frames[form]["sha256"], "PIL's")
+    sources[formats.ZSTD_FORM] = (read(IMAGE_FIXTURES, formats.ZSTD_FRAME), frames[formats.ZSTD_FORM]["sha256"],
+                                  "PIL's")
     return sources
 
 
@@ -2714,9 +2738,11 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
     it must be, the two sources and the two generations bitwise equal, each
     call with K1 and K2 exactly phase 3's launches and no plain call; then
     a request to the HTTP server carrying each of the progressive JPEG, the
-    arithmetic-coded JPEG, the lossy WebP, the LZW TIFF and the GIF,
-    base64-encoded, whose decodes in the server are those pixels (sha256)
-    and whose launches are phase 3's. Returns the metrics."""
+    arithmetic-coded JPEG, the lossy WebP, the LZW TIFF, the GIF and the
+    JPEG-in-TIFF, base64-encoded, whose decodes in the server are those
+    pixels (sha256) and whose launches are phase 3's. The fault-13 TIFF is
+    not generated from: ``check_fault13_path_read`` holds ``load_image``'s
+    read of it by path (``cli.infer``'s) to PIL's. Returns the metrics."""
     import base64
     import threading
     import urllib.request
@@ -2736,12 +2762,14 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
     secs = {}
     try:
         for form, (jpeg, digest, whose) in sources.items():
+            if form == FAULT13_SOURCE:
+                continue
             pixels = decode_image(jpeg)
             if hashlib.sha256(pixels.tobytes()).hexdigest() != digest:
                 raise AssertionError(f"(d): the {form} source does not decode to {whose} pixels")
             srcs, imgs = [], []
-            ext = next((e for k, e in (("WebP", ".webp"), ("GIF", ".gif"), ("BMP", ".bmp"), ("TIFF", ".tif"))
-                        if k in form), ".jpg")
+            ext = next((e for k, e in (("WebP", ".webp"), ("GIF", ".gif"), ("BMP", ".bmp"), ("TIFF", ".tif"),
+                                       ("APNG", ".png")) if k in form), ".jpg")
             for label, name, data in ((form, "source" + ext, jpeg),
                                       (f"{form}'s pixels as PNG", "source.png", encode_png(pixels))):
                 path = os.path.join(tmp, name)
@@ -2760,6 +2788,8 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
             print(f"[readers] (d) phase 3's call ({VIEWS} views, {RES}², DDPM {STEPS}, guidance 1.0) from the "
                   f"{shape} source as {form} ({len(jpeg)} bytes; its decode {whose} pixels) and from its pixels "
                   f"as PNG: sources and images bitwise equal; launches {want} each, no plain call")
+        if FAULT13_SOURCE in sources:
+            check_fault13_path_read(sources[FAULT13_SOURCE][0], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2777,7 +2807,8 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
 
     try:
         for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG", "lossy WebP",
-                                     "LZW TIFF with predictor 2", "GIF"), start=5):
+                                     "LZW TIFF with predictor 2", "GIF", "JPEG-in-TIFF (YCbCr 4:2:0, strips)"),
+                                    start=5):
             jpeg, digest, whose = sources[form]
             payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": seed,
                        "source_image_b64": base64.b64encode(jpeg).decode()}
@@ -2811,9 +2842,39 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
         server.join(timeout=60)
     metrics = dict(first_call_s=secs, serve_latency_s=latency, launches=launches,
                    phase_s=time.perf_counter() - t_phase)
-    print(f"[readers] (d) {len(sources)} forms, {2 * len(sources)} calls and {len(latency)} requests in "
+    generated = len(sources) - (FAULT13_SOURCE in sources)
+    print(f"[readers] (d) {generated} forms, {2 * generated} calls and {len(latency)} requests in "
           f"{metrics['phase_s']:.1f} s ({card})")
     return metrics
+
+
+def check_fault13_path_read(data: bytes, tmp: str) -> None:
+    """ROADMAP Queue 3, fault 13, on the card's host: the 1067x800 raw RGBA
+    TIFF with EXIF orientation 6 written to a file and read as
+    ``cli.infer --image-path`` reads it (``load_image``): the port's read by
+    path is PIL's ``Image.open(path)`` (its strip memory-mapped at the
+    turned size, then turned: the JAX package's source image), by sha256,
+    and differs from its read of the bytes (PIL's ``BytesIO`` read); and
+    ``load_image`` at 512² is that image resized."""
+    import numpy as np
+
+    from mvd_tpu_torch.utils.images import decode_image, load_image, resize
+
+    want = codec_digests()["frames"][FAULT13_SOURCE]
+    path = os.path.join(tmp, "fault13.tif")
+    with open(path, "wb") as f:
+        f.write(data)
+    by_path, by_bytes = decode_image(data, from_path=True), decode_image(data)
+    if hashlib.sha256(by_path.tobytes()).hexdigest() != want["path_sha256"]:
+        raise AssertionError("(d) fault 13: the read by path is not PIL's Image.open(path)")
+    if hashlib.sha256(by_bytes.tobytes()).hexdigest() != want["sha256"] or np.array_equal(by_path, by_bytes):
+        raise AssertionError("(d) fault 13: the read of the bytes is not PIL's BytesIO read, or equals the path's")
+    src = load_image(path, RES)
+    if not np.array_equal(src, resize(by_path, RES, RES).astype(np.float32) / 255.0 * 2.0 - 1.0):
+        raise AssertionError("(d) fault 13: load_image(path) is not the path read resized")
+    print(f"[readers] (d) fault 13: the {by_path.shape[1]}x{by_path.shape[0]} raw RGBA TIFF at orientation 6 "
+          f"read by path (cli.infer's load_image) is PIL's Image.open(path) by sha256 ({want['path_sha256'][:16]}"
+          "...), the JAX package's orientation; its bytes read is PIL's BytesIO read, another image")
 
 
 def check_fixture_digests() -> None:
@@ -2878,20 +2939,30 @@ def check_fixture_digests() -> None:
           f"{n_png} PNG (every colour type and depth, Adam7 or not) and {n_webp} WebP ({forms['webp_ll']} "
           f"simple lossless; lossy, ALPH, VP8X, animated) fixtures decode bitwise to PIL's pixels "
           f"(sha256; {composites} white composites of PIL's RGBA images too; each WebP in PIL's mode)")
-    kinds = {k: sum(n.startswith(k) for n in formats) for k in ("gif", "bmp", "dib", "tif")}
-    print(f"[readers] (a) {len(formats)} GIF, BMP/DIB and TIFF fixtures ({kinds['gif']} GIF, {kinds['bmp']} BMP, "
-          f"{kinds['dib']} DIB, {kinds['tif']} TIFF) decode bitwise to PIL's pixels and white composites; "
+    for name, want in sorted(codec_digests()["apng"].items()):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        img, comp = decode_image(data), decode_image(data, composite_alpha=True)
+        if (hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]
+                or hashlib.sha256(comp.tobytes()).hexdigest() != want["composite_sha256"]):
+            raise AssertionError(f"{name}: the decode is not PIL's first frame")
+        formats.append(name)
+    kinds = {k: sum(n.startswith(k) for n in formats) for k in ("gif", "bmp", "dib", "tif", "apng")}
+    print(f"[readers] (a) {len(formats)} GIF, BMP/DIB, TIFF and APNG fixtures ({kinds['gif']} GIF, {kinds['bmp']} "
+          f"BMP, {kinds['dib']} DIB, {kinds['tif']} TIFF, {kinds['apng']} APNG) decode bitwise to PIL's pixels and "
+          "white composites; "
           f"{refused} files PIL refuses refused, {not_read} forms PIL reads named ROADMAP item 13c")
 
 
 def frame_decode_ms(sources: dict, card: str) -> dict:
-    """The host ms to decode CO3D's 1067x800 frame thirteen ways
+    """The host ms to decode CO3D's 1067x800 frame in each form
     (progressive, baseline, 16-bit RGBA PNG, Adam7 PNG, and 9d's
     block-smoothed, arithmetic-coded and lossless JPEGs, lossy WebP, GIF,
-    24-bit BMP, LZW, tiled deflate and 16-bit TIFF of ``sources``) and 9d's
-    512² render as lossless and lossy-with-alpha WebP and RLE8 BMP, in
-    turns on one thread: the median, min and max of ``DECODE_TURNS`` and
-    each file's bytes."""
+    24-bit BMP, LZW, tiled deflate and 16-bit TIFF, JPEG-in-TIFF in strips
+    and in tiles, zstd, LZMA, LAB, YCbCr under LZW, old-style JPEG and the
+    fault-13 raw TIFF of ``sources``) and 9d's 512² render as lossless and
+    lossy-with-alpha WebP, RLE8 BMP and APNG, in turns on one thread: the
+    median, min and max of ``DECODE_TURNS`` and each file's bytes."""
     import numpy as np
 
     from mvd_tpu_torch.utils.images import decode_image, decode_jpeg, decode_png

@@ -23,7 +23,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mvd_zstd_decode.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
                                     ctypes.c_char_p, ctypes.c_int]
     lib.mvd_zstd_decode_alloc.restype = ctypes.c_void_p
-    lib.mvd_zstd_decode_alloc.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+    lib.mvd_zstd_decode_alloc.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,
                                           ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int]
     lib.mvd_zstd_take.restype = None
     lib.mvd_zstd_take.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -43,12 +43,15 @@ def _src(data) -> tuple:
     return arr, arr.ctypes.data, arr.size
 
 
-def decompress(data, out: Optional[np.ndarray] = None) -> bytes | np.ndarray:
+def decompress(data, out: Optional[np.ndarray] = None, limit: Optional[int] = None) -> bytes | np.ndarray:
     """Every zstd frame of ``data`` (skippable frames skipped), decoded.
 
     Without ``out``, returns the bytes. With ``out`` (a C-contiguous,
     writable numpy array), decodes into its memory and returns it; the
-    frames must decode to exactly ``out.nbytes`` bytes, or it raises."""
+    frames must decode to exactly ``out.nbytes`` bytes, or it raises.
+    With ``limit``, decoding stops after the block that brings the output
+    to ``limit`` bytes, and nothing past that block is read (the bytes are
+    returned whole, ``limit`` or more, or fewer where the frames end)."""
     keep, addr, n = _src(data)
     err = ctypes.create_string_buffer(_ERR)
     lib = _lib()
@@ -62,7 +65,8 @@ def decompress(data, out: Optional[np.ndarray] = None) -> bytes | np.ndarray:
             raise ValueError(f"zstd: the frames decode to {got} bytes, {out.nbytes} expected")
         return out
     size = ctypes.c_size_t()
-    handle = lib.mvd_zstd_decode_alloc(addr, n, ctypes.byref(size), err, _ERR)
+    cap = ctypes.c_size_t(-1).value if limit is None else limit
+    handle = lib.mvd_zstd_decode_alloc(addr, n, cap, ctypes.byref(size), err, _ERR)
     if not handle:
         raise ValueError(f"zstd: {err.value.decode()}")
     buf = bytearray(size.value)

@@ -291,6 +291,27 @@ int mvd_bmp_info(const uint8_t* data, size_t size, int* width, int* height, char
   }
 }
 
+// The tile PIL's BmpImagePlugin sets up: whether its decoder is the raw
+// one with the rawmode equal to the mode (the tile ImageFile.load can
+// memory-map), the pixel data's offset, its row stride and its direction
+// (1 top-down, -1 bottom-up); the palette into `palette` (entries * 3
+// bytes). Returns 0, or 1 with a message in err.
+int mvd_bmp_layout(const uint8_t* data, size_t size, int* raw_is_mode, int64_t* offset, int64_t* stride,
+                   int* direction, uint8_t* palette, char* err, int errlen) {
+  try {
+    Bmp b = parse(data, size);
+    if (!b.palette.empty()) std::memcpy(palette, b.palette.data(), b.palette.size());
+    *raw_is_mode = !b.rle && b.rawmode == b.mode;
+    *offset = int64_t(b.offset);
+    *stride = ((b.width * b.bits + 31) >> 3) & ~int64_t(3);
+    *direction = b.direction;
+    return 0;
+  } catch (const std::exception& e) {
+    copy_error(e.what(), err, errlen);
+    return 1;
+  }
+}
+
 // The pixels into `image` (zeros, width * height * the mode's pixel size
 // bytes) and the palette into `palette` (entries * 3 bytes). Returns 0, or
 // 1 with a message in err.

@@ -381,6 +381,8 @@ struct Component {
 constexpr int64_t kMaxPixels = int64_t(2) * 89478485;
 // the bytes PIL reads of a file at a time (ImageFile.MAXBLOCK)
 constexpr size_t kPilBlock = 65536;
+// Decoder::output's colour handling
+enum { kPil = 0, kYcc = 1, kNone = 2, kPlanes = 3 };
 
 // libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm, jidctint-sse2.asm),
 // the one PIL's libjpeg-turbo runs, on one block. It is jidctint.c's
@@ -463,7 +465,9 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {
+  // whole: the stream is in memory at once, as libtiff hands a strip to
+  // libjpeg (PIL's JPEG plugin feeds it 65536 bytes at a time)
+  Decoder(const uint8_t* data, size_t size, bool whole = false) : d_(data), n_(size), whole_(whole) {
     std::fill(arith_dc_L_, arith_dc_L_ + 16, 0);
     std::fill(arith_dc_U_, arith_dc_U_ + 16, 1);
     std::fill(arith_ac_K_, arith_ac_K_ + 16, 5);
@@ -471,12 +475,17 @@ class Decoder {
 
   // Parse up to the frame header (header_only) or decode the whole image.
   void run(bool header_only) {
-    if (n_ < 3 || d_[0] != 0xFF || d_[1] != 0xD8 || d_[2] != 0xFF) fail("not a JPEG file (no SOI)");
+    // PIL opens a file as JPEG by its first three bytes; libjpeg, handed a
+    // TIFF strip whole, checks the SOI's two
+    if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8 || (!whole_ && (n_ < 3 || d_[2] != 0xFF)))
+      fail("not a JPEG file (no SOI)");
     pos_ = 2;
     for (;;) {
       int m = next_marker();
       if (m == 0xD9) break;  // EOI
-      if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      // jdmarker.c:read_markers: a second SOI is JERR_SOI_DUPLICATE
+      if (m == 0xD8) fail("JPEG has a second SOI marker (libjpeg refuses it)");
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
       if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
         frame(m);
         if (header_only) return;
@@ -497,7 +506,7 @@ class Decoder {
       } else if (m == 0xDB) {
         dqt(s, sl);
       } else if (m == 0xDD) {
-        if (sl < 2) fail("JPEG DRI segment is too short");
+        if (sl != 2) fail("JPEG DRI segment has a bad length (Bogus marker length)");
         restart_interval_ = (s[0] << 8) | s[1];
       } else if (m == 0xDA) {
         if (!have_frame_) fail("JPEG scan before its frame header");
@@ -509,9 +518,12 @@ class Decoder {
       } else if (m == 0xEE && sl >= 12 && !std::memcmp(s, "Adobe", 5)) {
         saw_adobe_ = true;
         adobe_transform_ = s[11];
-      } else if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xC8 || (m >= 0xF0 && m <= 0xFD))) {
-        char buf[64];
-        std::snprintf(buf, sizeof buf, "JPEG marker 0xFF%02X is not read", m);
+      } else if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE)) {
+        // read_markers' default and its unsupported SOFn: JPG (0xC8), the
+        // JPGn extensions (0xF0-0xFD), DHP, EXP and the reserved markers
+        // are fatal errors (JERR_UNKNOWN_MARKER, JERR_SOF_UNSUPPORTED)
+        char buf[96];
+        std::snprintf(buf, sizeof buf, "JPEG marker 0xFF%02X is not read, as libjpeg does not read it", m);
         fail(buf);
       }
       pos_ += len;
@@ -524,8 +536,11 @@ class Decoder {
 
   int width() const { return width_; }
   int height() const { return height_; }
+  const std::vector<Component>& components() const { return comps_; }
 
-  void output(uint8_t* out) {
+  // The image's samples after the IDCT (block-smoothed where libjpeg
+  // smooths): each component's plane, (bh * 8) x (bw * 8) samples.
+  void planes() {
     const bool smooth = block_smoothing();
     for (Component& c : comps_) {
       if (lossless_) {  // jdlossls.c's scaler: the sample shifted left by its scan's Pt, as an 8-bit JSAMPLE
@@ -542,7 +557,34 @@ class Decoder {
                      &c.plane[size_t(by) * 8 * c.stride + size_t(bx) * 8], c.stride);
       if (smooth) smooth_blocks(c);
     }
+  }
+
+  // The decoded image into out, by `space`: kPil PIL's convert("RGB") of
+  // the mode it opens the file in (height x width x 3); kYcc libtiff's
+  // JPEGCOLORMODE_RGB, three components taken as YCbCr whatever the
+  // markers say and converted to RGB (x 3); kNone libjpeg's JCS_UNKNOWN,
+  // each component upsampled and none converted (x components); kPlanes
+  // libjpeg's raw_data_out, each component's plane as planes() leaves it,
+  // one after another.
+  void output(uint8_t* out, int space = kPil) {
+    planes();
     const size_t W = size_t(width_), H = size_t(height_);
+    if (space == kPlanes) {
+      for (const Component& c : comps_) {
+        std::memcpy(out, c.plane.data(), c.plane.size());
+        out += c.plane.size();
+      }
+      return;
+    }
+    if (space == kNone) {
+      const size_t nc = comps_.size();
+      for (size_t i = 0; i < nc; ++i) {
+        std::vector<uint8_t> full = upsample(comps_[i]);
+        for (size_t p = 0; p < W * H; ++p) out[p * nc + i] = full[p];
+      }
+      return;
+    }
+    if (space == kYcc && comps_.size() != 3) fail("JPEG with " + std::to_string(comps_.size()) + " components is not YCbCr");
     if (comps_.size() == 1) {
       const Component& c = comps_[0];
       for (size_t y = 0; y < H; ++y)
@@ -593,7 +635,7 @@ class Decoder {
       }
       return;
     }
-    const bool rgb = color_is_rgb();
+    const bool rgb = space == kPil && color_is_rgb();
     for (size_t y = 0; y < H; ++y)
       for (size_t x = 0; x < W; ++x) {
         size_t i = y * W + x;
@@ -614,6 +656,7 @@ class Decoder {
  private:
   const uint8_t* d_;
   size_t n_;
+  bool whole_;
   size_t pos_ = 0;
   bool have_frame_ = false, saw_jfif_ = false, saw_adobe_ = false, progressive_ = false;
   bool arith_ = false, lossless_ = false, scanned_any_ = false;
@@ -685,7 +728,8 @@ class Decoder {
       fail("JPEG of " + std::to_string(width_) + "x" + std::to_string(height_) + " pixels is over the limit of " +
            std::to_string(kMaxPixels) + " pixels (PIL's decompression-bomb limit)");
     if (nc != 1 && nc != 3 && nc != 4) fail("JPEG with " + std::to_string(nc) + " components is not read");
-    if (len < size_t(8 + 3 * nc)) fail("JPEG frame header is too short");
+    // jdmarker.c:get_sof: the length must be 8 + 3 Nf (JERR_BAD_LENGTH)
+    if (len != size_t(8 + 3 * nc)) fail("JPEG frame header has a bad length (Bogus marker length)");
     comps_.resize(size_t(nc));
     for (int i = 0; i < nc; ++i) {
       Component& c = comps_[size_t(i)];
@@ -852,7 +896,8 @@ class Decoder {
   void scan(const uint8_t* s, size_t sl) {
     if (sl < 1) fail("JPEG SOS segment is too short");
     int ns = s[0];
-    if (ns < 1 || ns > 4 || sl < size_t(4 + 2 * ns)) fail("JPEG SOS segment is invalid");
+    // jdmarker.c:get_sos: the length must be 6 + 2 Ns (JERR_BAD_LENGTH)
+    if (ns < 1 || ns > 4 || sl != size_t(4 + 2 * ns)) fail("JPEG SOS segment is invalid (Bogus marker length)");
     const int Ss = s[1 + 2 * ns], Se = s[2 + 2 * ns], Ah = s[3 + 2 * ns] >> 4, Al = s[3 + 2 * ns] & 15;
     const std::string params = " Ss=" + std::to_string(Ss) + " Se=" + std::to_string(Se) +
                                " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al);
@@ -925,7 +970,7 @@ class Decoder {
     // MAXBLOCK) and jdarith.c's get_byte cannot wait for the next block
     // (JERR_CANT_SUSPEND): an arithmetic scan must read nothing past the
     // block its segment header ends in (nor past the file's end)
-    const size_t block_end = std::min(n_, ((pos_ - 1) / kPilBlock + 1) * kPilBlock);
+    const size_t block_end = whole_ ? n_ : std::min(n_, ((pos_ - 1) / kPilBlock + 1) * kPilBlock);
     std::vector<int> pred(size_t(ns), 0), dc_ctx(size_t(ns), 0);
     unsigned eobrun = 0;
     bool gave_up = false;  // jdarith.c's ct = -1: a bad code ends the decoding until a restart
@@ -1480,6 +1525,55 @@ int mvd_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, i
     dec.run(false);
     if (dec.width() != width || dec.height() != height) throw JpegError("JPEG size changed between calls");
     dec.output(out);
+    return 0;
+  } catch (const std::exception& e) {
+    copy_error(e.what(), err, errlen);
+    return 1;
+  }
+}
+
+// The frame of a stream libtiff hands libjpeg whole (a TIFF strip or
+// tile, its tables spliced in): info[0..2] width, height, components;
+// info[3 + 4 k + 0..3] component k's h and v sampling factors and its
+// plane's blocks across and down (Decoder::planes). Returns 0, or 1 with a
+// message in err.
+int mvd_jpeg_frame(const uint8_t* data, size_t size, int* info, char* err, int errlen) {
+  try {
+    Decoder dec(data, size, true);
+    dec.run(true);
+    info[0] = dec.width();
+    info[1] = dec.height();
+    info[2] = int(dec.components().size());
+    int k = 3;
+    for (const Component& c : dec.components()) {
+      info[k++] = c.h;
+      info[k++] = c.v;
+      info[k++] = c.bw;
+      info[k++] = c.bh;
+    }
+    return 0;
+  } catch (const std::exception& e) {
+    copy_error(e.what(), err, errlen);
+    return 1;
+  }
+}
+
+// Decode such a stream into out by `space` (Decoder::output's kYcc,
+// kNone or kPlanes); `bytes` the size of out. Returns 0, or 1 with a
+// message in err.
+int mvd_jpeg_decode_whole(const uint8_t* data, size_t size, int space, uint8_t* out, size_t bytes, char* err,
+                          int errlen) {
+  try {
+    Decoder dec(data, size, true);
+    dec.run(false);
+    size_t need = size_t(dec.width()) * size_t(dec.height()) * (space == kYcc ? 3 : dec.components().size());
+    if (space == kPlanes) {
+      need = 0;
+      for (const Component& c : dec.components()) need += size_t(c.bw) * 8 * size_t(c.bh) * 8;
+    }
+    if (space < kYcc || space > kPlanes) throw JpegError("unknown output space");
+    if (need != bytes) throw JpegError("JPEG output size differs from the buffer's");
+    dec.output(out, space);
     return 0;
   } catch (const std::exception& e) {
     copy_error(e.what(), err, errlen);

@@ -156,6 +156,12 @@ inline void unpack_pa(uint8_t* out, const uint8_t* in, int pixels) {
   for (int i = 0; i < pixels; ++i) put4(out + 4 * i, in[2 * i], 0, 0, in[2 * i + 1]);
 }
 
+// Unpack.c:unpackLAB: L, and a and b (signed in the file) offset by 128
+inline void unpack_lab(uint8_t* out, const uint8_t* in, int pixels) {
+  for (int i = 0; i < pixels; ++i)
+    put4(out + 4 * i, in[3 * i], uint8_t(in[3 * i + 1] ^ 128), uint8_t(in[3 * i + 2] ^ 128), 255);
+}
+
 // one band (byte k of a four-byte pixel) from 8-bit samples, or from the
 // high byte of native 16-bit ones
 template <int k, int step>
@@ -210,6 +216,12 @@ inline Raw find(const std::string& mode, const std::string& raw) {
     if (raw == "PX") return {unpack_stride<2, 0>, 16, 1};
   }
   if (is("LA", "LA")) return {unpack_la, 16, 4};
+  if (mode == "LAB") {  // a planar file's bands are copied as they are, a and b not offset
+    if (raw == "LAB") return {unpack_lab, 24, 4};
+    if (raw == "L") return {unpack_band<0, 1>, 8, 4};
+    if (raw == "A") return {unpack_band<1, 1>, 8, 4};
+    if (raw == "B") return {unpack_band<2, 1>, 8, 4};
+  }
   if (is("PA", "PA")) return {unpack_pa, 16, 4};
   if (mode == "I;16") {
     if (raw == "I;16" || raw == "I;16N") return {unpack_i16<false, false, false>, 16, 2};

@@ -28,10 +28,13 @@
 // that ends or an LZW table that breaks before the strip's last byte, an
 // LZW strip whose first code is not a clear code,
 // a code past the table or a table past 5119 entries, PackBits data
-// ending early, a predictor libtiff does not take at the depth.
+// ending early, a predictor libtiff does not take at the depth; but a
+// strip whose data end early is read on libtiff's RGBA path (YCbCr),
+// which reads on past it (`read_short`).
 //
 // Bound: host work, a few operations per byte; no device part.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -48,8 +51,9 @@ struct Fail : std::runtime_error {
 };
 [[noreturn]] void fail(const std::string& what) { throw Fail("TIFF: " + what); }
 
-// tif_packbits.c:PackBitsDecode into occ bytes
-void packbits(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
+// tif_packbits.c:PackBitsDecode into occ bytes; returns the bytes it left
+// unwritten (the data ran out)
+size_t packbits(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
   while (cc > 0 && occ > 0) {
     long n = int8_t(*in++);
     --cc;
@@ -72,7 +76,7 @@ void packbits(const uint8_t* in, size_t cc, uint8_t* op, size_t occ) {
       cc -= size_t(n);
     }
   }
-  if (occ > 0) fail("PackBits: not enough data for the strip (libtiff: Not enough data for scanline)");
+  return occ;
 }
 
 // tif_lzw.c: LZWDecode (new-style) and LZWDecodeCompat (old-style codes)
@@ -85,7 +89,7 @@ struct Code {
   uint8_t value, firstchar;
 };
 
-void lzw(const uint8_t* in, size_t cc, uint8_t* op, size_t occ, bool compat) {
+size_t lzw(const uint8_t* in, size_t cc, uint8_t* op, size_t occ, bool compat) {
   std::vector<Code> tab(static_cast<size_t>(kCSize));
   for (int c = 0; c < 256; ++c) tab[size_t(c)] = {-1, 1, uint8_t(c), uint8_t(c)};
   for (int c = 256; c < kCSize; ++c) tab[size_t(c)] = {-1, 0, 0, 0};
@@ -185,7 +189,7 @@ void lzw(const uint8_t* in, size_t cc, uint8_t* op, size_t occ, bool compat) {
       --occ;
     }
   }
-  if (occ > 0) fail("LZW: not enough data for the strip (libtiff: Not enough data at scanline)");
+  return occ;
 }
 
 // tif_predict.c: horAcc8/16/32/64 over each row, `stride` samples apart
@@ -272,12 +276,15 @@ int mvd_tiff_raw(const uint8_t* data, size_t avail, const char* mode, const char
 // on rows of `rowsize` bytes, `stride` samples apart, of `bps`-bit
 // samples; `swab_bytes` the sample bytes to swap (0: none); then `rows`
 // rows of `xsize` pixels, `rowsize` apart, unpacked into `image` at (x0,
-// y0), `unpack_mode` / `unpack_raw` the unpacker. Returns 0, or 1 with a
-// message in err.
+// y0), `unpack_mode` / `unpack_raw` the unpacker. A strip whose data run
+// out before occ bytes is refused, or with `read_short` (libtiff's RGBA
+// path, which reads on past it) kept as the codec leaves it: the bytes
+// decoded, zeros after them, no predictor (PredictorDecodeRow skips a
+// failed row). Returns 0, or 1 with a message in err.
 int mvd_tiff_coded(const uint8_t* seg, size_t seg_len, int codec, int* lzw_style, int reverse, int64_t occ,
                    int predictor, int64_t rowsize, int stride, int bps, int swab_bytes, const char* unpack_mode,
                    const char* unpack_raw, uint8_t* image, int image_w, int x0, int y0, int xsize, int rows,
-                   char* err, int errlen) {
+                   int read_short, char* err, int errlen) {
   try {
     pil::Raw u = pil::find(unpack_mode, unpack_raw);
     if (!u.fn) no_unpacker(unpack_mode, unpack_raw);
@@ -289,21 +296,28 @@ int mvd_tiff_coded(const uint8_t* seg, size_t seg_len, int codec, int* lzw_style
       src = in.data();
     }
     std::vector<uint8_t> buf(static_cast<size_t>(occ));
+    size_t left = 0;
+    const char* shortage = nullptr;
     if (codec == 32773) {
-      packbits(src, seg_len, buf.data(), buf.size());
+      left = packbits(src, seg_len, buf.data(), buf.size());
+      shortage = "PackBits: not enough data for the strip (libtiff: Not enough data for scanline)";
     } else if (codec == 5) {
       if (*lzw_style == 0) *lzw_style = (seg_len >= 2 && src[0] == 0 && (src[1] & 1)) ? 2 : 1;
-      lzw(src, seg_len, buf.data(), buf.size(), *lzw_style == 2);
-    } else if (codec == 8) {
-      if (seg_len < buf.size()) fail("deflate: not enough data for the strip");
-      std::memcpy(buf.data(), seg, buf.size());
-    } else if (codec == 1) {  // tif_dumpmode.c: the strip's bytes as they are
-      if (seg_len < buf.size()) fail("not enough data for the strip (libtiff: DumpModeDecode)");
-      std::memcpy(buf.data(), src, buf.size());
+      left = lzw(src, seg_len, buf.data(), buf.size(), *lzw_style == 2);
+      shortage = "LZW: not enough data for the strip (libtiff: Not enough data at scanline)";
+    } else if (codec == 8 || codec == 1) {  // inflated, or tif_dumpmode.c: the strip's bytes as they are
+      const size_t n = std::min(seg_len, buf.size());
+      if (n) std::memcpy(buf.data(), codec == 8 ? seg : src, n);
+      left = buf.size() - n;
+      shortage = codec == 8 ? "deflate: not enough data for the strip"
+                            : "not enough data for the strip (libtiff: DumpModeDecode)";
     } else {
       fail("compression " + std::to_string(codec) + " is not decoded here");
     }
-    if (predictor == 2 || predictor == 3) {
+    if (left && !read_short) fail(shortage);
+    if (left) {
+      // a short strip the RGBA path reads on past: as the codec left it
+    } else if (predictor == 2 || predictor == 3) {
       if (rowsize <= 0 || occ % rowsize) fail("the predictor's rows do not divide the strip");
       for (int64_t r = 0; r < occ; r += rowsize) {
         uint8_t* row = buf.data() + r;

@@ -152,6 +152,9 @@ uint32_t crc32c(const uint8_t* p, size_t n) {
 struct Out {
   uint8_t* buf = nullptr;
   size_t size = 0, cap = 0;
+  // decoding stops after the block that brings the output to `limit` bytes
+  // (libtiff's ZSTDDecode stops once its strip is full)
+  size_t limit = SIZE_MAX;
   std::vector<uint8_t>* grow = nullptr;
 
   void reserve(size_t n) {
@@ -750,6 +753,7 @@ size_t decode_frame(const uint8_t* src, size_t n, Out& out) {
         fail(fmt("output past the declared content size of %llu bytes", fcs));
     }
     if (last) break;
+    if (out.size >= out.limit) return pos;
   }
   const size_t got = out.size - frame_start;
   if (has_fcs && got != fcs)
@@ -767,7 +771,7 @@ size_t decode_frame(const uint8_t* src, size_t n, Out& out) {
 void decode_all(const uint8_t* src, size_t n, Out& out) {
   if (n == 0) fail("no zstd frame: the input is empty");
   size_t pos = 0;
-  while (pos < n) {
+  while (pos < n && out.size < out.limit) {
     if (n - pos < 4) fail(fmt("truncated input: %llu stray bytes after the frames", n - pos));
     const uint32_t magic = rd32(src + pos);
     if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {
@@ -808,14 +812,17 @@ long long mvd_zstd_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap
   }
 }
 
-// Decode every frame of src into a buffer of the decoder's own; returns a
-// handle for mvd_zstd_take with the size in *size, or null with a message in
-// err.
-void* mvd_zstd_decode_alloc(const uint8_t* src, size_t n, size_t* size, char* err, int errlen) {
+// Decode every frame of src into a buffer of the decoder's own, stopping
+// after the block that brings the output to `limit` bytes (SIZE_MAX: no
+// limit); nothing past that block is read (libtiff's ZSTDDecode of a strip
+// of `limit` bytes). Returns a handle for mvd_zstd_take with the size in
+// *size, or null with a message in err.
+void* mvd_zstd_decode_alloc(const uint8_t* src, size_t n, size_t limit, size_t* size, char* err, int errlen) {
   auto* v = new std::vector<uint8_t>();
   try {
     Out out;
     out.grow = v;
+    out.limit = limit;
     decode_all(src, n, out);
     v->resize(out.size);
     *size = out.size;

@@ -14,11 +14,13 @@ arithmetic-coded sequential and progressive, lossless; 8-bit, gray, three
 components or four (CMYK, YCCK), bitwise PIL's ``convert("RGB")``). WebP is
 read by ``csrc/webp_decode.cpp`` (``decode_webp``: lossless VP8L, lossy VP8
 with or without its ALPH chunk, the VP8X container and an animation's first
-frame, bitwise PIL's libwebp, with PIL's mode). GIF (``csrc/gif_decode.cpp``),
-BMP and DIB (``csrc/bmp_decode.cpp``) and TIFF (``utils/tiff.py`` on
-``csrc/tiff_decode.cpp``) decode into the image PIL holds, in PIL's mode,
-and ``pil_rgb`` converts it as ``convert("RGB")`` does. Each is built with
-the host's ``c++`` on first use.
+frame, bitwise PIL's libwebp, with PIL's mode). An APNG is read as PNG: its
+default image, which PIL's ``Image.open`` gives. GIF
+(``csrc/gif_decode.cpp``), BMP and DIB (``csrc/bmp_decode.cpp``) and TIFF
+(``utils/tiff.py``: uncompressed, PackBits, LZW, deflate, LZMA, zstd, JPEG,
+old-style JPEG, YCbCr through libtiff's RGBA path, LAB) decode into the
+image PIL holds, in PIL's mode, and ``pil_rgb`` converts it as
+``convert("RGB")`` does. Each is built with the host's ``c++`` on first use.
 ``decode_image`` takes any of them, as ``Image.open`` does. ``resize`` stands in
 for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
 support widens with the downscale factor, with PIL's 8-bit fixed-point
@@ -308,6 +310,11 @@ def _bind_jpeg(lib: ctypes.CDLL) -> None:
     lib.mvd_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
     lib.mvd_jpeg_decode.restype = ctypes.c_int
+    lib.mvd_jpeg_frame.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_jpeg_frame.restype = ctypes.c_int
+    lib.mvd_jpeg_decode_whole.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int]
+    lib.mvd_jpeg_decode_whole.restype = ctypes.c_int
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -395,11 +402,55 @@ class PilImage(NamedTuple):
     """An image as PIL holds it after ``Image.open(...).load()``: ``pixels``
     (H, W) uint8 for modes 1 (0 or 255), L and P; (H, W) uint16 for I;16
     and I;16B; (H, W) int32 for I and float32 for F; (H, W, 4) uint8 for
-    RGB, RGBA, CMYK, LA (L, L, L, A) and PA (P, 0, 0, A); ``mode``; and
+    RGB, RGBA, CMYK, LAB (L, a + 128, b + 128, 255), LA (L, L, L, A) and PA
+    (P, 0, 0, A); ``mode``; and
     ``palette`` (entries x 3 uint8) for P and PA, else None."""
     pixels: np.ndarray
     mode: str
     palette: Optional[np.ndarray] = None
+
+
+# Image._MAPMODES: the modes ImageFile.load memory-maps a file opened by
+# path in, where the tile's rawmode is the mode itself
+MAPMODES = ("L", "P", "RGBX", "RGBA", "CMYK", "I;16", "I;16L", "I;16B")
+PAGE = 4096  # mmap's page: the bytes past a file's end to its last page's end read as zeros
+
+
+def pil_mapped(data: bytes, offset: int, size: Tuple[int, int], mode: str, stride: int,
+               ystep: int) -> Optional[np.ndarray]:
+    """What ``ImageFile.load`` gives for a file PIL opened by path whose one
+    raw tile it memory-maps (``Image.core.map_buffer``): (ysize, xsize,
+    pixel bytes) uint8, row y of the image (the last row first where
+    ``ystep`` < 0) ``stride`` bytes after row y - 1 from ``offset`` on,
+    ``size`` (xsize, ysize) PIL's size of the image before its EXIF
+    transpose (the size already turned where the orientation is 5-8). A
+    stride of 0 is the mode's row (a byte, two or four a pixel). Returns
+    None where PIL's own check that ``offset + ysize * stride`` fits the
+    file fails and it decodes the tile instead; raises ``ValueError`` where
+    ``map_buffer`` refuses the size (PIL raises it) or a row reaches past
+    the last page of the file (PIL's read there faults)."""
+    xs, ys = size
+    if offset < 0:
+        raise ValueError("Tile offset cannot be negative")
+    if offset + ys * stride > len(data):
+        return None
+    pixel = 1 if mode in ("L", "P") else 2 if mode.startswith("I;16") else 4
+    if stride <= 0:
+        stride = xs * pixel
+    if offset + ys * stride > len(data):
+        raise ValueError(f"the {xs}x{ys} image PIL maps from the file at offset {offset} does not fit in it "
+                         "(PIL: buffer is not large enough)")
+    row = xs * pixel
+    end = offset + (ys - 1) * stride + row
+    if end > -(-len(data) // PAGE) * PAGE:
+        raise ValueError("the image PIL maps from the file reads past the file's last page (PIL's read faults)")
+    buf = np.zeros(max(end, len(data)), np.uint8)
+    buf[:len(data)] = np.frombuffer(data, np.uint8)
+    starts = offset + np.arange(ys, dtype=np.int64) * stride
+    rows = buf[starts[:, None] + np.arange(row)]
+    if ystep < 0:
+        rows = rows[::-1]
+    return np.ascontiguousarray(rows.reshape(ys, xs, pixel))
 
 
 def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -408,7 +459,8 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def pil_rgb(img: PilImage, composite_alpha: bool = False) -> np.ndarray:
-    """``convert("RGB")`` of an image in any mode GIF, BMP and TIFF open in:
+    """``convert("RGB")`` of an image in any mode GIF, BMP and TIFF open in
+    (LAB through ``utils/lcms.py``, as PIL converts it with LittleCMS):
     gray replicated (1, L, LA), palette indices looked up in a table whose
     missing entries are black (P, PA), 16-bit gray clipped at 255 (I;16,
     I;16B: 256 and 65535 give 255), I clipped to 0-255, F truncated toward
@@ -438,6 +490,10 @@ def pil_rgb(img: PilImage, composite_alpha: bool = False) -> np.ndarray:
         cmy, k = px[..., :3].astype(np.int64), px[..., 3:].astype(np.int64)
         nk = 255 - k
         return np.clip(nk - _muldiv255(cmy, nk), 0, 255).astype(np.uint8)
+    elif mode == "LAB":  # ImageCms: LittleCMS's Lab -> sRGB transform
+        from .lcms import lab_to_rgb
+
+        return lab_to_rgb(px)
     elif mode == "RGBA" and composite_alpha:
         return over_white(px)
     elif mode in ("RGB", "RGBA"):
@@ -492,6 +548,10 @@ def _bind_bmp(lib: ctypes.CDLL) -> None:
     lib.mvd_bmp_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
     lib.mvd_bmp_decode.restype = ctypes.c_int
+    lib.mvd_bmp_layout.argtypes = [ctypes.c_char_p, ctypes.c_size_t, out_int, ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.POINTER(ctypes.c_int64), out_int, ctypes.c_void_p, ctypes.c_char_p,
+                                   ctypes.c_int]
+    lib.mvd_bmp_layout.restype = ctypes.c_int
 
 
 def is_dib(data: bytes) -> bool:
@@ -501,7 +561,7 @@ def is_dib(data: bytes) -> bool:
     return len(data) >= 4 and struct.unpack("<I", data[:4])[0] in DIB_HEADERS
 
 
-def decode_bmp(data: bytes) -> PilImage:
+def decode_bmp(data: bytes, from_path: bool = False) -> PilImage:
     """BMP bytes (or a DIB: the same without the 14-byte file header) ->
     the image as PIL 12.1.0's BmpImagePlugin holds it: 1-, 4- and 8-bit
     pixels in mode P, or 1 or L where the palette is black and white or
@@ -510,6 +570,10 @@ def decode_bmp(data: bytes) -> PilImage:
     masks (RGBA only with an alpha mask); RLE8 and RLE4 as PIL's
     ``BmpRleDecoder`` decodes them; headers of 12 (OS/2 1), 40, 52, 56, 64,
     108 and 124 bytes; bottom-up or top-down (``csrc/bmp_decode.cpp``).
+    ``from_path``: the file as PIL reads it opened by path, which maps the
+    pixels of a raw tile whose rawmode is its mode (L, P, RGBA) from the
+    file (``pil_mapped``), rows of a gray-ramp L image at its palette
+    depth's stride included (ROADMAP Queue 3, fault 13's BMP class).
     Raises ``ValueError`` where PIL raises and ``RuntimeError`` when the
     decoder cannot be built."""
     from ..kernels._build import load_host
@@ -526,25 +590,41 @@ def decode_bmp(data: bytes) -> PilImage:
     shape = (h.value, w.value) if mode in ("1", "L", "P") else (h.value, w.value, 4)
     pixels = np.zeros(shape, np.uint8)
     palette = np.zeros((entries.value, 3), np.uint8)
-    if lib.mvd_bmp_decode(data, len(data), pixels.ctypes.data, w, h, palette.ctypes.data, err, len(err)):
+    mapped = None
+    if from_path and mode in MAPMODES:
+        raw_is_mode, offset, stride, direction = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int()
+        if lib.mvd_bmp_layout(data, len(data), ctypes.byref(raw_is_mode), ctypes.byref(offset), ctypes.byref(stride),
+                              ctypes.byref(direction), palette.ctypes.data, err, len(err)):
+            raise ValueError(err.value.decode())
+        if raw_is_mode.value:
+            mapped = pil_mapped(data, offset.value, (w.value, h.value), mode, stride.value, direction.value)
+    if mapped is not None:
+        pixels = mapped.reshape(shape)
+    elif lib.mvd_bmp_decode(data, len(data), pixels.ctypes.data, w, h, palette.ctypes.data, err, len(err)):
         raise ValueError(err.value.decode())
     return PilImage(pixels, mode, palette if mode == "P" else None)
 
 
-def decode_image(data: bytes, composite_alpha: bool = False) -> np.ndarray:
+def decode_image(data: bytes, composite_alpha: bool = False, from_path: bool = False) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, the format chosen by the file's
     first bytes in the order ``Image.open`` tries its plugins (BMP, DIB,
     GIF, PNG, JPEG, TIFF, WebP): ``decode_bmp``, ``decode_gif`` and
-    ``decode_tiff`` through ``pil_rgb``, ``decode_png``, ``decode_jpeg``,
-    ``decode_webp``. With ``composite_alpha`` an image PIL opens as RGBA
+    ``decode_tiff`` through ``pil_rgb``, ``decode_png`` (an APNG's default
+    image, PIL's first frame), ``decode_jpeg``, ``decode_webp``. What PIL
+    reads and the port does not (among TIFFs: CCITT, ThunderScan, SGILog,
+    old-style JPEG with its tables in tags, planar YCbCr; PIL's other
+    formats) raises ``ValueError`` naming ROADMAP item 13c. With ``composite_alpha`` an image PIL opens as RGBA
     is first composited over white (``over_white``), as the data loaders
     do; other modes are converted as ``convert("RGB")`` converts them.
+    ``from_path``: the image PIL gives for the file opened by its path
+    (``Image.open(path)``, the JAX ``load_image``), which differs from the
+    bytes' only where PIL memory-maps a BMP or TIFF tile (``pil_mapped``).
     Raises ``ValueError`` on anything else, naming its first bytes."""
     from .tiff import decode_tiff
 
     data = bytes(data)
     if data.startswith(b"BM") or is_dib(data):
-        return pil_rgb(decode_bmp(data), composite_alpha)
+        return pil_rgb(decode_bmp(data, from_path), composite_alpha)
     if data.startswith(GIF_SIGNATURES):
         return pil_rgb(decode_gif(data), composite_alpha)
     if data.startswith(PNG_SIGNATURE):
@@ -552,7 +632,7 @@ def decode_image(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     if data.startswith(JPEG_SIGNATURE):
         return decode_jpeg(data)
     if data.startswith(TIFF_PREFIXES):
-        return pil_rgb(decode_tiff(data), composite_alpha)
+        return pil_rgb(decode_tiff(data, from_path), composite_alpha)
     if is_webp(data):
         pixels, mode = decode_webp(data)
         if mode == "RGBA":
@@ -624,9 +704,10 @@ def save_image(img: np.ndarray, path: str):
 def load_image(path: str, size: Optional[int] = None) -> np.ndarray:
     """An image ``decode_image`` reads -> (H, W, 3) float32 in [-1, 1] (reference utils.py:36-48,
     NHWC; alpha dropped as ``convert("RGB")`` drops it), resized to
-    (size, size) where it differs."""
+    (size, size) where it differs. Read as ``Image.open(path)`` reads the
+    file (``from_path``)."""
     with open(path, "rb") as f:
-        img = decode_image(f.read())
+        img = decode_image(f.read(), from_path=True)
     if size is not None and img.shape[:2] != (size, size):
         img = resize(img, size, size)
     arr = img.astype(np.float32) / 255.0

@@ -1,26 +1,44 @@
 """TIFF as PIL 12.1.0 reads it, without PIL (host: the standard library,
-numpy and ``csrc/tiff_decode.cpp``).
+numpy, ``utils/tiff_codecs.py``, ``csrc/tiff_decode.cpp``,
+``csrc/jpeg_decode.cpp`` and ``csrc/zstd_decode.cpp``).
 
 ``decode_tiff`` reads a classic or BigTIFF file's first IFD, byte order II
 or MM, as ``TiffImagePlugin`` does (``ImageFileDirectory_v2.load``,
 ``TiffImageFile._setup``), takes PIL's mode and rawmode from ``OPEN_INFO``
-(PIL's table, copied here) and decodes the image along one of PIL's two
-paths:
+(PIL's table, copied here) and decodes the image along one of PIL's paths:
 
 * uncompressed: PIL's own tiles, one a strip or tile in file order, each
   read by PIL's raw decoder from its offset on (the byte counts unread; a
   tile's rows its full width apart; under planar configuration 2 one
-  character of the rawmode a plane, as PIL takes it);
-* PackBits, LZW (new and old-style codes) and deflate (8 and 32946): PIL
-  hands the file to libtiff 4.7.1, which decodes whole strips or tiles
-  (FillOrder 2, the predictors, the byte order), and unpacks them with the
-  rawmode PIL passes it (16-bit rawmodes in native order; planar files
-  through PIL's band unpackers).
+  character of the rawmode a plane, as PIL takes it); a file opened by path
+  whose one tile PIL memory-maps is read as the map reads it (``from_path``,
+  ROADMAP Queue 3, fault 13);
+* compressed: PIL hands the file to libtiff 4.7.1, which decodes whole
+  strips or tiles by its own reading of the IFD (FillOrder 2, the
+  predictors, the byte order; byte counts it lacks estimated as
+  ``EstimateStripByteCounts`` estimates them) and PIL unpacks them with
+  its rawmode (16-bit rawmodes in native order; planar files through PIL's
+  band unpackers): PackBits, LZW (new and old-style codes), deflate (8 and
+  32946, Python's zlib), LZMA (34925, Python's lzma), zstd (50000,
+  ``csrc/zstd_decode.cpp``) and JPEG (7: YCbCr converted to RGB by
+  libjpeg, every other photometric unconverted; ``tiff_codecs``);
+* YCbCr but contiguous JPEG, and old-style JPEG (6) in its
+  JPEGInterchangeFormat form: libtiff's RGBA path (``_decode_ycbcr``),
+  its integer YCbCr tables and chroma replicated over each subsampling
+  unit; a strip or tile whose data end early read on past as that path
+  reads it (the bytes decoded, zeros after them).
 
-EXIF orientation 2-8 is applied as ``TiffImageFile.load_end`` applies it.
-What PIL reads and this reader does not is refused with ``ValueError``
-naming the form and ROADMAP item 13c: JPEG (6, 7), CCITT (2, 3, 4) and the
-other libtiff codecs, YCbCr through libtiff's RGBA path, LAB.
+LAB (photometric 8) is read into PIL's mode LAB and converted by
+``utils/lcms.py`` as PIL's LittleCMS converts it. EXIF orientation 2-8 is
+applied as ``TiffImageFile.load_end`` applies it. What PIL reads and this
+reader does not is refused with ``ValueError`` naming the form and ROADMAP
+item 13c: CCITT (2, 3, 4, 32771), ThunderScan, SGILog, old-style JPEG with
+its tables in tags 519-521, in several strips or not YCbCr, planar YCbCr, a JPEG
+strip shorter than its segment, and strips that libjpeg, liblzma or
+libzstd read on past damage in. WebP (50001) is refused as PIL refuses it
+(its libtiff has no WebP codec). A planar palette tile with an extra
+sample, whose pixels PIL reads past its buffer, is refused naming Queue 3,
+fault 14.
 """
 from __future__ import annotations
 
@@ -31,7 +49,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .images import MAX_PIXELS, PilImage
+from . import tiff_codecs
+from .images import MAPMODES, MAX_PIXELS, PilImage, pil_mapped
+from .tiff_codecs import not_read
 
 II, MM = b"II", b"MM"
 
@@ -167,17 +187,20 @@ COMPRESSION_INFO = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tif
                     8: "tiff_adobe_deflate", 32771: "tiff_raw_16", 32773: "packbits", 32809: "tiff_thunderscan",
                     32946: "tiff_deflate", 34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
                     50000: "zstd", 50001: "webp"}
-READ = {1, 5, 8, 32773, 32946}
+READ = {1, 5, 6, 7, 8, 32773, 32946, 34925, 50000}
+# the codecs whose strips libtiff inflates whole (zlib, liblzma, libzstd)
+INFLATED = {8, 32946, 34925, 50000}
 
 # tags (TiffTags): those PIL keeps as one value (length 1) and those it keeps
 # as a tuple
 WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILLORDER = 256, 257, 258, 259, 262, 266
 STRIP_OFFSETS, ORIENTATION, SAMPLES, ROWS, STRIP_COUNTS, PLANAR = 273, 274, 277, 278, 279, 284
 PREDICTOR, COLORMAP, TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = 317, 320, 322, 323, 324, 325
-EXTRA, SAMPLE_FORMAT, WINDOWS_MEDIA_PHOTO = 338, 339, 0xBC01
+EXTRA, SAMPLE_FORMAT, JPEG_TABLES, YCBCR_COEFFICIENTS, YCBCR_SUBSAMPLING = 338, 339, 347, 529, 530
+REFERENCE_BLACK_WHITE, JPEG_IF, JPEG_IF_LENGTH, WINDOWS_MEDIA_PHOTO = 532, 513, 514, 0xBC01
 _SEGMENT_TAGS = {STRIP_OFFSETS, STRIP_COUNTS, TILE_OFFSETS, TILE_COUNTS}
 _SINGLE = {WIDTH, LENGTH, COMPRESSION, PHOTOMETRIC, FILLORDER, ORIENTATION, SAMPLES, ROWS, PLANAR, PREDICTOR,
-           TILE_WIDTH, TILE_LENGTH}
+           TILE_WIDTH, TILE_LENGTH, JPEG_IF, JPEG_IF_LENGTH}
 _USED = _SINGLE | {BITS, STRIP_OFFSETS, STRIP_COUNTS, COLORMAP, TILE_OFFSETS, TILE_COUNTS, EXTRA, SAMPLE_FORMAT}
 # field type -> (bytes a value, struct code of an integer type or None);
 # the types PIL's IFD reader knows (others it skips)
@@ -192,10 +215,6 @@ _LIB_CODES = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 13: "L", 16: "Q", 
 _BITFLIP = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
 
 
-def not_read(form: str) -> ValueError:
-    return ValueError(f"TIFF: {form} is not read by this port (PIL reads it through libtiff; ROADMAP item 13c)")
-
-
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mvd_tiff_unpacker.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(i)]
@@ -206,7 +225,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                  ctypes.c_char_p, i]
     lib.mvd_tiff_raw.restype = i
     lib.mvd_tiff_coded.argtypes = [p, ctypes.c_size_t, i, ctypes.POINTER(i), i, i64, i, i64, i, i, i,
-                                   ctypes.c_char_p, ctypes.c_char_p, p, i, i, i, i, i, ctypes.c_char_p, i]
+                                   ctypes.c_char_p, ctypes.c_char_p, p, i, i, i, i, i, i, ctypes.c_char_p, i]
     lib.mvd_tiff_coded.restype = i
 
 
@@ -264,6 +283,7 @@ class Ifd:
         self.entries: Dict[int, tuple] = {}
         self.entries_cut = False
         raw, count = self._raw_entries()
+        self.raw_entries = raw
         self._load(raw)
         self.entries_cut = count is None or count > 4096 or len(raw) < count
         if not self.entries_cut:
@@ -353,6 +373,9 @@ class Ifd:
                 return f"tag {tag} with {n} values (libtiff: Incorrect count)"
             if value is None:
                 return f"tag {tag}'s values past the end of the file"
+            if tag in _SEGMENT_TAGS and typ in (6, 8, 9, 17) and min(self.lib_get(tag)[:self.lib_segments()],
+                                                                     default=0) < 0:
+                return f"tag {tag} holds a negative offset or count (libtiff: TIFFReadDirEntryErrRange)"
             if tag in (BITS, SAMPLE_FORMAT):  # libtiff reads the first SamplesPerPixel values, which must agree
                 vals, spp = self.lib_get(tag), self.lib_get(SAMPLES, 1)
                 if len(vals) < spp or len(set(vals[:spp])) > 1:
@@ -362,12 +385,50 @@ class Ifd:
         bits, formats = self.lib_get(BITS, (1,)), self.lib_get(SAMPLE_FORMAT, (1,))
         if not self.lib_get(SAMPLES, 1) or not any(bits) or not formats:
             return "0 samples a pixel, 0 bits a sample or no sample format (libtiff: Bad value)"
+        tiled = TILE_WIDTH in self.entries
+        if (TILE_COUNTS if tiled else STRIP_COUNTS) not in self.entries:
+            n, planar = self.lib_segments(), self.lib_get(PLANAR, 1)
+            if (planar == 1 and n > 1) or (planar == 2 and n != self.lib_get(SAMPLES, 1)):
+                return f"no {'Tile' if tiled else 'Strip'}ByteCounts for {n} segments (libtiff: MissingRequired)"
         if self.lib_get(PHOTOMETRIC) == 3 and bits[0] < 8:
             # a colour map is read only after BitsPerSample, of 3 << bits values
             cmap = self.entries.get(COLORMAP)
             if BITS not in self.entries or cmap is None or cmap[1] != 3 << bits[0] or cmap[2] is None:
                 return "a palette image without its colour map (libtiff: MissingRequired Colormap)"
         return None
+
+    def lib_segments(self) -> int:
+        """libtiff's count of strips (``TIFFNumberOfStrips``) or tiles
+        (``TIFFNumberOfTiles``)."""
+        width, height = self.lib_get(WIDTH, 0), self.lib_get(LENGTH, 0)
+        planes = self.lib_get(SAMPLES, 1) if self.lib_get(PLANAR, 1) == 2 else 1
+        if TILE_WIDTH in self.entries:
+            tw, th = self.lib_get(TILE_WIDTH) or 1, self.lib_get(TILE_LENGTH) or 1
+            return -(-width // tw) * -(-height // th) * planes
+        rows = self.lib_get(ROWS, 2**32 - 1)
+        return (1 if rows == 2**32 - 1 else -(-height // max(rows, 1))) * planes
+
+    def estimated_counts(self, offsets: list) -> list:
+        """``EstimateStripByteCounts`` of a compressed image: every segment
+        the file's bytes past the header, the IFD and its values held
+        outside it (over the samples of a planar image), the last one cut
+        at the end of the file."""
+        head, count_size, entry, inline = (16, 8, 20, 8) if self.big else (8, 2, 12, 4)
+        space = head + count_size + len(self.raw_entries) * entry + inline  # the next IFD's offset: inline bytes
+        for _, typ, n, _ in self.raw_entries:
+            width = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8,
+                     18: 8}.get(typ)
+            if width is None:
+                raise ValueError(f"TIFF: libtiff cannot size a tag of type {typ} to estimate the byte counts")
+            space += width * n if width * n > inline else 0
+        size = len(self.data)
+        space = size - space if size >= space else size
+        if self.lib_get(PLANAR, 1) == 2:
+            space //= self.lib_get(SAMPLES, 1)
+        counts = [space] * len(offsets)
+        if offsets and offsets[-1] + space > size:
+            counts[-1] = size - offsets[-1] if offsets[-1] < size else 0
+        return counts
 
     def lib_get(self, tag: int, default=None):
         """A tag's value as libtiff reads it (``entries``): one number for a
@@ -408,6 +469,8 @@ def _layout(ifd: Ifd, width: int, height: int) -> Tuple[str, int, int, list, lis
     else:
         tw, th = width, ifd.lib_get(ROWS, height)
         offsets, counts = ifd.lib_get(STRIP_OFFSETS), ifd.lib_get(STRIP_COUNTS)
+        if offsets is None and ifd.lib_get(COMPRESSION) == 6 and ifd.lib_segments() == 1:
+            offsets = (0,)  # tif_dirread.c's old-style JPEG hack: the stream holds the data
         if offsets is None:
             raise ValueError("TIFF: no StripOffsets (libtiff refuses it)")
         if not th:
@@ -415,16 +478,72 @@ def _layout(ifd: Ifd, width: int, height: int) -> Tuple[str, int, int, list, lis
         if th >= 2**32 - 1:
             th = height
         kind = "strip"
-    if not counts:  # libtiff estimates them from the file's size
-        raise not_read(f"a compressed image without {kind} byte counts")
-    return kind, tw, th, list(offsets), list(counts)
+    # TIFFFetchStripThing: the first segments' values, zeros past an array
+    # that holds fewer; no counts, or one strip's 0 (ByteCountLooksBad):
+    # EstimateStripByteCounts
+    n = ifd.lib_segments()
+    offsets = (list(offsets) + [0] * n)[:n]
+    if counts is not None:
+        counts = (list(counts) + [0] * n)[:n]
+    if counts is None or (n == 1 and kind == "strip" and offsets[0] and not counts[0]):
+        counts = ifd.estimated_counts(offsets)
+    return kind, tw, th, offsets, counts
 
 
-def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, height: int,
-                  image: np.ndarray) -> None:
-    """PIL's ``_load_libtiff``: libtiff's decode of every strip or tile (by
-    its own reading of the IFD, the codec too), PIL's unpackers after
-    it."""
+def _inflate(compression: int, seg: bytes, occ: int, whole: bool = True) -> bytes:
+    """The first ``occ`` bytes a deflate, LZMA (.xz) or zstd strip holds,
+    as libtiff's ZIPDecode, LZMADecode and ZSTDDecode take them: the stream
+    decoded until the strip is full, nothing past that read; a strip it
+    leaves short is refused, or, not ``whole``, returned short."""
+    name = {34925: "LZMA", 50000: "zstd"}.get(compression, "deflate")
+    lzma = _lzma() if compression == 34925 else None
+    errors = (zlib.error, EOFError, ValueError) + ((lzma.LZMAError,) if lzma else ())
+    try:
+        if compression == 50000:
+            from ..checkpoint.zstd import decompress
+
+            seg = decompress(seg, limit=occ)[:occ]  # raises ValueError on a damaged frame
+        elif lzma is not None:
+            seg = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(seg, occ)
+        else:
+            seg = zlib.decompressobj().decompress(seg, occ)
+    except errors as exc:
+        if compression in (34925, 50000):
+            # liblzma stops once the strip is full, and libzstd's fast Huffman
+            # decoder does not check that a literal stream ends where it
+            # should: each reads some damaged strips that this decoder refuses
+            raise not_read(f"a damaged {name} strip ({exc}), which libtiff's {name} decoder may read on past")
+        raise ValueError(f"TIFF: {name}: {exc} (libtiff: Decoding error)") from None
+    if whole and len(seg) < occ:
+        raise ValueError(f"TIFF: {name}: not enough data for the strip (libtiff: Not enough data)")
+    return seg
+
+
+def _lzma():
+    """Python's ``lzma`` (liblzma's binding), or a ``ValueError`` naming
+    the module where this Python was built without it."""
+    try:
+        import lzma
+    except ImportError as exc:
+        raise ValueError(f"TIFF: LZMA needs Python's lzma module, which this Python lacks ({exc})") from None
+    return lzma
+
+
+def unread_compression(compression: int) -> ValueError:
+    """The refusal of a compression this reader does not decode: WebP
+    (50001), which PIL's libtiff cannot decode either, or one PIL reads
+    (ROADMAP item 13c), or one neither knows."""
+    if compression == 50001:
+        return ValueError("TIFF: compression 50001 (WebP) is not read: PIL's libtiff has no WebP codec, and PIL "
+                          "refuses it too")
+    if compression in COMPRESSION_INFO:
+        return not_read(f"compression {compression} ({COMPRESSION_INFO[compression]})")
+    return ValueError(f"TIFF: libtiff knows no compression {compression}")
+
+
+def _libtiff_checks(ifd: Ifd) -> None:
+    """What libtiff refuses before it decodes a strip: the header, the IFD
+    (``Ifd.libtiff_refuses``)."""
     if not ifd.valid:
         raise ValueError("TIFF: libtiff refuses the header's byte-order mark (Not a TIFF file, bad version)")
     if ifd.big and not ifd.big_header_ok:
@@ -432,12 +551,41 @@ def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, he
     refused = ifd.libtiff_refuses()
     if refused:
         raise ValueError(f"TIFF: libtiff refuses the IFD: {refused}")
+
+
+def _jpeg_setup(data: bytes, ifd: Ifd, bps: int, offsets: list, counts: list) -> tuple:
+    """What tif_jpeg.c's ``JPEGSetupDecode`` fixes for every strip: the
+    ``JPEGTables`` stream's tables (or None), the output space (YCbCr
+    converted to RGB as PIL asks, ``JPEGCOLORMODE_RGB``, for a contiguous
+    YCbCr image; every other image unconverted) and the first component's
+    sampling factors it expects (``YCbCrSubsampling``; where the tag is
+    absent, the first strip's, else 2 x 2; 1 x 1 but for YCbCr)."""
+    if bps != 8:
+        raise not_read(f"{bps}-bit JPEG")
+    tables = ifd.entries.get(JPEG_TABLES)
+    if tables is not None:
+        tables = tiff_codecs.tables_body(tables[2] or b"")
+    if ifd.lib_get(PHOTOMETRIC) != 6:
+        return tables, tiff_codecs.NONE, (1, 1)
+    sampling = ifd.lib_get(YCBCR_SUBSAMPLING)
+    if not (isinstance(sampling, tuple) and len(sampling) == 2):
+        first = data[offsets[0]:offsets[0] + counts[0]] if offsets and counts else b""
+        sampling = tiff_codecs.sof_sampling(first) or (2, 2)
+    return tables, tiff_codecs.YCC, tuple(sampling)
+
+
+def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, height: int,
+                  image: np.ndarray) -> None:
+    """PIL's ``_load_libtiff``: libtiff's decode of every strip or tile (by
+    its own reading of the IFD, the codec too), PIL's unpackers after
+    it."""
+    _libtiff_checks(ifd)
     lib = _lib()
     compression = ifd.lib_get(COMPRESSION, 1)
     if compression not in READ:
-        if compression in COMPRESSION_INFO:
-            raise not_read(f"compression {compression} ({COMPRESSION_INFO[compression]})")
-        raise ValueError(f"TIFF: libtiff knows no compression {compression}")
+        raise unread_compression(compression)
+    if compression == 6:  # YCbCr takes the RGBA path; libtiff's OJPEG scanline reads are not copied
+        raise not_read(f"old-style JPEG of photometric {ifd.lib_get(PHOTOMETRIC)}")
     spp = ifd.lib_get(SAMPLES, 1)
     bps = ifd.lib_get(BITS, (1,))[0]
     planar = ifd.lib_get(PLANAR, 1)
@@ -448,7 +596,7 @@ def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, he
         raise ValueError(f"TIFF: libtiff refuses the horizontal predictor at {bps}-bit samples")
     if predictor == 3 and (sample_format != 3 or bps not in (16, 24, 32, 64)):
         raise ValueError("TIFF: libtiff refuses the floating-point predictor here")
-    if predictor not in (1, 2, 3) and compression in (5, 8, 32946):
+    if predictor not in (1, 2, 3) and compression in {5} | INFLATED:
         raise ValueError(f"TIFF: libtiff refuses predictor {predictor}")
     if compression in (1, 32773):
         predictor = 1  # no predictor without LZW or deflate
@@ -483,6 +631,9 @@ def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, he
         raise ValueError(f"TIFF: a {tw}x{th} tile of {th * row_size} bytes is more than rawmode {rawmode} "
                          "holds (PIL's decoder error)")
     swab = bps // 8 if ifd.prefix == MM and bps in (16, 24, 32, 64) else 0
+    if compression == 7:
+        tables, space, sampling = _jpeg_setup(data, ifd, bps, offsets, counts)
+        predictor, swab = 1, 0  # libjpeg's samples: no predictor, no byte swapping
     style = ctypes.c_int(0)
     err = ctypes.create_string_buffer(256)
     across = (width + tw - 1) // tw
@@ -501,23 +652,31 @@ def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, he
         occ = rows_here * row_size
         seg = data[off:off + count]
         codec = compression
-        if compression in (8, 32946):
+        if compression == 7:
+            seg_h = min(th, height - y) if kind == "strip" else th
+            seg = tiff_codecs.jpeg_segment(seg, tables, space, plane_spp, sampling, tw, seg_h, rows_here, row_size,
+                                           kind == "strip" and y + th >= height, f"{kind} {index}")
+            codec = 8
+        elif compression in INFLATED:
             if fill == 2:
                 seg = seg.translate(_BITFLIP)
-            try:
-                seg = zlib.decompressobj().decompress(seg, occ)
-            except zlib.error as exc:
-                raise ValueError(f"TIFF: deflate: {exc} (libtiff: Decoding error)") from None
-            if len(seg) < occ:
-                raise ValueError("TIFF: deflate: not enough data for the strip (libtiff: Not enough data)")
+            seg = _inflate(compression, seg, occ)
             codec = 8
         buf = np.frombuffer(seg, np.uint8)
         umode, uraw = unpackers[p]
         rows = min(th, height - y)
         cols = min(tw, width - x)
+        ubytes = (cols * unpacker_bits(umode, uraw) + 7) // 8
+        if kind == "tile" and (rows - 1) * row_size + ubytes > occ:
+            # _decodeTile has no check of the rawmode's rows against the
+            # tile's: PIL's unpacker reads past its tile buffer (a planar
+            # palette tile with an extra sample, rawmode PX, is one such)
+            raise ValueError(f"TIFF: rawmode {uraw}'s rows of {ubytes} bytes read past "
+                             f"{kind} {index}'s {occ} bytes: PIL's pixels there are not a function of the file, and "
+                             "the port does not copy them (ROADMAP Queue 3, fault 14)")
         if lib.mvd_tiff_coded(buf.ctypes.data, len(seg), codec, ctypes.byref(style), int(fill == 2), occ, predictor,
                               row_size, plane_spp, bps, swab, umode.encode(), uraw.encode(), image.ctypes.data,
-                              image_w, x, y, cols, rows, err, len(err)):
+                              image_w, x, y, cols, rows, 0, err, len(err)):
             raise ValueError(err.value.decode())
     extra = ifd.lib_get(EXTRA, ())
     if planes > 1 and mode == "RGBA" and (extra[0] if extra else 0) in (0, 1):
@@ -529,11 +688,160 @@ def _decode_coded(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, he
         image[...] = unpack("RGBA", "RGBa", flat.tobytes(), flat.size // 4).reshape(image.shape)
 
 
+def _decode_ycbcr(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, height: int,
+                  image: np.ndarray) -> None:
+    """PIL's ``_decodeAsRGBA`` of a YCbCr image (but contiguous JPEG):
+    tif_getimage.c's RGBA path, a block of strips' or tiles' rows at a
+    time. Each strip or tile decoded as its codec decodes it (the bytes
+    ``gtStripContig`` asks for: of a strip whose rows of data units its
+    scanlines do not divide, fewer than the units hold, the rest of the
+    zeroed buffer read as zeros; an old-style JPEG strip by
+    ``tiff_codecs.ojpeg_units``), its data units converted by
+    ``tiff_codecs.ycbcr_to_rgb``, unflipped whatever the Orientation tag
+    (PIL applies the orientation after, measured); each row of the RGBA
+    raster (R, G, B, 255) unpacked into ``image`` by PIL's unpacker of
+    ``rawmode`` (RGBX into RGB; L, where PIL's own reading of the IFD
+    gives one sample, takes a row's first bytes)."""
+    _libtiff_checks(ifd)
+    compression = ifd.lib_get(COMPRESSION, 1)
+    ojpeg = compression == 6
+    if compression not in READ:
+        raise unread_compression(compression)
+    if compression == 7:
+        raise not_read("planar YCbCr JPEG (libtiff's RGBA path)")
+    # tif_dirread.c's old-style JPEG defaults: three samples of 8 bits
+    if ifd.lib_get(SAMPLES, 3 if ojpeg else 1) != 3 or ifd.lib_get(BITS, (8 if ojpeg else 1,))[0] != 8:
+        raise ValueError("TIFF: libtiff's RGBA path takes YCbCr of three 8-bit samples (Can not handle format)")
+    if ifd.lib_get(PLANAR, 1) == 2:
+        raise not_read("planar YCbCr (libtiff's RGBA path)")
+    kind, tw, th, offsets, counts = _layout(ifd, width, height)
+    if ojpeg:
+        if kind == "tile" or th < height or len(offsets) != 1:
+            raise not_read("old-style JPEG in several strips or in tiles")
+        jif = ifd.lib_get(JPEG_IF)
+        if not jif:
+            raise not_read("old-style JPEG with its tables in tags 519-521 (no JPEGInterchangeFormat)")
+        # OJPEGReadBufferFill: a strip at offset 0 or past the file holds
+        # nothing, a count of 0 or past the file runs to its end
+        off = offsets[0] if 0 < offsets[0] < len(data) else 0
+        strip = data[off:off + (counts[0] or len(data))] if off else b""
+        units, sub = tiff_codecs.ojpeg_units(data, jif, ifd.lib_get(JPEG_IF_LENGTH, 0), strip, width, height)
+    else:
+        sub = ifd.lib_get(YCBCR_SUBSAMPLING)
+        sub = tuple(sub) if isinstance(sub, tuple) and len(sub) == 2 else (2, 2)
+    if sub not in tiff_codecs.PUT_CASES:
+        raise ValueError(f"TIFF: libtiff's RGBA path has no routine for YCbCr subsampling {sub} (Can not handle "
+                         "format)")
+    tables = tiff_codecs.ycbcr_tables(
+        tiff_codecs.rational(ifd.entries.get(YCBCR_COEFFICIENTS), ifd.endian, tiff_codecs.DEFAULT_LUMA),
+        tiff_codecs.rational(ifd.entries.get(REFERENCE_BLACK_WHITE), ifd.endian,
+                             tiff_codecs.DEFAULT_REF_BLACK_WHITE))
+    predictor = ifd.lib_get(PREDICTOR, 1) if compression in {5} | INFLATED else 1
+    if predictor not in (1, 2):
+        raise ValueError(f"TIFF: libtiff refuses predictor {predictor} here")
+    # _decodeAsRGBA: a block of RowsPerStrip (or TileLength) rows of
+    # four-byte pixels must fit PIL's int (IMAGING_CODEC_MEMORY)
+    rows_tag = ifd.lib_get(ROWS, 2**32 - 1)
+    block_rows = th if kind == "tile" else rows_tag if rows_tag != 2**32 - 1 else height
+    if block_rows * width * 4 > 2**31 - 1:
+        raise ValueError(f"TIFF: a block of {block_rows} rows of {width} four-byte pixels overflows PIL's int "
+                         "(PIL's decoder error -9)")
+    sh, sv = sub
+    unit_row = -(-tw // sh) * (sh * sv + 2)  # the bytes of a row of data units
+    scanline = unit_row // sv  # TIFFScanlineSize of subsampled YCbCr
+    style = ctypes.c_int(0)
+    raster = np.full((height, width, 4), 255, np.uint8)
+    for y in range(0, height, th):
+        rows = min(th, height - y)
+        if kind == "strip":
+            segments = [((y // th), rows, min(-(-rows // sv) * unit_row, -(-rows // sv) * sv * scanline), width)]
+        else:
+            segments = [((y // th) * -(-width // tw) + x // tw, th, -(-th // sv) * unit_row, min(tw, width - x))
+                        for x in range(0, width, tw)]
+        block, full = [], None
+        for index, seg_rows, occ, cols in segments:
+            if ojpeg:
+                if occ % unit_row:  # OJPEGDecodeRaw: "Fractional scanline not read"
+                    raise not_read("an old-style JPEG strip whose scanlines do not divide its rows of data units")
+                full = np.zeros(-(-seg_rows // sv) * unit_row, np.uint8)
+                full[:occ] = units[:occ]
+            else:
+                try:
+                    seg = _segment(data, kind, index, offsets, counts)
+                except ValueError:
+                    # gtTileContig reads on past a tile it cannot read, which
+                    # TIFFReadEncodedTile zeroes in its buffer; the first
+                    # segment of a block has no buffer yet, and PIL raises
+                    if full is None:
+                        raise
+                    full = np.zeros_like(full)
+                    block.append(tiff_codecs.ycbcr_to_rgb(full, cols, rows, sub, tables,
+                                                          tiff_codecs.unit_row_bytes(tw, cols, sub)))
+                    continue
+                full = np.zeros(-(-seg_rows // sv) * unit_row, np.uint8)
+                # the predictor's rows: TIFFTileRowSize of a tile (its
+                # samples, subsampling aside), TIFFScanlineSize of a strip
+                full[:occ] = _decoded(seg, compression, style, occ, predictor, tw * 3 if kind == "tile" else scanline,
+                                      f"{kind} {index}")
+            block.append(tiff_codecs.ycbcr_to_rgb(full, cols, rows, sub, tables,
+                                                  tiff_codecs.unit_row_bytes(tw, cols, sub)))
+        raster[y:y + rows, :, :3] = np.concatenate(block, 1)
+    flat = image.reshape(height, -1)
+    for y in range(height):
+        flat[y] = unpack(mode, rawmode, raster[y].tobytes(), width)
+
+
+def _segment(data: bytes, kind: str, index: int, offsets: list, counts: list) -> bytes:
+    """Strip or tile ``index``'s bytes, as libtiff reads them."""
+    if index >= len(offsets) or index >= len(counts):
+        raise ValueError(f"TIFF: {kind} {index} is missing (libtiff: Read error)")
+    off, count = offsets[index], counts[index]
+    if count <= 0 or off + count > len(data):
+        raise ValueError(f"TIFF: {kind} {index} runs past the end of the file or is empty (libtiff: Read error)")
+    return data[off:off + count]
+
+
+def _decoded(seg: bytes, compression: int, style: ctypes.c_int, occ: int, predictor: int, row_size: int,
+             where: str) -> np.ndarray:
+    """A strip or tile's ``occ`` bytes as libtiff's codec decodes them (the
+    horizontal predictor undone on rows of ``row_size`` bytes, three
+    samples a pixel), for the RGBA path, which reads past a strip that
+    fails to decode (PIL then gives pixels of what the buffer held): where
+    the predictor fails (``horAcc8``'s "(cc%stride)!=0", or rows that do
+    not divide the strip) the codec's bytes as they are, which the buffer
+    holds; where the data end before the strip does, the bytes decoded,
+    zeros after them (libtiff's PackBits and LZW zero the rest; the
+    others find it zeroed in the buffer ``gtStripContig`` allocates for
+    PIL's block), the predictor not undone (``PredictorDecodeRow`` skips
+    a failed row); a strip whose codec fails otherwise is refused naming
+    ROADMAP item 13c."""
+    if predictor == 2 and (row_size % 3 or occ % row_size):
+        predictor = 1
+    codec = compression
+    if compression in INFLATED:
+        try:
+            seg = _inflate(compression, seg, occ, whole=False)
+        except ValueError as exc:
+            raise not_read(f"a damaged YCbCr {where}, which libtiff's RGBA path reads on past ({exc})") from None
+        codec = 8
+    out = np.zeros((occ // row_size, row_size) if predictor == 2 else (1, occ), np.uint8)
+    buf = np.frombuffer(seg, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if _lib().mvd_tiff_coded(buf.ctypes.data, len(seg), codec, ctypes.byref(style), 0, occ, predictor,
+                             row_size if predictor == 2 else occ, 3, 8, 0, b"L", b"L", out.ctypes.data,
+                             out.shape[1], 0, 0, out.shape[1], out.shape[0], 1, err, len(err)):
+        raise not_read(f"a damaged YCbCr {where}, which libtiff's RGBA path reads on past ({err.value.decode()})")
+    return out.reshape(-1)
+
+
 def _decode_raw(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, height: int, bps_tuple: tuple,
-                bps_count: int, image: np.ndarray) -> None:
+                bps_count: int, image: np.ndarray, from_path: bool) -> Optional[np.ndarray]:
     """PIL's tiles of an uncompressed image (``_setup``), sorted by offset,
     runs of equal tiles kept once (the last), each through PIL's raw
-    decoder."""
+    decoder; or, ``from_path`` and one tile whose rawmode is a mode PIL
+    maps, the image ``ImageFile.load`` maps from the file, returned (its
+    size turned where the orientation is 5-8, as ``_setup`` turns
+    ``size``; ROADMAP Queue 3, fault 13)."""
     planar = ifd.get(PLANAR, 1)
     if STRIP_OFFSETS in ifd.tags:
         offsets = ifd.get(STRIP_OFFSETS)
@@ -564,6 +872,12 @@ def _decode_raw(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, heig
             x, y = 0, y + h
             if y >= height:
                 y, layer = 0, layer + 1
+    if from_path and len(tiles) == 1 and tiles[0][2][0] == mode and mode in MAPMODES:
+        offset, _, (_, stride) = tiles[0]
+        size = (height, width) if ifd.get(ORIENTATION) in (5, 6, 7, 8) else (width, height)
+        mapped = pil_mapped(data, offset, size, mode, stride, 1)
+        if mapped is not None:
+            return mapped
     tiles.sort(key=lambda t: t[0])
     kept = [t for i, t in enumerate(tiles) if i + 1 == len(tiles) or tiles[i + 1][1:] != t[1:]]
     lib = _lib()
@@ -576,6 +890,7 @@ def _decode_raw(data: bytes, ifd: Ifd, mode: str, rawmode: str, width: int, heig
         if lib.mvd_tiff_raw(buf.ctypes.data + min(offset, len(data)), avail, mode.encode(), tile_raw.encode(),
                             stride, image.ctypes.data, image.shape[1], x0, y0, x1 - x0, y1 - y0, err, len(err)):
             raise ValueError(err.value.decode())
+    return None
 
 
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
@@ -583,15 +898,18 @@ _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[:
            8: lambda a: np.rot90(a, 1)}
 
 
-def decode_tiff(data: bytes) -> PilImage:
+def decode_tiff(data: bytes, from_path: bool = False) -> PilImage:
     """TIFF bytes -> the first image as PIL 12.1.0 holds it, in PIL's mode
     (``OPEN_INFO``): 1, L, P (the colour map's high bytes), LA, PA, I;16,
-    I;16B, I, F, RGB, RGBA (RGBa unpremultiplied) or CMYK; strips or tiles,
-    planar configuration 1 or 2; uncompressed, PackBits, LZW (new or
-    old-style) or deflate (8, 32946) with predictor 2 or 3 and FillOrder 2;
-    EXIF orientation applied. Raises ``ValueError`` where PIL or libtiff
-    raises, and naming ROADMAP item 13c for what PIL reads and this does
-    not; ``RuntimeError`` when the decoder cannot be built."""
+    I;16B, I, F, RGB, RGBA (RGBa unpremultiplied), CMYK or LAB; strips or
+    tiles, planar configuration 1 or 2; uncompressed, PackBits, LZW (new or
+    old-style), deflate (8, 32946), LZMA or zstd with predictor 2 or 3 and
+    FillOrder 2, JPEG (7), old-style JPEG (6, JPEGInterchangeFormat), YCbCr
+    through libtiff's RGBA path; EXIF orientation applied; ``from_path``:
+    as ``Image.open(path)`` reads the file (a mapped tile). Raises
+    ``ValueError`` where PIL or libtiff raises, and naming ROADMAP item 13c
+    for what PIL reads and this does not; ``RuntimeError`` when a decoder
+    cannot be built."""
     data = bytes(data)
     ifd = Ifd(data)
     if WINDOWS_MEDIA_PHOTO in ifd.tags:
@@ -600,9 +918,11 @@ def decode_tiff(data: bytes) -> PilImage:
     if compression not in COMPRESSION_INFO:
         raise ValueError(f"TIFF: compression {compression} is unknown (PIL: KeyError)")
     if compression not in READ:
-        raise not_read(f"compression {compression} ({COMPRESSION_INFO[compression]})")
+        raise unread_compression(compression)
     planar = ifd.get(PLANAR, 1)
     photo = ifd.get(PHOTOMETRIC, 0)
+    if compression == 6:
+        photo = 6  # PIL: "old style jpeg compression images most certainly are YCbCr"
     fill = ifd.get(FILLORDER, 1)
     width, height = ifd.get(WIDTH), ifd.get(LENGTH)
     if width is None or height is None:
@@ -615,7 +935,7 @@ def decode_tiff(data: bytes) -> PilImage:
     bps_tuple = ifd.get(BITS, (1,))
     extra = ifd.get(EXTRA, ())
     bps_count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
-    spp = ifd.get(SAMPLES, 1)
+    spp = ifd.get(SAMPLES, 3 if compression == 6 and photo in (2, 6) else 1)
     if spp > MAX_SAMPLESPERPIXEL:
         raise ValueError("TIFF: Invalid value for samples per pixel")
     if spp < len(bps_tuple):
@@ -632,14 +952,12 @@ def decode_tiff(data: bytes) -> PilImage:
     if coded:
         if fill == 2:
             mode, rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
-        if photo == 6:
-            raise not_read("YCbCr through libtiff's RGBA path")
-        if rawmode == "I;16":
+        if photo == 6 and compression == 7 and planar == 1:
+            rawmode = "RGB"  # libjpeg converts the YCbCr to RGB
+        elif rawmode == "I;16":
             rawmode = "I;16N"
         elif rawmode.endswith((";16B", ";16L")):
             rawmode = rawmode[:-1] + "N"
-    if mode == "LAB":
-        raise not_read("LAB")
     if width <= 0 or height <= 0:
         raise ValueError("TIFF: an image of zero width or height")
     if width * height > MAX_PIXELS:
@@ -657,10 +975,17 @@ def decode_tiff(data: bytes) -> PilImage:
         palette = np.stack([np.frombuffer(raw[k * n:(k + 1) * n], np.uint8) for k in range(3)], -1)
     pixelsize = _PIXELSIZE.get(mode, 4)
     image = np.zeros((height, width, pixelsize), np.uint8)
-    if coded:
+    lib_photo = ifd.lib_get(PHOTOMETRIC)
+    if compression == 6 and lib_photo in (None, 2):
+        lib_photo = 6  # tif_dirread.c's old-style JPEG hack: YCbCr, not RGB
+    if coded and lib_photo == 6 and not (compression == 7 and ifd.lib_get(PLANAR, 1) == 1):
+        _decode_ycbcr(data, ifd, mode, rawmode, width, height, image)
+    elif coded:
         _decode_coded(data, ifd, mode, rawmode, width, height, image)
     else:
-        _decode_raw(data, ifd, mode, rawmode, width, height, tuple(bps_tuple), bps_count, image)
+        mapped = _decode_raw(data, ifd, mode, rawmode, width, height, tuple(bps_tuple), bps_count, image, from_path)
+        if mapped is not None:
+            image = mapped
     if pixelsize == 1:
         pixels = image[..., 0]
     elif pixelsize == 2:

@@ -42,6 +42,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 JPEG_DIR = os.path.join(os.path.dirname(HERE), "torch_port_jpeg")
 DIGESTS = "formats_sha256.json"
+# the APNG fixtures' digests and phase 9d's TIFF-codec and APNG sources'
+CODEC_DIGESTS = "codecs_sha256.json"
 BITFLIP = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
 
 # ------------------------------------------------------------------ GIF
@@ -397,33 +399,55 @@ def predict_float(rows: np.ndarray, spp: int) -> bytes:
     return bytes(out)
 
 
-# struct codes of the integer field types the writer takes
-_FMT = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 16: "Q"}
+# struct codes of the field types the writer takes (a RATIONAL or
+# SRATIONAL given as numerator, denominator, ...)
+_FMT = {1: "B", 3: "H", 4: "L", 5: "L", 6: "b", 7: "B", 8: "h", 9: "l", 10: "l", 16: "Q"}
 
 
 def tiff_file(tags: dict, segments: list, *, order: str = "<", big: bool = False, prefix: bytes = None,
-              tiled: bool = False) -> bytes:
+              tiled: bool = False, ifd_first: bool = False, counts: bool = True) -> bytes:
     """A TIFF of one IFD: ``tags`` {tag: (integer field type, values)} and
     the image's ``segments`` (strips, or tiles with ``tiled``) after the
     header, their offsets and byte counts added (LONG, or LONG8 in a
-    BigTIFF); II (``order`` "<") or MM, classic or BigTIFF, or a ``prefix``
-    written in place of the byte-order mark."""
+    BigTIFF; no byte counts without ``counts``); II (``order`` "<") or MM,
+    classic or BigTIFF, or a ``prefix`` written in place of the byte-order
+    mark. With ``ifd_first`` the IFD and its values come before the
+    segments, so that cutting the file's tail cuts the image data."""
     head = 16 if big else 8
+    tags = dict(tags)
+    kind = 16 if big else 4
+    entry, inline = (20, 8) if big else (12, 4)
+    n = len(tags) + 1 + counts
+    ifd_size = (8 if big else 2) + n * entry + (8 if big else 4)
+
+    def values_size(tags_now: dict) -> int:
+        size = 0
+        for typ, values in tags_now.values():
+            raw = len(values) * struct.calcsize("<" + _FMT[typ])
+            size += 0 if raw <= inline else raw + raw % 2
+        return size
+
+    lengths = [len(s) for s in segments]
+    if ifd_first:
+        # the offsets' and counts' arrays are sized by their count only
+        seg_tags = {324 if tiled else 273: (kind, [0] * len(segments))}
+        if counts:
+            seg_tags[325 if tiled else 279] = (kind, lengths)
+        start = head + ifd_size + values_size({**tags, **seg_tags})
+    else:
+        start = head
     data = bytearray()
     seg_offsets = []
     for s in segments:
-        seg_offsets.append(head + len(data))
+        seg_offsets.append(start + len(data))
         data += s
         if len(data) % 2:
             data += b"\0"
-    tags = dict(tags)
-    kind = 16 if big else 4
     tags[324 if tiled else 273] = (kind, seg_offsets)
-    tags[325 if tiled else 279] = (kind, [len(s) for s in segments])
-    ifd_at = head + len(data)
-    entry, inline = (20, 8) if big else (12, 4)
-    n = len(tags)
-    extra_at = ifd_at + (8 if big else 2) + n * entry + (8 if big else 4)
+    if counts:
+        tags[325 if tiled else 279] = (kind, lengths)
+    ifd_at = head if ifd_first else head + len(data)
+    extra_at = ifd_at + ifd_size
     entries, extra = bytearray(), bytearray()
     for tag in sorted(tags):
         typ, values = tags[tag]
@@ -433,7 +457,8 @@ def tiff_file(tags: dict, segments: list, *, order: str = "<", big: bool = False
         else:
             value = struct.pack(order + ("Q" if big else "L"), extra_at + len(extra))
             extra += raw + (b"\0" if len(raw) % 2 else b"")
-        entries += struct.pack(order + ("HHQ" if big else "HHL"), tag, typ, len(values)) + value
+        count = len(values) // 2 if typ in (5, 10) else len(values)
+        entries += struct.pack(order + ("HHQ" if big else "HHL"), tag, typ, count) + value
     mark = b"II" if order == "<" else b"MM"
     if big:
         header = mark + struct.pack(order + "HHHQ", 43, 8, 0, ifd_at)
@@ -441,7 +466,10 @@ def tiff_file(tags: dict, segments: list, *, order: str = "<", big: bool = False
         header = mark + struct.pack(order + "HL", 42, ifd_at)
     if prefix is not None:
         header = prefix + header[4:]
-    ifd = struct.pack(order + ("Q" if big else "H"), n) + entries + struct.pack(order + ("Q" if big else "L"), 0)
+    ifd = (struct.pack(order + ("Q" if big else "H"), len(tags)) + entries
+           + struct.pack(order + ("Q" if big else "L"), 0))
+    if ifd_first:
+        return bytes(header + ifd + extra + data)
     return bytes(header + data + ifd + extra)
 
 
@@ -475,7 +503,7 @@ def tiff_image(samples: np.ndarray, *, photometric: int, bits: int, sample_forma
                predictor: int = 1, rows_per_strip: int = None, tile=None, planar: int = 1, order: str = "<",
                big: bool = False, fill_order: int = 1, extra=(), colormap=None, orientation: int = None,
                old_lzw: bool = False, prefix: bytes = None, extra_tags: dict = None, bits_tag=None,
-               samples_tag: int = None, lzw_clear: bool = True) -> bytes:
+               samples_tag: int = None, lzw_clear: bool = True, ifd_first: bool = False, counts: bool = True) -> bytes:
     """A TIFF of (H, W, S) integer (or float) ``samples``: strips of
     ``rows_per_strip`` rows (default all) or ``tile`` (w, h) tiles padded
     with zeros, planar configuration 1 (samples interleaved) or 2 (one
@@ -506,12 +534,8 @@ def tiff_image(samples: np.ndarray, *, photometric: int, bits: int, sample_forma
             raw = rows.tobytes()
         if compression == 5:
             coded = tiff_lzw(raw, old_style=old_lzw, start_clear=lzw_clear)
-        elif compression in (8, 32946):
-            coded = zlib.compress(raw, 6)
-        elif compression == 32773:
-            coded = packbits(raw)
         else:
-            coded = raw
+            coded = _compress(raw, compression)
         return coded.translate(BITFLIP) if fill_order == 2 else coded
 
     planes = [samples] if planar == 1 else [samples[..., k:k + 1] for k in range(spp)]
@@ -550,7 +574,281 @@ def tiff_image(samples: np.ndarray, *, photometric: int, bits: int, sample_forma
     if orientation is not None:
         tags[274] = (short, [orientation])
     tags.update(extra_tags or {})
-    return tiff_file(tags, segments, order=order, big=big, prefix=prefix, tiled=tile is not None)
+    return tiff_file(tags, segments, order=order, big=big, prefix=prefix, tiled=tile is not None, ifd_first=ifd_first,
+                     counts=counts)
+
+
+# ------------------------------------------------------- TIFF: JPEG, YCbCr
+
+
+def jpeg_segments(stream: bytes) -> list:
+    """(marker, whole segment bytes) of a JPEG stream's marker segments
+    from SOI up to SOS, then (0xDA, the rest: SOS, entropy data, EOI)."""
+    out, pos = [], 2
+    while True:
+        marker = stream[pos + 1]
+        if marker == 0xDA:
+            out.append((marker, stream[pos:]))
+            return out
+        length = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        out.append((marker, stream[pos:pos + 2 + length]))
+        pos += 2 + length
+
+
+def abbreviate(streams: list) -> tuple:
+    """(JPEGTables, streams): the DQT and DHT segments of the first stream
+    as a tables-only stream (SOI, tables, EOI), and each stream without its
+    DQT and DHT segments (an abbreviated stream), as libtiff's JPEG encoder
+    writes them; every stream must hold the same tables."""
+    tables = [seg for m, seg in jpeg_segments(streams[0]) if m in (0xDB, 0xC4)]
+    out = []
+    for stream in streams:
+        segs = jpeg_segments(stream)
+        if [seg for m, seg in segs if m in (0xDB, 0xC4)] != tables:
+            raise ValueError("the streams' tables differ")
+        out.append(b"\xff\xd8" + b"".join(seg for m, seg in segs if m not in (0xDB, 0xC4)))
+    return b"\xff\xd8" + b"".join(tables) + b"\xff\xd9", out
+
+
+def tiles_of(pixels: np.ndarray, tile=None, rows_per_strip: int = None, full_last: bool = False) -> list:
+    """The strips (``rows_per_strip`` rows, the last one the rest, or
+    padded to a whole strip by repeating its last row with ``full_last``)
+    or ``tile`` (w, h) tiles (padded by repeating the edge) of ``pixels``,
+    in file order, each the array a JPEG stream of it encodes."""
+    h, w = pixels.shape[:2]
+    pad = [(0, 0)] * (pixels.ndim - 2)
+    if tile is None:
+        rps = rows_per_strip or h
+        out = []
+        for y in range(0, h, rps):
+            part = pixels[y:y + rps]
+            if full_last and len(part) < rps:
+                part = np.pad(part, [(0, rps - len(part)), (0, 0)] + pad, mode="edge")
+            out.append(part)
+        return out
+    tw, th = tile
+    return [np.pad(pixels[y:y + th, x:x + tw], [(0, th - len(pixels[y:y + th])),
+                                                 (0, tw - pixels[y:y + th, x:x + tw].shape[1])] + pad, mode="edge")
+            for y in range(0, h, th) for x in range(0, w, tw)]
+
+
+def jpeg_tiff(streams: list, width: int, height: int, *, photometric: int, spp: int, rows_per_strip: int = None,
+              tile=None, tables: bytes = None, subsampling=None, extra_tags: dict = None, order: str = "<",
+              compression: int = 7, counts: bool = True, ifd_first: bool = False) -> bytes:
+    """A JPEG-in-TIFF (compression 7) of one JPEG stream a strip or tile:
+    ``JPEGTables`` (347, UNDEFINED) where ``tables`` is given, the
+    ``YCbCrSubsampling`` tag where ``subsampling`` is (h, v), 8 bits a
+    sample."""
+    tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [1])}
+    if tile is None:
+        tags[278] = (4, [rows_per_strip or height])
+    else:
+        tags[322], tags[323] = (4, [tile[0]]), (4, [tile[1]])
+    if tables is not None:
+        tags[347] = (7, list(tables))
+    if subsampling is not None:
+        tags[530] = (3, list(subsampling))
+    tags.update(extra_tags or {})
+    return tiff_file(tags, streams, order=order, tiled=tile is not None, counts=counts, ifd_first=ifd_first)
+
+
+def ycbcr_units(ycc: np.ndarray, sub=(2, 2)) -> np.ndarray:
+    """(H, W, 3) Y, Cb, Cr samples as a TIFF stores subsampled YCbCr
+    (section 21): rows of data units, each ``sub`` (h, v) luma samples
+    row by row then one Cb and one Cr (the block's first pixel's), the
+    image padded to whole units by repeating its edge; as (unit rows,
+    bytes) uint8."""
+    sh, sv = sub
+    h, w = ycc.shape[:2]
+    ph, pw = -(-h // sv) * sv, -(-w // sh) * sh
+    p = np.pad(ycc, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge").astype(np.uint8)
+    luma = p[..., 0].reshape(ph // sv, sv, pw // sh, sh).transpose(0, 2, 1, 3).reshape(ph // sv, pw // sh, sv * sh)
+    chroma = p[::sv, ::sh, 1:]
+    return np.concatenate([luma, chroma], -1).reshape(ph // sv, -1)
+
+
+def ycbcr_tiff(ycc: np.ndarray, *, sub=(2, 2), compression: int = 5, rows_per_strip: int = None, tile=None,
+               tags: dict = None, order: str = "<", predictor: int = 1) -> bytes:
+    """A YCbCr TIFF (photometric 6) of (H, W, 3) samples in subsampled data
+    units (``ycbcr_units``), strips of ``rows_per_strip`` rows (a multiple
+    of the vertical subsampling) or ``tile`` (w, h) tiles, LZW, deflate,
+    PackBits, LZMA or zstd; the ``YCbCrSubsampling`` tag written, and
+    ``tags`` ({tag: (type, values)}: YCbCrCoefficients and
+    ReferenceBlackWhite as RATIONAL are written by ``rational_tag``)."""
+    sh, sv = sub
+    h, w = ycc.shape[:2]
+    blocks = []
+    if tile is None:
+        rps = rows_per_strip or h
+        blocks = [ycbcr_units(ycc[y:y + rps], sub) for y in range(0, h, rps)]
+    else:
+        for part in tiles_of(ycc, tile):
+            blocks.append(ycbcr_units(part, sub))
+    segments = [_compress(b.tobytes(), compression) for b in blocks]
+    all_tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [compression]), 262: (3, [6]),
+                277: (3, [3]), 284: (3, [1]), 530: (3, [sh, sv])}
+    if tile is None:
+        all_tags[278] = (4, [rows_per_strip or h])
+    else:
+        all_tags[322], all_tags[323] = (4, [tile[0]]), (4, [tile[1]])
+    all_tags.update(tags or {})
+    return tiff_file(all_tags, segments, order=order, tiled=tile is not None)
+
+
+def _compress(raw: bytes, compression: int) -> bytes:
+    if compression == 5:
+        return tiff_lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 32773:
+        return packbits(raw)
+    if compression == 34925:
+        import lzma
+
+        return lzma.compress(raw, lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+    if compression == 50000:
+        return zstd_frame(raw)
+    return raw
+
+
+def zstd_frame(raw: bytes) -> bytes:
+    """A zstd frame of ``raw``: the ``zstandard`` module's (level 3) where
+    it is installed, else raw blocks of at most 128 KiB (RFC 8878
+    3.1.1.2), which every decoder reads."""
+    try:
+        import zstandard
+    except ImportError:
+        return zstd_raw_blocks(raw)
+    return zstandard.ZstdCompressor(level=3).compress(raw)
+
+
+def ojpeg_tiff(jpeg: bytes, width: int, height: int, *, strip_at_jif: bool = False, photometric: int = 6,
+               jif_length: bool = True, tags: dict = None) -> bytes:
+    """An old-style JPEG TIFF (compression 6) in its JPEGInterchangeFormat
+    form, as PIL cannot write one: the whole JPEG stream (SOI to EOI) at
+    ``JPEGInterchangeFormat`` (513) with its length in 514 (unless not
+    ``jif_length``), one strip whose offset is the stream's entropy data
+    after its SOS (or the stream's start, ``strip_at_jif``), photometric
+    ``photometric`` (None: no tag)."""
+    segs = jpeg_segments(jpeg)
+    sos = segs[-1][1]
+    entropy = len(jpeg) - len(sos) + 2 + struct.unpack(">H", sos[2:4])[0]
+    head = 8
+    strip_at = 0 if strip_at_jif else entropy
+    all_tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8, 8, 8]), 259: (3, [6]), 277: (3, [3]),
+                278: (4, [height]), 273: (4, [head + strip_at]), 279: (4, [len(jpeg) - strip_at]), 513: (4, [head])}
+    if photometric is not None:
+        all_tags[262] = (3, [photometric])
+    if jif_length:
+        all_tags[514] = (4, [len(jpeg)])
+    all_tags.update(tags or {})
+    body = jpeg + b"\0" * (len(jpeg) % 2)
+    # the stream is the one "segment" the writer places after the header;
+    # the strip's offset and count name a part of it
+    out = tiff_file({k: v for k, v in all_tags.items() if k not in (273, 279)}, [body])
+    ifd_at = struct.unpack("<L", out[4:8])[0]
+    n = struct.unpack("<H", out[ifd_at:ifd_at + 2])[0]
+    out = bytearray(out)
+    for i in range(n):
+        at = ifd_at + 2 + 12 * i
+        tag = struct.unpack("<H", out[at:at + 2])[0]
+        if tag in (273, 279):
+            out[at + 8:at + 12] = struct.pack("<L", all_tags[tag][1][0])
+    return bytes(out)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def apng_file(frames: list, default_in_animation: bool = True, default=None) -> bytes:
+    """An APNG of (H, W, 4) uint8 frames (8-bit RGBA, filter 0 rows): the
+    default image (IDAT) is the first frame with an fcTL before it, or, not
+    ``default_in_animation``, ``default`` alone with the frames after it
+    (no fcTL before IDAT); each other frame an fcTL and fdAT chunks."""
+    h, w = frames[0].shape[:2]
+
+    def rows(img):
+        img = np.asarray(img, np.uint8)
+        return zlib.compress(np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], 1).tobytes(), 6)
+
+    def fctl(seq: int) -> bytes:
+        return _png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, 1, 10, 0, 0))
+
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+    out += _png_chunk(b"acTL", struct.pack(">II", len(frames), 0))
+    seq = 0
+    if default_in_animation:
+        out += fctl(seq) + _png_chunk(b"IDAT", rows(frames[0]))
+        seq, rest = 1, frames[1:]
+    else:
+        out += _png_chunk(b"IDAT", rows(default))
+        rest = frames
+    for frame in rest:
+        out += fctl(seq) + _png_chunk(b"fdAT", struct.pack(">I", seq + 1) + rows(frame))
+        seq += 2
+    return out + _png_chunk(b"IEND", b"")
+
+
+def _jpeg_script():
+    """The sequential-JPEG fixture script beside this one (its PIL-free
+    baseline encoder)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_port_jpeg_fixtures",
+                                                  os.path.join(JPEG_DIR, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def baseline_420(pixels: np.ndarray, quality_table=None) -> bytes:
+    """A baseline 4:2:0 YCbCr JPEG (JFIF) of (H, W, 3) uint8 pixels by the
+    sequential fixture script's PIL-free encoder."""
+    seq = _jpeg_script()
+    y, cb, cr = seq._ycc(pixels)
+    return seq.encode_baseline([y, seq._down(cb, 2, 2), seq._down(cr, 2, 2)], [(2, 2), (1, 1), (1, 1)],
+                               quality_table=quality_table)
+
+
+ZSTD_FORM = "zstd TIFF with predictor 2"
+ZSTD_FRAME = "frame_a_zstd.tif"  # its compressed-block file, for the card's host
+
+
+def frame_codec_forms(frame: np.ndarray, render: np.ndarray) -> dict:
+    """Phase 9d's TIFF-codec and APNG sources, written without PIL: form ->
+    file bytes (their pixels are PIL's, whose digests ``main`` stores in
+    ``frame_digests.json``). From CO3D's 1067x800 frame: JPEG-in-TIFF of
+    4:2:0 YCbCr in strips of 16 rows (abbreviated streams, JPEGTables) and
+    in 128x128 tiles, LZMA, YCbCr 4:2:0 data units
+    under LZW (libtiff's RGBA path), LAB under deflate (the frame's bytes
+    read as L, a, b), old-style JPEG (one 4:2:0 stream at
+    JPEGInterchangeFormat), and an uncompressed RGBA strip with EXIF
+    orientation 6 (fault 13: ``Image.open(path)`` maps it); from the 512²
+    render: an APNG whose default image is its first frame. 9d's zstd
+    source is the committed ``ZSTD_FRAME`` (``zstd_frame_tiff``)."""
+    seq = _jpeg_script()
+    h, w = frame.shape[:2]
+    strips = [baseline_420(part) for part in tiles_of(frame, None, 16)]
+    tables, abbreviated = abbreviate(strips)
+    tiles = [baseline_420(part) for part in tiles_of(frame, (128, 128))]
+    ycc = np.stack(seq._ycc(frame), -1)
+    rgba = np.dstack([frame, np.full((h, w), 255, np.uint8)])
+    second = render.copy()
+    second[..., :3] = 255 - second[..., :3]
+    return {
+        "JPEG-in-TIFF (YCbCr 4:2:0, strips)": jpeg_tiff(abbreviated, w, h, photometric=6, spp=3, rows_per_strip=16,
+                                                        tables=tables, subsampling=(2, 2)),
+        "JPEG-in-TIFF (YCbCr 4:2:0, tiles)": jpeg_tiff(tiles, w, h, photometric=6, spp=3, tile=(128, 128),
+                                                       subsampling=(2, 2)),
+        "LZMA TIFF": tiff_image(frame, photometric=2, bits=8, compression=34925, rows_per_strip=64),
+        "YCbCr 4:2:0 LZW TIFF (libtiff's RGBA path)": ycbcr_tiff(ycc, sub=(2, 2), compression=5, rows_per_strip=16),
+        "LAB TIFF with deflate": tiff_image(frame, photometric=8, bits=8, compression=8, rows_per_strip=64),
+        "old-style JPEG TIFF": ojpeg_tiff(baseline_420(frame), w, h),
+        "APNG (512² render)": apng_file([render, second]),
+        "fault-13 TIFF (raw RGBA, orientation 6)": tiff_image(rgba, photometric=2, bits=8, extra=(2,), orientation=6),
+    }
 
 
 # ----------------------------------------------------- chip_smoke's sources
@@ -842,11 +1140,11 @@ def tiff_fixtures(rng) -> dict:
     for o in (3, 6, 8):
         files[f"tif_orientation{o}.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=5, orientation=o)
     files["tif_orientation5_raw.tif"] = tiff_image(rgb, photometric=2, bits=8, orientation=5, rows_per_strip=4)
+    files["tif_pil_ycbcr_lzw.tif"] = _pil(rgb, "TIFF", "YCbCr", compression="tiff_lzw")
+    files["tif_pil_jpeg_rgb.tif"] = _pil(rgb, "TIFF", compression="jpeg")
     # what PIL reads and the port does not (ROADMAP item 13c)
-    files["notread_tif_ycbcr_lzw.tif"] = _pil(rgb, "TIFF", "YCbCr", compression="tiff_lzw")
-    files["notread_tif_jpeg.tif"] = _pil(rgb, "TIFF", compression="jpeg")
     files["notread_tif_group4.tif"] = _pil(rgb, "TIFF", "1", compression="group4")
-    files["notread_tif_lab.tif"] = tiff_image(rgb, photometric=8, bits=8)
+    files["tif_lab_raw.tif"] = tiff_image(rgb, photometric=8, bits=8)
     # refused by PIL or libtiff
     files["bad_tif_lzw_cut.tif"] = _cut_segment(rgb, 5)
     files["bad_tif_lzw_no_clear.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=5, lzw_clear=False)
@@ -863,13 +1161,251 @@ def tiff_fixtures(rng) -> dict:
     return files
 
 
+def codec_fixtures(rng) -> dict:
+    """The TIFF forms libtiff reads through decoders the port has: JPEG
+    (7) in each photometric, subsampling and layout, old-style JPEG (6),
+    YCbCr through libtiff's RGBA path, zstd, LZMA, files without byte
+    counts; APNG; what PIL refuses among them; and the fault-13 class (a
+    raw TIFF ``Image.open(path)`` maps)."""
+    files = {}
+    h, w = 37, 45
+    y, x = np.mgrid[:h, :w]
+    rgb = np.clip(np.stack([x * 5, y * 6, (x + y) * 3], -1) + rng.integers(-20, 21, (h, w, 3)), 0, 255)
+    rgb = rgb.astype(np.uint8)
+
+    def jpeg(part, mode=None, **options):
+        return _pil(part if mode is None else part, "JPEG", mode, quality=80, **options)
+
+    def strips(pixels, tile=None, rps=None, full_last=False, **options):
+        return [jpeg(part, **options) for part in tiles_of(pixels, tile, rps, full_last)]
+
+    # JPEG (7): PIL's writer (libtiff's encoder, JPEGTables, 4:4:4 YCbCr)
+    for mode in ("L", "CMYK", "RGBA"):
+        files[f"tif_pil_jpeg_{mode.lower()}.tif"] = _pil(rgb, "TIFF", mode, compression="jpeg")
+    files["tif_pil_jpeg_ycbcr.tif"] = _pil(rgb, "TIFF", "YCbCr", compression="jpeg")
+    files["tif_pil_jpeg_ycbcr_tiled.tif"] = _pil(rgb, "TIFF", "YCbCr", compression="jpeg", tile=(16, 16))
+    # by hand: each subsampling, strips and tiles, abbreviated streams
+    for ss, sub in ((0, (1, 1)), (1, (2, 1)), (2, (2, 2))):
+        name = f"{sub[0]}{sub[1]}"
+        parts = strips(rgb, rps=16, subsampling=ss)
+        files[f"tif_jpeg_ycbcr{name}_strips.tif"] = jpeg_tiff(parts, w, h, photometric=6, spp=3, rows_per_strip=16,
+                                                              subsampling=sub)
+        tables, short = abbreviate(parts)
+        files[f"tif_jpeg_ycbcr{name}_tables.tif"] = jpeg_tiff(short, w, h, photometric=6, spp=3, rows_per_strip=16,
+                                                              tables=tables, subsampling=sub)
+        tiles = strips(rgb, tile=(16, 16), subsampling=ss)
+        tables, short = abbreviate(tiles)
+        files[f"tif_jpeg_ycbcr{name}_tiled.tif"] = jpeg_tiff(short, w, h, photometric=6, spp=3, tile=(16, 16),
+                                                             tables=tables, subsampling=sub)
+    files["tif_jpeg_ycbcr22_full_last.tif"] = jpeg_tiff(strips(rgb, rps=16, full_last=True, subsampling=2), w, h,
+                                                        photometric=6, spp=3, rows_per_strip=16, subsampling=(2, 2))
+    files["tif_jpeg_ycbcr22_no_tag.tif"] = jpeg_tiff(strips(rgb, rps=8, subsampling=2), w, h, photometric=6, spp=3,
+                                                     rows_per_strip=8)
+    files["tif_jpeg_ycbcr21_tiles_32x16_mm.tif"] = jpeg_tiff(strips(rgb, tile=(32, 16), subsampling=1), w, h,
+                                                             photometric=6, spp=3, tile=(32, 16), subsampling=(2, 1),
+                                                             order=">")
+    files["tif_jpeg_gray_strips.tif"] = jpeg_tiff(strips(rgb[..., 1], rps=8), w, h, photometric=1, spp=1,
+                                                  rows_per_strip=8)
+    # RGB photometric over a 4:4:4 YCbCr stream: libtiff converts nothing
+    files["tif_jpeg_rgb_ycc_stream.tif"] = jpeg_tiff(strips(rgb, rps=16, subsampling=0), w, h, photometric=2, spp=3,
+                                                     rows_per_strip=16)
+    cmyk = np.dstack([rgb, rgb[..., :1] // 2])
+    inverted = [_pil(Image_cmyk(part), "JPEG", quality=80) for part in tiles_of(cmyk, None, 16)]
+    files["tif_jpeg_cmyk_inverted.tif"] = jpeg_tiff(inverted, w, h, photometric=5, spp=4, rows_per_strip=16)
+    # refused by libtiff: the tag's subsampling against the stream's; a
+    # subsampled stream under RGB; a non-last strip taller than RowsPerStrip
+    parts22 = strips(rgb, rps=16, subsampling=2)
+    files["bad_tif_jpeg_wrong_sampling.tif"] = jpeg_tiff(parts22, w, h, photometric=6, spp=3, rows_per_strip=16,
+                                                         subsampling=(2, 1))
+    files["bad_tif_jpeg_rgb_subsampled.tif"] = jpeg_tiff(parts22, w, h, photometric=2, spp=3, rows_per_strip=16)
+    files["bad_tif_jpeg_tall_strip.tif"] = jpeg_tiff(strips(rgb, rps=24, subsampling=2), w, h, photometric=6, spp=3,
+                                                     rows_per_strip=16, subsampling=(2, 2))
+    files["bad_tif_jpeg_tables_with_frame.tif"] = jpeg_tiff(parts22, w, h, photometric=6, spp=3, rows_per_strip=16,
+                                                            subsampling=(2, 2), tables=parts22[0])
+    # read by PIL with rows libtiff leaves unwritten: a JPEG shorter than its strip
+    files["notread_tif_jpeg_short_strip.tif"] = jpeg_tiff(strips(rgb, rps=8, subsampling=2), w, h, photometric=6,
+                                                          spp=3, rows_per_strip=16, subsampling=(2, 2))
+    # old-style JPEG (6), JPEGInterchangeFormat
+    for ss, name in ((2, "420"), (1, "422"), (0, "444")):
+        files[f"tif_ojpeg_{name}.tif"] = ojpeg_tiff(jpeg(rgb, subsampling=ss), w, h)
+    files["tif_ojpeg_strip_at_stream.tif"] = ojpeg_tiff(jpeg(rgb, subsampling=2), w, h, strip_at_jif=True)
+    files["tif_ojpeg_no_photometric_no_length.tif"] = ojpeg_tiff(jpeg(rgb, subsampling=2), w, h, photometric=None,
+                                                                 jif_length=False)
+    files["tif_ojpeg_rgb_ref_black_white.tif"] = ojpeg_tiff(jpeg(rgb, subsampling=1), w, h, photometric=2,
+                                                            tags={532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1,
+                                                                            240, 1])})
+    files["bad_tif_ojpeg_progressive.tif"] = ojpeg_tiff(jpeg(rgb, subsampling=2, progressive=True), w, h)
+    # YCbCr through libtiff's RGBA path
+    ycc = rng.integers(0, 256, (h, w, 3))
+    coeffs = {529: (5, [2126, 10000, 7152, 10000, 722, 10000]),
+              532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])}
+    for sub, comp, lay in (((2, 2), 5, {}), ((2, 1), 8, {"rows_per_strip": 6}), ((4, 2), 32773, {}),
+                           ((4, 4), 5, {"tile": (16, 16)}), ((1, 2), 50000, {"rows_per_strip": 4}),
+                           ((4, 1), 34925, {}), ((1, 1), 32946, {"tile": (32, 16)})):
+        name = f"tif_ycbcr{sub[0]}{sub[1]}_{COMPRESSION_NAMES[comp]}{'_tiled' if 'tile' in lay else ''}.tif"
+        files[name] = ycbcr_tiff(ycc, sub=sub, compression=comp, **lay)
+    files["tif_ycbcr22_coefficients.tif"] = ycbcr_tiff(ycc, sub=(2, 2), compression=5, tags=coeffs)
+    files["tif_ycbcr44_short_rows.tif"] = ycbcr_tiff(ycc[:, :41], sub=(4, 4), compression=5, rows_per_strip=8)
+    files["tif_ycbcr11_pred2.tif"] = ycbcr_tiff(ycc, sub=(1, 1), compression=5, predictor=2,
+                                                tags={317: (3, [2])})
+    files["tif_ycbcr22_orientation6.tif"] = ycbcr_tiff(ycc, sub=(2, 2), compression=5, tags={274: (3, [6])})
+    files["bad_tif_ycbcr24.tif"] = ycbcr_tiff(ycc, sub=(2, 4), compression=5)
+    files["notread_tif_ycbcr_planar.tif"] = tiff_image(ycc, photometric=6, bits=8, compression=5, planar=2,
+                                                       extra_tags={530: (3, [1, 1])})
+    # LAB (PIL's LittleCMS conversion to RGB): contiguous and planar, coded
+    lab = rng.integers(0, 256, (h, w, 3))
+    files["tif_pil_lab_lzw.tif"] = _pil(Image_lab(lab), "TIFF", compression="tiff_lzw")
+    files["tif_pil_lab_jpeg.tif"] = _pil(Image_lab(lab), "TIFF", compression="jpeg")
+    files["tif_lab_planar_raw.tif"] = tiff_image(lab, photometric=8, bits=8, planar=2, rows_per_strip=9)
+    files["tif_lab_planar_zstd_tiled.tif"] = tiff_image(lab, photometric=8, bits=8, planar=2, compression=50000,
+                                                        tile=(16, 16))
+    # old-style JPEG with its tables in tags 519-521 (queued)
+    files["notread_tif_ojpeg_tables_in_tags.tif"] = ojpeg_tables_in_tags(jpeg(rgb[:32, :32], subsampling=2), 32, 32)
+    # zstd and LZMA
+    for comp in (50000, 34925):
+        name = COMPRESSION_NAMES[comp]
+        files[f"tif_pil_{name}_rgb.tif"] = _pil(rgb, "TIFF", compression=name)
+        files[f"tif_{name}_pred2_tiled.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=comp, predictor=2,
+                                                          tile=(16, 32))
+        files[f"tif_{name}_planar_16bit_mm.tif"] = tiff_image((rgb.astype(np.int64) << 8) | 7, photometric=2,
+                                                              bits=16, compression=comp, planar=2, order=">",
+                                                              rows_per_strip=10)
+    files["tif_zstd_raw_blocks.tif"] = tiff_file(
+        {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [50000]), 262: (3, [2]), 277: (3, [3]),
+         278: (4, [h]), 284: (3, [1])}, [zstd_raw_blocks(rgb.tobytes()) + b"trailing bytes"])
+    files["bad_tif_zstd_cut.tif"] = _cut_segment(rgb, 50000)
+    files["bad_tif_lzma_cut.tif"] = _cut_segment(rgb, 34925)
+    # without byte counts (libtiff estimates them)
+    files["tif_lzw_no_counts.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=5, counts=False)
+    files["tif_deflate_no_counts_planar.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=8, planar=2,
+                                                           counts=False, ifd_first=True)
+    files["tif_zstd_no_counts_bigtiff.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=50000, big=True,
+                                                         counts=False, tile=(48, 48))
+    files["tif_jpeg_no_counts.tif"] = jpeg_tiff([jpeg(rgb, subsampling=2)], w, h, photometric=6, spp=3,
+                                                counts=False, ifd_first=True, subsampling=(2, 2))
+    files["bad_tif_no_counts_two_strips.tif"] = tiff_image(rgb, photometric=2, bits=8, compression=5,
+                                                           rows_per_strip=20, counts=False)
+    # WebP (50001): PIL's libtiff has no WebP codec
+    files["bad_tif_webp.tif"] = tiff_file({256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [50001]),
+                                           262: (3, [2]), 277: (3, [3]), 278: (4, [h]), 284: (3, [1])},
+                                          [_pil(rgb, "WEBP", lossless=True)])
+    # fault 13's class, read by bytes here (the path read is the test's)
+    files["tif_orientation6_raw_l.tif"] = tiff_image(rgb[..., 0], photometric=1, bits=8, orientation=6)
+    files["tif_orientation8_raw_rgba.tif"] = tiff_image(np.dstack([rgb, rgb[..., :1]]), photometric=2, bits=8,
+                                                        extra=(2,), orientation=8)
+    return files
+
+
+def Image_lab(samples: np.ndarray):
+    """A PIL LAB image whose file bytes (L, signed a, signed b) are
+    ``samples``."""
+    from PIL import Image
+
+    return Image.frombytes("LAB", samples.shape[1::-1], np.asarray(samples, np.uint8).tobytes())
+
+
+def ojpeg_tables_in_tags(jpeg: bytes, width: int, height: int) -> bytes:
+    """An old-style JPEG TIFF without JPEGInterchangeFormat: JPEGProc 1,
+    the quantization and Huffman tables of a baseline 4:2:0 stream in tags
+    519-521 (offsets to 64 bytes of a table, to 16 counts and the symbols;
+    one a component, luma then chroma twice) and the stream's entropy data
+    as the one strip."""
+    segs = dict()
+    for marker, seg in jpeg_segments(jpeg):
+        segs.setdefault(marker, []).append(seg)
+    qt, dc, ac = {}, {}, {}
+    for seg in segs[0xDB]:
+        body, p = seg[4:], 0
+        while p < len(body):
+            qt[body[p] & 15] = body[p + 1:p + 65]
+            p += 65
+    for seg in segs[0xC4]:
+        body, p = seg[4:], 0
+        while p < len(body):
+            n = sum(body[p + 1:p + 17])
+            (ac if body[p] >> 4 else dc)[body[p] & 15] = body[p + 1:p + 17 + n]
+            p += 17 + n
+    sos = segs[0xDA][0]
+    entropy = sos[2 + struct.unpack(">H", sos[2:4])[0]:]
+    blobs = [qt[0], qt[1], qt[1], dc[0], dc[1], dc[1], ac[0], ac[1], ac[1]]
+    tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8, 8, 8]), 259: (3, [6]), 262: (3, [6]),
+            277: (3, [3]), 278: (4, [height]), 512: (3, [1]), 530: (3, [2, 2])}
+    # the blobs as segments after the strip, their offsets in the tags
+    out = tiff_file(tags, [entropy] + blobs)
+    ifd_at = struct.unpack("<L", out[4:8])[0]
+    n = struct.unpack("<H", out[ifd_at:ifd_at + 2])[0]
+    at_of, count_of = None, None
+    for i in range(n):
+        at = ifd_at + 2 + 12 * i
+        tag, typ, count = struct.unpack("<HHL", out[at:at + 8])
+        if tag == 273:
+            at_of = struct.unpack("<L", out[at + 8:at + 12])[0]
+        if tag == 279:
+            count_of = struct.unpack("<L", out[at + 8:at + 12])[0]
+    offsets = list(struct.unpack(f"<{10}L", out[at_of:at_of + 40]))
+    counts = list(struct.unpack(f"<{10}L", out[count_of:count_of + 40]))
+    tags.update({273: (4, [offsets[0]]), 279: (4, [counts[0]]), 519: (4, offsets[1:4]), 520: (4, offsets[4:7]),
+                 521: (4, offsets[7:10])})
+    # rewrite with the same layout: the segments' offsets do not move
+    body = out[8:offsets[-1] + counts[-1] + (counts[-1] % 2)]
+    return _with_body(tags, body)
+
+
+def _with_body(tags: dict, body: bytes) -> bytes:
+    """A classic II TIFF: ``body`` after the header, then one IFD of
+    ``tags`` and its values."""
+    ifd_at = 8 + len(body) + len(body) % 2
+    entries, extra = bytearray(), bytearray()
+    n = len(tags)
+    extra_at = ifd_at + 2 + 12 * n + 4
+    for tag in sorted(tags):
+        typ, values = tags[tag]
+        raw = struct.pack("<" + _FMT[typ] * len(values), *values)
+        value = raw + bytes(4 - len(raw)) if len(raw) <= 4 else struct.pack("<L", extra_at + len(extra))
+        if len(raw) > 4:
+            extra += raw + b"\0" * (len(raw) % 2)
+        entries += struct.pack("<HHL", tag, typ, len(values)) + value
+    return (b"II*\0" + struct.pack("<L", ifd_at) + body + b"\0" * (len(body) % 2) + struct.pack("<H", n) + entries
+            + b"\0\0\0\0" + extra)
+
+
+def Image_cmyk(pixels: np.ndarray):
+    from PIL import Image
+
+    return Image.fromarray(pixels, "CMYK")
+
+
+def zstd_raw_blocks(raw: bytes) -> bytes:
+    """A zstd frame of raw blocks (at most 128 KiB each), which every
+    decoder reads, written without a zstd library."""
+    out = bytearray(b"\x28\xb5\x2f\xfd") + bytes([0xA0]) + struct.pack("<L", len(raw))
+    for i in range(0, max(len(raw), 1), 1 << 17):
+        chunk = raw[i:i + (1 << 17)]
+        out += struct.pack("<L", (len(chunk) << 3) | int(i + (1 << 17) >= len(raw)))[:3] + chunk
+    return bytes(out)
+
+
+COMPRESSION_NAMES = {5: "lzw", 8: "deflate", 32773: "packbits", 32946: "zip", 34925: "lzma", 50000: "zstd"}
+
+
+def apng_fixtures(rng) -> dict:
+    """APNGs (PIL reads their default image): the default image the first
+    frame, and one outside the animation (no fcTL before IDAT), RGBA."""
+    frames = [rng.integers(0, 256, (13, 17, 4)).astype(np.uint8) for _ in range(3)]
+    for f in frames:
+        f[..., 3] = np.where(f[..., 3] < 80, 0, f[..., 3])
+    default = rng.integers(0, 256, (13, 17, 4)).astype(np.uint8)
+    return {"apng_default_in_animation.png": apng_file(frames),
+            "apng_default_not_in_animation.png": apng_file(frames, default_in_animation=False, default=default)}
+
+
 def _cut_segment(rgb: np.ndarray, compression: int) -> bytes:
     """A one-strip TIFF whose coded strip holds a third of its bytes (the
     byte count says so): the decoder runs out before the last row."""
     h, w, _ = rgb.shape
     raw = rgb.astype(np.uint8).tobytes()
-    coded = {5: tiff_lzw, 8: lambda d: zlib.compress(d, 6), 32773: packbits}[compression](raw[:len(raw) // 3])
-    if compression == 8:
+    coded = _compress(raw[:len(raw) // 3], compression)
+    if compression in (8, 34925, 50000):
         coded = coded[:-4]
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [compression]), 262: (3, [2]),
             277: (3, [3]), 278: (4, [h]), 284: (3, [1])}
@@ -906,6 +1442,8 @@ def main(out_dir: str = HERE) -> int:
     files.update(gif_fixtures(rng))
     files.update(bmp_fixtures(rng))
     files.update(tiff_fixtures(rng))
+    files.update(codec_fixtures(np.random.default_rng(21)))
+    apngs = apng_fixtures(np.random.default_rng(22))
     digests = {}
     for name, data in sorted(files.items()):
         with open(os.path.join(out_dir, name), "wb") as fh:
@@ -914,7 +1452,54 @@ def main(out_dir: str = HERE) -> int:
     with open(os.path.join(out_dir, DIGESTS), "w") as fh:
         json.dump(digests, fh, indent=1, sort_keys=True)
         fh.write("\n")
+    for name, data in apngs.items():
+        with open(os.path.join(out_dir, name), "wb") as fh:
+            fh.write(data)
+    zstd = zstd_frame_tiff()
+    codecs = {"apng": {name: pil_digest(data) for name, data in sorted(apngs.items())},
+              "frames": frame_digests(out_dir, zstd)}
+    with open(os.path.join(out_dir, ZSTD_FRAME), "wb") as fh:
+        fh.write(zstd)
+    with open(os.path.join(out_dir, CODEC_DIGESTS), "w") as fh:
+        json.dump(codecs, fh, indent=1, sort_keys=True)
+        fh.write("\n")
     return 0
+
+
+def zstd_frame_tiff() -> bytes:
+    """CO3D's frame as 9d's zstd TIFF (predictor 2, strips of 64 rows) with
+    compressed blocks (Huffman literals, FSE sequences) by the
+    ``zstandard`` module, which the card's host lacks: it reads this
+    committed file."""
+    import zstandard  # noqa: F401 - the blocks must be compressed ones
+    from PIL import Image
+
+    frame = np.asarray(Image.open(os.path.join(JPEG_DIR, "frame_a.jpg")).convert("RGB"))
+    return tiff_image(frame, photometric=2, bits=8, compression=50000, predictor=2, rows_per_strip=64)
+
+
+def frame_digests(out_dir: str, zstd: bytes) -> dict:
+    """PIL's digest of each of phase 9d's ``frame_codec_forms`` (from CO3D's
+    frame ``frame_a.jpg`` and the lossless WebP render as PIL decodes
+    them) and of its zstd source ``zstd``, read from bytes; of the
+    fault-13 TIFF also PIL's read of it by path (``path_sha256``)."""
+    import tempfile
+
+    from PIL import Image
+
+    frame = np.asarray(Image.open(os.path.join(JPEG_DIR, "frame_a.jpg")).convert("RGB"))
+    render = np.asarray(Image.open(os.path.join(out_dir, "webp_render_lossless.webp")).convert("RGBA"))
+    out = {ZSTD_FORM: pil_digest(zstd)}
+    for form, data in frame_codec_forms(frame, render).items():
+        out[form] = pil_digest(data)
+        if form.startswith("fault-13"):
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "fault13.tif")
+                with open(path, "wb") as fh:
+                    fh.write(data)
+                out[form]["path_sha256"] = hashlib.sha256(np.asarray(Image.open(path).convert("RGB")).tobytes()
+                                                          ).hexdigest()
+    return out
 
 
 if __name__ == "__main__":
