@@ -152,7 +152,9 @@ Thirteen phases; any failure exits non-zero:
    (sequential, progressive, block-smoothed, arithmetic-coded, lossless,
    CMYK and YCCK JPEG; PNG of every colour type and depth, Adam7 or not;
    lossless, lossy, lossy-with-alpha and animated WebP; GIF, BMP/DIB and
-   TIFF of every form ``make_formats.py`` writes) decoded to PIL's pixels
+   TIFF of every form ``make_formats.py`` writes; PPM/PGM/PBM/PFM, TGA,
+   ICO/CUR, QOI, PCX, SGI, PSD and DDS of every form
+   ``make_small_formats.py`` writes) decoded to PIL's pixels
    (sha256; the white composite too where PIL opens it as RGBA; a WebP in
    PIL's mode; each file PIL refuses refused, each form PIL reads and the
    port does not named ROADMAP item 13c); (b)
@@ -168,21 +170,27 @@ Thirteen phases; any failure exits non-zero:
    written on the host by the fixture script's ``frame_forms``), a lossy
    WebP, a GIF (its palette quantized in numpy), a 24-bit BMP, a TIFF with
    LZW and predictor 2 in strips, a tiled deflate TIFF and a 16-bit TIFF
-   (written on the host by ``make_formats.py``'s ``frame_formats``), and
+   (written on the host by ``make_formats.py``'s ``frame_formats``), a TGA
+   RLE, a PSD with PackBits and a DDS of BC7 blocks (written on the host by
+   ``make_small_formats.py``'s ``frame_small_forms``, which also writes the
+   frame as PPM, PFM, QOI, PCX, SGI RLE and DDS BC1, each only decoded to
+   PIL's digest), and
    from a 512² procedural render as lossless RGBA WebP, lossy WebP with
    alpha and an RLE8 BMP (each decode PIL's pixels by digest, its Huffman
    twin's, or the pixels it was written from), and from each one's pixels
    as PNG, sources and images bitwise equal, K1 1312 and K2 1333 each with
    no plain call, then a server request with each of the progressive JPEG,
-   the arithmetic-coded JPEG, the lossy WebP, the LZW TIFF and the GIF
-   base64-encoded (the server's decode those pixels, phase 3's launches); (e)
+   the arithmetic-coded JPEG, the lossy WebP, the LZW TIFF, the GIF and
+   the TGA base64-encoded (the server's decode those pixels, phase 3's
+   launches); (e)
    ``cli.train.main`` for 2 steps at phase 5's point on 9
    objects of 16-bit Adam7 RGBA PNG renders: the train step's launches per
    step, no plain call, finite losses, and its first batch bitwise that
    of an 8-bit corpus of the same high bytes; then the host ms to decode a
    1067x800 frame as progressive, baseline, block-smoothed, arithmetic-coded
    and lossless JPEG, 16-bit PNG, Adam7 PNG, lossy WebP, GIF, BMP and LZW,
-   deflate and 16-bit TIFF, and the 512² render as lossless and
+   deflate and 16-bit TIFF, PPM, PFM, TGA, QOI, PCX, SGI, PSD and DDS BC1
+   and BC7, and the 512² render as lossless and
    lossy-with-alpha WebP and RLE8 BMP, the host ms per 768² view
    of the PIL path, the native
    reader and a JPEG frame, and the loader's seconds a batch of 6 with
@@ -2576,6 +2584,19 @@ def codec_digests() -> dict:
 
 
 FAULT13_SOURCE = "fault-13 TIFF (raw RGBA, orientation 6)"
+# 9d's sources in PIL's small formats (``make_small_formats.py``'s
+# ``frame_small_forms``): each decoded to PIL's digest and timed; these three
+# are generated from, and TGA is uploaded to the server
+SMALL_GENERATED = ("TGA RLE (bottom-up)", "PSD PackBits", "DDS BC7")
+
+
+def small_format_digests() -> dict:
+    """PIL's digests of the PPM/PGM/PBM/PFM, TGA, ICO/CUR, QOI, PCX, SGI,
+    PSD and DDS fixtures ("files": mode, sha256 and shape, the white
+    composite of an RGBA image, or PIL's refusal) and of 9d's sources in
+    those formats ("frames")."""
+    with open(os.path.join(IMAGE_FIXTURES, "small_formats_sha256.json")) as f:
+        return json.load(f)
 
 
 def format_digests() -> dict:
@@ -2687,7 +2708,10 @@ def frame_sources() -> dict:
     ``frame_a_zstd.tif``, whose blocks the ``zstandard`` module compressed
     (this host has no zstd writer). Each must decode to PIL's digest of the
     same pixels (``codecs_sha256.json``; LZMA written by this host's
-    liblzma)."""
+    liblzma). ``make_small_formats.py``'s ``frame_small_forms`` writes the
+    frame as PPM P6, PFM, TGA RLE, QOI, PCX, SGI RLE, PSD PackBits, DDS BC1
+    and DDS BC7 (mode 6), each to decode to PIL's digest
+    (``small_formats_sha256.json``)."""
     import numpy as np
 
     from mvd_tpu_torch.utils.images import decode_jpeg, decode_webp
@@ -2726,6 +2750,9 @@ def frame_sources() -> dict:
         sources[form] = (data, frames[form]["sha256"], "PIL's")
     sources[formats.ZSTD_FORM] = (read(IMAGE_FIXTURES, formats.ZSTD_FRAME), frames[formats.ZSTD_FORM]["sha256"],
                                   "PIL's")
+    small = small_format_digests()["frames"]
+    for form, data in image_fixture_script("make_small_formats").frame_small_forms(pixels).items():
+        sources[form] = (data, small[form]["sha256"], "PIL's")
     return sources
 
 
@@ -2736,11 +2763,15 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
     ``load_image`` at 512² as ``cli.infer --image-path`` reads it) and from
     that source's decoded pixels re-encoded as PNG: each decode the pixels
     it must be, the two sources and the two generations bitwise equal, each
-    call with K1 and K2 exactly phase 3's launches and no plain call; then
-    a request to the HTTP server carrying each of the progressive JPEG, the
-    arithmetic-coded JPEG, the lossy WebP, the LZW TIFF, the GIF and the
-    JPEG-in-TIFF, base64-encoded, whose decodes in the server are those
-    pixels (sha256) and whose launches are phase 3's. The fault-13 TIFF is
+    call with K1 and K2 exactly phase 3's launches and no plain call. Of the
+    small formats (PPM, PFM, TGA, QOI, PCX, SGI, PSD, DDS BC1 and BC7) each
+    decode is held to PIL's digest, and only ``SMALL_GENERATED`` are
+    generated from: a lossless one (TGA, PSD) held to the PNG twin already
+    generated from the frame's pixels, BC7 to its own. Then a request to
+    the HTTP server carrying each of the progressive JPEG, the
+    arithmetic-coded JPEG, the lossy WebP, the LZW TIFF, the GIF, the
+    JPEG-in-TIFF and the TGA, base64-encoded, whose decodes in the server
+    are those pixels (sha256) and whose launches are phase 3's. The fault-13 TIFF is
     not generated from: ``check_fault13_path_read`` holds ``load_image``'s
     read of it by path (``cli.infer``'s) to PIL's. Returns the metrics."""
     import base64
@@ -2760,6 +2791,9 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
     want = expected_launches(pipe, STEPS)
     tmp = tempfile.mkdtemp(prefix="mvd_frames_")
     secs = {}
+    twins = {}  # the sha256 of a PNG twin's pixels -> (its source, its images)
+    small = tuple(small_format_digests()["frames"])
+    checked = []
     try:
         for form, (jpeg, digest, whose) in sources.items():
             if form == FAULT13_SOURCE:
@@ -2767,11 +2801,17 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
             pixels = decode_image(jpeg)
             if hashlib.sha256(pixels.tobytes()).hexdigest() != digest:
                 raise AssertionError(f"(d): the {form} source does not decode to {whose} pixels")
+            if form in small and form not in SMALL_GENERATED:
+                checked.append(form)
+                continue
             srcs, imgs = [], []
             ext = next((e for k, e in (("WebP", ".webp"), ("GIF", ".gif"), ("BMP", ".bmp"), ("TIFF", ".tif"),
-                                       ("APNG", ".png")) if k in form), ".jpg")
-            for label, name, data in ((form, "source" + ext, jpeg),
-                                      (f"{form}'s pixels as PNG", "source.png", encode_png(pixels))):
+                                       ("APNG", ".png"), ("TGA", ".tga"), ("PSD", ".psd"), ("DDS", ".dds"))
+                        if k in form), ".jpg")
+            calls = [(form, "source" + ext, jpeg), (f"{form}'s pixels as PNG", "source.png", encode_png(pixels))]
+            if form in small and digest in twins:  # a lossless small form: its twin was generated already
+                calls = calls[:1]
+            for label, name, data in calls:
                 path = os.path.join(tmp, name)
                 with open(path, "wb") as f:
                     f.write(data)
@@ -2782,12 +2822,19 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
                 _check_images(out["images"], f"(d) {label}")
                 srcs.append(src)
                 imgs.append(out["images"])
+            if len(srcs) == 1:
+                srcs.append(twins[digest][0])
+                imgs.append(twins[digest][1])
+            twins.setdefault(digest, (srcs[1], imgs[1]))
             if not np.array_equal(*srcs) or not torch.equal(*imgs):
                 raise AssertionError(f"(d): the {form} source or images differ from its PNG's")
             shape = "x".join(str(n) for n in pixels.shape[1::-1])
             print(f"[readers] (d) phase 3's call ({VIEWS} views, {RES}², DDPM {STEPS}, guidance 1.0) from the "
                   f"{shape} source as {form} ({len(jpeg)} bytes; its decode {whose} pixels) and from its pixels "
                   f"as PNG: sources and images bitwise equal; launches {want} each, no plain call")
+        if checked:
+            print(f"[readers] (d) the frame as {', '.join(checked)} decodes to PIL's pixels (sha256, "
+                  "small_formats_sha256.json)")
         if FAULT13_SOURCE in sources:
             check_fault13_path_read(sources[FAULT13_SOURCE][0], tmp)
     finally:
@@ -2807,7 +2854,8 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
 
     try:
         for seed, form in enumerate(("progressive JPEG", "arithmetic-coded JPEG", "lossy WebP",
-                                     "LZW TIFF with predictor 2", "GIF", "JPEG-in-TIFF (YCbCr 4:2:0, strips)"),
+                                     "LZW TIFF with predictor 2", "GIF", "JPEG-in-TIFF (YCbCr 4:2:0, strips)",
+                                     "TGA RLE (bottom-up)"),
                                     start=5):
             jpeg, digest, whose = sources[form]
             payload = {"prompt": "a 3d object", "num_views": VIEWS, "num_steps": STEPS, "seed": seed,
@@ -2842,8 +2890,8 @@ def phase_reader_generation(call, sources: dict, card: str) -> dict:
         server.join(timeout=60)
     metrics = dict(first_call_s=secs, serve_latency_s=latency, launches=launches,
                    phase_s=time.perf_counter() - t_phase)
-    generated = len(sources) - (FAULT13_SOURCE in sources)
-    print(f"[readers] (d) {generated} forms, {2 * generated} calls and {len(latency)} requests in "
+    generated = len(sources) - (FAULT13_SOURCE in sources) - len(checked)
+    print(f"[readers] (d) {generated} forms, {len(secs)} calls and {len(latency)} requests in "
           f"{metrics['phase_s']:.1f} s ({card})")
     return metrics
 
@@ -2947,6 +2995,31 @@ def check_fixture_digests() -> None:
                 or hashlib.sha256(comp.tobytes()).hexdigest() != want["composite_sha256"]):
             raise AssertionError(f"{name}: the decode is not PIL's first frame")
         formats.append(name)
+    small, small_refused, small_not_read = [], 0, 0
+    for name, want in sorted(small_format_digests()["files"].items()):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        if name.startswith(("bad_", "notread_")):
+            try:
+                decode_image(data)
+            except ValueError as exc:
+                if name.startswith("notread_") and "ROADMAP item 13c" not in str(exc):
+                    raise AssertionError(f"{name}: the refusal does not name ROADMAP item 13c: {exc}") from None
+                small_refused += name.startswith("bad_")
+                small_not_read += name.startswith("notread_")
+                continue
+            raise AssertionError(f"{name}: decoded, but PIL refuses it or the port does not read its format")
+        img, comp = decode_image(data), decode_image(data, composite_alpha=True)
+        if hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"] or list(img.shape) != want["shape"]:
+            raise AssertionError(f"{name}: the decode is not PIL's pixels")
+        if hashlib.sha256(comp.tobytes()).hexdigest() != want.get("composite_sha256", want["sha256"]):
+            raise AssertionError(f"{name}: the white composite is not PIL's")
+        small.append(name)
+    kinds = {k: sum(n.startswith(k) for n in small) for k in ("ppm", "tga", "ico", "cur", "qoi", "pcx", "sgi",
+                                                               "psd", "dds")}
+    print(f"[readers] (a) {len(small)} small-format fixtures ({', '.join(f'{v} {k.upper()}' for k, v in kinds.items())}"
+          f") decode bitwise to PIL's pixels and white composites in PIL's plugin order; {small_refused} files PIL "
+          f"refuses refused, {small_not_read} formats PIL reads named ROADMAP item 13c")
     kinds = {k: sum(n.startswith(k) for n in formats) for k in ("gif", "bmp", "dib", "tif", "apng")}
     print(f"[readers] (a) {len(formats)} GIF, BMP/DIB, TIFF and APNG fixtures ({kinds['gif']} GIF, {kinds['bmp']} "
           f"BMP, {kinds['dib']} DIB, {kinds['tif']} TIFF, {kinds['apng']} APNG) decode bitwise to PIL's pixels and "
@@ -2959,8 +3032,9 @@ def frame_decode_ms(sources: dict, card: str) -> dict:
     (progressive, baseline, 16-bit RGBA PNG, Adam7 PNG, and 9d's
     block-smoothed, arithmetic-coded and lossless JPEGs, lossy WebP, GIF,
     24-bit BMP, LZW, tiled deflate and 16-bit TIFF, JPEG-in-TIFF in strips
-    and in tiles, zstd, LZMA, LAB, YCbCr under LZW, old-style JPEG and the
-    fault-13 raw TIFF of ``sources``) and 9d's 512² render as lossless and
+    and in tiles, zstd, LZMA, LAB, YCbCr under LZW, old-style JPEG, the
+    fault-13 raw TIFF, PPM, PFM, TGA, QOI, PCX, SGI, PSD and DDS BC1 and BC7
+    of ``sources``) and 9d's 512² render as lossless and
     lossy-with-alpha WebP, RLE8 BMP and APNG, in turns on one thread: the
     median, min and max of ``DECODE_TURNS`` and each file's bytes."""
     import numpy as np

@@ -1,6 +1,8 @@
 // PIL's raw unpackers and raw decoder (Pillow's Unpack.c and RawDecode.c)
 // for the rawmodes the BMP and TIFF readers hand them: host C++, the C++
-// standard library only. Included by bmp_decode.cpp and tiff_decode.cpp.
+// standard library only. Included by bmp_decode.cpp and tiff_decode.cpp;
+// the small formats (utils/small_formats.py) reach them through
+// tiff_decode.cpp's mvd_tiff_unpack.
 //
 // An image is held as PIL holds it in memory: 1 byte a pixel for modes
 // "1" (0 or 255), "L" and "P"; 2 for "I;16" (little-endian) and "I;16B"
@@ -25,8 +27,14 @@ using Unpacker = void (*)(uint8_t* out, const uint8_t* in, int pixels);
 struct Raw {
   Unpacker fn;
   int bits;
-  int pixelsize;  // of the mode it unpacks into
+  int pixelsize;   // of the mode it unpacks into
+  int planes = 0;  // bit planes of (pixels + 7) / 8 bytes each (P;2L, P;4L), else 0
 };
+
+// the bytes of a row the unpacker reads
+inline int64_t row_bytes(const Raw& u, int64_t pixels) {
+  return u.planes ? u.planes * ((pixels + 7) / 8) : (pixels * u.bits + 7) / 8;
+}
 
 inline uint8_t bitflip(uint8_t b) {
   b = uint8_t((b & 0xF0) >> 4 | (b & 0x0F) << 4);
@@ -74,6 +82,18 @@ void unpack_8(uint8_t* out, const uint8_t* in, int pixels) {
 template <int step, int first>
 void unpack_stride(uint8_t* out, const uint8_t* in, int pixels) {
   for (int i = 0; i < pixels; ++i) out[i] = in[i * step + first];
+}
+
+// Unpack.c:unpackP2L/unpackP4L: bit k of an index from bit plane k, the
+// planes (pixels + 7) / 8 bytes apart, most significant bit first
+template <int planes>
+void unpack_planes(uint8_t* out, const uint8_t* in, int pixels) {
+  const int s = (pixels + 7) / 8;
+  for (int i = 0; i < pixels; ++i) {
+    int v = 0;
+    for (int k = 0; k < planes; ++k) v |= (in[k * s + i / 8] >> (7 - i % 8) & 1) << k;
+    out[i] = uint8_t(v);
+  }
 }
 
 // 16-bit gray into I;16 (LE) or I;16B (BE) storage from LE or BE samples
@@ -134,6 +154,12 @@ void unpack_4(uint8_t* out, const uint8_t* in, int pixels) {
   }
 }
 
+// Unpack.c:unpackRGBL: a line-interleaved row, its R, G and B planes one
+// after the other
+inline void unpack_rgb_lines(uint8_t* out, const uint8_t* in, int pixels) {
+  for (int i = 0; i < pixels; ++i) put4(out + 4 * i, in[i], in[i + pixels], in[i + 2 * pixels], 255);
+}
+
 // premultiplied RGBA from bytes o0..o3 of each `step`-byte pixel (RGBa)
 template <int step, int o0, int o1, int o2, int o3>
 void unpack_rgba_premul(uint8_t* out, const uint8_t* in, int pixels) {
@@ -182,6 +208,13 @@ void unpack_bgr16(uint8_t* out, const uint8_t* in, int pixels) {
   }
 }
 
+// Unpack.c:ImagingUnpackBGRA15Z: 5-5-5 as unpack_bgr16, alpha 0 where the
+// top bit is set, else 255
+inline void unpack_bgra15z(uint8_t* out, const uint8_t* in, int pixels) {
+  unpack_bgr16<false>(out, in, pixels);
+  for (int i = 0; i < pixels; ++i) out[4 * i + 3] = in[2 * i + 1] & 0x80 ? 0 : 255;
+}
+
 // (PIL mode, rawmode) -> its unpacker; fn == nullptr where PIL has none
 // (OPEN_INFO names L;IR, P;1R, P;2R and P;4R, which PIL's Unpack.c lacks:
 // an uncompressed file of those forms is refused)
@@ -206,6 +239,7 @@ inline Raw find(const std::string& mode, const std::string& raw) {
     if (raw == "L") return {unpack_8<false, false>, 8, 1};
     if (raw == "L;I") return {unpack_8<false, true>, 8, 1};
     if (raw == "L;R") return {unpack_8<true, false>, 8, 1};
+    if (raw == "L;16B") return {unpack_stride<2, 0>, 16, 1};
   }
   if (mode == "P") {
     if (raw == "P;1") return {unpack_bits<1, false, false, 1>, 1, 1};
@@ -214,6 +248,8 @@ inline Raw find(const std::string& mode, const std::string& raw) {
     if (raw == "P" || raw == "L") return {unpack_8<false, false>, 8, 1};
     if (raw == "P;R") return {unpack_8<true, false>, 8, 1};
     if (raw == "PX") return {unpack_stride<2, 0>, 16, 1};
+    if (raw == "P;2L") return {unpack_planes<2>, 2, 1, 2};
+    if (raw == "P;4L") return {unpack_planes<4>, 4, 1, 4};
   }
   if (is("LA", "LA")) return {unpack_la, 16, 4};
   if (mode == "LAB") {  // a planar file's bands are copied as they are, a and b not offset
@@ -256,6 +292,7 @@ inline Raw find(const std::string& mode, const std::string& raw) {
     if (rgb) {
       if (raw == "RGB") return {unpack_4<3, 0, 1, 2, -1>, 24, 4};
       if (raw == "RGB;R") return {unpack_4<3, 0, 1, 2, -1, true>, 24, 4};
+      if (raw == "RGB;L") return {unpack_rgb_lines, 24, 4};
       if (raw == "RGBX") return {unpack_4<4, 0, 1, 2, -1>, 32, 4};
       if (raw == "RGBXX") return {unpack_4<5, 0, 1, 2, -1>, 40, 4};
       if (raw == "RGBXXX") return {unpack_4<6, 0, 1, 2, -1>, 48, 4};
@@ -284,6 +321,7 @@ inline Raw find(const std::string& mode, const std::string& raw) {
       if (raw == "BGRA") return {unpack_4<4, 2, 1, 0, 3>, 32, 4};
       if (raw == "ABGR") return {unpack_4<4, 3, 2, 1, 0>, 32, 4};
       if (raw == "BGAR") return {unpack_4<4, 3, 1, 0, 2>, 32, 4};
+      if (raw == "BGRA;15Z") return {unpack_bgra15z, 16, 4};
     }
     if (cmyk) {
       if (raw == "CMYK") return {unpack_4<4, 0, 1, 2, 3>, 32, 4};

@@ -241,11 +241,15 @@ int mvd_tiff_unpacker(const char* mode, const char* rawmode, int* bits) {
   return u.fn ? 1 : 0;
 }
 
-// PIL's unpacker of `rawmode` into `mode` on `pixels` samples (for tests).
-int mvd_tiff_unpack(const char* mode, const char* rawmode, const uint8_t* in, uint8_t* out, int pixels) {
+// PIL's unpacker of `rawmode` into `mode` on `rows` rows of `pixels`
+// samples, `stride` bytes apart in `in`, into packed rows of `out`.
+// Returns 1 where PIL has no such unpacker or `stride` is shorter than
+// the bytes it reads.
+int mvd_tiff_unpack(const char* mode, const char* rawmode, const uint8_t* in, int64_t stride, int rows,
+                    uint8_t* out, int pixels) {
   pil::Raw u = pil::find(mode, rawmode);
-  if (!u.fn) return 1;
-  u.fn(out, in, pixels);
+  if (!u.fn || stride < pil::row_bytes(u, pixels)) return 1;
+  for (int y = 0; y < rows; ++y) u.fn(out + size_t(y) * pixels * u.pixelsize, in + y * stride, pixels);
   return 0;
 }
 

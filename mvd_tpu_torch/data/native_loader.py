@@ -75,7 +75,7 @@ class _Png:
         chunks = png_chunks(data, drop_bad_ancillary=True)
         self.w, self.h, self.depth, self.colour, _, _, self.interlace = chunks.header
         self.plte, self.trns = chunks.plte, chunks.trns
-        self.raw = zlib.decompress(chunks.idat)
+        self.raw = zlib.decompress(b"".join(chunks.idat))
 
     def passes(self) -> List[Tuple[int, int, int, int, int, int]]:
         """(x0, dx, y0, dy, width, height) of each non-empty pass: the whole

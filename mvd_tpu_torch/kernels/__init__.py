@@ -71,7 +71,8 @@ KERNEL_SOURCES = {
     "ring_merge": ("ring_merge",),
 }
 # the host C++ under csrc/ (<name>.cpp, built with c++): the JPEG decoder, the
-# PNG scanline decoder, the WebP, GIF, BMP and TIFF decoders, the native
+# PNG scanline decoder, the WebP, GIF, BMP and TIFF decoders, the RLE and QOI
+# decoders of PIL's small formats and the BCn decoder of DDS, the native
 # Objaverse reader and the zstd decoder of the orbax checkpoint reader
-HOST_SOURCES = ("jpeg_decode", "png_decode", "webp_decode", "gif_decode", "bmp_decode", "tiff_decode",
-                "native_reader", "zstd_decode")
+HOST_SOURCES = ("jpeg_decode", "png_decode", "webp_decode", "gif_decode", "bmp_decode", "tiff_decode", "small_decode",
+                "bcn_decode", "native_reader", "zstd_decode")

@@ -16,12 +16,14 @@ read by ``csrc/webp_decode.cpp`` (``decode_webp``: lossless VP8L, lossy VP8
 with or without its ALPH chunk, the VP8X container and an animation's first
 frame, bitwise PIL's libwebp, with PIL's mode). An APNG is read as PNG: its
 default image, which PIL's ``Image.open`` gives. GIF
-(``csrc/gif_decode.cpp``), BMP and DIB (``csrc/bmp_decode.cpp``) and TIFF
+(``csrc/gif_decode.cpp``), BMP and DIB (``csrc/bmp_decode.cpp``), TIFF
 (``utils/tiff.py``: uncompressed, PackBits, LZW, deflate, LZMA, zstd, JPEG,
-old-style JPEG, YCbCr through libtiff's RGBA path, LAB) decode into the
-image PIL holds, in PIL's mode, and ``pil_rgb`` converts it as
-``convert("RGB")`` does. Each is built with the host's ``c++`` on first use.
-``decode_image`` takes any of them, as ``Image.open`` does. ``resize`` stands in
+old-style JPEG, YCbCr through libtiff's RGBA path, LAB) and PIL's small
+formats (``utils/small_formats.py``: the PPM family, TGA, ICO/CUR, QOI,
+PCX, SGI, PSD, DDS) decode into the image PIL holds, in PIL's mode, and
+``pil_rgb`` converts it as ``convert("RGB")`` does. Each is built with the
+host's ``c++`` on first use. ``decode_image`` takes any of them, choosing
+the format as ``Image.open`` does. ``resize`` stands in
 for PIL's ``Image.resize(..., Image.LANCZOS)``: a separable Lanczos-3 whose
 support widens with the downscale factor, with PIL's 8-bit fixed-point
 coefficients and its uint8 rounding between the horizontal and the vertical
@@ -32,6 +34,8 @@ from __future__ import annotations
 import math
 import os
 import ctypes
+import itertools
+import re
 import struct
 import zlib
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -52,6 +56,10 @@ TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"M
 # Image.MAX_IMAGE_PIXELS (a DecompressionBombError); so do the decoders here
 # (csrc/jpeg_decode.cpp holds the same number)
 MAX_PIXELS = 2 * 89478485
+# ImageFile.MAXBLOCK: the most PIL's load() reads from a chunk at a time
+PIL_BLOCK = 65536
+# PngImagePlugin.is_cid: after the image data PIL stops at another chunk type
+_CID = re.compile(rb"\w{4}")
 # colour type -> channels of a decoded pixel before conversion to RGB
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # colour type -> the bit depths PNG allows it
@@ -148,32 +156,53 @@ def over_white(rgba: np.ndarray) -> np.ndarray:
 class PngChunks(NamedTuple):
     """What a PNG decoder reads of the file: IHDR unpacked (width, height,
     bit depth, colour type, compression, filter method, interlace), the
-    PLTE and tRNS bodies (``b""`` where absent) and the IDAT bodies joined,
-    still deflated."""
+    PLTE and tRNS bodies (``b""`` where absent), the IDAT bodies, one a
+    chunk, still deflated, and whether the file ends inside the last."""
     header: tuple
     plte: bytes
     trns: bytes
-    idat: bytes
+    idat: Tuple[bytes, ...]
+    cut: bool
 
 
 def png_chunks(data: bytes, drop_bad_ancillary: bool = False) -> PngChunks:
     """Walk a PNG's chunks up to IEND (``decode_png`` and the native reader
     both read through this). Raises ``ValueError`` on a missing signature,
-    a truncated chunk, a chunk that fails its CRC, no IHDR or no image data,
-    an unknown colour type, compression or filter method. With
-    ``drop_bad_ancillary`` an ancillary chunk (lower-case first letter)
-    that fails its CRC is skipped instead, as libpng does by default; PIL
-    raises."""
+    a truncated chunk, a chunk before the image data that fails its CRC, no
+    IHDR or no image data, an unknown colour type, compression or filter
+    method. As PIL's ``PngImageFile`` reads them, the IDAT chunks' CRCs are
+    not checked and the image data is the first run of IDAT chunks; after
+    it, a chunk's CRC is not checked either and a cut chunk header, IEND
+    or a type PIL does not take for a chunk's (``is_cid``) ends the walk (a
+    cut body still raises, PIL's "Truncated File Read"), as does an APNG's
+    next frame (fcTL); a file may end inside the IDAT run (``pil_inflate``
+    decides whether PIL reads it). With ``drop_bad_ancillary`` (libpng, the
+    native reader) every chunk's CRC is checked up to IEND, an ancillary
+    chunk (lower-case first letter) that fails it skipped and any other
+    refused."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file (only PNG images are read)")
     pos, header, plte, trns, idat = len(PNG_SIGNATURE), None, b"", b"", []
+    after = cut = False  # past PIL's first run of IDAT chunks; the file ends inside it
+    frames = 1  # acTL's, before the image data
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        lenient = not drop_bad_ancillary and (kind == b"IDAT" or bool(idat))
+        after = after or (lenient and kind != b"IDAT")
+        if after and (kind == b"IEND" or not _CID.fullmatch(kind) or (kind == b"fcTL" and frames > 1)):
+            break
         body = data[pos + 8:pos + 8 + length]
         crc = data[pos + 8 + length:pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
+        if lenient and not after:  # PIL's IDAT run: the file may end in it (``pil_inflate`` decides)
+            idat.append(body)
+            cut = len(body) != length
+            if cut:
+                break
+        elif len(body) != length or (len(crc) != 4 and not lenient):
             raise ValueError(f"PNG chunk {kind!r} is truncated")
         pos += 12 + length
+        if lenient:
+            continue
         if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
             if drop_bad_ancillary and kind[0] & 0x20:
                 continue
@@ -184,6 +213,8 @@ def png_chunks(data: bytes, drop_bad_ancillary: bool = False) -> PngChunks:
             plte = body
         elif kind == b"tRNS":
             trns = body
+        elif kind == b"acTL" and len(body) >= 4:
+            frames = struct.unpack(">I", body[:4])[0]
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -195,7 +226,7 @@ def png_chunks(data: bytes, drop_bad_ancillary: bool = False) -> PngChunks:
         raise ValueError(f"PNG colour type {colour} is not a valid type")
     if compression != 0 or filtering != 0:
         raise ValueError(f"PNG compression {compression} / filter method {filtering} unknown")
-    return PngChunks(header, plte, trns, b"".join(idat))
+    return PngChunks(header, plte, trns, tuple(idat), cut)
 
 
 def png_passes(w: int, h: int, interlace: int) -> list:
@@ -230,6 +261,43 @@ def png_mode(depth: int, colour: int) -> str:
     return {2: "RGB", 3: "P", 6: "RGBA"}[colour]
 
 
+def pil_inflate(idat: Sequence[bytes], rows: Sequence[int], cut: bool = False) -> bytes:
+    """The filtered rows (``rows``: each one's bytes, filter byte included)
+    PIL's ZipDecode inflates from the IDAT chunks' bodies. PIL feeds the
+    stream a chunk at a time in pieces of at most ``PIL_BLOCK`` bytes and
+    inflates row by row: a row that needs more than there is, or whose
+    last bytes zlib holds back once the input is spent, is PIL's "image
+    file is truncated"; a stream whose end zlib meets in the call that
+    completes a row leaves the rest zero (PIL returns the image), but one
+    whose end lies in a later piece is truncated. Each piece is inflated
+    in one call here, and the rows' ends tell the two cases apart, so no
+    input is copied twice. Once the rows are in, PIL's ``load_end`` reads
+    the chunks after the one it stopped in: where the last body is ``cut``
+    (the file ends inside it) and not reached, that is its "Truncated File
+    Read". Raises ``ValueError`` where PIL raises."""
+    total = sum(rows)
+    ends = set(itertools.accumulate(rows))
+    truncated = "PNG image data is truncated (PIL: image file is truncated)"
+    d = zlib.decompressobj()
+    out = bytearray()
+    try:
+        for i, body in enumerate(idat):
+            for at in range(0, len(body), PIL_BLOCK):
+                start = len(out)
+                out += d.decompress(body[at:at + PIL_BLOCK], total - start)
+                if d.eof and start < len(out) < total and len(out) in ends:
+                    out += bytes(total - len(out))  # a row completed in the call that met the end
+                if len(out) == total:
+                    if cut and i < len(idat) - 1:
+                        raise ValueError("PNG chunk b'IDAT' is truncated (PIL: Truncated File Read)")
+                    return bytes(out)
+                if d.eof:
+                    raise ValueError(truncated)
+    except zlib.error as exc:
+        raise ValueError(f"PNG image data is broken ({exc})") from None
+    raise ValueError(truncated)
+
+
 def png_samples(data: bytes) -> Tuple[np.ndarray, PngChunks]:
     """The samples of a PNG as the file stores them, (H, W, channels)
     uint16 (palette indices not looked up, sub-byte and 16-bit samples not
@@ -248,8 +316,8 @@ def png_samples(data: bytes) -> Tuple[np.ndarray, PngChunks]:
     if w == 0 or h == 0:
         raise ValueError("PNG has no pixels")
     ch = _CHANNELS[colour]
-    need = sum(ph * ((pw * ch * depth + 7) // 8 + 1) for _, _, _, _, pw, ph in png_passes(w, h, interlace))
-    raw = zlib.decompressobj().decompress(chunks.idat, need)
+    rows = [(pw * ch * depth + 7) // 8 + 1 for _, _, _, _, pw, ph in png_passes(w, h, interlace) for _ in range(ph)]
+    raw = pil_inflate(chunks.idat, rows, chunks.cut)
     samples = np.empty((h, w, ch), np.uint16)
     err = ctypes.create_string_buffer(256)
     lib = load_host("png_decode", _bind_png)
@@ -270,7 +338,7 @@ def decode_png(data: bytes, composite_alpha: bool = False) -> np.ndarray:
     every bit depth PNG allows, interlaced (Adam7) or not; tRNS changes no
     pixel, as in ``convert("RGB")``. Raises ``ValueError`` on a damaged
     file, a palette index past the PLTE chunk and a header of more than
-    ``MAX_PIXELS`` pixels. Inflates no more than the header's rows need.
+    ``MAX_PIXELS`` pixels. Inflates the rows as PIL does (``pil_inflate``).
     Raises ``RuntimeError`` when the scanline decoder cannot be built."""
     samples, chunks = png_samples(data)
     _, _, depth, colour, _, _, _ = chunks.header
@@ -399,12 +467,13 @@ def decode_webp(data: bytes) -> Tuple[np.ndarray, str]:
 
 
 class PilImage(NamedTuple):
-    """An image as PIL holds it after ``Image.open(...).load()``: ``pixels``
-    (H, W) uint8 for modes 1 (0 or 255), L and P; (H, W) uint16 for I;16
-    and I;16B; (H, W) int32 for I and float32 for F; (H, W, 4) uint8 for
-    RGB, RGBA, CMYK, LAB (L, a + 128, b + 128, 255), LA (L, L, L, A) and PA
-    (P, 0, 0, A); ``mode``; and
-    ``palette`` (entries x 3 uint8) for P and PA, else None."""
+    """An image as PIL holds it after ``Image.open(...).load()``, whatever
+    the format (GIF, BMP, TIFF, the PPM family, TGA, ICO/CUR, QOI, PCX,
+    SGI, PSD, DDS): ``pixels`` (H, W) uint8 for modes 1 (0 or 255), L and
+    P; (H, W) uint16 for I;16 and I;16B; (H, W) int32 for I and float32 for
+    F; (H, W, 4) uint8 for RGB (also (H, W, 3)), RGBA, CMYK, LAB (L, a +
+    128, b + 128, 255), LA (L, L, L, A) and PA (P, 0, 0, A); ``mode``; and
+    ``palette`` (entries x 3 uint8) for P and PA, else None (black)."""
     pixels: np.ndarray
     mode: str
     palette: Optional[np.ndarray] = None
@@ -459,8 +528,9 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def pil_rgb(img: PilImage, composite_alpha: bool = False) -> np.ndarray:
-    """``convert("RGB")`` of an image in any mode GIF, BMP and TIFF open in
-    (LAB through ``utils/lcms.py``, as PIL converts it with LittleCMS):
+    """``convert("RGB")`` of an image in any mode PIL opens GIF, BMP, TIFF and
+    the small formats in (LAB through ``utils/lcms.py``, as PIL converts it
+    with LittleCMS):
     gray replicated (1, L, LA), palette indices looked up in a table whose
     missing entries are black (P, PA), 16-bit gray clipped at 255 (I;16,
     I;16B: 256 and 65535 give 255), I clipped to 0-255, F truncated toward
@@ -606,40 +676,36 @@ def decode_bmp(data: bytes, from_path: bool = False) -> PilImage:
 
 
 def decode_image(data: bytes, composite_alpha: bool = False, from_path: bool = False) -> np.ndarray:
-    """Image bytes -> (H, W, 3) uint8 RGB, the format chosen by the file's
-    first bytes in the order ``Image.open`` tries its plugins (BMP, DIB,
-    GIF, PNG, JPEG, TIFF, WebP): ``decode_bmp``, ``decode_gif`` and
-    ``decode_tiff`` through ``pil_rgb``, ``decode_png`` (an APNG's default
-    image, PIL's first frame), ``decode_jpeg``, ``decode_webp``. What PIL
-    reads and the port does not (among TIFFs: CCITT, ThunderScan, SGILog,
-    old-style JPEG with its tables in tags, planar YCbCr; PIL's other
-    formats) raises ``ValueError`` naming ROADMAP item 13c. With ``composite_alpha`` an image PIL opens as RGBA
-    is first composited over white (``over_white``), as the data loaders
-    do; other modes are converted as ``convert("RGB")`` converts them.
+    """Image bytes -> (H, W, 3) uint8 RGB, the format chosen as
+    ``Image.open`` chooses it: PIL 12.1.0's plugins in its order
+    (``utils/small_formats.py:PLUGINS``: BMP, DIB, GIF, JPEG, PPM, PNG,
+    then ``Image.ID``'s, among them CUR, PCX, DDS, ICO, TIFF, PSD, QOI,
+    SGI, TGA, which has no signature and is tried on what reaches it, and
+    WebP), each plugin's ``_accept`` on the first 16 bytes, a plugin whose
+    ``_open`` gives way passing the file on. ``decode_bmp``,
+    ``decode_gif``, ``decode_tiff`` and the small formats (PPM, PGM, PBM,
+    PFM, TGA, ICO, CUR, QOI, PCX, SGI, PSD, DDS with BC1-BC7) give PIL's
+    image in PIL's mode and ``pil_rgb`` converts it; ``decode_png`` (an
+    APNG's default image, PIL's first frame), ``decode_jpeg`` and
+    ``decode_webp`` give RGB. What PIL reads and the port does not (among
+    TIFFs: CCITT, ThunderScan, SGILog, old-style JPEG with its tables in
+    tags, planar YCbCr; PIL's other formats: AVIF, JPEG 2000, SUN, ICNS and
+    the rest) raises ``ValueError`` naming the format and ROADMAP item 13c.
+    With ``composite_alpha`` an image PIL opens as RGBA is first
+    composited over white (``over_white``), as the data loaders do; other
+    modes are converted as ``convert("RGB")`` converts them.
     ``from_path``: the image PIL gives for the file opened by its path
     (``Image.open(path)``, the JAX ``load_image``), which differs from the
-    bytes' only where PIL memory-maps a BMP or TIFF tile (``pil_mapped``).
-    Raises ``ValueError`` on anything else, naming its first bytes."""
-    from .tiff import decode_tiff
+    bytes' only where PIL memory-maps a raw tile (``pil_mapped``). A file
+    no plugin opens raises ``ValueError`` in PIL's words, "cannot identify
+    image file", with each plugin's reason for passing it on."""
+    from .small_formats import identify
 
-    data = bytes(data)
-    if data.startswith(b"BM") or is_dib(data):
-        return pil_rgb(decode_bmp(data, from_path), composite_alpha)
-    if data.startswith(GIF_SIGNATURES):
-        return pil_rgb(decode_gif(data), composite_alpha)
-    if data.startswith(PNG_SIGNATURE):
-        return decode_png(data, composite_alpha=composite_alpha)
-    if data.startswith(JPEG_SIGNATURE):
-        return decode_jpeg(data)
-    if data.startswith(TIFF_PREFIXES):
-        return pil_rgb(decode_tiff(data, from_path), composite_alpha)
-    if is_webp(data):
-        pixels, mode = decode_webp(data)
-        if mode == "RGBA":
-            return over_white(pixels) if composite_alpha else np.ascontiguousarray(pixels[..., :3])
-        return pixels
-    raise ValueError(f"not a BMP, GIF, PNG, JPEG, TIFF or WebP file (it starts {bytes(data[:16])!r}); only "
-                     "those images are read (PIL's other formats: ROADMAP item 13c)")
+    _, opened = identify(bytes(data))
+    img = opened.load(from_path)
+    if isinstance(img, PilImage):
+        return pil_rgb(img, composite_alpha)
+    return img(composite_alpha)
 
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:

@@ -219,7 +219,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mvd_tiff_unpacker.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(i)]
     lib.mvd_tiff_unpacker.restype = i
-    lib.mvd_tiff_unpack.argtypes = [ctypes.c_char_p, ctypes.c_char_p, p, p, i]
+    lib.mvd_tiff_unpack.argtypes = [ctypes.c_char_p, ctypes.c_char_p, p, i64, i, p, i]
     lib.mvd_tiff_unpack.restype = i
     lib.mvd_tiff_raw.argtypes = [p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p, i64, p, i, i, i, i, i,
                                  ctypes.c_char_p, i]
@@ -242,13 +242,17 @@ def unpacker_bits(mode: str, rawmode: str) -> Optional[int]:
     return bits.value if _lib().mvd_tiff_unpacker(mode.encode(), rawmode.encode(), ctypes.byref(bits)) else None
 
 
-def unpack(mode: str, rawmode: str, data: bytes, pixels: int) -> np.ndarray:
-    """PIL's unpacker of ``rawmode`` into ``mode`` on ``pixels`` samples:
-    the row as PIL holds it (bytes)."""
-    out = np.zeros(pixels * _PIXELSIZE.get(mode, 4), np.uint8)
-    src = np.frombuffer(bytes(data), np.uint8)
-    if _lib().mvd_tiff_unpack(mode.encode(), rawmode.encode(), src.ctypes.data, out.ctypes.data, pixels):
-        raise ValueError(f"no unpacker of rawmode {rawmode} into mode {mode}")
+def unpack(mode: str, rawmode: str, data, pixels: int, rows: int = 1) -> np.ndarray:
+    """PIL's unpacker of ``rawmode`` into ``mode`` (``csrc/pil_unpack.h``)
+    on ``rows`` rows of ``pixels`` samples, each an equal share of
+    ``data`` (bytes or a uint8 array): the rows as PIL holds them (bytes),
+    flat."""
+    src = np.ascontiguousarray(data).view(np.uint8).reshape(-1) if isinstance(data, np.ndarray) else \
+        np.frombuffer(bytes(data), np.uint8)
+    out = np.zeros(rows * pixels * _PIXELSIZE.get(mode, 4), np.uint8)
+    if _lib().mvd_tiff_unpack(mode.encode(), rawmode.encode(), src.ctypes.data, len(src) // max(rows, 1), rows,
+                              out.ctypes.data, pixels):
+        raise ValueError(f"no unpacker of rawmode {rawmode} into mode {mode}, or rows shorter than it reads")
     return out
 
 

@@ -182,9 +182,10 @@ def test_forms_not_read_name_roadmap_13c(name):
 
 
 def test_refusal_names_the_other_formats():
-    """A file no reader takes: the message names the formats read and
-    ROADMAP item 13c (PIL's other plugins)."""
-    with pytest.raises(ValueError, match=r"not a BMP, GIF, PNG, JPEG, TIFF or WebP file.*13c"):
+    """A file no plugin takes (an ICO header without icons): PIL's words,
+    "cannot identify image file", with each plugin's reason for passing it
+    on (ICO's, then TGA's, which has no signature)."""
+    with pytest.raises(ValueError, match=r"cannot identify image file.*ICO: .*TGA: not a TGA file"):
         decode_image(b"\x00\x00\x01\x00" + bytes(40))  # an ICO header
 
 
@@ -361,6 +362,8 @@ def _unpack_cases():
     raws |= {("RGBA", r) for r in ("BGRA", "ABGR", "BGAR", "R", "G", "B", "A", "R;16N", "G;16N", "B;16N",
                                    "A;16N")}
     raws |= {("CMYK", r) for r in "CMYK"} | {("1", "1"), ("L", "L"), ("P", "P"), ("I", "I"), ("F", "F")}
+    # the small formats' own (utils/small_formats.py: SGI, PCX, TGA)
+    raws |= {("L", "L;16B"), ("P", "P;2L"), ("P", "P;4L"), ("RGB", "RGB;L"), ("RGBA", "BGRA;15Z")}
     return sorted(raws)
 
 

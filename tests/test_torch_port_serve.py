@@ -103,8 +103,10 @@ def test_png_encode_is_what_pil_reads():
 
 def test_png_decode_rejects_what_it_does_not_read():
     """A 16-bit gray PNG and an interlaced one are read now (PIL's pixels:
-    I;16 clipped to 255); a depth the colour type does not allow and
-    interlaced data one byte short of its seven passes are refused."""
+    I;16 clipped to 255); a depth the colour type does not allow,
+    interlaced data one byte short of its seven passes, a damaged IDAT
+    (by zlib's Adler-32, as PIL refuses it) and a header chunk that fails
+    its CRC are refused."""
     i16 = _pil_png(Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 999))
     np.testing.assert_array_equal(decode_png(i16), np.asarray(Image.open(io.BytesIO(i16)).convert("RGB")))
     with pytest.raises(ValueError, match="bit depth 16 is invalid for colour type 3"):
@@ -116,7 +118,12 @@ def test_png_decode_rejects_what_it_does_not_read():
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"\xff\xd8\xff\xe0 a JPEG")
     data = bytearray(encode_png(_photo(4, 4, 3)))
-    data[-20] ^= 1  # inside the IDAT chunk
+    data[-20] ^= 1  # inside the IDAT chunk: PIL checks no IDAT CRC but zlib's Adler-32 (Queue 3, fault 16)
+    with pytest.raises(OSError, match="broken data stream"):
+        Image.open(io.BytesIO(bytes(data))).load()
+    with pytest.raises(ValueError, match="broken"):
+        decode_png(bytes(data))
+    data[20] ^= 1  # inside IHDR, whose CRC PIL checks
     with pytest.raises(ValueError, match="CRC"):
         decode_png(bytes(data))
 

@@ -146,7 +146,9 @@ def _mapped_class(name: str, data: bytes) -> bool:
     map gives other pixels than its decoder (ROADMAP Queue 3, fault 13): a
     raw, not square TIFF of one strip or tile in a mode PIL maps, at
     orientation 5-8; or a BMP whose rows (of its mode, a gray ramp's L)
-    are longer than its stride."""
+    are longer than its stride. One more class is no map: an 8-bit
+    one-plane PCX shorter than its 769-byte palette, whose seek before the
+    start PIL's ``BytesIO`` stops at 0 and a file opened by path refuses."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         im = Image.open(io.BytesIO(data))
@@ -159,6 +161,8 @@ def _mapped_class(name: str, data: bytes) -> bool:
     if name.endswith((".bmp", ".dib")):
         rawmode, stride = im.tile[0].args[:2]
         return im.tile[0].codec_name == "raw" and rawmode == im.mode == "L" and im.size[0] > stride
+    if name.endswith(".pcx"):
+        return data[1] == 5 and data[3] == 8 and data[65] == 1 and len(data) < 769
     return False
 
 

@@ -162,7 +162,7 @@ def test_decode_image_takes_what_pil_identifies_as_webp():
     assert not is_webp(odd)
     with pytest.raises(Image.UnidentifiedImageError):
         Image.open(io.BytesIO(odd))
-    with pytest.raises(ValueError, match="not a BMP, GIF, PNG, JPEG, TIFF or WebP file"):
+    with pytest.raises(ValueError, match="cannot identify image file"):
         decode_image(odd)
 
 
